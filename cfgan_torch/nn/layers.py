@@ -1,4 +1,4 @@
-"""Core layers of the serving path (mirrors `cfgan/nn/layers.py`).
+"""Core layers of the MNIST CounteRGAN (mirrors `cfgan/nn/layers.py`).
 
 Activations are NHWC, as in the JAX package.  Parameter names follow the
 JAX package's flax trees (`cfgan_torch.convert` maps one onto the other):
@@ -7,8 +7,8 @@ JAX package's flax trees (`cfgan_torch.convert` maps one onto the other):
 (3, 3, Cin, Cout), which is the kernel's own layout.
 
 Each layer draws its initial weights from an explicit `torch.Generator`
-(`cfgan_torch.nn.init`); serving loads trained or converted weights over
-them.
+(`cfgan_torch.nn.init`); serving and the parity tests load trained or
+converted weights over them.
 """
 from __future__ import annotations
 
@@ -44,16 +44,19 @@ class Conv(nn.Module):
     integer padding (`cfgan.nn.layers.Conv`).
 
     `impl` routes a 3x3/stride-1/pad-1 conv: "pallas" to the hand-written
-    kernel `conv3x3_same` (the port of the JAX package's Pallas kernel),
-    "matmul" to its plain version `conv3x3_same_plain`.  As in the JAX
+    kernel through `conv3x3_same_pallas` (the port of the JAX package's
+    Pallas kernel with its custom VJP), "matmul" to its plain version
+    `conv3x3_same_plain`, which autograd differentiates.  As in the JAX
     package, "pallas" keeps a layer with Cin < 16 or Cout < 16 on cuDNN.
     Every other layer runs `F.conv2d` on a channels-last view of the NHWC
-    activation, so no copy is made either way.
+    activation, so no copy is made either way.  `use_bias=False` leaves
+    the bias out (the discriminator's convs).
     """
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
                  stride: int = 1, padding: int = 0,
                  impl: str | None = None, kaiming_slope: float | None = None,
+                 use_bias: bool = True,
                  generator: torch.Generator | None = None):
         super().__init__()
         if impl not in (None, "matmul", "pallas"):
@@ -74,8 +77,9 @@ class Conv(nn.Module):
             self.weight = nn.Parameter(w.permute(3, 2, 0, 1).contiguous())
         else:
             self.kernel = nn.Parameter(w)
-        self.bias = nn.Parameter(cinit.scaled_uniform((out_ch,), fan_in,
-                                                      generator))
+        self.bias = (nn.Parameter(cinit.scaled_uniform((out_ch,), fan_in,
+                                                       generator))
+                     if use_bias else None)
 
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
         # A state dict carries over between impls, as the JAX package's
@@ -93,18 +97,26 @@ class Conv(nn.Module):
             y = F.conv2d(x.permute(0, 3, 1, 2), self.weight, self.bias,
                          self.stride, self.padding)
             return y.permute(0, 2, 3, 1).contiguous()
-        fn = (conv_ops.conv3x3_same if self.impl == "pallas"
+        fn = (conv_ops.conv3x3_same_pallas if self.impl == "pallas"
               else conv_ops.conv3x3_same_plain)
-        return fn(x.contiguous(), self.kernel) + self.bias
+        y = fn(x.contiguous(), self.kernel)
+        return y if self.bias is None else y + self.bias
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm's eval path (`cfgan.nn.layers.BatchNorm` with
-    `use_running_average=True`): (x - mean) * rsqrt(var + eps) * scale +
-    bias over the last axis, in the input's dtype.  Running statistics
-    are updated only by training, which this slice does not port."""
+    """BatchNorm over the last axis with the JAX package's semantics
+    (`cfgan.nn.layers.BatchNorm`).
+
+    Train mode normalizes by the biased batch variance, taken as
+    max(E[x^2] - E[x]^2, 0) in the input's dtype, and updates the running
+    statistics in place with momentum 0.9 in the JAX convention (torch's
+    0.1), the running variance from the unbiased variance n/(n-1); the
+    running statistics keep their own dtype (float32 under mixed
+    precision).  Eval mode normalizes by the running statistics.  eps 1e-5.
+    """
 
     epsilon = 1e-5
+    momentum = 0.9
 
     def __init__(self, features: int):
         super().__init__()
@@ -114,8 +126,22 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = (x - self.running_mean) * torch.rsqrt(self.running_var
-                                                  + self.epsilon)
+        if self.training:
+            axes = tuple(range(x.dim() - 1))
+            n = x.numel() // x.shape[-1]
+            mean = x.mean(axes)
+            var = torch.maximum((x * x).mean(axes) - mean * mean,
+                                x.new_zeros(()))
+            with torch.no_grad():
+                m = self.momentum
+                unbiased = var * (n / max(n - 1, 1))
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var
+                                       + (1 - m) * unbiased)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (x - mean) * torch.rsqrt(var + self.epsilon)
         return y * self.weight + self.bias
 
 

@@ -1,10 +1,11 @@
 """Build the port's CUDA sources with plain `nvcc` and load them with ctypes.
 
-At first use in a process, one `nvcc` command compiles `csrc/conv3x3.cu`
-into a shared library with a plain C interface under `build/cfgan_torch/`
-at the root of the checkout, and `ctypes` loads it.  No PyTorch header is
-included, so the build takes seconds.  The `-Xptxas -v` report (registers,
-shared memory and spills of each kernel) is kept on the returned object.
+At first use in a process, one `nvcc` command compiles every source in
+`SOURCES` into one shared library with a plain C interface under
+`build/cfgan_torch/` at the root of the checkout, and `ctypes` loads it.
+No PyTorch header is included, so the build takes seconds.  The
+`-Xptxas -v` report (registers, shared memory and spills of each kernel) is
+kept on the returned object.
 """
 from __future__ import annotations
 
@@ -18,12 +19,22 @@ from dataclasses import dataclass
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "conv3x3.cu"
+SOURCES = (_PKG / "csrc" / "conv3x3.cu", _PKG / "csrc" / "epilogue.cu")
 BUILD_DIR = _PKG.parent / "build" / "cfgan_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 
-#: C entry points: (x, kernel, out, B, H, W, Cin, Cout, stream) -> cudaError_t
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+#: C entry point -> its argument types; each returns a cudaError_t as int
+SIGNATURES = {
+    # (x, kernel, out, B, H, W, Cin, Cout, stream)
+    "cfgan_conv3x3_f32": [_P] * 3 + [_I] * 5 + [_P],
+    "cfgan_conv3x3_bf16": [_P] * 3 + [_I] * 5 + [_P],
+    # (x, raw, mask, cf, l1, l2, pen, B, N, lo, hi, stream)
+    "cfgan_epilogue_fwd_f32": [_P] * 7 + [_I] * 2 + [_F] * 2 + [_P],
+    # (x, raw, mask, gcf, gl1, gl2, gpen, dx, draw, B, N, lo, hi, stream)
+    "cfgan_epilogue_bwd_f32": [_P] * 9 + [_I] * 2 + [_F] * 2 + [_P],
+}
 CONV3X3_FUNCTIONS = {"float32": "cfgan_conv3x3_f32",
                      "bfloat16": "cfgan_conv3x3_bf16"}
 
@@ -53,9 +64,9 @@ def _nvcc() -> str:
 
 def _build() -> KernelLibrary:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = BUILD_DIR / "libcfgan_conv3x3.so"
-    tmp = BUILD_DIR / f".libcfgan_conv3x3.{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    out = BUILD_DIR / "libcfgan_kernels.so"
+    tmp = BUILD_DIR / f".libcfgan_kernels.{os.getpid()}.so"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
@@ -66,10 +77,9 @@ def _build() -> KernelLibrary:
     # atomic, so concurrent builders never load a torn file
     os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
-    for name in CONV3X3_FUNCTIONS.values():
+    for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
-                       + [ctypes.c_void_p])
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return KernelLibrary(lib, out, seconds, log)
 

@@ -4,8 +4,10 @@
 (`cfgan_torch/csrc/conv3x3.cu`) that replaces the JAX package's Pallas kernel
 `_pallas_conv3x3_kernel`.  `conv3x3_same_plain` is its plain PyTorch version,
 nine shifted-tap matmuls mirroring `conv3x3_same_matmul`: the CPU path, and
-the yardstick the kernel is held against on the card.  Forward only; the
-backward comes with the training slice.
+the yardstick the kernel is held against on the card.
+`conv3x3_same_pallas` is the differentiable conv, an `autograd.Function`
+mirroring `make_conv3x3_same_pallas`: its backward runs dx through the same
+kernel and dK as one matmul over the nine stacked taps.
 """
 from __future__ import annotations
 
@@ -32,20 +34,25 @@ def _check_kernel_shape(x: torch.Tensor, kernel: torch.Tensor) -> None:
                          f"match input {tuple(x.shape)}")
 
 
+def _taps(x: torch.Tensor) -> list[torch.Tensor]:
+    """The nine SAME-padded shifted taps of NHWC `x` in float32, each
+    (B*H*W, Cin), in (dy, dx) order."""
+    b, h, w, cin = x.shape
+    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
+    return [xp[:, dy:dy + h, dx:dx + w, :].reshape(b * h * w, cin)
+            for dy in range(3) for dx in range(3)]
+
+
 def conv3x3_same_plain(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     """Nine shifted-tap (B*H*W, Cin) @ (Cin, Cout) matmuls accumulated in
     float32, cast once to `x.dtype`.  `kernel` is HWIO (3, 3, Cin, Cout)."""
     _check_kernel_shape(x, kernel)
     b, h, w, cin = x.shape
     cout = kernel.shape[-1]
-    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
-    k = kernel.float()
     acc = None
-    for dy in range(3):
-        for dx in range(3):
-            tap = xp[:, dy:dy + h, dx:dx + w, :].reshape(b * h * w, cin)
-            t = tap @ k[dy, dx]
-            acc = t if acc is None else acc + t
+    for tap, k in zip(_taps(x), kernel.float().reshape(9, cin, cout)):
+        t = tap @ k
+        acc = t if acc is None else acc + t
     return acc.to(x.dtype).reshape(b, h, w, cout)
 
 
@@ -88,3 +95,45 @@ def conv3x3_same(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
 
 
 conv3x3_same.launches = 0
+
+
+def conv3x3_same_dkernel(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """dK[dy, dx] = tap(x, dy, dx)^T @ g, float32 in and out, as one
+    (9*Cin, B*H*W) @ (B*H*W, Cout) product over the stacked taps
+    (`make_conv3x3_same_pallas`'s backward computes these outside its
+    kernel too)."""
+    cin, cout = x.shape[-1], g.shape[-1]
+    gm = g.float().reshape(-1, cout)
+    return (torch.cat(_taps(x), dim=1).T @ gm).reshape(3, 3, cin, cout)
+
+
+class _Conv3x3SamePallas(torch.autograd.Function):
+    """Forward: `conv3x3_same`.  Backward: dx is the SAME 3x3 conv of the
+    cotangent with the kernel flipped in both spatial axes and its
+    channels transposed, through `conv3x3_same` again (the kernel on the
+    card, f32 accumulation and one rounding); dK is
+    `conv3x3_same_dkernel`."""
+
+    @staticmethod
+    def forward(ctx, x, kernel):
+        ctx.save_for_backward(x, kernel)
+        return conv3x3_same(x, kernel)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, kernel = ctx.saved_tensors
+        g = g.contiguous()
+        dx = dk = None
+        if ctx.needs_input_grad[0]:
+            k_t = kernel.flip(0, 1).transpose(2, 3).to(g.dtype).contiguous()
+            dx = conv3x3_same(g, k_t).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dk = conv3x3_same_dkernel(x, g).to(kernel.dtype)
+        return dx, dk
+
+
+def conv3x3_same_pallas(x: torch.Tensor, kernel: torch.Tensor
+                        ) -> torch.Tensor:
+    """Differentiable SAME 3x3 conv through the hand-written kernel, NHWC in
+    and out, HWIO kernel; dispatch as for `conv3x3_same`."""
+    return _Conv3x3SamePallas.apply(x, kernel)

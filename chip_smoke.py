@@ -4,17 +4,27 @@
     python3 chip_smoke.py        # from the root of a checkout; needs one
                                  # CUDA card and nvcc (CUDA_HOME or PATH)
 
-It builds the port's CUDA kernel from the sources in the checkout, holds
-the kernel against its plain PyTorch version on the card, then serves
-MNIST counterfactuals through the port's entry points
-(`build_mnist_serving`, `CounterfactualEngine`) at the full width of the
-shipped MNIST CounteRGAN preset (64 channels, 6 residual blocks, bf16
-compute) with `conv_impl="pallas"`, on random weights made from a seed.
-It checks that every generator forward launched the kernel 13 times, that
-the served results equal the same requests served with the plain conv on
-the card, and that an all-zero mask returns x bit for bit; then it times
-the kernel, its plain version, cuDNN on the same shapes, and the serving
-requests.
+It builds the port's CUDA kernels (`cfgan_torch/csrc/*.cu`, one `nvcc`)
+from the sources in the checkout and holds each against its plain PyTorch
+version on the card: the 3x3 conv, and the fused counterfactual epilogue's
+forward and backward.  Then it drives the port's two paths at the full
+width of the shipped MNIST CounteRGAN preset (64 channels, 6 residual
+blocks, bf16 compute), on random weights made from a seed:
+
+- serving (`build_mnist_serving`, `CounterfactualEngine`) with
+  `conv_impl="pallas"`: every generator forward launches the conv kernel
+  13 times, the served results equal the same requests served with the
+  plain conv, and an all-zero mask returns x bit for bit;
+- training (`build_mnist_countergan`, `step_fn`) at batch 128: ten steps
+  launch the epilogue kernels twice (forward) and once (backward) per step,
+  and give the losses of the same steps with the plain epilogue, in bf16
+  and (three steps) in f32; three steps with `conv_impl="pallas"` launch
+  the conv kernel 13 times forward and 13 times for dx per step and take
+  the gradients (Adam's first moments after the first step) of the same
+  steps with the plain conv.
+
+Then it times the kernels, their plain versions, cuDNN for the conv, the
+serving requests and the train step.
 
 Each phase prints one JSON line and its wall time.  The line before the
 last is the card's `nvidia-smi` name and power limit; the last line is
@@ -50,6 +60,43 @@ F32_ATOL = 1e-4
 BF16_CF_ATOL = 2.0 ** -7
 PROBS_ATOL = {"float32": 1e-4, "bfloat16": 1e-2}
 KERNEL_LAYERS_PER_FORWARD = 13  # 12 resblock convs + conv_mid
+OUR_KERNELS = ("conv3x3_same_kernel", "epilogue_fwd_kernel",
+               "epilogue_bwd_kernel")
+# epilogue kernels vs plain: the elementwise outputs (x_cf, dx, draw) are the
+# same float32 operations rounded at the same places (the kernels do not
+# contract them into FMAs): abs <= EPI_ATOL; the row sums are taken in
+# another order: rel <= EPI_SUM_RTOL
+EPI_ATOL = 1e-6
+EPI_SUM_RTOL = 1e-5
+EPI_SHAPES = ((128, 784), (257, 784), (3, 17), (5, 2))
+EPI_BOUNDS = ((-1.0, 1.0), (-1e30, 1e30))  # clamp, no clamp
+# the smoke's train step: the preset's batch, and 10 steps (3 in f32 and
+# with the conv kernel)
+TRAIN_BATCH = 128
+TRAIN_STEPS = 10
+SHORT_STEPS = 3
+# the same steps with the kernel and the plain epilogue (cuDNN set
+# deterministic): the kernels give the plain versions' x_cf, dx and draw,
+# so both runs take the same gradients; their losses differ by the order
+# of the row sums (~1e-6), and in bf16 such a difference may flip a later
+# rounding.  Per-step d_loss and g_loss abs <= TRAIN_ATOL[dtype].
+TRAIN_ATOL = {"bfloat16": 1e-3, "float32": 1e-4}
+# conv kernel vs plain conv over SHORT_STEPS steps, in bf16 and f32, from
+# one initial state and the same draws: per-step d_loss and g_loss abs <=
+# TRAIN_ATOL[dtype].  The gradients are held against each other through
+# Adam's first moments after the first step (0.1 * grad): every weight leaf
+# (conv and linear kernels, embeddings, BatchNorm scales) within
+# PALLAS_MU_RTOL[dtype] of its 2-norm.  Bias leaves are left out: the conv
+# biases that a BatchNorm follows have a true gradient of zero, so theirs
+# is rounding noise.  In f32 the parameters after the steps are compared
+# too: Adam's first steps move a parameter by about lr whatever its
+# gradient, so a component whose gradient is near zero may take another
+# sign and end up to 2 * lr apart, but at most PALLAS_F32_OUTLIER_SHARE of
+# the parameters differ by more than lr / 10.  In bf16 a larger share
+# does, and the moments carry the check.  Measured on an H100 (worst leaf,
+# G and D): f32 8.6e-5 and 1.3e-6, bf16 0.031 and 0.040.
+PALLAS_MU_RTOL = {"float32": 1e-3, "bfloat16": 0.2}
+PALLAS_F32_OUTLIER_SHARE = 1e-2
 
 
 def fail(msg: str) -> None:
@@ -114,11 +161,12 @@ def host_ms(fn, iters: int, warmup: int = 3) -> list[float]:
     return times
 
 
-def device_time(fn, iters: int):
+def device_time(fn, iters: int, top: int = 5, match: tuple = ()):
     """(device ms per call, [(kernel, ms per call, launches per call)] of
-    the five longest kernels) from a torch.profiler trace of `iters` calls
-    of `fn`, counting device-side events only; (None, []) where the trace
-    holds no device time."""
+    the `top` longest kernels, {name: (ms per call, launches per call)} of
+    the kernels whose name holds a string of `match`) from a torch.profiler
+    trace of `iters` calls of `fn`, counting device-side kernel events
+    only; (None, [], {}) where the trace holds no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -135,15 +183,21 @@ def device_time(fn, iters: int):
         return getattr(ev, "self_device_time_total",
                        getattr(ev, "self_cuda_time_total", 0.0))
 
-    # device-side events only: a CPU op's entry repeats its kernels' time
+    # device-side events only: a CPU op's entry repeats its kernels' time,
+    # and so does a user annotation's range on the device (the optimizer's)
     events = [ev for ev in prof.key_averages()
-              if ev.device_type == DeviceType.CUDA and dev_us(ev) > 0]
+              if ev.device_type == DeviceType.CUDA and dev_us(ev) > 0
+              and not getattr(ev, "is_user_annotation", False)]
     if not events:
-        return None, []
+        return None, [], {}
     events.sort(key=dev_us, reverse=True)
-    top = [(ev.key[:80], dev_us(ev) / 1e3 / iters, ev.count / iters)
-           for ev in events[:5]]
-    return sum(dev_us(ev) for ev in events) / 1e3 / iters, top
+    longest = [(ev.key[:80], dev_us(ev) / 1e3 / iters, ev.count / iters)
+               for ev in events[:top]]
+    matched = {m: (sum(dev_us(ev) for ev in events if m in ev.key)
+                   / 1e3 / iters,
+                   sum(ev.count for ev in events if m in ev.key) / iters)
+               for m in match}
+    return sum(dev_us(ev) for ev in events) / 1e3 / iters, longest, matched
 
 
 def conv_bound(b, h, w, cin, cout, dtype: str):
@@ -160,7 +214,31 @@ def conv_bound(b, h, w, cin, cout, dtype: str):
             "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
 
 
+def _flat(tree: dict, path: str = "") -> dict:
+    """The leaves of nested dicts by their '/'-joined path."""
+    out = {}
+    for key, value in tree.items():
+        name = f"{path}/{key}" if path else key
+        out.update(_flat(value, name) if isinstance(value, dict)
+                   else {name: value})
+    return out
+
+
+def epilogue_bound(b: int, n: int, backward: bool):
+    """(bound_ms, bound_by) of one epilogue kernel launch on (b, n) float32
+    rows on an H100 SXM: each input read once, each output written once;
+    ~10 (forward) or ~15 (backward) float32 operations an element."""
+    rows_in, rows_out, cols = (4, 2, 3) if backward else (3, 1, 3)
+    nbytes = ((rows_in + rows_out) * b * n + cols * b) * 4
+    ops = (15 if backward else 10) * b * n
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S["float32"]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def main() -> None:
+    import contextlib
+
     import numpy as np
     import torch
 
@@ -172,12 +250,18 @@ def main() -> None:
 
     import torch.nn.functional as F
 
+    from cfgan_torch.convert import adam_moments_to_flax, gan_state_to_flax
     from cfgan_torch.core.config import MNIST_COUNTERGAN
     from cfgan_torch.nn.layers import BatchNorm, Conv
     from cfgan_torch.ops import _build
+    from cfgan_torch.ops import epilogue as tep
     from cfgan_torch.ops.conv import conv3x3_same, conv3x3_same_plain
     from cfgan_torch.serve.engine import CounterfactualEngine
-    from cfgan_torch.train.builders import build_mnist_serving, mnist_models
+    from cfgan_torch.train.builders import (
+        build_mnist_countergan,
+        build_mnist_serving,
+        mnist_models,
+    )
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED)
@@ -336,6 +420,195 @@ def main() -> None:
             if not report["zero_mask_returns_x"]:
                 fail(f"{dtype}: an all-zero mask did not return x exactly")
 
+    # ------------------------------------------- epilogue kernels vs plain
+    epi_err = {"fwd": 0.0, "bwd": 0.0}
+    with Phase("kernel cf_epilogue"):
+        for b, n in EPI_SHAPES:
+            for lo, hi in EPI_BOUNDS:
+                x = torch.rand((b, n), generator=gen) * 2.4 - 1.2
+                raw = torch.randn((b, n), generator=gen) * 0.4
+                mask = (torch.rand((b, n), generator=gen) > 0.5).float()
+                raw[:, ::5] = 0.0  # sign(0) in the backward
+                x[:, 1::5], mask[:, 1::5] = 1.0, 0.0  # u exactly on hi ...
+                x[:, 2::5], raw[:, 2::5] = -1.0, 0.0  # ... and on lo
+                gcf = torch.randn((b, n), generator=gen)
+                cols = [torch.randn((b,), generator=gen) for _ in range(3)]
+                x, raw, mask, gcf, *cols = (t.to(dev) for t in
+                                            (x, raw, mask, gcf, *cols))
+                got = tep.cf_epilogue_fwd(x, raw, mask, lo, hi)
+                ref = tep.cf_epilogue_fwd_plain(x, raw, mask, lo, hi)
+                got_b = tep.cf_epilogue_bwd(x, raw, mask, gcf, *cols, lo, hi)
+                ref_b = tep.cf_epilogue_bwd_plain(x, raw, mask, gcf, *cols,
+                                                  lo, hi)
+                torch.cuda.synchronize()
+                cf_err = (got[0] - ref[0]).abs().max().item()
+                sum_err = max(((g - r).abs() / r.abs().clamp_min(1e-30))
+                              .max().item() for g, r in zip(got[1:], ref[1:]))
+                sum_abs = max((g - r).abs().max().item()
+                              for g, r in zip(got[1:], ref[1:]))
+                dx_err, draw_err = ((g - r).abs().max().item()
+                                    for g, r in zip(got_b, ref_b))
+                ok = (max(cf_err, dx_err, draw_err) <= EPI_ATOL
+                      and sum_err <= EPI_SUM_RTOL
+                      and all(torch.isfinite(t).all() for t in (*got, *got_b)))
+                emit({"phase": "kernel cf_epilogue", "shape": (b, n),
+                      "lo": lo, "hi": hi, "x_cf_max_abs_err": cf_err,
+                      "sums_max_rel_err": sum_err, "sums_max_abs_err": sum_abs,
+                      "dx_max_abs_err": dx_err, "draw_max_abs_err": draw_err,
+                      "tolerance": f"x_cf, dx, draw abs <= {EPI_ATOL}; sums "
+                                   f"rel <= {EPI_SUM_RTOL}", "ok": ok})
+                if not ok:
+                    fail(f"cf_epilogue kernels disagree with their plain "
+                         f"versions at {(b, n)}, bounds {(lo, hi)}")
+                epi_err["fwd"] = max(epi_err["fwd"], cf_err, sum_abs)
+                epi_err["bwd"] = max(epi_err["bwd"], dx_err, draw_err)
+
+    # ------------------------------------------------------------ train
+    clf_sd = mnist_models(MNIST_COUNTERGAN, generator=gen)[1].state_dict()
+    n_batches = TRAIN_STEPS
+    train_x = (torch.rand((n_batches, TRAIN_BATCH, 28, 28, 1), generator=gen)
+               * 2 - 1).to(dev)
+    train_y = torch.randint(0, 10, (n_batches, TRAIN_BATCH),
+                            generator=gen).to(dev)
+
+    def counts():
+        return (tep.cf_epilogue_fwd.launches, tep.cf_epilogue_bwd.launches,
+                conv3x3_same.launches)
+
+    def zero_counts():
+        tep.cf_epilogue_fwd.launches = tep.cf_epilogue_bwd.launches = 0
+        conv3x3_same.launches = 0
+
+    @contextlib.contextmanager
+    def plain_epilogue():
+        """The step's epilogue through its plain versions, on the card."""
+        kernels = tep.cf_epilogue_fwd, tep.cf_epilogue_bwd
+        tep.cf_epilogue_fwd = tep.cf_epilogue_fwd_plain
+        tep.cf_epilogue_bwd = tep.cf_epilogue_bwd_plain
+        try:
+            yield
+        finally:
+            tep.cf_epilogue_fwd, tep.cf_epilogue_bwd = kernels
+
+    def train(cfg, steps: int):
+        """`steps` steps of a fresh bundle (initial weights from SEED) on
+        the smoke's batches, targets and masks drawn by `step_fn` from a
+        card generator seeded with SEED, so every run of a configuration
+        sees the same draws.  Returns (bundle, [(d_loss, g_loss)], Adam's
+        first moments after the first step by net and flax leaf path, so
+        that runs whose convs hold their kernels in other layouts
+        compare)."""
+        bundle = build_mnist_countergan(cfg, clf_sd, seed=SEED)
+        draws = torch.Generator(device=dev).manual_seed(SEED)
+        losses = []
+        for i in range(steps):
+            m = bundle.step_fn(bundle.state, train_x[i % n_batches],
+                               train_y[i % n_batches], draws)
+            losses.append((m["d_loss"], m["g_loss"]))
+            if i == 0:
+                first_mu = {net: _flat(tree) for net, tree in
+                            adam_moments_to_flax(bundle.state).items()}
+        torch.cuda.synchronize()
+        return bundle, [(d.item(), g.item()) for d, g in losses], first_mu
+
+    def finite(bundle, losses) -> bool:
+        return (all(math.isfinite(v) for pair in losses for v in pair)
+                and all(bool(torch.isfinite(p).all()) for net in
+                        (bundle.state.g, bundle.state.d)
+                        for p in net.model.parameters()))
+
+    with Phase("train"):
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        train_launches = {}
+        for dtype, steps in (("bfloat16", TRAIN_STEPS),
+                             ("float32", SHORT_STEPS)):
+            cfg = replace(MNIST_COUNTERGAN, compute_dtype=dtype)
+            zero_counts()
+            bundle, losses, _ = train(cfg, steps)
+            launched = counts()
+            if launched != (2 * steps, steps, 0):
+                fail(f"{dtype} training launched (fwd, bwd, conv) = "
+                     f"{launched}, not {(2 * steps, steps, 0)}")
+            train_launches[dtype] = launched
+            with plain_epilogue():
+                plain_bundle, plain_losses, _ = train(cfg, steps)
+            if counts() != launched:
+                fail("the plain-epilogue run launched a kernel")
+            errs = [max(abs(a - b) for a, b in zip(k, p))
+                    for k, p in zip(losses, plain_losses)]
+            ok = (max(errs) <= TRAIN_ATOL[dtype] and finite(bundle, losses)
+                  and finite(plain_bundle, plain_losses))
+            emit({"phase": "train", "dtype": dtype, "batch": TRAIN_BATCH,
+                  "steps": steps, "epilogue_fwd_launches": launched[0],
+                  "epilogue_bwd_launches": launched[1],
+                  "d_g_loss_per_step": losses,
+                  "plain_epilogue_d_g_loss_per_step": plain_losses,
+                  "loss_max_abs_err_per_step": errs,
+                  "tolerance": f"abs <= {TRAIN_ATOL[dtype]}", "ok": ok})
+            if not ok:
+                fail(f"{dtype} training with the epilogue kernels differs "
+                     f"from the plain epilogue or is not finite: {errs}")
+
+    with Phase("train pallas"):
+        want = (2 * SHORT_STEPS, SHORT_STEPS,
+                2 * KERNEL_LAYERS_PER_FORWARD * SHORT_STEPS)
+        for dtype in ("bfloat16", "float32"):
+            cfg = replace(MNIST_COUNTERGAN, conv_impl="pallas",
+                          compute_dtype=dtype)
+            zero_counts()
+            bundle, losses, mu = train(cfg, SHORT_STEPS)
+            pallas_launches = counts()
+            if pallas_launches != want:
+                fail(f"{dtype} conv_impl='pallas' training launched (fwd, "
+                     f"bwd, conv) = {pallas_launches}, not {want}")
+            plain_bundle, plain_losses, plain_mu = train(
+                replace(cfg, conv_impl="matmul"), SHORT_STEPS)
+            if counts()[2] != pallas_launches[2]:
+                fail("the plain-conv run launched the conv kernel")
+            errs = [max(abs(a - b) for a, b in zip(k, p))
+                    for k, p in zip(losses, plain_losses)]
+            report = {"phase": "train pallas", "dtype": dtype,
+                      "steps": SHORT_STEPS,
+                      "conv3x3_launches": pallas_launches[2],
+                      "launches_per_step": 2 * KERNEL_LAYERS_PER_FORWARD,
+                      "d_g_loss_per_step": losses,
+                      "plain_conv_d_g_loss_per_step": plain_losses,
+                      "loss_max_abs_err_per_step": errs,
+                      "loss_tolerance": f"abs <= {TRAIN_ATOL[dtype]}"}
+            ok = (finite(bundle, losses) and finite(plain_bundle, plain_losses)
+                  and max(errs) <= TRAIN_ATOL[dtype])
+            ours = gan_state_to_flax(bundle.state)
+            theirs = gan_state_to_flax(plain_bundle.state)
+            for net, lr in (("g", cfg.lr_g), ("d", cfg.lr_d)):
+                rel = {name: float(np.linalg.norm(m - plain_mu[net][name])
+                                   / np.linalg.norm(plain_mu[net][name]))
+                       for name, m in mu[net].items()
+                       if not name.endswith("bias")}
+                worst = max(rel, key=rel.get)
+                p_ours = _flat(ours[net]["params"])
+                p_theirs = _flat(theirs[net]["params"])
+                if p_ours.keys() != p_theirs.keys():
+                    fail(f"{net}: the two runs hold other parameters")
+                diff = np.concatenate([np.abs(p_ours[k] - p_theirs[k]).ravel()
+                                       for k in p_ours])
+                share = float((diff > lr / 10).mean())
+                report[net] = {"first_moment_worst_rel_err": rel[worst],
+                               "worst_leaf": worst,
+                               "first_moment_rtol": PALLAS_MU_RTOL[dtype],
+                               "param_max_abs_diff": float(diff.max()),
+                               "share_over_lr_10": share}
+                ok = ok and rel[worst] <= PALLAS_MU_RTOL[dtype]
+                if dtype == "float32":
+                    report[net]["share_bound"] = PALLAS_F32_OUTLIER_SHARE
+                    ok = ok and share <= PALLAS_F32_OUTLIER_SHARE
+            report["ok"] = bool(ok)
+            emit(report)
+            if not ok:
+                fail(f"{dtype} conv_impl='pallas' training differs from the "
+                     f"plain conv")
+        torch.backends.cudnn.deterministic = False
+
     # ----------------------------------------------------------- timing
     with Phase("timing"):
         timing = {}
@@ -361,7 +634,7 @@ def main() -> None:
         for b, x, t in ((1, x1, 3), (128, x128, t128)):
             lat = host_ms(lambda: e.generate(x, t), 30)
             median = statistics.median(lat)
-            busy_ms, top = device_time(lambda: e.generate(x, t), 5)
+            busy_ms, top, _ = device_time(lambda: e.generate(x, t), 5)
             emit({"phase": "timing", "what": f"generate b={b}",
                   "card": card, "dtype": "bfloat16", "median_ms": median,
                   "p90_ms": sorted(lat)[int(0.9 * len(lat))],
@@ -376,6 +649,61 @@ def main() -> None:
               "median_ms": statistics.median(bulk),
               "counterfactuals_per_s": 1000 / statistics.median(bulk) * 1e3})
 
+    with Phase("timing train"):
+        for impl in (None, "pallas"):
+            cfg = replace(MNIST_COUNTERGAN, conv_impl=impl)
+            bundle = build_mnist_countergan(cfg, clf_sd, seed=SEED)
+            draws = torch.Generator(device=dev).manual_seed(SEED)
+            i = iter(range(10 ** 9))
+
+            def step():
+                j = next(i) % n_batches
+                bundle.step_fn(bundle.state, train_x[j], train_y[j], draws)
+                torch.cuda.synchronize()
+
+            lat = host_ms(step, 20)
+            median = statistics.median(lat)
+            busy_ms, top, ours = device_time(step, 5, top=8,
+                                             match=OUR_KERNELS)
+            emit({"phase": "timing", "what": "train step", "card": card,
+                  "conv_impl": impl, "dtype": "bfloat16",
+                  "batch": TRAIN_BATCH, "median_ms": median,
+                  "p90_ms": sorted(lat)[int(0.9 * len(lat))],
+                  "min_ms": min(lat),
+                  "images_per_s": TRAIN_BATCH / median * 1e3,
+                  "device_busy_ms": busy_ms,
+                  "device_idle_share": (None if busy_ms is None
+                                        else 1 - busy_ms / median),
+                  "device_time_by_kernel_ms": top,
+                  "our_kernels_ms_and_launches_per_step": ours})
+        b, n = TRAIN_BATCH, 28 * 28
+        x, raw = (torch.rand((b, n), device=dev) * 2 - 1 for _ in range(2))
+        mask = (torch.rand((b, n), device=dev) > 0.5).float()
+        gcf = torch.randn((b, n), device=dev)
+        cols = [torch.randn((b,), device=dev) for _ in range(3)]
+        epi = {}
+        for name, kernel, plain, args, backward in (
+                ("cf_epilogue_fwd", tep.cf_epilogue_fwd,
+                 tep.cf_epilogue_fwd_plain, (x, raw, mask, -1.0, 1.0), False),
+                ("cf_epilogue_bwd", tep.cf_epilogue_bwd,
+                 tep.cf_epilogue_bwd_plain,
+                 (x, raw, mask, gcf, *cols, -1.0, 1.0), True)):
+            bound_ms, bound_by = epilogue_bound(b, n, backward)
+            # device time per call from the profiler: a few microseconds
+            # of kernel, shorter than the wrapper's host-side work, so
+            # CUDA events around back-to-back calls time the host
+            epi[name] = dict(ms=device_time(lambda: kernel(*args), 200)[0],
+                             plain_ms=device_time(lambda: plain(*args),
+                                                  200)[0],
+                             bound_ms=bound_ms, bound_by=bound_by)
+            emit({"phase": "timing", "what": name, "card": card,
+                  "shape": (b, n), "dtype": "float32", **epi[name],
+                  "library_ms": None,
+                  "share_of_bound": bound_ms / epi[name]["ms"],
+                  "host_bound_call_ms": cuda_ms(lambda: kernel(*args), 200),
+                  "plain_host_bound_call_ms": cuda_ms(lambda: plain(*args),
+                                                      200)})
+
     t = timing["bfloat16"]
     emit({"kernels": [{
         "name": "conv3x3_same", "route": "cuda",
@@ -384,7 +712,14 @@ def main() -> None:
         "launches": launches["bfloat16", "pallas"],
         "max_abs_err": kernel_err[(serving_shape, "bfloat16")],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "library_ms": t["library_ms"]}]})
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"]}] + [{
+        "name": name, "route": "cuda",
+        "source": "cfgan_torch/csrc/epilogue.cu", "replaces": replaces,
+        "launches": train_launches["bfloat16"][k],
+        "max_abs_err": epi_err[key], **epi[name], "library_ms": None}
+        for k, (name, key, replaces) in enumerate((
+            ("cf_epilogue_fwd", "fwd", "cfgan/ops/epilogue.py:54"),
+            ("cf_epilogue_bwd", "bwd", "cfgan/ops/epilogue.py:67")))]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": count}})

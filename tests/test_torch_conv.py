@@ -106,6 +106,48 @@ def test_nvcc_command_targets_hopper_without_torch_headers():
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "-shared" in flags and "-Xptxas -v" in flags
-    src = _build.SOURCE.read_text()
-    assert "#include <torch" not in src and "extension.h" not in src
+    assert [p.name for p in _build.SOURCES] == ["conv3x3.cu", "epilogue.cu"]
+    for path in _build.SOURCES:
+        src = path.read_text()
+        assert "#include <torch" not in src and "extension.h" not in src
+
+
+@pytest.mark.parametrize("shape", SHAPES[:2], ids=str)
+def test_conv_vjp_matches_jax_pallas_interpret(shape):
+    """The Function's backward on the CPU (dx through the plain version
+    with the flipped, channel-transposed kernel; dK as one f32 product
+    over the nine stacked taps) against `make_conv3x3_same_pallas(interpret=True)`'s custom
+    VJP, under a random cotangent: f32 abs <= 1e-5."""
+    import jax
+
+    x, k = _inputs(shape, seed=2)
+    b, h, w, _, cout = shape
+    g = np.random.default_rng(3).standard_normal((b, h, w, cout)).astype(
+        np.float32)
+    y, vjp = jax.vjp(make_conv3x3_same_pallas(interpret=True),
+                     jnp.asarray(x), jnp.asarray(k))
+    want_dx, want_dk = vjp(jnp.asarray(g))
+    xt = torch.tensor(x, requires_grad=True)
+    kt = torch.tensor(k, requires_grad=True)
+    got = tconv.conv3x3_same_pallas(xt, kt)
+    got.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(y),
+                               atol=1e-5, rtol=0)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want_dx),
+                               atol=1e-5, rtol=0)
+    np.testing.assert_allclose(kt.grad.numpy(), np.asarray(want_dk),
+                               atol=1e-5, rtol=0)
+
+
+def test_conv_vjp_bf16_grads_keep_their_dtypes():
+    """bf16 in: dx comes back bf16 from the conv of the cotangent, dK bf16
+    from the float32 products, as the JAX VJP casts them."""
+    x, k = _inputs((2, 6, 5, 16, 16), seed=4)
+    xt = torch.tensor(x).bfloat16().requires_grad_(True)
+    kt = torch.tensor(k).bfloat16().requires_grad_(True)
+    tconv.conv3x3_same_pallas(xt, kt).float().sum().backward()
+    assert xt.grad.dtype == kt.grad.dtype == torch.bfloat16
+    ref_k = tconv.conv3x3_same_dkernel(
+        xt.detach(), torch.ones(2, 6, 5, 16, dtype=torch.bfloat16))
+    assert torch.equal(kt.grad, ref_k.bfloat16())
 

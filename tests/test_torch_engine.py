@@ -1,7 +1,8 @@
 """The port's MNIST serving path (build_mnist_serving + CounterfactualEngine)
-against the JAX package's (build_mnist_countergan's cf_fn, the compute-dtype
-classifier forward, CounterfactualEngine), on weights carried across by
-cfgan_torch.convert.  JAX's Pallas conv runs in interpret mode.
+against the JAX package's (build_mnist_countergan's cf_fn, the float32
+classifier forward of `CounterfactualEngine.from_bundle`,
+CounterfactualEngine), on weights carried across by cfgan_torch.convert.
+JAX's Pallas conv runs in interpret mode.
 
 Tolerances: float32 abs <= 1e-5 (same arithmetic, other summation orders).
 bfloat16 abs <= 4e-3 on x_cf and the residual and <= 1e-2 on the class
@@ -40,16 +41,16 @@ def _jax_engine(dtype):
     clf_model = JaxClassifier()
     clf_vars = jax.tree_util.tree_map(np.asarray, dict(clf_model.init(
         jax.random.key(1), jnp.zeros((2, 28, 28, 1)))))
-    clf_state = SimpleNamespace(params=clf_vars["params"], stats={})
+    clf_state = SimpleNamespace(params=clf_vars["params"], stats={},
+                                variables=lambda: clf_vars)
     bundle = build_mnist_countergan(cfg, clf_model, clf_state, seed=3)
     g_vars = jax.tree_util.tree_map(np.asarray, bundle.state.g.variables())
     rng = np.random.default_rng(4)
     g_vars["batch_stats"] = jax.tree_util.tree_map(
         lambda a: rng.uniform(0.5, 1.5, a.shape).astype(np.float32),
         g_vars["batch_stats"])
-    engine = JaxEngine(bundle.cf_fn,
-                       _clf_forward_fn(clf_model, clf_vars, dtype),
-                       g_vars, 10, patch_size=7)
+    engine = JaxEngine.from_bundle(bundle, clf_model, clf_state,
+                                   g_variables=g_vars, patch_size=7)
     return engine, g_vars, clf_vars
 
 
@@ -117,6 +118,41 @@ def test_generate_bulk(engines):
     t = np.arange(20) % 10
     _assert_results_match(engine.generate_bulk(x, t, chunk=8),
                           jax_engine.generate_bulk(x, t, chunk=8), dtype)
+
+
+def test_classify_matches_jax_from_bundle(engines):
+    """Served classifier in float32 under either compute dtype, as the JAX
+    engine's `from_bundle` applies it: the same function on the same
+    weights, abs <= 1e-5."""
+    _, jax_engine, engine = engines
+    x = _images(6, seed=9)
+    np.testing.assert_allclose(engine.classify(x),
+                               np.asarray(jax_engine.classify(x)),
+                               atol=1e-5, rtol=0)
+
+
+def test_training_classifier_runs_in_the_compute_dtype():
+    """The train step's frozen classifier keeps the compute dtype, as
+    `_clf_forward_fn` does: its float32 logits are bf16 values (a float32
+    forward's are not), within 1e-2 of JAX's bf16 logits."""
+    from cfgan_torch.train.builders import clf_forward_fn
+
+    clf_model = JaxClassifier()
+    v = jax.tree_util.tree_map(np.asarray, dict(clf_model.init(
+        jax.random.key(1), jnp.zeros((2, 28, 28, 1)))))
+    c = mnist_models(replace(MNIST_COUNTERGAN, hidden_dim=WIDTH,
+                             num_res_blocks=DEPTH))[1]
+    c.load_state_dict(state_dict_from_flax(c, v))
+    x = _images(4, seed=10)
+    want = _clf_forward_fn(clf_model, v, "bfloat16")(jnp.asarray(x))
+    got = clf_forward_fn(c, "bfloat16")(torch.from_numpy(x))
+    assert got.dtype == torch.float32
+    assert torch.equal(got, got.bfloat16().float())
+    f32 = clf_forward_fn(c, "float32")(torch.from_numpy(x))
+    assert not torch.equal(f32, f32.bfloat16().float())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-2,
+                               rtol=0)
+    assert next(c.parameters()).dtype == torch.float32
 
 
 @pytest.mark.parametrize("patches,batch,channels",

@@ -14,7 +14,9 @@ import pytest
 import torch
 
 from cfgan_torch.core.config import MNIST_COUNTERGAN
+from cfgan_torch.nn.layers import Conv
 from cfgan_torch.ops import conv as tconv
+from cfgan_torch.ops import epilogue as tep
 from cfgan_torch.serve.engine import CounterfactualEngine
 from cfgan_torch.train.builders import build_mnist_serving, mnist_models
 
@@ -115,3 +117,100 @@ def test_engine_on_card_matches_cpu(dtype):
     atol = 1e-4 if dtype == "float32" else 2.0 ** -7
     np.testing.assert_allclose(results[0].x_cf, results[1].x_cf, atol=atol,
                                rtol=0)
+
+
+def _epilogue_inputs(b, n, dev, seed=0):
+    """Rows with values exactly on the bounds (x = +-1 where masked = 0)
+    and zeros in raw, and random cotangents."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.rand((b, n), generator=g) * 2.4 - 1.2
+    raw = torch.randn((b, n), generator=g) * 0.4
+    mask = (torch.rand((b, n), generator=g) > 0.5).float()
+    raw[:, ::5] = 0.0
+    x[:, 1::5], mask[:, 1::5] = 1.0, 0.0
+    x[:, 2::5], raw[:, 2::5] = -1.0, 0.0
+    gcf = torch.randn((b, n), generator=g)
+    cols = [torch.randn((b,), generator=g) for _ in range(3)]
+    return [t.to(dev) for t in (x, raw, mask, gcf, *cols)]
+
+
+@pytest.mark.parametrize("shape", [(128, 784), (257, 784), (3, 17), (5, 2)],
+                         ids=str)
+@pytest.mark.parametrize("bounds", [(-1.0, 1.0), (-1e30, 1e30)],
+                         ids=["clamp", "no_clamp"])
+def test_epilogue_kernels_match_plain(shape, bounds):
+    """x_cf, dx and draw abs <= 1e-6 (the same elementwise float32 ops;
+    the kernels do not contract them into FMAs, so they round where the
+    plain version does); the row sums rel <= 1e-5 (summation order)."""
+    dev = _card()
+    x, raw, mask, gcf, gl1, gl2, gpen = _epilogue_inputs(*shape, dev)
+    f0, b0 = tep.cf_epilogue_fwd.launches, tep.cf_epilogue_bwd.launches
+    got = tep.cf_epilogue_fwd(x, raw, mask, *bounds)
+    want = tep.cf_epilogue_fwd_plain(x, raw, mask, *bounds)
+    got_b = tep.cf_epilogue_bwd(x, raw, mask, gcf, gl1, gl2, gpen, *bounds)
+    want_b = tep.cf_epilogue_bwd_plain(x, raw, mask, gcf, gl1, gl2, gpen,
+                                       *bounds)
+    torch.cuda.synchronize()
+    assert (tep.cf_epilogue_fwd.launches, tep.cf_epilogue_bwd.launches) == (
+        f0 + 1, b0 + 1)
+    assert (got[0] - want[0]).abs().max().item() <= 1e-6
+    for g, w in zip(got[1:], want[1:]):
+        assert ((g - w).abs() <= 1e-5 * w.abs() + 1e-30).all()
+    for g, w in zip(got_b, want_b):
+        assert (g - w).abs().max().item() <= 1e-6
+
+
+def test_epilogue_wrapper_rejects_what_the_kernels_do_not_take():
+    dev = _card()
+    x, raw, mask, gcf, gl1, gl2, gpen = _epilogue_inputs(4, 9, dev)
+    with pytest.raises(TypeError):
+        tep.cf_epilogue_fwd(x.bfloat16(), raw.bfloat16(), mask.bfloat16(),
+                            -1.0, 1.0)
+    with pytest.raises(ValueError):
+        tep.cf_epilogue_fwd(x, raw.t().contiguous().t(), mask, -1.0, 1.0)
+    with pytest.raises(ValueError):
+        tep.cf_epilogue_fwd(x, raw.cpu(), mask, -1.0, 1.0)
+    with pytest.raises(ValueError):
+        tep.cf_epilogue_bwd(x, raw, mask, gcf, gl1[:2], gl2, gpen, -1.0, 1.0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_conv_pallas_layer_passes_gradients_like_matmul(dtype):
+    """The conv3x3 gradient repair: `Conv(impl="pallas")` on the card gives
+    its kernel, bias and input the gradients of `impl="matmul"` (autograd
+    through the plain version).  Before the repair the kernel's output had
+    no grad_fn and only the bias got a gradient.  f32 abs <= 1e-3 on sums
+    over 8 x 28 x 28 terms of order 10; bf16 rel <= 2e-2 (bf16 dx, bf16
+    cast of the f32 dK)."""
+    dev = _card()
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(1)
+    layer = Conv(64, 64, 3, 1, 1, impl="pallas", generator=gen).to(dev)
+    ref = Conv(64, 64, 3, 1, 1, impl="matmul").to(dev)
+    ref.load_state_dict(layer.state_dict())
+    x = torch.randn((8, 28, 28, 64), generator=gen).to(dev)
+    grads = []
+    for m in (layer, ref):
+        xi = x.to(dt).requires_grad_(True)
+        params = {n: p.to(dt) for n, p in m.named_parameters()}
+        y = torch.func.functional_call(m, params, (xi,))
+        (y.float() ** 2).sum().backward()
+        grads.append((xi.grad.float(), m.kernel.grad, m.bias.grad))
+    torch.cuda.synchronize()
+    for got, want in zip(*grads):
+        assert got is not None and want is not None
+        scale = want.abs().max().item()
+        tol = 1e-3 if dtype == "float32" else 2e-2 * scale
+        assert (got - want).abs().max().item() <= tol
+
+
+def test_conv_pallas_backward_launches_the_kernel_for_dx():
+    dev = _card()
+    layer = Conv(32, 32, 3, 1, 1, impl="pallas").to(dev)
+    x = torch.randn((2, 9, 9, 32), device=dev, requires_grad=True)
+    before = tconv.conv3x3_same.launches
+    y = layer(x)
+    assert tconv.conv3x3_same.launches == before + 1
+    y.sum().backward()
+    assert tconv.conv3x3_same.launches == before + 2
+    assert x.grad is not None and layer.kernel.grad is not None

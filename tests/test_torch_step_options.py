@@ -1,0 +1,104 @@
+"""Variants of the train-step parity of test_torch_step.py (same harness,
+same batches and draws), each in its own JAX configuration:
+
+- width 16, where the port's `conv_impl="pallas"` routes the resblock
+  convs and conv_mid through `conv3x3_same_pallas` (on the CPU its
+  autograd.Function runs the kernel's plain version, forward and dx, and
+  the dK product), against the JAX package at `conv_impl="matmul"`,
+  whose VJP is the same arithmetic: the f32 bars of test_torch_step.py,
+  the gradients (Adam's first moments) included;
+- bf16 compute with float32 parameters.  Tolerances: d_loss and g_loss
+  abs <= 2e-3 (means of bf16 values that XLA and PyTorch round at
+  different places; measured 2e-6 and 1e-4); every parameter within
+  2 * lr + 1e-6, because Adam's first step moves each parameter by at
+  most lr whatever its gradient, so a gradient component near zero whose
+  bf16 sign differs between the two moves them at most 2 * lr apart; the
+  BatchNorm running statistics within 4e-3, i.e. momentum 0.1 times two
+  bf16 ulps of batch statistics up to 8 in magnitude.  Those bars pass
+  any gradient, so the gradients are held against JAX through Adam's
+  first moments (0.1 * grad) leaf by leaf, relative to the leaf's 2-norm:
+  the weight leaves (kernels, embeddings, BatchNorm scales) within
+  BF16_MU_RTOL of their net, set from the measured worst leaf (G: 0.58, a
+  BatchNorm scale, whose gradient sums over the batch what bf16
+  E[x^2] - E[x]^2 statistics give; D: 0.050, a conv kernel) with room; a
+  D that takes no step, or sees half the batch, puts its kernels at 0.98
+  to 1.0.  The bias leaves are left out in bf16: their gradients are sums
+  over batch and space that cancel to a few percent of their terms, so a
+  bf16 rounding anywhere moves them by their own size (measured up to
+  1.5 on D's one-element head bias).
+"""
+import pytest
+
+from test_torch_step import assert_moments_close, assert_trees_close, run_pair
+
+BF16_MU_RTOL = {"g": 0.75, "d": 0.15}
+
+PALLAS_WIDTH = 16
+
+
+@pytest.fixture(scope="module")
+def pallas_run():
+    return run_pair({"hidden_dim": PALLAS_WIDTH}, steps=1,
+                    conv_impl=("matmul", "pallas"))
+
+
+def test_pallas_route_step_losses_match_jax_matmul(pallas_run):
+    jm, pm, _, _ = pallas_run[0]
+    assert abs(pm["d_loss"] - jm["d_loss"]) <= 3e-5
+    assert abs(pm["g_loss"] - jm["g_loss"]) <= 3e-4
+    for name in jm:
+        assert abs(pm[name] - jm[name]) <= 3e-4, name
+
+
+@pytest.mark.parametrize("net", ["g", "d"])
+def test_pallas_route_step_parameters_match_jax_matmul(pallas_run, net):
+    _, _, jt, pt = pallas_run[0]
+    assert_trees_close(pt[net]["params"], jt[net]["params"], 3e-5)
+    assert_moments_close(pt["adam_mu"][net], jt["adam_mu"][net])
+    if net == "g":
+        assert_trees_close(pt["g"]["batch_stats"], jt["g"]["batch_stats"],
+                           1e-5)
+
+
+def test_pallas_route_takes_the_kernel_layers():
+    """The parity above runs through the Function: at width 16 the
+    resblock convs and conv_mid are routed to it, conv_in and conv_out
+    (Cin 3, Cout 1) stay on F.conv2d."""
+    from cfgan_torch.models.generators import ImageResidualGenerator
+    from cfgan_torch.nn.layers import Conv
+
+    g = ImageResidualGenerator(base_ch=PALLAS_WIDTH, n_resblocks=1,
+                               conv_impl="pallas")
+    routed = sorted(n for n, m in g.named_modules()
+                    if isinstance(m, Conv) and m.impl == "pallas")
+    assert routed == ["conv_mid", "res0.conv1", "res0.conv2"]
+
+
+@pytest.fixture(scope="module")
+def bf16_run():
+    return run_pair({"compute_dtype": "bfloat16"}, steps=1)
+
+
+def test_bf16_step_losses_match_jax(bf16_run):
+    jm, pm, _, _ = bf16_run[0]
+    assert abs(pm["d_loss"] - jm["d_loss"]) <= 2e-3
+    assert abs(pm["g_loss"] - jm["g_loss"]) <= 2e-3
+
+
+@pytest.mark.parametrize("net,lr", [("g", 5e-5), ("d", 1e-5)])
+def test_bf16_step_parameters_match_jax(bf16_run, net, lr):
+    _, _, jt, pt = bf16_run[0]
+    assert_trees_close(pt[net]["params"], jt[net]["params"], 2 * lr + 1e-6)
+
+
+@pytest.mark.parametrize("net", ["g", "d"])
+def test_bf16_step_gradients_match_jax(bf16_run, net):
+    _, _, jt, pt = bf16_run[0]
+    assert_moments_close(pt["adam_mu"][net], jt["adam_mu"][net],
+                         rtol=BF16_MU_RTOL[net], atol=0.0,
+                         skip=lambda name: name.endswith("bias"))
+
+
+def test_bf16_step_batch_stats_match_jax(bf16_run):
+    _, _, jt, pt = bf16_run[0]
+    assert_trees_close(pt["g"]["batch_stats"], jt["g"]["batch_stats"], 4e-3)
