@@ -91,6 +91,19 @@ class CounterfactualEngine:
         probs_orig = torch.softmax(self.clf_fn(x), dim=1)
         return x_cf, masked, probs, probs_orig
 
+    def _targets(self, target) -> torch.Tensor:
+        """`target` as int64 on the device, its range checked on the host
+        first: a target outside [0, num_classes) raises ValueError.  (The
+        JAX engine serves NaN for such a target and wraps a negative one;
+        on the card the embedding lookup would hit a device-side assert.)"""
+        t = torch.as_tensor(target, dtype=torch.long, device="cpu")
+        bad = (t < 0) | (t >= self.num_classes)
+        if bad.any():
+            raise ValueError(
+                f"target {t[bad].flatten()[0].item()} is outside the class "
+                f"range [0, {self.num_classes})")
+        return t.to(self.device)
+
     def _inputs(self, x, target, mask):
         """Batch the request on the device: x float32 (B, H, W, C), target
         broadcast to (B,), mask broadcast to x's shape."""
@@ -101,9 +114,7 @@ class CounterfactualEngine:
             raise ValueError(f"x must be (H, W, C) or (B, H, W, C), got "
                              f"shape {tuple(x.shape)}")
         b = x.shape[0]
-        t = torch.broadcast_to(
-            torch.as_tensor(target, dtype=torch.long, device=self.device),
-            (b,))
+        t = torch.broadcast_to(self._targets(target), (b,))
         if mask is None:
             mask = self.default_mask(b, x.shape)
         mask = torch.as_tensor(mask, dtype=x.dtype, device=self.device)

@@ -4,10 +4,12 @@
     python3 chip_smoke.py        # from the root of a checkout; needs one
                                  # CUDA card and nvcc (CUDA_HOME or PATH)
 
-It builds the port's CUDA kernels (`cfgan_torch/csrc/*.cu`, one `nvcc`)
-from the sources in the checkout and holds each against its plain PyTorch
-version on the card: the 3x3 conv, and the fused counterfactual epilogue's
-forward and backward.  Then it drives the port's two paths at the full
+It builds the port's CUDA kernels (`cfgan_torch/csrc/*.cu`, one `nvcc` a
+source, all started together) from the sources in the checkout and holds
+each against its plain PyTorch version on the card: the 3x3 conv (bf16 on
+the tensor cores, f32 on the CUDA cores; forward and its dx), the conv's
+weight gradient dK (bf16 on the tensor cores), and the fused counterfactual
+epilogue's forward and backward.  Then it drives the port's two paths at the full
 width of the shipped MNIST CounteRGAN preset (64 channels, 6 residual
 blocks, bf16 compute), on random weights made from a seed:
 
@@ -19,12 +21,13 @@ blocks, bf16 compute), on random weights made from a seed:
   launch the epilogue kernels twice (forward) and once (backward) per step,
   and give the losses of the same steps with the plain epilogue, in bf16
   and (three steps) in f32; three steps with `conv_impl="pallas"` launch
-  the conv kernel 13 times forward and 13 times for dx per step and take
-  the gradients (Adam's first moments after the first step) of the same
-  steps with the plain conv.
+  the conv kernel 13 times forward and 13 times for dx per step, and in
+  bf16 the dK kernel 13 times per step, and take the gradients (Adam's
+  first moments after the first step) of the same steps with the plain
+  conv.
 
-Then it times the kernels, their plain versions, cuDNN for the conv, the
-serving requests and the train step.
+Then it times the kernels, their plain versions, cuDNN for the conv and
+its weight gradient, the serving requests and the train step.
 
 Each phase prints one JSON line and its wall time.  The line before the
 last is the card's `nvidia-smi` name and power limit; the last line is
@@ -36,6 +39,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -60,8 +64,21 @@ F32_ATOL = 1e-4
 BF16_CF_ATOL = 2.0 ** -7
 PROBS_ATOL = {"float32": 1e-4, "bfloat16": 1e-2}
 KERNEL_LAYERS_PER_FORWARD = 13  # 12 resblock convs + conv_mid
-OUR_KERNELS = ("conv3x3_same_kernel", "epilogue_fwd_kernel",
-               "epilogue_bwd_kernel")
+OUR_KERNELS = ("conv3x3_wgmma_kernel", "conv3x3_same_kernel",
+               "conv3x3_dkernel_wgmma_kernel", "dkernel_reduce_kernel",
+               "epilogue_fwd_kernel", "epilogue_bwd_kernel")
+# (B, H, W, Cin, Cout) the conv kernels are held at: the serving layer at
+# batch 128 and 1 (the tensor-core kernel's narrow tiles); Cin not a
+# multiple of 8 or 16 and W odd; Cin and Cout of the narrow test presets;
+# a batch that is not a multiple of anything
+SERVING_SHAPE = (128, 28, 28, 64, 64)
+CONV_SHAPES = (SERVING_SHAPE, (1, 28, 28, 64, 64), (2, 13, 11, 20, 40),
+               (3, 28, 28, 16, 24), (9, 7, 5, 32, 64))
+# dK kernel vs plain, both float32 before the cast: each tap's (Cin, Cout)
+# block within DK_RTOL of its 2-norm.  The two sum up to B*H*W = 100,352
+# products per entry in other orders (the kernel per block of pixels, then
+# the blocks' partials); measured on an H100 below 1e-6.
+DK_RTOL = 1e-5
 # epilogue kernels vs plain: the elementwise outputs (x_cf, dx, draw) are the
 # same float32 operations rounded at the same places (the kernels do not
 # contract them into FMAs): abs <= EPI_ATOL; the row sums are taken in
@@ -148,6 +165,43 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Mean device ms per call of `fn`, by CUDA events around replays of a
+    CUDA graph that holds `iters` calls: no host work between the kernels,
+    only the graph's own gaps (about a microsecond a kernel)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capturing stream
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
+
+
+def kernel_ms(fn, iters: int = 20) -> tuple[float, str]:
+    """(ms per call, how it was timed): profiler device time, which counts
+    kernel time only; where the trace comes back without the card, the
+    replays of a CUDA graph of the calls."""
+    ms = device_time(fn, iters)[0]
+    if ms is not None:
+        return ms, "profiler"
+    return graph_ms(fn, iters), "cuda graph"
+
+
 def host_ms(fn, iters: int, warmup: int = 3) -> list[float]:
     """Wall ms of each of `iters` calls of `fn`, each ending on the host
     (the engine returns numpy arrays, so every call synchronises)."""
@@ -171,23 +225,26 @@ def device_time(fn, iters: int, top: int = 5, match: tuple = ()):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-
     def dev_us(ev):
         return getattr(ev, "self_device_time_total",
                        getattr(ev, "self_cuda_time_total", 0.0))
 
-    # device-side events only: a CPU op's entry repeats its kernels' time,
-    # and so does a user annotation's range on the device (the optimizer's)
-    events = [ev for ev in prof.key_averages()
-              if ev.device_type == DeviceType.CUDA and dev_us(ev) > 0
-              and not getattr(ev, "is_user_annotation", False)]
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a trace now and then comes back without the card
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        # device-side events only: a CPU op's entry repeats its kernels'
+        # time, and so does a user annotation's range on the device (the
+        # optimizer's)
+        events = [ev for ev in prof.key_averages()
+                  if ev.device_type == DeviceType.CUDA and dev_us(ev) > 0
+                  and not getattr(ev, "is_user_annotation", False)]
+        if events:
+            break
     if not events:
         return None, [], {}
     events.sort(key=dev_us, reverse=True)
@@ -212,6 +269,20 @@ def conv_bound(b, h, w, cin, cout, dtype: str):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dtype]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+
+
+def dkernel_bound(b, h, w, cin, cout):
+    """(bound_ms, bound_by) of one bf16 dK on an H100 SXM: x and the
+    cotangent read once, the float32 dK written once; 2 * MACs at the bf16
+    tensor-core peak."""
+    from cfgan_torch.ops.conv import conv_flops
+
+    nbytes = b * h * w * (cin + cout) * 2 + 9 * cin * cout * 4
+    ops = conv_flops(b, (h, w), cin, cout)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS_PER_S["bfloat16"]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def _flat(tree: dict, path: str = "") -> dict:
@@ -255,7 +326,12 @@ def main() -> None:
     from cfgan_torch.nn.layers import BatchNorm, Conv
     from cfgan_torch.ops import _build
     from cfgan_torch.ops import epilogue as tep
-    from cfgan_torch.ops.conv import conv3x3_same, conv3x3_same_plain
+    from cfgan_torch.ops.conv import (
+        conv3x3_same,
+        conv3x3_same_dkernel,
+        conv3x3_same_dkernel_plain,
+        conv3x3_same_plain,
+    )
     from cfgan_torch.serve.engine import CounterfactualEngine
     from cfgan_torch.train.builders import (
         build_mnist_countergan,
@@ -289,8 +365,13 @@ def main() -> None:
         ptxas = [ln.strip() for ln in lib.ptxas_log.splitlines()
                  if any(k in ln for k in ("Compiling entry", "registers",
                                           "spill", "smem"))]
+        spills = [ln for ln in ptxas if any(
+            int(n) for n in re.findall(r"(\d+) bytes spill", ln))]
         emit({"phase": "build", "seconds": round(lib.seconds, 3),
-              "library": str(lib.path.relative_to(HERE)), "ptxas": ptxas})
+              "library": str(lib.path.relative_to(HERE)), "ptxas": ptxas,
+              "spills": spills})
+        if spills:
+            fail(f"a kernel spills registers: {spills}")
 
     # ----------------------------------------------- kernel vs plain
     def conv_inputs(b, h, w, cin, cout, dtype):
@@ -299,33 +380,81 @@ def main() -> None:
             2 / 1.04 / (9 * cin))  # the generator's kaiming init
         return x.to(dev, dtype), k.to(dev, dtype)
 
-    serving_shape = (128, 28, 28, 64, 64)
+    def conv_ok(got, ref, dtype):
+        """(ok, tolerance): f32 abs <= F32_ATOL; bf16 within one bf16 ulp
+        of the plain f32 result rounded to bf16, + F32_ATOL."""
+        if dtype == "bfloat16":
+            ref = ref.bfloat16().float()
+            return (bool(((got - ref).abs() <= bf16_ulp(ref) + F32_ATOL)
+                         .all()),
+                    f"1 bf16 ulp of the plain f32 result rounded to bf16, "
+                    f"+ {F32_ATOL}")
+        return ((got - ref).abs().max().item() <= F32_ATOL,
+                f"abs <= {F32_ATOL}")
+
     kernel_err = {}
     with Phase("kernel conv3x3"):
-        for shape in (serving_shape, (3, 28, 28, 16, 24), (9, 7, 5, 32, 64)):
+        for shape in CONV_SHAPES:
             for dtype in ("float32", "bfloat16"):
                 x, k = conv_inputs(*shape, getattr(torch, dtype))
+                # dx: the cotangent through K read flipped and transposed
+                g, _ = conv_inputs(*shape[:3], shape[4], shape[4],
+                                   getattr(torch, dtype))
                 got = conv3x3_same(x, k).float()
+                got_t = conv3x3_same(g, k, transposed=True).float()
                 ref = conv3x3_same_plain(x.float(), k.float())
+                ref_t = conv3x3_same_plain(
+                    g.float(), k.float().flip(0, 1).transpose(2, 3)
+                    .contiguous())
                 torch.cuda.synchronize()
+                ok, tol = conv_ok(got, ref, dtype)
+                ok_t, _ = conv_ok(got_t, ref_t, dtype)
                 if dtype == "bfloat16":
-                    ref = ref.bfloat16().float()
-                    tol = (f"1 bf16 ulp of the plain f32 result rounded to "
-                           f"bf16, + {F32_ATOL}")
-                    ok = bool(((got - ref).abs()
-                               <= bf16_ulp(ref) + F32_ATOL).all())
-                else:
-                    tol = f"abs <= {F32_ATOL}"
-                    ok = (got - ref).abs().max().item() <= F32_ATOL
+                    ref, ref_t = ref.bfloat16().float(), ref_t.bfloat16().float()
                 err = (got - ref).abs().max().item()
+                err_t = (got_t - ref_t).abs().max().item()
                 rel = ((got - ref).abs() / ref.abs().clamp_min(1e-3)).max()
                 emit({"phase": "kernel conv3x3", "shape": shape,
                       "dtype": dtype, "max_abs_err": err,
-                      "max_rel_err": rel.item(), "tolerance": tol, "ok": ok})
-                if not ok or not torch.isfinite(got).all():
+                      "max_rel_err": rel.item(), "dx_max_abs_err": err_t,
+                      "tolerance": tol, "ok": ok and ok_t})
+                if not (ok and ok_t) or not (torch.isfinite(got).all()
+                                             and torch.isfinite(got_t).all()):
                     fail(f"conv3x3 kernel disagrees with its plain version "
-                         f"at {shape} {dtype}: max abs err {err}")
-                kernel_err[(shape, dtype)] = err
+                         f"at {shape} {dtype}: max abs err {err}, dx {err_t}")
+                kernel_err[(shape, dtype)] = max(err, err_t)
+
+    dk_err = {}
+    with Phase("kernel conv3x3 dK"):
+        for shape in CONV_SHAPES:
+            x, _ = conv_inputs(*shape, torch.bfloat16)
+            g, _ = conv_inputs(*shape[:3], shape[4], shape[4],
+                               torch.bfloat16)
+            got = conv3x3_same_dkernel(x, g)
+            again = conv3x3_same_dkernel(x, g)
+            ref = conv3x3_same_dkernel_plain(x, g)
+            torch.cuda.synchronize()
+            norm = ref.reshape(9, -1).norm(dim=1)
+            rel = ((got - ref).reshape(9, -1).norm(dim=1)
+                   / norm.clamp_min(1e-30))
+            same_bits = torch.equal(got, again)
+            ok = (bool((rel <= DK_RTOL).all()) and same_bits
+                  and got.dtype == torch.float32
+                  and bool(torch.isfinite(got).all()))
+            err = (got - ref).abs().max().item()
+            emit({"phase": "kernel conv3x3 dK", "shape": shape,
+                  "dtype": "bfloat16", "max_abs_err": err,
+                  "max_tap_rel_err": rel.max().item(),
+                  "two_calls_equal_bits": same_bits,
+                  "tolerance": f"per tap: 2-norm of the error <= {DK_RTOL}"
+                               f" of the plain dK's (float32 sums of up to "
+                               f"B*H*W products in another order)",
+                  "ok": ok})
+            if not ok:
+                fail(f"conv3x3 dK kernel disagrees with its plain version at "
+                     f"{shape}: per-tap rel err {rel.max().item()}, equal "
+                     f"bits over two calls {same_bits}")
+            dk_err[shape] = err
 
     # ------------------------------------------------------------ serve
     preset = replace(MNIST_COUNTERGAN, conv_impl="pallas")
@@ -473,11 +602,11 @@ def main() -> None:
 
     def counts():
         return (tep.cf_epilogue_fwd.launches, tep.cf_epilogue_bwd.launches,
-                conv3x3_same.launches)
+                conv3x3_same.launches, conv3x3_same_dkernel.launches)
 
     def zero_counts():
         tep.cf_epilogue_fwd.launches = tep.cf_epilogue_bwd.launches = 0
-        conv3x3_same.launches = 0
+        conv3x3_same.launches = conv3x3_same_dkernel.launches = 0
 
     @contextlib.contextmanager
     def plain_epilogue():
@@ -527,9 +656,9 @@ def main() -> None:
             zero_counts()
             bundle, losses, _ = train(cfg, steps)
             launched = counts()
-            if launched != (2 * steps, steps, 0):
-                fail(f"{dtype} training launched (fwd, bwd, conv) = "
-                     f"{launched}, not {(2 * steps, steps, 0)}")
+            if launched != (2 * steps, steps, 0, 0):
+                fail(f"{dtype} training launched (fwd, bwd, conv, dK) = "
+                     f"{launched}, not {(2 * steps, steps, 0, 0)}")
             train_launches[dtype] = launched
             with plain_epilogue():
                 plain_bundle, plain_losses, _ = train(cfg, steps)
@@ -551,9 +680,14 @@ def main() -> None:
                      f"from the plain epilogue or is not finite: {errs}")
 
     with Phase("train pallas"):
-        want = (2 * SHORT_STEPS, SHORT_STEPS,
-                2 * KERNEL_LAYERS_PER_FORWARD * SHORT_STEPS)
+        pallas_train_launches = {}
         for dtype in ("bfloat16", "float32"):
+            # 13 forward and 13 dx launches of the conv kernel a step; dK
+            # through its kernel in bf16, as one f32 product in f32
+            want = (2 * SHORT_STEPS, SHORT_STEPS,
+                    2 * KERNEL_LAYERS_PER_FORWARD * SHORT_STEPS,
+                    KERNEL_LAYERS_PER_FORWARD * SHORT_STEPS
+                    if dtype == "bfloat16" else 0)
             cfg = replace(MNIST_COUNTERGAN, conv_impl="pallas",
                           compute_dtype=dtype)
             zero_counts()
@@ -561,16 +695,18 @@ def main() -> None:
             pallas_launches = counts()
             if pallas_launches != want:
                 fail(f"{dtype} conv_impl='pallas' training launched (fwd, "
-                     f"bwd, conv) = {pallas_launches}, not {want}")
+                     f"bwd, conv, dK) = {pallas_launches}, not {want}")
+            pallas_train_launches[dtype] = pallas_launches
             plain_bundle, plain_losses, plain_mu = train(
                 replace(cfg, conv_impl="matmul"), SHORT_STEPS)
-            if counts()[2] != pallas_launches[2]:
-                fail("the plain-conv run launched the conv kernel")
+            if counts()[2:] != pallas_launches[2:]:
+                fail("the plain-conv run launched the conv or dK kernel")
             errs = [max(abs(a - b) for a, b in zip(k, p))
                     for k, p in zip(losses, plain_losses)]
             report = {"phase": "train pallas", "dtype": dtype,
                       "steps": SHORT_STEPS,
                       "conv3x3_launches": pallas_launches[2],
+                      "conv3x3_dk_launches": pallas_launches[3],
                       "launches_per_step": 2 * KERNEL_LAYERS_PER_FORWARD,
                       "d_g_loss_per_step": losses,
                       "plain_conv_d_g_loss_per_step": plain_losses,
@@ -611,25 +747,59 @@ def main() -> None:
 
     # ----------------------------------------------------------- timing
     with Phase("timing"):
+        # device time per call (kernel_ms): at batch 1 a launch is shorter
+        # than the wrapper's host work, and CUDA events around back-to-back
+        # calls would time the host
+        timed_by = set()
+
+        def dev_ms(fn):
+            ms, how = kernel_ms(fn)
+            timed_by.add(how)
+            return ms
+
         timing = {}
-        for dtype in ("bfloat16", "float32"):
-            x, k = conv_inputs(*serving_shape, getattr(torch, dtype))
-            x_nchw = x.permute(0, 3, 1, 2)  # channels-last view, no copy
-            w_oihw = k.permute(3, 2, 0, 1).contiguous()
-            ms = cuda_ms(lambda: conv3x3_same(x, k), 50)
-            plain_ms = cuda_ms(lambda: conv3x3_same_plain(x, k), 50)
-            lib_ms = cuda_ms(lambda: F.conv2d(x_nchw, w_oihw, padding=1), 50)
-            bound_ms, bound_by, nbytes, ops = conv_bound(*serving_shape, dtype)
-            timing[dtype] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                 bound_ms=bound_ms, bound_by=bound_by)
-            emit({"phase": "timing", "what": "conv3x3", "card": card,
-                  "shape": serving_shape, "dtype": dtype, "ms": ms,
-                  "plain_ms": plain_ms, "library_ms": lib_ms,
-                  "library": "F.conv2d (cuDNN, TF32 off)",
-                  "bound_ms": bound_ms, "bound_by": bound_by,
-                  "bytes": nbytes, "operations": ops,
-                  "share_of_bound": bound_ms / ms,
-                  "tflops": ops / ms / 1e9})
+        for shape in (SERVING_SHAPE, (1, 28, 28, 64, 64)):
+            for dtype in ("bfloat16", "float32"):
+                x, k = conv_inputs(*shape, getattr(torch, dtype))
+                x_nchw = x.permute(0, 3, 1, 2)  # channels-last view, no copy
+                w_oihw = k.permute(3, 2, 0, 1).contiguous()
+                ms = dev_ms(lambda: conv3x3_same(x, k))
+                plain_ms = dev_ms(lambda: conv3x3_same_plain(x, k))
+                lib_ms = dev_ms(lambda: F.conv2d(x_nchw, w_oihw, padding=1))
+                bound_ms, bound_by, nbytes, ops = conv_bound(*shape, dtype)
+                timing[shape, dtype] = dict(
+                    ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                    bound_ms=bound_ms, bound_by=bound_by)
+                emit({"phase": "timing", "what": "conv3x3", "card": card,
+                      "shape": shape, "dtype": dtype, "ms": ms,
+                      "plain_ms": plain_ms, "library_ms": lib_ms,
+                      "library": "F.conv2d (cuDNN, TF32 off; its weight "
+                                 "re-layout kernel included)",
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "bytes": nbytes, "operations": ops,
+                      "share_of_bound": bound_ms / ms,
+                      "tflops": ops / ms / 1e9,
+                      "timed_by": sorted(timed_by),
+                      "events_call_ms": cuda_ms(lambda: conv3x3_same(x, k),
+                                                50)})
+        shape = SERVING_SHAPE
+        x, _ = conv_inputs(*shape, torch.bfloat16)
+        g, _ = conv_inputs(*shape[:3], shape[4], shape[4], torch.bfloat16)
+        x_nchw, g_nchw = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+        w_shape = (shape[4], shape[3], 3, 3)
+        bound_ms, bound_by = dkernel_bound(*shape)
+        timing["dk"] = dict(
+            ms=dev_ms(lambda: conv3x3_same_dkernel(x, g)),
+            plain_ms=dev_ms(lambda: conv3x3_same_dkernel_plain(x, g)),
+            library_ms=dev_ms(lambda: torch.nn.grad.conv2d_weight(
+                x_nchw, w_shape, g_nchw, padding=1)),
+            bound_ms=bound_ms, bound_by=bound_by)
+        emit({"phase": "timing", "what": "conv3x3 dK", "card": card,
+              "shape": shape, "dtype": "bfloat16", **timing["dk"],
+              "library": "torch.nn.grad.conv2d_weight (cuDNN wgrad, "
+                         "channels-last, TF32 off)",
+              "timed_by": sorted(timed_by),
+              "share_of_bound": bound_ms / timing["dk"]["ms"]})
         e = engine("bfloat16")
         for b, x, t in ((1, x1, 3), (128, x128, t128)):
             lat = host_ms(lambda: e.generate(x, t), 30)
@@ -689,30 +859,40 @@ def main() -> None:
                  tep.cf_epilogue_bwd_plain,
                  (x, raw, mask, gcf, *cols, -1.0, 1.0), True)):
             bound_ms, bound_by = epilogue_bound(b, n, backward)
-            # device time per call from the profiler: a few microseconds
-            # of kernel, shorter than the wrapper's host-side work, so
-            # CUDA events around back-to-back calls time the host
-            epi[name] = dict(ms=device_time(lambda: kernel(*args), 200)[0],
-                             plain_ms=device_time(lambda: plain(*args),
-                                                  200)[0],
-                             bound_ms=bound_ms, bound_by=bound_by)
+            # device time per call (kernel_ms): a few microseconds of
+            # kernel, shorter than the wrapper's host-side work, so CUDA
+            # events around back-to-back calls time the host
+            (ms, how), (plain_ms, plain_how) = (
+                kernel_ms(lambda: kernel(*args), 200),
+                kernel_ms(lambda: plain(*args), 200))
+            epi[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by)
             emit({"phase": "timing", "what": name, "card": card,
                   "shape": (b, n), "dtype": "float32", **epi[name],
+                  "timed_by": sorted({how, plain_how}),
                   "library_ms": None,
                   "share_of_bound": bound_ms / epi[name]["ms"],
                   "host_bound_call_ms": cuda_ms(lambda: kernel(*args), 200),
                   "plain_host_bound_call_ms": cuda_ms(lambda: plain(*args),
                                                       200)})
 
-    t = timing["bfloat16"]
+    t, dk = timing[SERVING_SHAPE, "bfloat16"], timing["dk"]
     emit({"kernels": [{
         "name": "conv3x3_same", "route": "cuda",
         "source": "cfgan_torch/csrc/conv3x3.cu",
         "replaces": "cfgan/ops/conv.py:71",
         "launches": launches["bfloat16", "pallas"],
-        "max_abs_err": kernel_err[(serving_shape, "bfloat16")],
+        "max_abs_err": kernel_err[(SERVING_SHAPE, "bfloat16")],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "library_ms": t["library_ms"]}] + [{
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"]}, {
+        "name": "conv3x3_same_dkernel", "route": "cuda",
+        "source": "cfgan_torch/csrc/conv3x3_dkernel.cu",
+        "replaces": "cfgan/ops/conv.py:165",
+        "launches": pallas_train_launches["bfloat16"][3],
+        "max_abs_err": dk_err[SERVING_SHAPE],
+        "ms": dk["ms"], "plain_ms": dk["plain_ms"],
+        "bound_ms": dk["bound_ms"], "bound_by": dk["bound_by"],
+        "library_ms": dk["library_ms"]}] + [{
         "name": name, "route": "cuda",
         "source": "cfgan_torch/csrc/epilogue.cu", "replaces": replaces,
         "launches": train_launches["bfloat16"][k],

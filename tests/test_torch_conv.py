@@ -105,11 +105,108 @@ def test_conv_flops_matches_jax(shape):
 def test_nvcc_command_targets_hopper_without_torch_headers():
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
-    assert "-shared" in flags and "-Xptxas -v" in flags
-    assert [p.name for p in _build.SOURCES] == ["conv3x3.cu", "epilogue.cu"]
-    for path in _build.SOURCES:
+    assert "-Xptxas -v" in flags
+    assert "-shared" in " ".join(_build.LINK_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in " ".join(_build.LINK_FLAGS)
+    assert [p.name for p in _build.SOURCES] == [
+        "conv3x3.cu", "epilogue.cu", "conv3x3_dkernel.cu"]
+    headers = sorted(_build.SOURCES[0].parent.glob("*.cuh"))
+    assert [p.name for p in headers] == ["sm90.cuh"]
+    for path in (*_build.SOURCES, *headers):
         src = path.read_text()
         assert "#include <torch" not in src and "extension.h" not in src
+
+
+def test_build_binds_the_dkernel_entry_points():
+    """Each pointer and the stream are c_void_p (a pointer passed as a
+    32-bit int would be cut); the bf16 conv takes its tap-order flag."""
+    import ctypes
+
+    p, i = ctypes.c_void_p, ctypes.c_int
+    assert _build.SIGNATURES["cfgan_conv3x3_bf16"] == [p] * 3 + [i] * 6 + [p]
+    assert _build.SIGNATURES["cfgan_conv3x3_dkernel_blocks"] == [i] * 5
+    assert _build.SIGNATURES["cfgan_conv3x3_dkernel_bf16"] == (
+        [p] * 4 + [i] * 6 + [p])
+    src = _build.SOURCES[2].read_text()
+    for name in ("cfgan_conv3x3_dkernel_blocks", "cfgan_conv3x3_dkernel_bf16"):
+        assert f"int {name}(" in src
+    assert "wgmma" in src and "atomicAdd" not in src
+
+
+def test_dkernel_on_cpu_is_the_plain_version_and_launches_nothing():
+    x, _ = _inputs((2, 6, 5, 20, 24), seed=5)
+    g = np.random.default_rng(6).standard_normal((2, 6, 5, 24)).astype(
+        np.float32)
+    for dtype in (torch.float32, torch.bfloat16):
+        xt, gt = torch.from_numpy(x).to(dtype), torch.from_numpy(g).to(dtype)
+        before = tconv.conv3x3_same_dkernel.launches
+        got = tconv.conv3x3_same_dkernel(xt, gt)
+        assert tconv.conv3x3_same_dkernel.launches == before
+        assert got.dtype == torch.float32 and got.shape == (3, 3, 20, 24)
+        assert torch.equal(got, tconv.conv3x3_same_dkernel_plain(xt, gt))
+
+
+def test_dkernel_does_not_fall_back_when_the_build_fails(monkeypatch):
+    class BuildFailed(RuntimeError):
+        pass
+
+    def fail():
+        raise BuildFailed("nvcc failed")
+
+    monkeypatch.setattr(_build, "load_library", fail)
+    x = torch.empty((2, 8, 8, 16), device="meta", dtype=torch.bfloat16)
+    g = torch.empty((2, 8, 8, 16), device="meta", dtype=torch.bfloat16)
+    with pytest.raises(BuildFailed):
+        tconv.conv3x3_same_dkernel(x, g)
+
+
+@pytest.mark.parametrize("shape", [(3, 9, 11, 16, 24), (2, 7, 5, 20, 40)],
+                         ids=str)
+def test_plain_dkernel_bf16_matches_jax_pallas_vjp(shape):
+    """bf16 x and cotangent: the plain dK (float32 products over the
+    stacked taps) rounded to bf16 against `jax.vjp` of
+    `make_conv3x3_same_pallas(interpret=True)`'s bf16 dK, which rounds its
+    float32 products once.  Tolerance: one bf16 ulp of JAX's value, plus
+    1e-5 of the largest |dK| for the float32 sums' order, which decides
+    the rounding where a sum lies near a boundary."""
+    import jax
+
+    b, h, w, _, cout = shape
+    x, k = _inputs(shape, seed=7)
+    g = np.random.default_rng(8).standard_normal((b, h, w, cout)).astype(
+        np.float32)
+    xb, kb, gb = (jnp.asarray(a, jnp.bfloat16) for a in (x, k, g))
+    _, vjp = jax.vjp(make_conv3x3_same_pallas(interpret=True), xb, kb)
+    want = np.asarray(vjp(gb)[1].astype(jnp.float32))
+    got = tconv.conv3x3_same_dkernel_plain(
+        torch.from_numpy(x).bfloat16(), torch.from_numpy(g).bfloat16())
+    got = got.bfloat16().float().numpy()
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 2.0 ** -126)))
+                  - 7)
+    assert np.all(np.abs(got - want) <= ulp + 1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("shape", SHAPES[:2], ids=str)
+def test_transposed_conv_is_the_jax_vjp_dx(shape):
+    """`conv3x3_same(g, K, transposed=True)` on the CPU (K read flipped and
+    channel-transposed) against the dx of `make_conv3x3_same_pallas`'s
+    VJP: f32 abs <= 1e-5."""
+    import jax
+
+    b, h, w, _, cout = shape
+    x, k = _inputs(shape, seed=9)
+    g = np.random.default_rng(10).standard_normal((b, h, w, cout)).astype(
+        np.float32)
+    _, vjp = jax.vjp(make_conv3x3_same_pallas(interpret=True),
+                     jnp.asarray(x), jnp.asarray(k))
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+    got = tconv.conv3x3_same(torch.from_numpy(g), torch.from_numpy(k),
+                             transposed=True)
+    assert got.shape == x.shape
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+    with pytest.raises(ValueError):
+        tconv.conv3x3_same(torch.from_numpy(x), torch.from_numpy(k),
+                           transposed=True)
 
 
 @pytest.mark.parametrize("shape", SHAPES[:2], ids=str)

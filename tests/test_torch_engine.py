@@ -227,6 +227,22 @@ def test_config_frozen_after_first_request(cpu_engine):
         e.pad_to_bucket = False
 
 
+@pytest.mark.parametrize("entry", ["generate", "generate_bulk"])
+@pytest.mark.parametrize("target", [10, -1, [3, 10], np.array([-1, 0])],
+                         ids=["10", "-1", "per_row_10", "per_row_-1"])
+def test_target_outside_the_class_range_is_rejected(cpu_engine, entry,
+                                                    target):
+    """The JAX engine serves NaN for target 10 and wraps -1 (ROADMAP,
+    Queue C); the port rejects both on the host, and a valid request
+    still serves afterwards."""
+    e = _engine(cpu_engine)
+    x = _images(2, seed=9)
+    with pytest.raises(ValueError, match="class range"):
+        getattr(e, entry)(x, target)
+    r = getattr(e, entry)(x, [9, 0])
+    assert r.x_cf.shape == x.shape and np.isfinite(r.x_cf).all()
+
+
 @pytest.mark.parametrize("b", [1, 2, 3, 5, 8, 100, 512, 513, 1500])
 def test_bucket_sizes_match_jax(b):
     assert CounterfactualEngine._bucket(b) == JaxEngine._bucket(b)

@@ -22,11 +22,13 @@ from cfgan_torch.train.builders import build_mnist_serving, mnist_models
 
 pytestmark = pytest.mark.gpu
 
-# (B, H, W, Cin, Cout): the serving layer; several tiles across W; one
-# row; Cin not a multiple of the kernel's 16-channel stage; Cout over
-# two 64-channel tiles
-SHAPES = [(128, 28, 28, 64, 64), (2, 5, 70, 16, 16), (3, 1, 9, 16, 24),
-          (4, 13, 11, 20, 130), (9, 7, 5, 32, 64)]
+# (B, H, W, Cin, Cout): the serving layer at batch 128 and 1 (the
+# tensor-core kernel's 32-wide Cout tiles); several tiles across W; one
+# row; Cin not a multiple of 8 or 16, W odd; Cout over three 64-channel
+# tiles; Cin over three 64-channel slices
+SHAPES = [(128, 28, 28, 64, 64), (1, 28, 28, 64, 64), (2, 5, 70, 16, 16),
+          (3, 1, 9, 16, 24), (2, 13, 11, 20, 40), (4, 13, 11, 20, 130),
+          (9, 7, 5, 32, 64), (2, 6, 6, 130, 70)]
 
 
 def _card():
@@ -68,6 +70,73 @@ def test_kernel_matches_plain(shape, dtype):
         ulp = torch.exp2(torch.floor(torch.log2(
             ref.abs().clamp_min(2.0 ** -126))) - 7)
         assert bool(((got.float() - ref).abs() <= ulp + 1e-4).all())
+
+
+def _bf16_close(got, ref):
+    """Within one bf16 ulp of the float32 reference rounded to bf16, plus
+    1e-4 for the two float32 sums' difference, which decides the rounding
+    where a sum nearly cancels."""
+    ref = ref.bfloat16().float()
+    ulp = torch.exp2(torch.floor(torch.log2(
+        ref.abs().clamp_min(2.0 ** -126))) - 7)
+    return bool(((got.float() - ref).abs() <= ulp + 1e-4).all())
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_transposed_kernel_matches_plain(shape, dtype):
+    """The dx conv: K read flipped and channel-transposed by the bf16 kernel
+    (no copy), by a flipped copy for the f32 kernel; tolerances as in
+    test_kernel_matches_plain."""
+    dev = _card()
+    dt = getattr(torch, dtype)
+    b, h, w, cin, cout = shape
+    _, k = _inputs(shape, dt, dev, seed=2)
+    g, _ = _inputs((b, h, w, cout, cout), dt, dev, seed=5)
+    before = tconv.conv3x3_same.launches
+    got = tconv.conv3x3_same(g, k, transposed=True)
+    torch.cuda.synchronize()
+    assert tconv.conv3x3_same.launches == before + 1
+    assert got.shape == (b, h, w, cin)
+    ref = tconv.conv3x3_same_plain(
+        g.float(), k.float().flip(0, 1).transpose(2, 3).contiguous())
+    if dt == torch.float32:
+        assert (got - ref).abs().max().item() <= 1e-4
+    else:
+        assert _bf16_close(got, ref)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_dkernel_matches_plain_with_equal_bits(shape):
+    """bf16 x and cotangent, dK in float32: each tap's (Cin, Cout) block
+    within 1e-5 of its 2-norm of the plain version (float32 sums of up to
+    B*H*W = 100,352 products in another order); two calls give the same
+    bits (per-block partials summed in a fixed order, no atomics)."""
+    dev = _card()
+    b, h, w, cin, cout = shape
+    x, _ = _inputs(shape, torch.bfloat16, dev, seed=3)
+    g, _ = _inputs((b, h, w, cout, cout), torch.bfloat16, dev, seed=4)
+    before = tconv.conv3x3_same_dkernel.launches
+    got = tconv.conv3x3_same_dkernel(x, g)
+    again = tconv.conv3x3_same_dkernel(x, g)
+    torch.cuda.synchronize()
+    assert tconv.conv3x3_same_dkernel.launches == before + 2
+    assert got.dtype == torch.float32 and got.shape == (3, 3, cin, cout)
+    assert torch.equal(got, again)
+    ref = tconv.conv3x3_same_dkernel_plain(x, g)
+    err = (got - ref).reshape(9, -1).norm(dim=1)
+    assert bool((err <= 1e-5 * ref.reshape(9, -1).norm(dim=1) + 1e-6).all())
+
+
+def test_dkernel_wrapper_rejects_what_the_kernel_does_not_take():
+    dev = _card()
+    x, _ = _inputs((2, 8, 8, 16, 16), torch.bfloat16, dev)
+    with pytest.raises(TypeError):
+        tconv.conv3x3_same_dkernel(x.float(), x.float())
+    with pytest.raises(ValueError):
+        tconv.conv3x3_same_dkernel(x, x[:, :4])
+    with pytest.raises(ValueError):
+        tconv.conv3x3_same_dkernel(x, x.cpu())
 
 
 def test_kernel_matches_cudnn():
@@ -202,6 +271,42 @@ def test_conv_pallas_layer_passes_gradients_like_matmul(dtype):
         scale = want.abs().max().item()
         tol = 1e-3 if dtype == "float32" else 2e-2 * scale
         assert (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dkernel_launches_once_per_backward_in_bf16_only(dtype):
+    dev = _card()
+    dt = getattr(torch, dtype)
+    layer = Conv(32, 32, 3, 1, 1, impl="pallas").to(dev)
+    x = torch.randn((2, 9, 9, 32), device=dev, dtype=dt, requires_grad=True)
+    params = {n: p.to(dt) for n, p in layer.named_parameters()}
+    before = tconv.conv3x3_same_dkernel.launches
+    torch.func.functional_call(layer, params, (x,)).float().sum().backward()
+    torch.cuda.synchronize()
+    want = 1 if dt == torch.bfloat16 else 0
+    assert tconv.conv3x3_same_dkernel.launches == before + want
+
+
+def test_engine_rejects_a_target_and_serves_the_next_request():
+    """A target outside the class range is refused on the host, before the
+    card sees it (an embedding lookup out of range is a device-side assert,
+    which would end the process's CUDA context); the next request serves."""
+    dev = _card()
+    cfg = replace(MNIST_COUNTERGAN, hidden_dim=32, num_res_blocks=1,
+                  conv_impl="pallas")
+    g, c = mnist_models(cfg, generator=torch.Generator().manual_seed(0))
+    s = build_mnist_serving(cfg, g.state_dict(), c.state_dict(), device=dev)
+    e = CounterfactualEngine(s.cf_fn, s.clf_fn, 10, patch_size=7, device=dev)
+    x = np.random.default_rng(1).uniform(-1, 1, (3, 28, 28, 1)).astype(
+        np.float32)
+    for bad in (10, -1, [0, 1, 10]):
+        with pytest.raises(ValueError, match="class range"):
+            e.generate(x, bad)
+        with pytest.raises(ValueError, match="class range"):
+            e.generate_bulk(x, bad, chunk=2)
+    r = e.generate(x, [9, 0, 4])
+    torch.cuda.synchronize()
+    assert r.x_cf.shape == x.shape and np.isfinite(r.x_cf).all()
 
 
 def test_conv_pallas_backward_launches_the_kernel_for_dx():
