@@ -15,12 +15,14 @@
 // Any B, H, W, Cin and Cout work: the SAME padding and every ragged edge are
 // handled inside the kernels (no padded copy of x, no batch padding).
 //
-// Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 tensor, 67 TFLOP/s f32
-// outside the tensor cores) at the serving shape B=128, 28x28, 64->64:
+// Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 and 494.7 TFLOP/s tf32
+// on the tensor cores, dense) at the serving shape B=128, 28x28, 64->64:
 //   operations  2*B*H*W*Cin*Cout*9 = 7.40 GFLOP
 //   bf16: 25.8 MB of x + y + K -> 0.0077 ms at 3.35 TB/s, against 0.0075 ms
 //         of operations at 989 TFLOP/s: both near the ridge
-//   f32:  51.5 MB -> 0.0154 ms, but 0.110 ms at 67 TFLOP/s (operations)
+//   f32:  51.5 MB -> 0.0154 ms, against three tf32 products (3xTF32, below)
+//         3 x 7.40 GFLOP at 494.7 TFLOP/s = 0.0449 ms: operations (on the
+//         CUDA cores, 67 TFLOP/s, it was 0.110 ms)
 //
 // bf16: an implicit GEMM on the tensor cores (conv3x3_wgmma_kernel).
 //   M = B*H*W output pixels, N = Cout, depth 9*Cin.  A block of 1-4
@@ -61,16 +63,50 @@
 //   ptxas (sm_90a, CUDA 12.9): 128 registers (the cap of 512 threads),
 //   0 spills, for all four instantiations (BN 64/32, flip 0/1).
 //
-// float32: the first version's kernel, unchanged (conv3x3_same_kernel): the
-// CUDA cores in f32 FMAs.  TF32 tensor cores keep about 3 decimal digits,
-// which the f32 tolerances of the port do not allow.  One block of 256
-// threads per (image, tile of up to 128 output pixels, tile of 64 output
-// channels).  For each slice of 16 input channels the block stages the
-// tile's input halo, (TH+2) x (TW+2) pixels with zeros outside the image,
-// and the matching 9 x 16 x 64 slice of K in shared memory as float32.  The
-// halo is stored channel-major so that the 16 pixel lanes of a warp read
-// neighbouring words.  Each thread accumulates 8 pixels x 4 output channels
-// in registers over 9 taps x 16 channels per slice.
+// float32: 3xTF32 on the tensor cores (f32::conv3x3_tf32_kernel).  One
+// tf32 product keeps about 3 decimal digits, which the port's float32 bars
+// (1e-4 against the plain version, 3e-5 single-step parity) do not allow.
+// So each operand is split as a = big + small, big = tf32(a) rounded to
+// nearest (cvt.rna: the tensor cores would truncate) and small = a - big
+// (sm90::tf32_split), and each product is big*big + big*small +
+// small*big (small*small is below float32's rounding), accumulated in f32
+// registers.
+// The structure is the bf16 kernel's: a persistent implicit GEMM over
+// pixels in (n, h, w) order, the halo staged once per tile (16-byte chunks
+// XOR-swizzled by pixel), a tap a shift of ldmatrix's row addresses, which
+// deliver tf32 A fragments as they are (each 32-bit word one element).  A
+// is split in registers one k8 step at a time, double-buffered, so that
+// the next step loads while the last one's products run.
+//   - B must be K-major: wgmma has no transpose for 32-bit types, and K
+//     (HWIO) has Cout contiguous.  So a small kernel per call
+//     (conv3x3_tf32_split_kernel) writes K's big and small parts, already
+//     flipped for dx, in wgmma's K-major layout, each (Cin slice, tap, 8
+//     output channels) a contiguous 2 KB image of shared memory, into a
+//     workspace the caller allocates; the main kernel loads it with the
+//     bulk copy engine, a row of taps on each of three mbarriers.  It is
+//     one extra launch (K read once, 147 KB at 64->64, and 295 KB
+//     written), and it takes B's split out of the main loop.
+//   - Shared memory: both parts of K for a 64-wide Cout tile would be
+//     9 x 64 x 64 x 4 B x 2 = 295 KB, more than a block's 227 KB.  So Cout
+//     comes in 32-wide tiles (147 KB, loaded once for the block's life),
+//     one block an SM.  Beside K there is room for one float32 halo of
+//     three warpgroups' 192 pixels ((192 + 2W + 2) x 256 B, 64 KB at
+//     W = 28), or two of one warpgroup's 64: three warpgroups take turns
+//     on the tensor cores while the others load and split their A, which
+//     beat hiding the halo's load behind one warpgroup's products.  Fewer
+//     warpgroups where three would leave SMs without a tile, or where
+//     their halo does not fit (W over 68 for three, 100 for two).
+//     Streaming K by rows of taps through a ring would let 64-wide tiles
+//     in, but every tile would then read all of K from the L2 again.
+//   - B = 1 at 28x28, 64->64: 13 tiles of 64 pixels x 2 Cout tiles = 26
+//     blocks of one warpgroup.
+//   - The tensor cores add each product into the accumulator with
+//     truncation; the 216 products of a tile would take the error past
+//     the float32 bar, so each k8 step's three products sum into fresh
+//     registers that the CUDA cores add into the tile's sum
+//     (sm90::wgmma_3xtf32_n32).
+//   - Epilogue: float32 straight from the accumulators, two values a
+//     thread; a pixel's 8 columns of one group are one 32-byte sector.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -80,153 +116,328 @@
 
 #include "sm90.cuh"
 
+// ---------------------------------------------- float32 on the tensor cores
+namespace f32 {
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kPixLanes = 16;                  // threads along output pixels
-constexpr int kPixPer = 8;                     // pixels per thread
-constexpr int kPixTile = kPixLanes * kPixPer;  // 128 output pixels per block
-constexpr int kCoPer = 4;                      // output channels per thread
-constexpr int kCoGroups = kThreads / kPixLanes;
-constexpr int kCoTile = kCoGroups * kCoPer;    // 64 output channels per block
-constexpr int kCiTile = 16;                    // input channels per stage
-constexpr int kMaxTileW = 32;
-// The halo is largest for a one-pixel-wide tile: (128 + 2) x (1 + 2).
-constexpr int kMaxHalo = (kPixTile + 2) * 3;
-constexpr int kMaxSmemBytes =
-    (kCiTile * kMaxHalo + 9 * kCiTile * kCoTile) * int(sizeof(float));
+constexpr int kWarpgroup = 128;
+constexpr int kTileRows = 64;             // wgmma M: pixels per warpgroup
+constexpr int kBN = 32;                   // wgmma N: output channels a tile
+constexpr int kSlice = 64;                // input channels per stage
+constexpr int kChunks = kSlice / 4;       // 16-byte chunks per halo pixel
+constexpr int kPixelBytes = kSlice * 4;
+constexpr int kSteps = kSlice / 8;        // k8 products per tap
+constexpr int kGroupBytes = 8 * kSlice * 4;       // 8 rows of N, one slice
+constexpr int kTapBytes = kBN / 8 * kGroupBytes;  // a tap's tile, one part
+constexpr int kKBytes = 2 * 9 * kTapBytes;        // big and small, 9 taps
+constexpr int kSmemLimit = 232448;
+constexpr int kMaxWarpgroups = 3;
 
-__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+struct Params {
+  const float* x;
+  const float* ws;  // K split by conv3x3_tf32_split_kernel
+  float* y;
+  long long P;      // B * H * W
+  int H, W, CI, CO;
+  int vec;          // x's pixels start 16-byte aligned: stage with cp.async
+  int yvec;         // y's rows start 8-byte aligned and CO is even
+  int TM, S, nslots, mtiles, ntiles, nslices, ngroups, nbuf, halo_bytes;
+  long long part;   // floats of one part of ws
+};
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-conv3x3_same_kernel(const T* __restrict__ x, const T* __restrict__ k,
-                    T* __restrict__ y, int H, int W, int Cin, int Cout,
-                    int TH, int TW, int tiles_w, int tiles_per_image) {
-  extern __shared__ __align__(16) float smem[];
-  const int halo_w = TW + 2;
-  const int halo = (TH + 2) * halo_w;
-  float* xs = smem;                  // [kCiTile][halo]
-  float* ks = smem + kCiTile * halo; // [9][kCiTile][kCoTile]; 16-byte aligned
+// chunk c of the halo (pixel c / 16, 16-byte chunk c % 16) lives at this
+// chunk: 8 consecutive pixels of one chunk fall on 8 distinct bank groups
+__device__ __forceinline__ uint32_t swz(uint32_t c) {
+  return c ^ ((c >> 4) & 7);
+}
 
-  const int n = blockIdx.x / tiles_per_image;
-  const int t = blockIdx.x - n * tiles_per_image;
-  const int y0 = (t / tiles_w) * TH;
-  const int x0 = (t % tiles_w) * TW;
-  const int c0 = blockIdx.y * kCoTile;
-  const int lane = threadIdx.x % kPixLanes;
-  const int cg = threadIdx.x / kPixLanes;
-
-  // halo offset of each pixel's top-left tap; a pixel outside the tile or
-  // the image reads slot 0 and is never stored (bit p of `live` is clear)
-  int hoff[kPixPer];
-  unsigned live = 0;
-#pragma unroll
-  for (int p = 0; p < kPixPer; ++p) {
-    const int pix = lane + p * kPixLanes;
-    const int py = pix / TW, px = pix - py * TW;
-    const bool ok = pix < TH * TW && y0 + py < H && x0 + px < W;
-    hoff[p] = ok ? py * halo_w + px : 0;
-    live |= unsigned(ok) << p;
+// K (3, 3, CI, CO), or flipped K[8 - t][o][c] from (3, 3, CO, CI), as
+// 3xTF32 parts in wgmma's K-major canonical layout without swizzle, each
+// (slice, tap, group of 8 output channels) a contiguous 2 KB image of
+// shared memory: (n, k) at (n % 8) * 16 + (k / 4) * 128 + (k % 4) * 4,
+// LBO = 128 (along the depth), SBO = 2048 (along N).  Part 1 (small) lies
+// `part` floats after part 0 (big); zeros past CI and CO.
+__global__ void conv3x3_tf32_split_kernel(const float* __restrict__ k,
+                                          float* __restrict__ ws, int CI,
+                                          int CO, int ngroups, int flip,
+                                          long long part) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < part; i += (long long)gridDim.x * blockDim.x) {
+    const int e = (int)(i % 4), r = (int)(i / 4 % 8), kc = (int)(i / 32 % 16);
+    const long long q = i / 512;
+    const int ng = (int)(q % ngroups), t = (int)(q / ngroups % 9);
+    const int s = (int)(q / ngroups / 9);
+    const int n = ng * 8 + r, c = s * kSlice + kc * 4 + e;
+    float v = 0.f;
+    if (c < CI && n < CO)
+      v = flip ? k[((long long)(8 - t) * CO + n) * CI + c]
+               : k[((long long)t * CI + c) * CO + n];
+    uint32_t big, small;
+    sm90::tf32_split(__float_as_uint(v), big, small);
+    ws[i] = __uint_as_float(big);
+    ws[part + i] = __uint_as_float(small);
   }
+}
 
-  float acc[kPixPer][kCoPer];
-#pragma unroll
-  for (int p = 0; p < kPixPer; ++p)
-#pragma unroll
-    for (int j = 0; j < kCoPer; ++j) acc[p][j] = 0.f;
+long long split_floats(int CI, int CO) {
+  return (long long)((CI + kSlice - 1) / kSlice) * 9 *
+         ((CO + kBN - 1) / kBN) * (kBN / 8) * (kGroupBytes / 4);
+}
 
-  const long long img = (long long)n * H * W;
-  for (int ci0 = 0; ci0 < Cin; ci0 += kCiTile) {
-    // stage the input halo, channel fastest in global memory
-    for (int i = threadIdx.x; i < kCiTile * halo; i += kThreads) {
-      const int ci = i % kCiTile, hp = i / kCiTile;
-      const int gy = y0 + hp / halo_w - 1, gx = x0 + hp % halo_w - 1;
-      const int c = ci0 + ci;
-      float v = 0.f;
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W && c < Cin)
-        v = load_f32(x + (img + (long long)gy * W + gx) * Cin + c);
-      xs[ci * halo + hp] = v;
+// halo pixels [p0 + (dy-1)*W - 1, ... + TM + 2) for each dy, input channels
+// [c0, c0 + 64), float32; zeros past the tensor or past CI
+__device__ __forceinline__ void stage_halo(const Params& p, unsigned char* buf,
+                                           long long p0, int c0) {
+  const int total = p.nslots * kChunks;
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    const int s = i / kChunks, j = i % kChunks;
+    int dy = s / p.S;
+    if (dy > 2) dy = 2;
+    const long long q = p0 + (long long)(dy - 1) * p.W - 1 + (s - dy * p.S);
+    const int c = c0 + 4 * j;
+    const int avail = q >= 0 && q < p.P ? p.CI - c : 0;
+    sm90::copy16_f32(buf + swz(i) * 16,
+                     p.x + (avail > 0 ? q * p.CI + c : 0), avail, p.vec);
+  }
+}
+
+__global__ void __launch_bounds__(kWarpgroup * kMaxWarpgroups, 1)
+conv3x3_tf32_kernel(const Params p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* ks = smem;                  // big taps, then small taps
+  unsigned char* zero16 = smem + kKBytes;    // + 3 mbarriers at 64, 72, 80
+  unsigned char* halo = zero16 + 128;
+  const int tid = threadIdx.x;
+  const int wg = tid / kWarpgroup, warp = (tid / 32) % 4, lane = tid % 32;
+  if (tid < 4) reinterpret_cast<uint32_t*>(zero16)[tid] = 0u;
+  const uint32_t kbar = sm90::smem_u32(zero16 + 64);  // one per row of taps
+  if (tid == 0) {
+    for (int g = 0; g < 3; ++g) sm90::mbar_init(kbar + 8 * g, 1);
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();
+  int kphase = 0;
+
+  const int units = p.mtiles * p.ntiles;
+  const int mine = (int)blockIdx.x < units
+                       ? (units - 1 - (int)blockIdx.x) / (int)gridDim.x + 1
+                       : 0;
+  const int stages = mine * p.nslices;
+  auto unit_of = [&](int i) {
+    return (int)blockIdx.x + (i / p.nslices) * (int)gridDim.x;
+  };
+  auto issue_halo = [&](int i) {
+    if (i < stages) {
+      const int u = unit_of(i);
+      stage_halo(p, halo + (i % p.nbuf) * p.halo_bytes,
+                 (long long)(u % p.mtiles) * p.TM, (i % p.nslices) * kSlice);
     }
-    // stage K[:, :, ci0:ci0+16, c0:c0+64], output channel fastest
-    for (int i = threadIdx.x; i < 9 * kCiTile * kCoTile; i += kThreads) {
-      const int co = i % kCoTile, r = i / kCoTile;
-      const int ci = r % kCiTile, tap = r / kCiTile;
-      const int c = ci0 + ci, o = c0 + co;
-      float v = 0.f;
-      if (c < Cin && o < Cout)
-        v = load_f32(k + ((long long)tap * Cin + c) * Cout + o);
-      ks[i] = v;
+    sm90::cp_async_commit();
+  };
+
+  // this lane's ldmatrix row: pixel rel of the tile, 16-byte chunk half jh
+  const int rel =
+      wg * kTileRows + warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1);
+  const int jh = lane >> 4;
+  const uint32_t zaddr = sm90::smem_u32(zero16);
+  const uint32_t kbase = sm90::smem_u32(ks);
+
+  float acc[kBN / 2];
+  int k_key = -1;
+  const int dy0 = blockIdx.x % 3;  // the first row of taps this block takes
+  issue_halo(0);
+  for (int i = 0; i < stages; ++i) {
+    const int u = unit_of(i), s = i % p.nslices;
+    const int ntile = u / p.mtiles;
+    const long long p0 = (long long)(u % p.mtiles) * p.TM;
+    const int n0 = ntile * kBN;
+    if (s == 0) {
+#pragma unroll
+      for (int r = 0; r < kBN / 2; ++r) acc[r] = 0.f;
+    }
+    // K changes only between the slices of CI or the tiles of CO; the last
+    // stage's products are done with it (the barrier that ends it).  One
+    // thread asks the bulk copy engine for the split taps, a row of taps
+    // (its big and small parts) on each mbarrier; the products start on the
+    // block's own row while the other two are in flight.
+    const bool fresh = ntile * p.nslices + s != k_key;
+    if (fresh) {
+      if (tid == 0) {
+        for (int j = 0; j < 3; ++j) {
+          const int g = (dy0 + j) % 3;
+          sm90::mbar_expect_tx(kbar + 8 * g, 2 * 3 * kTapBytes);
+          for (int t = 3 * g; t < 3 * g + 3; ++t)
+            for (int h = 0; h < 2; ++h)
+              sm90::bulk_load(
+                  kbase + (h * 9 + t) * kTapBytes,
+                  p.ws + h * p.part +
+                      (((long long)s * 9 + t) * p.ngroups + ntile * (kBN / 8)) *
+                          (kGroupBytes / 4),
+                  kTapBytes, kbar + 8 * g);
+        }
+      }
+      k_key = ntile * p.nslices + s;
+      sm90::cp_async_wait<0>();  // this stage's halo
+      sm90::mbar_wait(kbar + 8 * dy0, kphase);
+    } else {
+      sm90::cp_async_wait<0>();  // this stage's halo
     }
     __syncthreads();
+    // the next halo streams in while this one is multiplied
+    if (p.nbuf == 2 && !fresh) issue_halo(i + 1);
 
-#pragma unroll 2
-    for (int ci = 0; ci < kCiTile; ++ci) {
-      const float* xc = xs + ci * halo;
+    const uint32_t hbase = sm90::smem_u32(halo + (i % p.nbuf) * p.halo_bytes);
+    const long long pix = p0 + rel;
+    const bool live = pix < p.P;
+    const int h = live ? (int)((pix / p.W) % p.H) : 0;
+    const int w = live ? (int)(pix % p.W) : 0;
+    // A group is one k8 step of one tap: A's fragment (ldmatrix) split
+    // into its tf32 parts while the last group's products run (two
+    // buffers), its three products summed into a fresh tmp, which the CUDA
+    // cores add into acc once the group is done (sm90::wgmma_3xtf32_n32)
+    uint32_t big[2][4], small[2][4];
+    float tmp[2][kBN / 2];
 #pragma unroll
-      for (int dy = 0; dy < 3; ++dy) {
+    for (int j = 0; j < 9; ++j) {
+      const int dy = (dy0 + j / 3) % 3, dx = j % 3, t = dy * 3 + dx;
+      if (fresh && (j == 3 || j == 6)) {  // the next row of K's taps
+        sm90::mbar_wait(kbar + 8 * dy, kphase);
+        if (j == 6 && p.nbuf == 2) issue_halo(i + 1);
+      }
+      const bool ok = live && (unsigned)(h + dy - 1) < (unsigned)p.H &&
+                      (unsigned)(w + dx - 1) < (unsigned)p.W;
+      const uint32_t c = (uint32_t)(dy * p.S + rel + dx) * kChunks + jh;
 #pragma unroll
-        for (int dx = 0; dx < 3; ++dx) {
-          const float4 kv = *reinterpret_cast<const float4*>(
-              ks + ((dy * 3 + dx) * kCiTile + ci) * kCoTile + cg * kCoPer);
-          const int off = dy * halo_w + dx;
+      for (int kc = 0; kc < kSteps; ++kc) {
+        const int b = kc % 2;  // kSteps is even: group j * kSteps + kc
+        if (j > 0 || kc >= 2) {
+          sm90::wgmma_wait<1>();  // the group two back is done
 #pragma unroll
-          for (int p = 0; p < kPixPer; ++p) {
-            const float a = xc[hoff[p] + off];
-            acc[p][0] = fmaf(a, kv.x, acc[p][0]);
-            acc[p][1] = fmaf(a, kv.y, acc[p][1]);
-            acc[p][2] = fmaf(a, kv.z, acc[p][2]);
-            acc[p][3] = fmaf(a, kv.w, acc[p][3]);
+          for (int r = 0; r < kBN / 2; ++r) acc[r] += tmp[b][r];
+        }
+        uint32_t a[4];
+        sm90::ldmatrix_x4(a, ok ? hbase + swz(c + 2 * kc) * 16 : zaddr);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sm90::tf32_split(a[e], big[b][e], small[b][e]);
+        sm90::wgmma_fence();
+        const uint32_t off = t * kTapBytes + kc * 2 * 128;
+        sm90::wgmma_3xtf32_n32(
+            tmp[b], big[b], small[b],
+            sm90::make_desc(kbase + off, 128, kGroupBytes),
+            sm90::make_desc(kbase + 9 * kTapBytes + off, 128, kGroupBytes),
+            0);
+        sm90::wgmma_commit();
+      }
+    }
+    sm90::wgmma_wait<0>();
+#pragma unroll
+    for (int r = 0; r < kBN / 2; ++r) {
+      acc[r] += tmp[0][r];
+      acc[r] += tmp[1][r];
+    }
+    if (fresh) kphase ^= 1;
+    __syncthreads();  // the halo buffer and K are free again
+    if (p.nbuf == 1) issue_halo(i + 1);
+
+    if (s == p.nslices - 1) {
+      // f32 straight from the accumulators: a row's 8 columns of one
+      // 8-wide group are 32 contiguous bytes, one sector
+      const int g = lane / 4, tq = lane % 4;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const long long q = p0 + wg * kTileRows + warp * 16 + g + 8 * half;
+        if (q >= p.P) continue;
+        float* dst = p.y + q * p.CO;
+#pragma unroll
+        for (int j = 0; j < kBN / 8; ++j) {
+          const int o = n0 + 8 * j + 2 * tq;
+          const float v0 = acc[4 * j + 2 * half];
+          const float v1 = acc[4 * j + 2 * half + 1];
+          if (p.yvec && o < p.CO) {
+            *reinterpret_cast<float2*>(dst + o) = make_float2(v0, v1);
+          } else {
+            if (o < p.CO) dst[o] = v0;
+            if (o + 1 < p.CO) dst[o + 1] = v1;
           }
         }
       }
     }
-    __syncthreads();
   }
-
-#pragma unroll
-  for (int p = 0; p < kPixPer; ++p) {
-    if (!(live >> p & 1u)) continue;
-    const int pix = lane + p * kPixLanes;
-    const int gy = y0 + pix / TW, gx = x0 + pix % TW;
-    T* out = y + (img + (long long)gy * W + gx) * Cout;
-#pragma unroll
-    for (int j = 0; j < kCoPer; ++j) {
-      const int o = c0 + cg * kCoPer + j;
-      if (o < Cout) store(out + o, acc[p][j]);
-    }
-  }
-}
-
-template <typename T>
-cudaError_t launch(const T* x, const T* k, T* y, int B, int H, int W,
-                   int Cin, int Cout, cudaStream_t stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0)
-    return cudaErrorInvalidValue;
-  // Raise the dynamic shared-memory cap once, to the most any tile needs.
-  static cudaError_t attr = cudaFuncSetAttribute(
-      conv3x3_same_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kMaxSmemBytes);
-  if (attr != cudaSuccess) return attr;
-  const int TW = W < kMaxTileW ? W : kMaxTileW;
-  int TH = kPixTile / TW;
-  if (TH > H) TH = H;
-  const int tiles_w = (W + TW - 1) / TW;
-  const int tiles_per_image = tiles_w * ((H + TH - 1) / TH);
-  const long long blocks = (long long)B * tiles_per_image;
-  const int co_tiles = (Cout + kCoTile - 1) / kCoTile;
-  if (blocks > 0x7fffffffLL || co_tiles > 65535) return cudaErrorInvalidValue;
-  const size_t smem =
-      (size_t)(kCiTile * (TH + 2) * (TW + 2) + 9 * kCiTile * kCoTile) *
-      sizeof(float);
-  conv3x3_same_kernel<T><<<dim3((unsigned)blocks, co_tiles), kThreads, smem,
-                           stream>>>(x, k, y, H, W, Cin, Cout, TH, TW,
-                                     tiles_w, tiles_per_image);
-  return cudaGetLastError();
+  sm90::cp_async_wait<0>();
 }
 
 }  // namespace
+
+// floats of the workspace (both parts), or 0 where it would not fit an int
+int workspace_floats(int CI, int CO) {
+  if (CI <= 0 || CO <= 0) return 0;
+  const long long n = 2 * split_floats(CI, CO);
+  return n > 0x7fffffffLL ? 0 : (int)n;
+}
+
+cudaError_t conv3x3_f32(const float* x, const float* k, float* ws, float* y,
+                        int B, int H, int W, int CI, int CO, int flip,
+                        int ws_floats, cudaStream_t stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || CI <= 0 || CO <= 0 ||
+      ws_floats <= 0 || ws_floats != workspace_floats(CI, CO))
+    return cudaErrorInvalidValue;
+  Params p{};
+  p.x = x;
+  p.ws = ws;
+  p.y = y;
+  p.P = (long long)B * H * W;
+  p.H = H;
+  p.W = W;
+  p.CI = CI;
+  p.CO = CO;
+  p.vec = CI % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  p.yvec = CO % 2 == 0 && reinterpret_cast<uintptr_t>(y) % 8 == 0;
+  p.ntiles = (CO + kBN - 1) / kBN;
+  p.nslices = (CI + kSlice - 1) / kSlice;
+  p.ngroups = p.ntiles * (kBN / 8);
+  int sms = 0;
+  cudaError_t err = sm90::sm_count(sms);
+  if (err != cudaSuccess) return err;
+  // the most warpgroups a block (up to three, with one buffer of halo
+  // beside K) whose tiles still give every SM one and whose halo fits;
+  // one warpgroup has two buffers
+  const int fixed = kKBytes + 128;
+  int warpgroups = kMaxWarpgroups;
+  for (;; --warpgroups) {
+    p.TM = kTileRows * warpgroups;
+    p.S = p.W < p.TM + 2 ? p.W : p.TM + 2;
+    p.nslots = 2 * p.S + p.TM + 2;
+    p.mtiles = (int)((p.P + p.TM - 1) / p.TM);
+    p.halo_bytes = p.nslots * kPixelBytes;
+    if (warpgroups == 1 ||
+        ((long long)p.mtiles * p.ntiles >= sms &&
+         fixed + p.halo_bytes <= kSmemLimit))
+      break;
+  }
+  p.nbuf = fixed + 2 * p.halo_bytes <= kSmemLimit ? 2 : 1;
+  const int smem = fixed + p.nbuf * p.halo_bytes;
+  const void* fn = reinterpret_cast<const void*>(conv3x3_tf32_kernel);
+  int per_sm = 0;
+  err = sm90::occupancy(fn, kWarpgroup * warpgroups, smem, kSmemLimit, sms,
+                        per_sm);
+  if (err != cudaSuccess) return err;
+  const long long units = (long long)p.mtiles * p.ntiles;
+  if (units * p.nslices > 0x7fffffffLL) return cudaErrorInvalidValue;
+  p.part = split_floats(CI, CO);
+  long long sblocks = (p.part + 255) / 256;
+  if (sblocks > 4LL * sms) sblocks = 4LL * sms;
+  conv3x3_tf32_split_kernel<<<(unsigned)sblocks, 256, 0, stream>>>(
+      k, ws, CI, CO, p.ngroups, flip, p.part);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long most = (long long)sms * per_sm;
+  const int grid = (int)(units < most ? units : most);
+  conv3x3_tf32_kernel<<<grid, kWarpgroup * warpgroups, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace f32
 
 // ------------------------------------------------- bf16 on the tensor cores
 namespace tc {
@@ -623,16 +834,26 @@ cudaError_t conv3x3_bf16(const bf16* x, const bf16* k, bf16* y, int B, int H,
 
 extern "C" {
 
-int cfgan_conv3x3_f32(const void* x, const void* k, void* y, int B, int H,
-                      int W, int Cin, int Cout, void* stream) {
-  return (int)launch(static_cast<const float*>(x),
-                     static_cast<const float*>(k), static_cast<float*>(y), B,
-                     H, W, Cin, Cout, static_cast<cudaStream_t>(stream));
-}
-
 // flip = 0: y = conv(x, K) with K (3, 3, Cin, Cout).  flip = 1: y =
 // conv(x, K flipped in both spatial axes, channels transposed) with K
 // (3, 3, Cout, Cin): the dx of a conv with K, from its cotangent x.
+
+// The float32 workspace cfgan_conv3x3_f32 takes at these channel counts,
+// in floats (K's 3xTF32 parts in the kernel's layout); 0: too large
+int cfgan_conv3x3_f32_workspace(int Cin, int Cout) {
+  return f32::workspace_floats(Cin, Cout);
+}
+
+int cfgan_conv3x3_f32(const void* x, const void* k, void* y, void* ws,
+                      int B, int H, int W, int Cin, int Cout, int flip,
+                      int ws_floats, void* stream) {
+  return (int)f32::conv3x3_f32(static_cast<const float*>(x),
+                               static_cast<const float*>(k),
+                               static_cast<float*>(ws), static_cast<float*>(y),
+                               B, H, W, Cin, Cout, flip, ws_floats,
+                               static_cast<cudaStream_t>(stream));
+}
+
 int cfgan_conv3x3_bf16(const void* x, const void* k, void* y, int B, int H,
                        int W, int Cin, int Cout, int flip, void* stream) {
   return (int)tc::conv3x3_bf16(static_cast<const __nv_bfloat16*>(x),

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels, as
-// inline PTX: cp.async with zero fill, ldmatrix, mbarriers, TMA loads, and
-// wgmma with the A operand in registers and B read from shared memory
+// inline PTX: cp.async with zero fill, ldmatrix, mbarriers, TMA and bulk
+// loads, and wgmma (bf16, and tf32 for the float32 kernels' 3xTF32
+// products) with the A operand in registers and B read from shared memory
 // through a matrix descriptor.
 //
 // B's shared-memory layout is either the canonical one without swizzle:
@@ -18,6 +19,19 @@
 //
 // Accumulator layout (f32, N/2 registers a thread): d[4j + i] holds row
 // 16w + g + 8 * (i / 2), column 8j + 2t + (i % 2).
+//
+// tf32 (m64nNk8): A's register fragment is the mma.sync m16n8k8 tf32 one,
+// a0 (row g, depth t), a1 (row g+8), a2 (row g, depth t+4), a3 (row g+8,
+// depth t+4), which ldmatrix.x4 (b16) delivers from rows of f32 values
+// with the same row addresses as a bf16 k16 step: each 32-bit word is one
+// element.  B must be K-major (no transpose for tf32): core matrices of 8
+// rows of N x 16 bytes (4 depth values), LBO the stride between core
+// matrices along the depth, SBO along N, as for bf16.  The tensor cores
+// read only the top 19 bits of each word, truncating; tf32_rna rounds to
+// nearest instead.  One tf32 product keeps about 3 decimal digits; the
+// 3xTF32 products big*big + big*small + small*big (big = tf32(a),
+// small = a - big; small*small is below float32's rounding) keep
+// float32's accuracy.
 #pragma once
 
 #include <cuda.h>
@@ -185,6 +199,90 @@ struct Wgmma<32, TransB> {
           "n"(TransB));
   }
 };
+
+// 16 bytes (4 floats) from src to shared memory, those at or past `avail`
+// zero: cp.async where vec (src 16-byte aligned), else element-wise
+__device__ __forceinline__ void copy16_f32(unsigned char* dst,
+                                           const float* src, int avail,
+                                           bool vec) {
+  if (vec) {
+    cp_async16(smem_u32(dst), src, avail > 0 ? 16 : 0);
+  } else {
+    float4 v;
+    v.x = avail > 0 ? src[0] : 0.f;
+    v.y = avail > 1 ? src[1] : 0.f;
+    v.z = avail > 2 ? src[2] : 0.f;
+    v.w = avail > 3 ? src[3] : 0.f;
+    *reinterpret_cast<float4*>(dst) = v;
+  }
+}
+
+// the float32 value a rounded to tf32 (nearest, ties away), low 13 bits 0
+__device__ __forceinline__ uint32_t tf32_rna(float a) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(a));
+  return r;
+}
+
+// a = big + small, the split of 3xTF32: big = a rounded to tf32, small =
+// a - big exactly.  small is left for the tensor cores to truncate to
+// tf32: it has at most 13 significant bits and loses at most 2, at most
+// 2^-22 of a, the size of a second rounding's own error (the conv's row
+// errors read the same with and without it, and the split is the
+// float32 kernels' costliest ALU work)
+__device__ __forceinline__ void tf32_split(uint32_t a, uint32_t& big,
+                                           uint32_t& small) {
+  big = tf32_rna(__uint_as_float(a));
+  small = __float_as_uint(__uint_as_float(a) - __uint_as_float(big));
+}
+
+// `bytes` (a multiple of 16) from global to shared memory by the bulk copy
+// engine, completing on the mbarrier's transaction count
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// d (64 x 32, f32) = A (64 x 8, tf32, registers) * B (8 x 32, tf32,
+// shared memory, K-major), + d unless scale_d is 0
+__device__ __forceinline__ void wgmma_tf32_n32(float (&d)[16],
+                                               const uint32_t (&a)[4],
+                                               uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// d (+)= the 3xTF32 product of A = big + small and B = its big and small
+// tiles: big*small and small*big first, then big*big; d's old value is
+// dropped where scale_d is 0.
+//
+// The tensor cores add each product into d with truncation, so d's error
+// grows with the number of products it takes: over the 216 products of a
+// 576-deep conv, past the float32 bar of 1e-5 per output row.  The float32
+// kernels therefore start a fresh d every few products and add it into
+// their running sum on the CUDA cores, which round to nearest.
+__device__ __forceinline__ void wgmma_3xtf32_n32(float (&d)[16],
+                                                 const uint32_t (&big)[4],
+                                                 const uint32_t (&small)[4],
+                                                 uint64_t bbig,
+                                                 uint64_t bsmall,
+                                                 int scale_d) {
+  wgmma_tf32_n32(d, small, bbig, scale_d);
+  wgmma_tf32_n32(d, big, bsmall, 1);
+  wgmma_tf32_n32(d, big, bbig, 1);
+}
 
 // ---------------------------------------------------------------- host
 // cuTensorMapEncodeTiled from the driver, found through the runtime (the

@@ -30,14 +30,18 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: C entry point -> its argument types; each returns a cudaError_t as int
 SIGNATURES = {
-    # (x, kernel, out, B, H, W, Cin, Cout, stream)
-    "cfgan_conv3x3_f32": [_P] * 3 + [_I] * 5 + [_P],
+    # (Cin, Cout) -> floats of the f32 conv's workspace, or 0
+    "cfgan_conv3x3_f32_workspace": [_I] * 2,
+    # (x, kernel, out, workspace, B, H, W, Cin, Cout, flip, workspace
+    # floats, stream)
+    "cfgan_conv3x3_f32": [_P] * 4 + [_I] * 7 + [_P],
     # (x, kernel, out, B, H, W, Cin, Cout, flip, stream)
     "cfgan_conv3x3_bf16": [_P] * 3 + [_I] * 6 + [_P],
-    # (B, H, W, Cin, Cout) -> partial-sum blocks, or -cudaError_t
-    "cfgan_conv3x3_dkernel_blocks": [_I] * 5,
+    # (B, H, W, Cin, Cout, f32) -> partial-sum blocks, or -cudaError_t
+    "cfgan_conv3x3_dkernel_blocks": [_I] * 6,
     # (x, g, partials, dk, B, H, W, Cin, Cout, blocks, stream)
     "cfgan_conv3x3_dkernel_bf16": [_P] * 4 + [_I] * 6 + [_P],
+    "cfgan_conv3x3_dkernel_f32": [_P] * 4 + [_I] * 6 + [_P],
     # (x, raw, mask, cf, l1, l2, pen, B, N, lo, hi, stream)
     "cfgan_epilogue_fwd_f32": [_P] * 7 + [_I] * 2 + [_F] * 2 + [_P],
     # (x, raw, mask, gcf, gl1, gl2, gpen, dx, draw, B, N, lo, hi, stream)

@@ -2,19 +2,19 @@
 
 `conv3x3_same` is the wrapper of the hand-written CUDA kernels
 (`cfgan_torch/csrc/conv3x3.cu`) that replace the JAX package's Pallas kernel
-`_pallas_conv3x3_kernel`: bf16 on the tensor cores, float32 on the CUDA
-cores.  `conv3x3_same_plain` is its plain PyTorch version, nine
-shifted-tap matmuls mirroring `conv3x3_same_matmul`: the CPU path, and the
-yardstick the kernels are held against on the card.
-`conv3x3_same_dkernel` is the wrapper of the weight-gradient kernel
-(`cfgan_torch/csrc/conv3x3_dkernel.cu`, bf16 on the tensor cores, reading
-the taps in place); `conv3x3_same_dkernel_plain` is its plain version, one
-product over the nine stacked taps.
+`_pallas_conv3x3_kernel`, both on the tensor cores: bf16, and float32 as
+3xTF32 products (each operand split into two tf32 parts, three products),
+which keep float32's accuracy.  `conv3x3_same_plain` is its plain PyTorch
+version, nine shifted-tap matmuls mirroring `conv3x3_same_matmul`: the CPU
+path, and the yardstick the kernels are held against on the card.
+`conv3x3_same_dkernel` is the wrapper of the weight-gradient kernels
+(`cfgan_torch/csrc/conv3x3_dkernel.cu`, bf16 and 3xTF32 float32 on the
+tensor cores, reading the taps in place); `conv3x3_same_dkernel_plain` is
+its plain version, one product over the nine stacked taps.
 `conv3x3_same_pallas` is the differentiable conv, an `autograd.Function`
 mirroring `make_conv3x3_same_pallas`: its backward runs dx through
 `conv3x3_same` with the kernel read flipped and transposed, and dK through
-`conv3x3_same_dkernel` (bf16) or its plain version (float32, as the JAX
-package computes it outside its kernel).
+`conv3x3_same_dkernel` (the JAX package computes dK outside its kernel).
 """
 from __future__ import annotations
 
@@ -93,9 +93,11 @@ def conv3x3_same(x: torch.Tensor, kernel: torch.Tensor, *,
     dx of a conv with `kernel`, from its output cotangent `x`.
 
     A CPU tensor takes the plain version.  A CUDA tensor launches the
-    hand-written kernel (bfloat16 on the tensor cores, float32 on the CUDA
-    cores; f32 accumulation, one rounding at the store) or raises: there is
-    no fallback.  Each launch adds one to `conv3x3_same.launches`."""
+    hand-written kernel (on the tensor cores, float32 as 3xTF32; f32
+    accumulation, one rounding at the store) or raises: there is no
+    fallback.  Each launch adds one to `conv3x3_same.launches` (in float32
+    a launch is a small kernel that splits K into its tf32 parts, then the
+    conv)."""
     if x.device.type == "cpu":
         _check_kernel_shape(x, kernel, transposed)
         return conv3x3_same_plain(x, _flipped(kernel) if transposed
@@ -114,11 +116,16 @@ def conv3x3_same(x: torch.Tensor, kernel: torch.Tensor, *,
             err = lib.cfgan_conv3x3_bf16(x.data_ptr(), kernel.data_ptr(),
                                          out.data_ptr(), b, h, w, cin, cout,
                                          int(transposed), stream)
-        else:  # the f32 kernel takes the flipped kernel as a tensor
-            k = _flipped(kernel) if transposed else kernel
-            err = lib.cfgan_conv3x3_f32(x.data_ptr(), k.data_ptr(),
-                                        out.data_ptr(), b, h, w, cin, cout,
-                                        stream)
+        else:  # K's tf32 parts, in the kernel's layout, go to a workspace
+            floats = lib.cfgan_conv3x3_f32_workspace(cin, cout)
+            if floats <= 0:
+                raise ValueError(f"conv3x3: {cin} -> {cout} channels exceed "
+                                 "the float32 kernel's workspace")
+            ws = torch.empty(floats, dtype=torch.float32, device=x.device)
+            err = lib.cfgan_conv3x3_f32(x.data_ptr(), kernel.data_ptr(),
+                                        out.data_ptr(), ws.data_ptr(), b, h,
+                                        w, cin, cout, int(transposed),
+                                        floats, stream)
     if err != 0:
         raise RuntimeError(f"conv3x3 kernel launch failed: cudaError {err}")
     conv3x3_same.launches += 1
@@ -143,33 +150,37 @@ def conv3x3_same_dkernel(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """The weight gradient dK (3, 3, Cin, Cout), float32, of a SAME 3x3 conv
     of NHWC `x` under the output cotangent `g`.
 
-    A CPU tensor takes the plain version.  A CUDA bfloat16 pair launches the
-    hand-written kernel (tensor cores, f32 accumulation, the taps read in
-    place, per-block partials summed in a fixed order) or raises.  Each
-    launch adds one to `conv3x3_same_dkernel.launches`."""
+    A CPU tensor takes the plain version.  A CUDA bfloat16 or float32 pair
+    launches the hand-written kernel (tensor cores, float32 as 3xTF32; f32
+    accumulation, the taps read in place, per-block partials summed in a
+    fixed order) or raises: there is no fallback.  Each launch adds one to
+    `conv3x3_same_dkernel.launches`."""
     if x.device.type == "cpu":
         return conv3x3_same_dkernel_plain(x, g)
     lib = _build.load_library().lib
     if x.dim() != 4 or g.dim() != 4 or x.shape[:3] != g.shape[:3]:
         raise ValueError(f"conv3x3 dK: x {tuple(x.shape)} and g "
                          f"{tuple(g.shape)} must be NHWC of one (B, H, W)")
-    _check_cuda_pair("conv3x3 dK", x, g, (torch.bfloat16,))
+    _check_cuda_pair("conv3x3 dK", x, g, (torch.float32, torch.bfloat16))
     b, h, w, cin = x.shape
     cout = g.shape[-1]
     dk = torch.empty((3, 3, cin, cout), dtype=torch.float32, device=x.device)
     if x.numel() == 0 or g.numel() == 0:
         return dk.zero_()
+    f32 = x.dtype == torch.float32
     with torch.cuda.device(x.device):
-        blocks = lib.cfgan_conv3x3_dkernel_blocks(b, h, w, cin, cout)
+        blocks = lib.cfgan_conv3x3_dkernel_blocks(b, h, w, cin, cout,
+                                                  int(f32))
         if blocks <= 0:
             raise RuntimeError(f"conv3x3 dK: no launch plan: cudaError "
                                f"{-blocks}")
         part = torch.empty((blocks, 9 * cin * cout), dtype=torch.float32,
                            device=x.device)
-        err = lib.cfgan_conv3x3_dkernel_bf16(
-            x.data_ptr(), g.data_ptr(), part.data_ptr(), dk.data_ptr(),
-            b, h, w, cin, cout, blocks,
-            torch.cuda.current_stream().cuda_stream)
+        launch = (lib.cfgan_conv3x3_dkernel_f32 if f32
+                  else lib.cfgan_conv3x3_dkernel_bf16)
+        err = launch(x.data_ptr(), g.data_ptr(), part.data_ptr(),
+                     dk.data_ptr(), b, h, w, cin, cout, blocks,
+                     torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"conv3x3 dK kernel launch failed: cudaError "
                            f"{err}")
@@ -184,9 +195,8 @@ class _Conv3x3SamePallas(torch.autograd.Function):
     """Forward: `conv3x3_same`.  Backward: dx is the SAME 3x3 conv of the
     cotangent with the kernel flipped in both spatial axes and its
     channels transposed, through `conv3x3_same(transposed=True)` (the
-    kernel on the card reads K that way, so no flipped copy is made in
-    bf16); dK is `conv3x3_same_dkernel` in bf16 and its plain version,
-    one f32 product over the stacked taps, in float32."""
+    kernels on the card read K that way, so no flipped copy is made); dK
+    is `conv3x3_same_dkernel`."""
 
     @staticmethod
     def forward(ctx, x, kernel):
@@ -202,9 +212,7 @@ class _Conv3x3SamePallas(torch.autograd.Function):
             dx = conv3x3_same(g, kernel.to(g.dtype).contiguous(),
                               transposed=True).to(x.dtype)
         if ctx.needs_input_grad[1]:
-            dkernel = (conv3x3_same_dkernel if x.dtype == torch.bfloat16
-                       else conv3x3_same_dkernel_plain)
-            dk = dkernel(x, g.to(x.dtype)).to(kernel.dtype)
+            dk = conv3x3_same_dkernel(x, g.to(x.dtype)).to(kernel.dtype)
         return dx, dk
 
 

@@ -6,12 +6,13 @@
 
 It builds the port's CUDA kernels (`cfgan_torch/csrc/*.cu`, one `nvcc` a
 source, all started together) from the sources in the checkout and holds
-each against its plain PyTorch version on the card: the 3x3 conv (bf16 on
-the tensor cores, f32 on the CUDA cores; forward and its dx), the conv's
-weight gradient dK (bf16 on the tensor cores), and the fused counterfactual
-epilogue's forward and backward.  Then it drives the port's two paths at the full
-width of the shipped MNIST CounteRGAN preset (64 channels, 6 residual
-blocks, bf16 compute), on random weights made from a seed:
+each against its plain PyTorch version on the card: the 3x3 conv (bf16,
+and f32 as 3xTF32, on the tensor cores; forward and its dx), the conv's
+weight gradient dK (bf16 and 3xTF32 f32 on the tensor cores), and the
+fused counterfactual epilogue's forward and backward.  Then it drives the
+port's two paths at the full width of the shipped MNIST CounteRGAN preset
+(64 channels, 6 residual blocks, bf16 compute), on random weights made
+from a seed:
 
 - serving (`build_mnist_serving`, `CounterfactualEngine`) with
   `conv_impl="pallas"`: every generator forward launches the conv kernel
@@ -21,13 +22,19 @@ blocks, bf16 compute), on random weights made from a seed:
   launch the epilogue kernels twice (forward) and once (backward) per step,
   and give the losses of the same steps with the plain epilogue, in bf16
   and (three steps) in f32; three steps with `conv_impl="pallas"` launch
-  the conv kernel 13 times forward and 13 times for dx per step, and in
-  bf16 the dK kernel 13 times per step, and take the gradients (Adam's
-  first moments after the first step) of the same steps with the plain
-  conv.
+  the conv kernel 13 times forward and 13 times for dx per step, and the
+  dK kernel 13 times per step, and take the gradients (Adam's first
+  moments after the first step) of the same steps with the plain conv.
 
 Then it times the kernels, their plain versions, cuDNN for the conv and
-its weight gradient, the serving requests and the train step.
+its weight gradient, the serving requests and the train step (bf16 with
+cuDNN's convs and with the kernels, f32 with the kernels).
+
+    python3 chip_smoke.py --train-timing-only
+
+builds the kernels and runs only the `timing train` phase: copied to the
+root of another checkout (an earlier commit), it times that checkout's
+train steps the same way.
 
 Each phase prints one JSON line and its wall time.  The line before the
 last is the card's `nvidia-smi` name and power limit; the last line is
@@ -51,12 +58,19 @@ HERE = Path(__file__).resolve().parent
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_OPS_PER_S = {"bfloat16": 989e12,  # dense tensor cores
+                  "tf32": 494.7e12,  # dense tensor cores
                   "float32": 67e12}  # outside the tensor cores
+# the f32 conv kernels make three tf32 products of each product (3xTF32)
+TF32_PRODUCTS = 3
 # kernel vs plain version: f32 abs <= F32_ATOL (the two sum in other
 # orders); bf16 within one bf16 ulp of the plain result rounded to bf16,
 # plus F32_ATOL for the float32 sums' own difference, which decides the
 # rounding where a sum nearly cancels
 F32_ATOL = 1e-4
+# f32 kernel vs plain (full float32, TF32 off), besides F32_ATOL: each
+# output pixel's row of channels within F32_ROW_RTOL of its 2-norm.  One
+# tf32 product (the plain version's matmuls with TF32 on) misses it.
+F32_ROW_RTOL = 1e-5
 # bf16 serving, kernel vs plain: the two round the same float32 sums to bf16
 # and may differ by one ulp where a sum lies near a rounding boundary; that
 # spreads through the later layers.  Allowed: one bf16 ulp at |x_cf| = 1,
@@ -64,8 +78,9 @@ F32_ATOL = 1e-4
 BF16_CF_ATOL = 2.0 ** -7
 PROBS_ATOL = {"float32": 1e-4, "bfloat16": 1e-2}
 KERNEL_LAYERS_PER_FORWARD = 13  # 12 resblock convs + conv_mid
-OUR_KERNELS = ("conv3x3_wgmma_kernel", "conv3x3_same_kernel",
-               "conv3x3_dkernel_wgmma_kernel", "dkernel_reduce_kernel",
+OUR_KERNELS = ("conv3x3_wgmma_kernel", "conv3x3_tf32_kernel",
+               "conv3x3_tf32_split_kernel", "conv3x3_dkernel_wgmma_kernel",
+               "conv3x3_dkernel_tf32_kernel", "dkernel_reduce_kernel",
                "epilogue_fwd_kernel", "epilogue_bwd_kernel")
 # (B, H, W, Cin, Cout) the conv kernels are held at: the serving layer at
 # batch 128 and 1 (the tensor-core kernel's narrow tiles); Cin not a
@@ -77,7 +92,7 @@ CONV_SHAPES = (SERVING_SHAPE, (1, 28, 28, 64, 64), (2, 13, 11, 20, 40),
 # dK kernel vs plain, both float32 before the cast: each tap's (Cin, Cout)
 # block within DK_RTOL of its 2-norm.  The two sum up to B*H*W = 100,352
 # products per entry in other orders (the kernel per block of pixels, then
-# the blocks' partials); measured on an H100 below 1e-6.
+# the blocks' partials; in f32 of 3xTF32 products).
 DK_RTOL = 1e-5
 # epilogue kernels vs plain: the elementwise outputs (x_cf, dx, draw) are the
 # same float32 operations rounded at the same places (the kernels do not
@@ -259,30 +274,34 @@ def device_time(fn, iters: int, top: int = 5, match: tuple = ()):
 
 def conv_bound(b, h, w, cin, cout, dtype: str):
     """(bound_ms, bound_by, bytes, operations) of one 3x3 SAME conv on an
-    H100 SXM: input, kernel and output each moved once, 2 * MACs at the
-    dtype's peak."""
+    H100 SXM: input, kernel and output each moved once; 2 * MACs at the
+    bf16 tensor-core peak, or in f32 three times over at the TF32 peak
+    (3xTF32)."""
     from cfgan_torch.ops.conv import conv_flops
 
     elt = 2 if dtype == "bfloat16" else 4
     nbytes = (b * h * w * (cin + cout) + 9 * cin * cout) * elt
     ops = conv_flops(b, (h, w), cin, cout)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dtype]
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+    return _bound(nbytes, ops, dtype) + (nbytes, ops)
 
 
-def dkernel_bound(b, h, w, cin, cout):
-    """(bound_ms, bound_by) of one bf16 dK on an H100 SXM: x and the
-    cotangent read once, the float32 dK written once; 2 * MACs at the bf16
-    tensor-core peak."""
-    from cfgan_torch.ops.conv import conv_flops
-
-    nbytes = b * h * w * (cin + cout) * 2 + 9 * cin * cout * 4
-    ops = conv_flops(b, (h, w), cin, cout)
+def _bound(nbytes: int, ops: int, dtype: str):
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / PEAK_OPS_PER_S["bfloat16"]
+    t_ops = (ops / PEAK_OPS_PER_S["bfloat16"] if dtype == "bfloat16"
+             else TF32_PRODUCTS * ops / PEAK_OPS_PER_S["tf32"])
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def dkernel_bound(b, h, w, cin, cout, dtype: str):
+    """(bound_ms, bound_by) of one dK on an H100 SXM: x and the cotangent
+    read once, the float32 dK written once; 2 * MACs at the bf16
+    tensor-core peak, or in f32 three times over at the TF32 peak."""
+    from cfgan_torch.ops.conv import conv_flops
+
+    elt = 2 if dtype == "bfloat16" else 4
+    nbytes = b * h * w * (cin + cout) * elt + 9 * cin * cout * 4
+    return _bound(nbytes, conv_flops(b, (h, w), cin, cout), dtype)
 
 
 def _flat(tree: dict, path: str = "") -> dict:
@@ -305,6 +324,49 @@ def epilogue_bound(b: int, n: int, backward: bool):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S["float32"]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+# the train steps `timing train` times: (compute dtype, conv_impl); None is
+# the preset's cuDNN conv
+TIMED_STEPS = (("bfloat16", None), ("bfloat16", "pallas"),
+               ("float32", "pallas"))
+
+
+def time_train_steps(card: str, dev, clf_sd: dict, train_x, train_y) -> None:
+    """Wall time (20 steps after 3 of warm-up, each ending in a
+    synchronize) and profiler device time (5 steps) of the preset's train
+    step at each of TIMED_STEPS, on the batches train_x[j], train_y[j]:
+    one line each, with our kernels' device ms and launches per step."""
+    import torch
+
+    from cfgan_torch.core.config import MNIST_COUNTERGAN
+    from cfgan_torch.train.builders import build_mnist_countergan
+
+    for dtype, impl in TIMED_STEPS:
+        cfg = replace(MNIST_COUNTERGAN, conv_impl=impl, compute_dtype=dtype)
+        bundle = build_mnist_countergan(cfg, clf_sd, seed=SEED)
+        draws = torch.Generator(device=dev).manual_seed(SEED)
+        i = iter(range(10 ** 9))
+
+        def step():
+            j = next(i) % len(train_x)
+            bundle.step_fn(bundle.state, train_x[j], train_y[j], draws)
+            torch.cuda.synchronize()
+
+        lat = host_ms(step, 20)
+        median = statistics.median(lat)
+        busy_ms, top, ours = device_time(step, 5, top=8, match=OUR_KERNELS)
+        emit({"phase": "timing", "what": "train step", "card": card,
+              "conv_impl": impl, "dtype": dtype,
+              "batch": TRAIN_BATCH, "median_ms": median,
+              "p90_ms": sorted(lat)[int(0.9 * len(lat))],
+              "min_ms": min(lat),
+              "images_per_s": TRAIN_BATCH / median * 1e3,
+              "device_busy_ms": busy_ms,
+              "device_idle_share": (None if busy_ms is None
+                                    else 1 - busy_ms / median),
+              "device_time_by_kernel_ms": top,
+              "our_kernels_ms_and_launches_per_step": ours})
 
 
 def main() -> None:
@@ -364,7 +426,7 @@ def main() -> None:
         lib = _build.load_library()
         ptxas = [ln.strip() for ln in lib.ptxas_log.splitlines()
                  if any(k in ln for k in ("Compiling entry", "registers",
-                                          "spill", "smem"))]
+                                          "spill", "smem", "Performance"))]
         spills = [ln for ln in ptxas if any(
             int(n) for n in re.findall(r"(\d+) bytes spill", ln))]
         emit({"phase": "build", "seconds": round(lib.seconds, 3),
@@ -373,6 +435,19 @@ def main() -> None:
         if spills:
             fail(f"a kernel spills registers: {spills}")
 
+    if "--train-timing-only" in sys.argv[1:]:
+        clf_sd = mnist_models(MNIST_COUNTERGAN, generator=gen)[1].state_dict()
+        train_x = (torch.rand((TRAIN_STEPS, TRAIN_BATCH, 28, 28, 1),
+                              generator=gen) * 2 - 1).to(dev)
+        train_y = torch.randint(0, 10, (TRAIN_STEPS, TRAIN_BATCH),
+                                generator=gen).to(dev)
+        with Phase("timing train"):
+            time_train_steps(card, dev, clf_sd, train_x, train_y)
+        print(card, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                     "count": count}})
+        return
+
     # ----------------------------------------------- kernel vs plain
     def conv_inputs(b, h, w, cin, cout, dtype):
         x = torch.randn((b, h, w, cin), generator=gen)
@@ -380,17 +455,35 @@ def main() -> None:
             2 / 1.04 / (9 * cin))  # the generator's kaiming init
         return x.to(dev, dtype), k.to(dev, dtype)
 
+    def row_rel_err(got, ref) -> float:
+        """The largest over output pixels of |got - ref| / |ref| in the
+        2-norm of the pixel's channels."""
+        d = (got - ref).reshape(-1, ref.shape[-1]).norm(dim=1)
+        n = ref.reshape(-1, ref.shape[-1]).norm(dim=1)
+        return (d / n.clamp_min(1e-30)).max().item()
+
     def conv_ok(got, ref, dtype):
-        """(ok, tolerance): f32 abs <= F32_ATOL; bf16 within one bf16 ulp
-        of the plain f32 result rounded to bf16, + F32_ATOL."""
+        """(ok, tolerance): f32 abs <= F32_ATOL and row rel <=
+        F32_ROW_RTOL; bf16 within one bf16 ulp of the plain f32 result
+        rounded to bf16, + F32_ATOL."""
         if dtype == "bfloat16":
             ref = ref.bfloat16().float()
             return (bool(((got - ref).abs() <= bf16_ulp(ref) + F32_ATOL)
                          .all()),
                     f"1 bf16 ulp of the plain f32 result rounded to bf16, "
                     f"+ {F32_ATOL}")
-        return ((got - ref).abs().max().item() <= F32_ATOL,
-                f"abs <= {F32_ATOL}")
+        return ((got - ref).abs().max().item() <= F32_ATOL
+                and row_rel_err(got, ref) <= F32_ROW_RTOL,
+                f"abs <= {F32_ATOL} and each output pixel's channels within "
+                f"{F32_ROW_RTOL} of their 2-norm")
+
+    @contextlib.contextmanager
+    def tf32_matmuls():
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            yield
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
 
     kernel_err = {}
     with Phase("kernel conv3x3"):
@@ -414,10 +507,27 @@ def main() -> None:
                 err = (got - ref).abs().max().item()
                 err_t = (got_t - ref_t).abs().max().item()
                 rel = ((got - ref).abs() / ref.abs().clamp_min(1e-3)).max()
-                emit({"phase": "kernel conv3x3", "shape": shape,
-                      "dtype": dtype, "max_abs_err": err,
-                      "max_rel_err": rel.item(), "dx_max_abs_err": err_t,
-                      "tolerance": tol, "ok": ok and ok_t})
+                report = {"phase": "kernel conv3x3", "shape": shape,
+                          "dtype": dtype, "max_abs_err": err,
+                          "max_rel_err": rel.item(), "dx_max_abs_err": err_t,
+                          "tolerance": tol}
+                if dtype == "float32":
+                    # one tf32 product: the plain version's matmuls, TF32 on
+                    with tf32_matmuls():
+                        tf32 = conv3x3_same_plain(x, k)
+                    report.update(
+                        max_row_rel_err=row_rel_err(got, ref),
+                        dx_max_row_rel_err=row_rel_err(got_t, ref_t),
+                        tf32_matmul_max_row_rel_err=row_rel_err(tf32, ref),
+                        tf32_matmul_max_abs_err=(tf32 - ref).abs().max()
+                        .item())
+                    if (shape == SERVING_SHAPE and
+                            report["tf32_matmul_max_row_rel_err"]
+                            <= F32_ROW_RTOL):
+                        fail("the TF32 matmul meets the f32 row bar: the bar "
+                             "no longer tells 3xTF32 from one tf32 product")
+                report["ok"] = ok and ok_t
+                emit(report)
                 if not (ok and ok_t) or not (torch.isfinite(got).all()
                                              and torch.isfinite(got_t).all()):
                     fail(f"conv3x3 kernel disagrees with its plain version "
@@ -426,10 +536,11 @@ def main() -> None:
 
     dk_err = {}
     with Phase("kernel conv3x3 dK"):
-        for shape in CONV_SHAPES:
-            x, _ = conv_inputs(*shape, torch.bfloat16)
+        for shape, dtype in ((s_, d_) for s_ in CONV_SHAPES
+                             for d_ in ("float32", "bfloat16")):
+            x, _ = conv_inputs(*shape, getattr(torch, dtype))
             g, _ = conv_inputs(*shape[:3], shape[4], shape[4],
-                               torch.bfloat16)
+                               getattr(torch, dtype))
             got = conv3x3_same_dkernel(x, g)
             again = conv3x3_same_dkernel(x, g)
             ref = conv3x3_same_dkernel_plain(x, g)
@@ -443,7 +554,7 @@ def main() -> None:
                   and bool(torch.isfinite(got).all()))
             err = (got - ref).abs().max().item()
             emit({"phase": "kernel conv3x3 dK", "shape": shape,
-                  "dtype": "bfloat16", "max_abs_err": err,
+                  "dtype": dtype, "max_abs_err": err,
                   "max_tap_rel_err": rel.max().item(),
                   "two_calls_equal_bits": same_bits,
                   "tolerance": f"per tap: 2-norm of the error <= {DK_RTOL}"
@@ -452,9 +563,9 @@ def main() -> None:
                   "ok": ok})
             if not ok:
                 fail(f"conv3x3 dK kernel disagrees with its plain version at "
-                     f"{shape}: per-tap rel err {rel.max().item()}, equal "
-                     f"bits over two calls {same_bits}")
-            dk_err[shape] = err
+                     f"{shape} {dtype}: per-tap rel err {rel.max().item()}, "
+                     f"equal bits over two calls {same_bits}")
+            dk_err[shape, dtype] = err
 
     # ------------------------------------------------------------ serve
     preset = replace(MNIST_COUNTERGAN, conv_impl="pallas")
@@ -682,12 +793,11 @@ def main() -> None:
     with Phase("train pallas"):
         pallas_train_launches = {}
         for dtype in ("bfloat16", "float32"):
-            # 13 forward and 13 dx launches of the conv kernel a step; dK
-            # through its kernel in bf16, as one f32 product in f32
+            # 13 forward and 13 dx launches of the conv kernel a step, and
+            # 13 of the dK kernel
             want = (2 * SHORT_STEPS, SHORT_STEPS,
                     2 * KERNEL_LAYERS_PER_FORWARD * SHORT_STEPS,
-                    KERNEL_LAYERS_PER_FORWARD * SHORT_STEPS
-                    if dtype == "bfloat16" else 0)
+                    KERNEL_LAYERS_PER_FORWARD * SHORT_STEPS)
             cfg = replace(MNIST_COUNTERGAN, conv_impl="pallas",
                           compute_dtype=dtype)
             zero_counts()
@@ -774,7 +884,8 @@ def main() -> None:
                       "shape": shape, "dtype": dtype, "ms": ms,
                       "plain_ms": plain_ms, "library_ms": lib_ms,
                       "library": "F.conv2d (cuDNN, TF32 off; its weight "
-                                 "re-layout kernel included)",
+                                 "re-layout kernel included; in f32 `ms` "
+                                 "includes K's split)",
                       "bound_ms": bound_ms, "bound_by": bound_by,
                       "bytes": nbytes, "operations": ops,
                       "share_of_bound": bound_ms / ms,
@@ -782,24 +893,26 @@ def main() -> None:
                       "timed_by": sorted(timed_by),
                       "events_call_ms": cuda_ms(lambda: conv3x3_same(x, k),
                                                 50)})
-        shape = SERVING_SHAPE
-        x, _ = conv_inputs(*shape, torch.bfloat16)
-        g, _ = conv_inputs(*shape[:3], shape[4], shape[4], torch.bfloat16)
-        x_nchw, g_nchw = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
-        w_shape = (shape[4], shape[3], 3, 3)
-        bound_ms, bound_by = dkernel_bound(*shape)
-        timing["dk"] = dict(
-            ms=dev_ms(lambda: conv3x3_same_dkernel(x, g)),
-            plain_ms=dev_ms(lambda: conv3x3_same_dkernel_plain(x, g)),
-            library_ms=dev_ms(lambda: torch.nn.grad.conv2d_weight(
-                x_nchw, w_shape, g_nchw, padding=1)),
-            bound_ms=bound_ms, bound_by=bound_by)
-        emit({"phase": "timing", "what": "conv3x3 dK", "card": card,
-              "shape": shape, "dtype": "bfloat16", **timing["dk"],
-              "library": "torch.nn.grad.conv2d_weight (cuDNN wgrad, "
-                         "channels-last, TF32 off)",
-              "timed_by": sorted(timed_by),
-              "share_of_bound": bound_ms / timing["dk"]["ms"]})
+        for dtype in ("bfloat16", "float32"):
+            shape = SERVING_SHAPE
+            x, _ = conv_inputs(*shape, getattr(torch, dtype))
+            g, _ = conv_inputs(*shape[:3], shape[4], shape[4],
+                               getattr(torch, dtype))
+            x_nchw, g_nchw = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+            w_shape = (shape[4], shape[3], 3, 3)
+            bound_ms, bound_by = dkernel_bound(*shape, dtype)
+            dk = timing["dk", dtype] = dict(
+                ms=dev_ms(lambda: conv3x3_same_dkernel(x, g)),
+                plain_ms=dev_ms(lambda: conv3x3_same_dkernel_plain(x, g)),
+                library_ms=dev_ms(lambda: torch.nn.grad.conv2d_weight(
+                    x_nchw, w_shape, g_nchw, padding=1)),
+                bound_ms=bound_ms, bound_by=bound_by)
+            emit({"phase": "timing", "what": "conv3x3 dK", "card": card,
+                  "shape": shape, "dtype": dtype, **dk,
+                  "library": "torch.nn.grad.conv2d_weight (cuDNN wgrad, "
+                             "channels-last, TF32 off)",
+                  "timed_by": sorted(timed_by),
+                  "share_of_bound": bound_ms / dk["ms"]})
         e = engine("bfloat16")
         for b, x, t in ((1, x1, 3), (128, x128, t128)):
             lat = host_ms(lambda: e.generate(x, t), 30)
@@ -820,32 +933,7 @@ def main() -> None:
               "counterfactuals_per_s": 1000 / statistics.median(bulk) * 1e3})
 
     with Phase("timing train"):
-        for impl in (None, "pallas"):
-            cfg = replace(MNIST_COUNTERGAN, conv_impl=impl)
-            bundle = build_mnist_countergan(cfg, clf_sd, seed=SEED)
-            draws = torch.Generator(device=dev).manual_seed(SEED)
-            i = iter(range(10 ** 9))
-
-            def step():
-                j = next(i) % n_batches
-                bundle.step_fn(bundle.state, train_x[j], train_y[j], draws)
-                torch.cuda.synchronize()
-
-            lat = host_ms(step, 20)
-            median = statistics.median(lat)
-            busy_ms, top, ours = device_time(step, 5, top=8,
-                                             match=OUR_KERNELS)
-            emit({"phase": "timing", "what": "train step", "card": card,
-                  "conv_impl": impl, "dtype": "bfloat16",
-                  "batch": TRAIN_BATCH, "median_ms": median,
-                  "p90_ms": sorted(lat)[int(0.9 * len(lat))],
-                  "min_ms": min(lat),
-                  "images_per_s": TRAIN_BATCH / median * 1e3,
-                  "device_busy_ms": busy_ms,
-                  "device_idle_share": (None if busy_ms is None
-                                        else 1 - busy_ms / median),
-                  "device_time_by_kernel_ms": top,
-                  "our_kernels_ms_and_launches_per_step": ours})
+        time_train_steps(card, dev, clf_sd, train_x, train_y)
         b, n = TRAIN_BATCH, 28 * 28
         x, raw = (torch.rand((b, n), device=dev) * 2 - 1 for _ in range(2))
         mask = (torch.rand((b, n), device=dev) > 0.5).float()
@@ -876,27 +964,34 @@ def main() -> None:
                   "plain_host_bound_call_ms": cuda_ms(lambda: plain(*args),
                                                       200)})
 
-    t, dk = timing[SERVING_SHAPE, "bfloat16"], timing["dk"]
-    emit({"kernels": [{
-        "name": "conv3x3_same", "route": "cuda",
-        "source": "cfgan_torch/csrc/conv3x3.cu",
-        "replaces": "cfgan/ops/conv.py:71",
-        "launches": launches["bfloat16", "pallas"],
-        "max_abs_err": kernel_err[(SERVING_SHAPE, "bfloat16")],
-        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "library_ms": t["library_ms"]}, {
-        "name": "conv3x3_same_dkernel", "route": "cuda",
-        "source": "cfgan_torch/csrc/conv3x3_dkernel.cu",
-        "replaces": "cfgan/ops/conv.py:165",
-        "launches": pallas_train_launches["bfloat16"][3],
-        "max_abs_err": dk_err[SERVING_SHAPE],
-        "ms": dk["ms"], "plain_ms": dk["plain_ms"],
-        "bound_ms": dk["bound_ms"], "bound_by": dk["bound_by"],
-        "library_ms": dk["library_ms"]}] + [{
-        "name": name, "route": "cuda",
-        "source": "cfgan_torch/csrc/epilogue.cu", "replaces": replaces,
-        "launches": train_launches["bfloat16"][k],
-        "max_abs_err": epi_err[key], **epi[name], "library_ms": None}
+    def entry(name, source, replaces, launched, err, t):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launched,
+                "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t["library_ms"]}
+
+    conv_src = "cfgan_torch/csrc/conv3x3.cu"
+    dk_src = "cfgan_torch/csrc/conv3x3_dkernel.cu"
+    emit({"kernels": [
+        entry("conv3x3_same", conv_src, "cfgan/ops/conv.py:71",
+              launches["bfloat16", "pallas"],
+              kernel_err[(SERVING_SHAPE, "bfloat16")],
+              timing[SERVING_SHAPE, "bfloat16"]),
+        entry("conv3x3_same_f32", conv_src, "cfgan/ops/conv.py:71",
+              launches["float32", "pallas"],
+              kernel_err[(SERVING_SHAPE, "float32")],
+              timing[SERVING_SHAPE, "float32"]),
+        entry("conv3x3_same_dkernel", dk_src, "cfgan/ops/conv.py:165",
+              pallas_train_launches["bfloat16"][3],
+              dk_err[SERVING_SHAPE, "bfloat16"], timing["dk", "bfloat16"]),
+        entry("conv3x3_same_dkernel_f32", dk_src, "cfgan/ops/conv.py:165",
+              pallas_train_launches["float32"][3],
+              dk_err[SERVING_SHAPE, "float32"], timing["dk", "float32"]),
+    ] + [
+        entry(name, "cfgan_torch/csrc/epilogue.cu", replaces,
+              train_launches["bfloat16"][k], epi_err[key],
+              {**epi[name], "library_ms": None})
         for k, (name, key, replaces) in enumerate((
             ("cf_epilogue_fwd", "fwd", "cfgan/ops/epilogue.py:54"),
             ("cf_epilogue_bwd", "bwd", "cfgan/ops/epilogue.py:67")))]})

@@ -124,13 +124,39 @@ def test_build_binds_the_dkernel_entry_points():
 
     p, i = ctypes.c_void_p, ctypes.c_int
     assert _build.SIGNATURES["cfgan_conv3x3_bf16"] == [p] * 3 + [i] * 6 + [p]
-    assert _build.SIGNATURES["cfgan_conv3x3_dkernel_blocks"] == [i] * 5
+    assert _build.SIGNATURES["cfgan_conv3x3_dkernel_blocks"] == [i] * 6
     assert _build.SIGNATURES["cfgan_conv3x3_dkernel_bf16"] == (
         [p] * 4 + [i] * 6 + [p])
     src = _build.SOURCES[2].read_text()
     for name in ("cfgan_conv3x3_dkernel_blocks", "cfgan_conv3x3_dkernel_bf16"):
         assert f"int {name}(" in src
     assert "wgmma" in src and "atomicAdd" not in src
+
+
+def test_build_binds_the_f32_entry_points():
+    """The float32 conv takes the tap-order flag (dx reads K flipped, no
+    copy) and a workspace for K's tf32 parts, sized by its own entry
+    point; the float32 dK has the bf16 one's arguments; the plan of
+    partial-sum blocks takes the dtype."""
+    import ctypes
+
+    p, i = ctypes.c_void_p, ctypes.c_int
+    assert _build.SIGNATURES["cfgan_conv3x3_f32"] == [p] * 4 + [i] * 7 + [p]
+    assert _build.SIGNATURES["cfgan_conv3x3_f32_workspace"] == [i] * 2
+    assert _build.SIGNATURES["cfgan_conv3x3_dkernel_f32"] == (
+        [p] * 4 + [i] * 6 + [p])
+    conv_src = _build.SOURCES[0].read_text()
+    assert ("int cfgan_conv3x3_f32(const void* x, const void* k, void* y, "
+            "void* ws,\n                      int B, int H, int W, int Cin, "
+            "int Cout, int flip,") in conv_src
+    assert "int cfgan_conv3x3_f32_workspace(int Cin, int Cout)" in conv_src
+    dk_src = _build.SOURCES[2].read_text()
+    assert "int cfgan_conv3x3_dkernel_f32(" in dk_src
+    assert "int Cout,\n                                 int f32)" in dk_src
+    for src in (conv_src, dk_src):
+        assert "cvt.rna.tf32.f32" not in src  # one split, in sm90.cuh
+    helpers = (_build.SOURCES[0].parent / "sm90.cuh").read_text()
+    assert "cvt.rna.tf32.f32" in helpers and ".tf32.tf32" in helpers
 
 
 def test_dkernel_on_cpu_is_the_plain_version_and_launches_nothing():
@@ -158,6 +184,46 @@ def test_dkernel_does_not_fall_back_when_the_build_fails(monkeypatch):
     g = torch.empty((2, 8, 8, 16), device="meta", dtype=torch.bfloat16)
     with pytest.raises(BuildFailed):
         tconv.conv3x3_same_dkernel(x, g)
+
+
+def test_f32_dkernel_does_not_fall_back_when_the_build_fails(monkeypatch):
+    """A float32 pair off the CPU goes to the kernel too: with the loader
+    failing it gets the loader's error, not the plain version."""
+    class BuildFailed(RuntimeError):
+        pass
+
+    def fail():
+        raise BuildFailed("nvcc failed")
+
+    monkeypatch.setattr(_build, "load_library", fail)
+    x = torch.empty((2, 8, 8, 16), device="meta")
+    g = torch.empty((2, 8, 8, 24), device="meta")
+    with pytest.raises(BuildFailed):
+        tconv.conv3x3_same_dkernel(x, g)
+
+
+@pytest.mark.parametrize("shape", [(3, 9, 11, 16, 24), (2, 7, 5, 20, 40)],
+                         ids=str)
+def test_plain_dkernel_f32_matches_jax_pallas_vjp(shape):
+    """float32 x and cotangent: the plain dK (one float32 product over the
+    stacked taps, the yardstick of the 3xTF32 kernel on the card) against
+    the dK of `jax.vjp` of `make_conv3x3_same_pallas(interpret=True)`:
+    abs <= 1e-5 of the largest |dK| (float32 sums of up to B*H*W = 297
+    products; measured equal)."""
+    import jax
+
+    b, h, w, _, cout = shape
+    x, k = _inputs(shape, seed=7)
+    g = np.random.default_rng(8).standard_normal((b, h, w, cout)).astype(
+        np.float32)
+    _, vjp = jax.vjp(make_conv3x3_same_pallas(interpret=True),
+                     jnp.asarray(x), jnp.asarray(k))
+    want = np.asarray(vjp(jnp.asarray(g))[1])
+    got = tconv.conv3x3_same_dkernel_plain(torch.from_numpy(x),
+                                           torch.from_numpy(g))
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want,
+                               atol=1e-5 * np.abs(want).max(), rtol=0)
 
 
 @pytest.mark.parametrize("shape", [(3, 9, 11, 16, 24), (2, 7, 5, 20, 40)],
@@ -207,6 +273,43 @@ def test_transposed_conv_is_the_jax_vjp_dx(shape):
     with pytest.raises(ValueError):
         tconv.conv3x3_same(torch.from_numpy(x), torch.from_numpy(k),
                            transposed=True)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_f32_transposed_wrapper_is_the_plain_conv_with_the_flipped_kernel(
+        shape):
+    """`transposed=True` on float32 (the kernel's flip = 1 on the card)
+    computes the plain conv with K flipped in both spatial axes and its
+    channels transposed: on the CPU, bit for bit."""
+    b, h, w, _, cout = shape
+    _, k = _inputs(shape, seed=11)
+    g = np.random.default_rng(12).standard_normal((b, h, w, cout)).astype(
+        np.float32)
+    kt = torch.from_numpy(k)
+    got = tconv.conv3x3_same(torch.from_numpy(g), kt, transposed=True)
+    want = tconv.conv3x3_same_plain(
+        torch.from_numpy(g), kt.flip(0, 1).transpose(2, 3).contiguous())
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_takes_dk_through_the_kernel_wrapper(monkeypatch, dtype):
+    """In both dtypes the Function's dK goes through `conv3x3_same_dkernel`
+    (on the card, the kernel; here its plain version)."""
+    calls = []
+    wrapper = tconv.conv3x3_same_dkernel
+
+    def counted(x, g):
+        calls.append((x.dtype, g.dtype))
+        return wrapper(x, g)
+
+    monkeypatch.setattr(tconv, "conv3x3_same_dkernel", counted)
+    x, k = _inputs((2, 6, 5, 16, 16), seed=13)
+    xt = torch.tensor(x).to(dtype).requires_grad_(True)
+    kt = torch.tensor(k).to(dtype).requires_grad_(True)
+    tconv.conv3x3_same_pallas(xt, kt).float().sum().backward()
+    assert calls == [(dtype, dtype)]
+    assert kt.grad.dtype == dtype
 
 
 @pytest.mark.parametrize("shape", SHAPES[:2], ids=str)

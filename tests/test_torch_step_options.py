@@ -18,20 +18,36 @@ same batches and draws), each in its own JAX configuration:
   any gradient, so the gradients are held against JAX through Adam's
   first moments (0.1 * grad) leaf by leaf, relative to the leaf's 2-norm:
   the weight leaves (kernels, embeddings, BatchNorm scales) within
-  BF16_MU_RTOL of their net, set from the measured worst leaf (G: 0.58, a
-  BatchNorm scale, whose gradient sums over the batch what bf16
-  E[x^2] - E[x]^2 statistics give; D: 0.050, a conv kernel) with room; a
-  D that takes no step, or sees half the batch, puts its kernels at 0.98
-  to 1.0.  The bias leaves are left out in bf16: their gradients are sums
-  over batch and space that cancel to a few percent of their terms, so a
-  bf16 rounding anywhere moves them by their own size (measured up to
-  1.5 on D's one-element head bias).
+  BF16_MU_RTOL of their net, the measured worst leaf plus 20% (G: 0.583,
+  a BatchNorm scale, whose gradient sums over the batch what bf16
+  E[x^2] - E[x]^2 statistics give; D: 0.0498, a conv kernel); a D that
+  takes no step, or sees half the batch, puts its kernels at 0.98 to 1.0.
+  The bias leaves are left out in bf16: their gradients are sums over
+  batch and space that cancel to a few percent of their terms, so a bf16
+  rounding anywhere moves them by their own size (measured up to 1.5 on
+  D's one-element head bias).
+
+That gap between the two bf16 steps is rounding, not a fault of the port:
+each package's bf16 first moments sit from its own f32 step's (same
+initial state, batches and draws) at a distance, per weight leaf, and the
+port's is never more than BF16_F32_MARGIN beyond JAX's (measured: G's
+leaves 0.008-0.096 against JAX's 0.012-0.38, JAX farther on every leaf,
+most on the BatchNorm scales; D's 0.0098-0.068 against 0.0086-0.067, the
+largest ratio 1.15 on the head's kernel).  So the bf16 bars above measure
+where the two frameworks round, which is mostly JAX's G.
 """
+import numpy as np
 import pytest
 
-from test_torch_step import assert_moments_close, assert_trees_close, run_pair
+from test_torch_step import (
+    assert_moments_close,
+    assert_trees_close,
+    leaves,
+    run_pair,
+)
 
-BF16_MU_RTOL = {"g": 0.75, "d": 0.15}
+BF16_MU_RTOL = {"g": 0.70, "d": 0.06}
+BF16_F32_MARGIN = 0.25
 
 PALLAS_WIDTH = 16
 
@@ -102,3 +118,33 @@ def test_bf16_step_gradients_match_jax(bf16_run, net):
 def test_bf16_step_batch_stats_match_jax(bf16_run):
     _, _, jt, pt = bf16_run[0]
     assert_trees_close(pt["g"]["batch_stats"], jt["g"]["batch_stats"], 4e-3)
+
+
+@pytest.fixture(scope="module")
+def f32_run():
+    """The f32 step on bf16_run's initial state, batches and draws."""
+    return run_pair({}, steps=1)
+
+
+def _weight_moments(tree):
+    return {k: v for k, v in leaves(tree) if not k.endswith("bias")}
+
+
+@pytest.mark.parametrize("net", ["g", "d"])
+def test_bf16_step_sits_no_farther_from_f32_than_jax(bf16_run, f32_run,
+                                                     net):
+    """Per weight leaf, the 2-norm distance of the port's bf16 first
+    moments from the port's f32 ones, relative to the f32 leaf, is at most
+    JAX's same distance times 1 + BF16_F32_MARGIN."""
+    _, _, jb, pb = bf16_run[0]
+    _, _, jf, pf = f32_run[0]
+    dist = {}
+    for who, bf, f in (("port", pb, pf), ("jax", jb, jf)):
+        b16, f32 = (_weight_moments(t["adam_mu"][net]) for t in (bf, f))
+        assert b16.keys() == f32.keys() and b16
+        dist[who] = {k: float(np.linalg.norm(b16[k] - f32[k])
+                              / np.linalg.norm(f32[k])) for k in f32}
+    ratio = {k: dist["port"][k] / dist["jax"][k] for k in dist["jax"]}
+    worst = max(ratio, key=ratio.get)
+    assert ratio[worst] <= 1 + BF16_F32_MARGIN, (
+        worst, dist["port"][worst], dist["jax"][worst])
