@@ -42,10 +42,11 @@ SIGNATURES = {
     # (x, g, partials, dk, B, H, W, Cin, Cout, blocks, stream)
     "cfgan_conv3x3_dkernel_bf16": [_P] * 4 + [_I] * 6 + [_P],
     "cfgan_conv3x3_dkernel_f32": [_P] * 4 + [_I] * 6 + [_P],
-    # (x, raw, mask, cf, l1, l2, pen, B, N, lo, hi, stream)
-    "cfgan_epilogue_fwd_f32": [_P] * 7 + [_I] * 2 + [_F] * 2 + [_P],
-    # (x, raw, mask, gcf, gl1, gl2, gpen, dx, draw, B, N, lo, hi, stream)
-    "cfgan_epilogue_bwd_f32": [_P] * 9 + [_I] * 2 + [_F] * 2 + [_P],
+    # (x, raw, mask, cf, sums, B, N, lo, hi, vec, stream)
+    "cfgan_epilogue_fwd_f32": [_P] * 5 + [_I] * 2 + [_F] * 2 + [_I, _P],
+    # (x, raw, mask, gcf, gl1, gl2, gpen, dx, draw, B, N, lo, hi, vec,
+    # stream)
+    "cfgan_epilogue_bwd_f32": [_P] * 9 + [_I] * 2 + [_F] * 2 + [_I, _P],
 }
 
 _lock = threading.Lock()

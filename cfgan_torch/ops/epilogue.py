@@ -51,13 +51,30 @@ def cf_epilogue_bwd_plain(x2, raw2, mask2, gcf, gl1, gl2, gpen,
     return du, draw
 
 
-def _check(rows, cols, device) -> None:
+def _float4(n: int, *ptrs: int) -> bool:
+    """The choice of `float4_rows`, on N and the tensors' addresses."""
+    bits = 0
+    for p in ptrs:
+        bits |= p
+    return n % 4 == 0 and bits % 16 == 0
+
+
+def float4_rows(*rows: torch.Tensor) -> bool:
+    """Whether the kernels may move these (B, N) rows 16 bytes at a time:
+    N % 4 == 0 and every tensor's first element 16-byte aligned.  Where
+    not (N = 17, or a view that starts at an odd `storage_offset`), the
+    wrappers launch the same kernels' 4-byte variant."""
+    return _float4(rows[0].shape[1], *(t.data_ptr() for t in rows))
+
+
+def _check(rows, cols) -> None:
     """Every (B, N) row tensor and (B,) column the kernels take: float32,
     contiguous, on one CUDA device, 32-bit sizes."""
     b, n = rows[0].shape
     if max(b, n) >= 2 ** 31:
         raise ValueError(f"cf_epilogue: rows {b} x {n} exceed the kernels' "
                          "32-bit sizes")
+    device = rows[0].device
     for t in (*rows, *cols):
         if t.device != device or device.type != "cuda":
             raise ValueError(f"cf_epilogue: tensors on {t.device} and "
@@ -72,63 +89,70 @@ def _check(rows, cols, device) -> None:
         raise ValueError("cf_epilogue: rows must be (B, N) and columns (B,)")
 
 
-def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+def _launched(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"cf_epilogue {what} kernel launch failed: "
+                           f"cudaError {err}")
 
 
 def cf_epilogue_fwd(x2, raw2, mask2, lo: float, hi: float):
     """Forward on (B, N) rows.  A CPU tensor takes the plain version.  A
-    CUDA tensor launches the hand-written kernel (float32 only) or raises:
+    CUDA tensor launches the hand-written kernel (float32 only), 16 bytes
+    at a time where `float4_rows` allows it and 4 otherwise, or raises:
     there is no fallback.  Each launch adds one to
-    `cf_epilogue_fwd.launches`."""
-    if x2.device.type == "cpu":
+    `cf_epilogue_fwd.launches` and sets `cf_epilogue_fwd.last_float4` to
+    the variant it launched (True: 16-byte)."""
+    if x2.is_cpu:
         return cf_epilogue_fwd_plain(x2, raw2, mask2, lo, hi)
     lib = _build.load_library().lib  # raises where it cannot be built
-    _check((x2, raw2, mask2), (), x2.device)
+    _check((x2, raw2, mask2), ())
     b, n = x2.shape
     cf = torch.empty_like(x2)
-    l1, l2, pen = sums = torch.empty((3, b), device=x2.device)
+    sums = x2.new_empty((3, b))  # l1, l2, pen
     if b == 0 or n == 0:
-        return cf, *sums.zero_()
-    err = lib.cfgan_epilogue_fwd_f32(
-        x2.data_ptr(), raw2.data_ptr(), mask2.data_ptr(), cf.data_ptr(),
-        l1.data_ptr(), l2.data_ptr(), pen.data_ptr(), b, n, lo, hi,
-        _stream(x2.device))
-    if err != 0:
-        raise RuntimeError(f"cf_epilogue forward kernel launch failed: "
-                           f"cudaError {err}")
+        return cf, *sums.zero_().unbind(0)
+    ptrs = x2.data_ptr(), raw2.data_ptr(), mask2.data_ptr(), cf.data_ptr()
+    vec = _float4(n, *ptrs)
+    _launched(lib.cfgan_epilogue_fwd_f32(
+        *ptrs, sums.data_ptr(), b, n, lo, hi, vec,
+        torch._C._cuda_getCurrentRawStream(x2.get_device())), "forward")
     cf_epilogue_fwd.launches += 1
-    return cf, l1, l2, pen
+    cf_epilogue_fwd.last_float4 = vec
+    return cf, *sums.unbind(0)
 
 
 cf_epilogue_fwd.launches = 0
+cf_epilogue_fwd.last_float4 = None
 
 
 def cf_epilogue_bwd(x2, raw2, mask2, gcf, gl1, gl2, gpen,
                     lo: float, hi: float):
-    """Backward on (B, N) rows: (dx, draw).  Dispatch, checks and the
-    launch count (`cf_epilogue_bwd.launches`) as for `cf_epilogue_fwd`."""
-    if x2.device.type == "cpu":
+    """Backward on (B, N) rows: (dx, draw).  Dispatch, variants, checks and
+    the launch count (`cf_epilogue_bwd.launches`, `.last_float4`) as for
+    `cf_epilogue_fwd`."""
+    if x2.is_cpu:
         return cf_epilogue_bwd_plain(x2, raw2, mask2, gcf, gl1, gl2, gpen,
                                      lo, hi)
     lib = _build.load_library().lib
-    _check((x2, raw2, mask2, gcf), (gl1, gl2, gpen), x2.device)
+    _check((x2, raw2, mask2, gcf), (gl1, gl2, gpen))
     b, n = x2.shape
     dx, draw = torch.empty_like(x2), torch.empty_like(x2)
     if b == 0 or n == 0:
         return dx, draw
-    err = lib.cfgan_epilogue_bwd_f32(
-        x2.data_ptr(), raw2.data_ptr(), mask2.data_ptr(), gcf.data_ptr(),
-        gl1.data_ptr(), gl2.data_ptr(), gpen.data_ptr(), dx.data_ptr(),
-        draw.data_ptr(), b, n, lo, hi, _stream(x2.device))
-    if err != 0:
-        raise RuntimeError(f"cf_epilogue backward kernel launch failed: "
-                           f"cudaError {err}")
+    ptrs = (x2.data_ptr(), raw2.data_ptr(), mask2.data_ptr(), gcf.data_ptr(),
+            dx.data_ptr(), draw.data_ptr())
+    vec = _float4(n, *ptrs)
+    _launched(lib.cfgan_epilogue_bwd_f32(
+        *ptrs[:4], gl1.data_ptr(), gl2.data_ptr(), gpen.data_ptr(), *ptrs[4:],
+        b, n, lo, hi, vec,
+        torch._C._cuda_getCurrentRawStream(x2.get_device())), "backward")
     cf_epilogue_bwd.launches += 1
+    cf_epilogue_bwd.last_float4 = vec
     return dx, draw
 
 
 cf_epilogue_bwd.launches = 0
+cf_epilogue_bwd.last_float4 = None
 
 
 def _rows(t: torch.Tensor, b: int) -> torch.Tensor:

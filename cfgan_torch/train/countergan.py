@@ -5,18 +5,22 @@ Per batch:
 
 1. targets and a random modifiable mask (drawn from a `torch.Generator`,
    or given: the parity tests hand in JAX's draws);
-2. ONE generator forward in train mode (BatchNorm statistics update once),
-   whose graph is kept for the generator update;
-3. the counterfactual from a forward-only epilogue on the detached raw
-   residual, and the discriminator update on (x, y) and (x_cf, t) batched
+2. ONE generator forward in train mode (BatchNorm statistics update once)
+   and ONE epilogue on its raw residual, giving the counterfactual and the
+   proximity and penalty sums; their graph is kept for the generator
+   update;
+3. the discriminator update on (x, y) and the detached (x_cf, t) batched
    into one pass;
 4. the generator loss through the UPDATED discriminator, whose parameters
    get no gradient from it, the frozen classifier, and the epilogue's
-   proximity and penalty sums;
+   sums;
 5. the generator update, then the EMA.
 
-The epilogue (`cfgan_torch.ops.epilogue.cf_epilogue`) runs twice per step
+The epilogue (`cfgan_torch.ops.epilogue.cf_epilogue`) runs once per step
 and its backward once: on the card these are the hand-written kernels.
+The JAX step computes the epilogue twice, before the D update and again
+for the G loss; the D update changes none of its inputs, so the values
+are the same.
 The step returns its metrics as device tensors and reads nothing back to
 the host.
 """
@@ -93,13 +97,13 @@ def make_countergan_step(*, cfg: CounterGANConfig, num_classes: int,
         g, d = state.g, state.d
         n_features = x[0].numel()
 
-        # ---- generator forward, kept for the G update ----
+        # ---- generator forward and the epilogue, kept for the G update;
+        # the D update below touches neither ----
         raw, masked = g_forward(x, t, mask)
-        with torch.no_grad():
-            x_cf = cf_epilogue(x, raw.detach(), mask, lo, hi)[0]
+        cf, l1s, l2s, pens = cf_epilogue(x, raw, mask, lo, hi)
 
         # ---- discriminator update, real and fake in one pass ----
-        scores = d_forward(torch.cat([x, x_cf]), torch.cat([y, t]))
+        scores = d_forward(torch.cat([x, cf.detach()]), torch.cat([y, t]))
         d_real, d_fake = scores.chunk(2)
         d_loss = d_loss_of(d_real, d_fake)
         d.opt.zero_grad(set_to_none=True)
@@ -107,7 +111,6 @@ def make_countergan_step(*, cfg: CounterGANConfig, num_classes: int,
         d.opt.step()
 
         # ---- generator update through the updated discriminator ----
-        cf, l1s, l2s, pens = cf_epilogue(x, raw, mask, lo, hi)
         adv = g_adv_of(d_forward(cf, t, detach=True))
         cf_logits = clf_forward(cf)
         cls = cg_losses.classifier_ce(cf_logits, t)

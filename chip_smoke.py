@@ -9,17 +9,18 @@ source, all started together) from the sources in the checkout and holds
 each against its plain PyTorch version on the card: the 3x3 conv (bf16,
 and f32 as 3xTF32, on the tensor cores; forward and its dx), the conv's
 weight gradient dK (bf16 and 3xTF32 f32 on the tensor cores), and the
-fused counterfactual epilogue's forward and backward.  Then it drives the
-port's two paths at the full width of the shipped MNIST CounteRGAN preset
-(64 channels, 6 residual blocks, bf16 compute), on random weights made
-from a seed:
+fused counterfactual epilogue's forward and backward (its 16-byte and
+4-byte variants, the latter for rows that are not 16-byte aligned).  Then
+it drives the port's two paths at the full width of the shipped MNIST
+CounteRGAN preset (64 channels, 6 residual blocks, bf16 compute), on
+random weights made from a seed:
 
 - serving (`build_mnist_serving`, `CounterfactualEngine`) with
   `conv_impl="pallas"`: every generator forward launches the conv kernel
   13 times, the served results equal the same requests served with the
   plain conv, and an all-zero mask returns x bit for bit;
 - training (`build_mnist_countergan`, `step_fn`) at batch 128: ten steps
-  launch the epilogue kernels twice (forward) and once (backward) per step,
+  launch the epilogue kernels once (forward) and once (backward) per step,
   and give the losses of the same steps with the plain epilogue, in bf16
   and (three steps) in f32; three steps with `conv_impl="pallas"` launch
   the conv kernel 13 times forward and 13 times for dx per step, and the
@@ -32,9 +33,10 @@ cuDNN's convs and with the kernels, f32 with the kernels).
 
     python3 chip_smoke.py --train-timing-only
 
-builds the kernels and runs only the `timing train` phase: copied to the
-root of another checkout (an earlier commit), it times that checkout's
-train steps the same way.
+builds the kernels and runs only the `timing train` phase (the train
+steps, and the epilogue kernels' device and host time per call): copied
+to the root of another checkout (an earlier commit), it times that
+checkout's train steps and epilogue kernels the same way.
 
 Each phase prints one JSON line and its wall time.  The line before the
 last is the card's `nvidia-smi` name and power limit; the last line is
@@ -100,7 +102,12 @@ DK_RTOL = 1e-5
 # another order: rel <= EPI_SUM_RTOL
 EPI_ATOL = 1e-6
 EPI_SUM_RTOL = 1e-5
-EPI_SHAPES = ((128, 784), (257, 784), (3, 17), (5, 2))
+# (B, N, misaligned): the step's rows (the 16-byte variant), more rows than
+# SMs, N % 4 != 0 and N < 4 (the 4-byte variant), rows longer than one
+# block's quads, and the step's rows one element into their storage (the
+# 4-byte variant)
+EPI_CASES = ((128, 784, False), (257, 784, False), (3, 17, False),
+             (5, 2, False), (64, 4096, False), (128, 784, True))
 EPI_BOUNDS = ((-1.0, 1.0), (-1e30, 1e30))  # clamp, no clamp
 # the smoke's train step: the preset's batch, and 10 steps (3 in f32 and
 # with the conv kernel)
@@ -326,6 +333,54 @@ def epilogue_bound(b: int, n: int, backward: bool):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def host_call_ms(fn, windows: int = 5, iters: int = 200) -> float:
+    """Median over `windows` of the ms per call of `fn` by CUDA events
+    around `iters` back-to-back calls: where the host's work per call
+    exceeds the kernel's, its host time per call.  The host is shared, so
+    one window may move by half."""
+    return statistics.median(cuda_ms(fn, iters) for _ in range(windows))
+
+
+def time_epilogue(card: str, dev) -> dict:
+    """Device ms per call (profiler) of the epilogue kernels and of their
+    plain versions, and the wrappers' host-bound ms per call
+    (`host_call_ms`), at the step's (128, 784) float32 rows: one line
+    each.  Uses only what every checkout's `cfgan_torch.ops.epilogue`
+    has, so `--train-timing-only` runs it on earlier commits too."""
+    import torch
+
+    from cfgan_torch.ops import epilogue as tep
+
+    b, n = TRAIN_BATCH, 28 * 28
+    x, raw = (torch.rand((b, n), device=dev) * 2 - 1 for _ in range(2))
+    mask = (torch.rand((b, n), device=dev) > 0.5).float()
+    gcf = torch.randn((b, n), device=dev)
+    cols = [torch.randn((b,), device=dev) for _ in range(3)]
+    epi = {}
+    for name, kernel, plain, args, backward in (
+            ("cf_epilogue_fwd", tep.cf_epilogue_fwd,
+             tep.cf_epilogue_fwd_plain, (x, raw, mask, -1.0, 1.0), False),
+            ("cf_epilogue_bwd", tep.cf_epilogue_bwd,
+             tep.cf_epilogue_bwd_plain,
+             (x, raw, mask, gcf, *cols, -1.0, 1.0), True)):
+        bound_ms, bound_by = epilogue_bound(b, n, backward)
+        # device time per call (kernel_ms): a few microseconds of kernel,
+        # shorter than the wrapper's host-side work, so CUDA events around
+        # back-to-back calls time the host
+        (ms, how), (plain_ms, plain_how) = (
+            kernel_ms(lambda: kernel(*args), 200),
+            kernel_ms(lambda: plain(*args), 200))
+        epi[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=None)
+        emit({"phase": "timing", "what": name, "card": card,
+              "shape": (b, n), "dtype": "float32", **epi[name],
+              "timed_by": sorted({how, plain_how}),
+              "share_of_bound": bound_ms / ms,
+              "host_bound_call_ms": host_call_ms(lambda: kernel(*args)),
+              "plain_host_bound_call_ms": host_call_ms(lambda: plain(*args))})
+    return epi
+
+
 # the train steps `timing train` times: (compute dtype, conv_impl); None is
 # the preset's cuDNN conv
 TIMED_STEPS = (("bfloat16", None), ("bfloat16", "pallas"),
@@ -443,6 +498,7 @@ def main() -> None:
                                 generator=gen).to(dev)
         with Phase("timing train"):
             time_train_steps(card, dev, clf_sd, train_x, train_y)
+            time_epilogue(card, dev)
         print(card, flush=True)
         emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                      "count": count}})
@@ -661,9 +717,15 @@ def main() -> None:
                 fail(f"{dtype}: an all-zero mask did not return x exactly")
 
     # ------------------------------------------- epilogue kernels vs plain
+    def misaligned(t):
+        """A contiguous copy of `t` one element into its storage."""
+        view = torch.empty(t.numel() + 1, device=t.device)[1:].view(t.shape)
+        return view.copy_(t)
+
     epi_err = {"fwd": 0.0, "bwd": 0.0}
     with Phase("kernel cf_epilogue"):
-        for b, n in EPI_SHAPES:
+        variants = set()
+        for b, n, off in EPI_CASES:
             for lo, hi in EPI_BOUNDS:
                 x = torch.rand((b, n), generator=gen) * 2.4 - 1.2
                 raw = torch.randn((b, n), generator=gen) * 0.4
@@ -675,9 +737,16 @@ def main() -> None:
                 cols = [torch.randn((b,), generator=gen) for _ in range(3)]
                 x, raw, mask, gcf, *cols = (t.to(dev) for t in
                                             (x, raw, mask, gcf, *cols))
+                if off:
+                    x, raw, mask, gcf = map(misaligned, (x, raw, mask, gcf))
                 got = tep.cf_epilogue_fwd(x, raw, mask, lo, hi)
                 ref = tep.cf_epilogue_fwd_plain(x, raw, mask, lo, hi)
                 got_b = tep.cf_epilogue_bwd(x, raw, mask, gcf, *cols, lo, hi)
+                # the variant each wrapper passed to its kernel
+                variant = {k: "16-byte" if f.last_float4 else "4-byte"
+                           for k, f in (("fwd", tep.cf_epilogue_fwd),
+                                        ("bwd", tep.cf_epilogue_bwd))}
+                variants.update(variant.items())
                 ref_b = tep.cf_epilogue_bwd_plain(x, raw, mask, gcf, *cols,
                                                   lo, hi)
                 torch.cuda.synchronize()
@@ -692,6 +761,7 @@ def main() -> None:
                       and sum_err <= EPI_SUM_RTOL
                       and all(torch.isfinite(t).all() for t in (*got, *got_b)))
                 emit({"phase": "kernel cf_epilogue", "shape": (b, n),
+                      "misaligned": off, "variant": variant,
                       "lo": lo, "hi": hi, "x_cf_max_abs_err": cf_err,
                       "sums_max_rel_err": sum_err, "sums_max_abs_err": sum_abs,
                       "dx_max_abs_err": dx_err, "draw_max_abs_err": draw_err,
@@ -699,9 +769,14 @@ def main() -> None:
                                    f"rel <= {EPI_SUM_RTOL}", "ok": ok})
                 if not ok:
                     fail(f"cf_epilogue kernels disagree with their plain "
-                         f"versions at {(b, n)}, bounds {(lo, hi)}")
+                         f"versions at {(b, n)} {variant}, bounds "
+                         f"{(lo, hi)}")
                 epi_err["fwd"] = max(epi_err["fwd"], cf_err, sum_abs)
                 epi_err["bwd"] = max(epi_err["bwd"], dx_err, draw_err)
+        if variants != {(k, v) for k in ("fwd", "bwd")
+                        for v in ("16-byte", "4-byte")}:
+            fail(f"the epilogue kernels ran the variants {sorted(variants)}, "
+                 "not both each")
 
     # ------------------------------------------------------------ train
     clf_sd = mnist_models(MNIST_COUNTERGAN, generator=gen)[1].state_dict()
@@ -767,9 +842,9 @@ def main() -> None:
             zero_counts()
             bundle, losses, _ = train(cfg, steps)
             launched = counts()
-            if launched != (2 * steps, steps, 0, 0):
+            if launched != (steps, steps, 0, 0):
                 fail(f"{dtype} training launched (fwd, bwd, conv, dK) = "
-                     f"{launched}, not {(2 * steps, steps, 0, 0)}")
+                     f"{launched}, not {(steps, steps, 0, 0)}")
             train_launches[dtype] = launched
             with plain_epilogue():
                 plain_bundle, plain_losses, _ = train(cfg, steps)
@@ -793,9 +868,9 @@ def main() -> None:
     with Phase("train pallas"):
         pallas_train_launches = {}
         for dtype in ("bfloat16", "float32"):
-            # 13 forward and 13 dx launches of the conv kernel a step, and
-            # 13 of the dK kernel
-            want = (2 * SHORT_STEPS, SHORT_STEPS,
+            # one epilogue forward and backward a step, 13 forward and 13
+            # dx launches of the conv kernel, and 13 of the dK kernel
+            want = (SHORT_STEPS, SHORT_STEPS,
                     2 * KERNEL_LAYERS_PER_FORWARD * SHORT_STEPS,
                     KERNEL_LAYERS_PER_FORWARD * SHORT_STEPS)
             cfg = replace(MNIST_COUNTERGAN, conv_impl="pallas",
@@ -893,15 +968,16 @@ def main() -> None:
                       "timed_by": sorted(timed_by),
                       "events_call_ms": cuda_ms(lambda: conv3x3_same(x, k),
                                                 50)})
-        for dtype in ("bfloat16", "float32"):
-            shape = SERVING_SHAPE
+        for shape, dtype in ((s_, d_) for s_ in (SERVING_SHAPE,
+                                                 (1, 28, 28, 64, 64))
+                             for d_ in ("bfloat16", "float32")):
             x, _ = conv_inputs(*shape, getattr(torch, dtype))
             g, _ = conv_inputs(*shape[:3], shape[4], shape[4],
                                getattr(torch, dtype))
             x_nchw, g_nchw = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
             w_shape = (shape[4], shape[3], 3, 3)
             bound_ms, bound_by = dkernel_bound(*shape, dtype)
-            dk = timing["dk", dtype] = dict(
+            dk = timing["dk", shape, dtype] = dict(
                 ms=dev_ms(lambda: conv3x3_same_dkernel(x, g)),
                 plain_ms=dev_ms(lambda: conv3x3_same_dkernel_plain(x, g)),
                 library_ms=dev_ms(lambda: torch.nn.grad.conv2d_weight(
@@ -934,35 +1010,7 @@ def main() -> None:
 
     with Phase("timing train"):
         time_train_steps(card, dev, clf_sd, train_x, train_y)
-        b, n = TRAIN_BATCH, 28 * 28
-        x, raw = (torch.rand((b, n), device=dev) * 2 - 1 for _ in range(2))
-        mask = (torch.rand((b, n), device=dev) > 0.5).float()
-        gcf = torch.randn((b, n), device=dev)
-        cols = [torch.randn((b,), device=dev) for _ in range(3)]
-        epi = {}
-        for name, kernel, plain, args, backward in (
-                ("cf_epilogue_fwd", tep.cf_epilogue_fwd,
-                 tep.cf_epilogue_fwd_plain, (x, raw, mask, -1.0, 1.0), False),
-                ("cf_epilogue_bwd", tep.cf_epilogue_bwd,
-                 tep.cf_epilogue_bwd_plain,
-                 (x, raw, mask, gcf, *cols, -1.0, 1.0), True)):
-            bound_ms, bound_by = epilogue_bound(b, n, backward)
-            # device time per call (kernel_ms): a few microseconds of
-            # kernel, shorter than the wrapper's host-side work, so CUDA
-            # events around back-to-back calls time the host
-            (ms, how), (plain_ms, plain_how) = (
-                kernel_ms(lambda: kernel(*args), 200),
-                kernel_ms(lambda: plain(*args), 200))
-            epi[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                             bound_by=bound_by)
-            emit({"phase": "timing", "what": name, "card": card,
-                  "shape": (b, n), "dtype": "float32", **epi[name],
-                  "timed_by": sorted({how, plain_how}),
-                  "library_ms": None,
-                  "share_of_bound": bound_ms / epi[name]["ms"],
-                  "host_bound_call_ms": cuda_ms(lambda: kernel(*args), 200),
-                  "plain_host_bound_call_ms": cuda_ms(lambda: plain(*args),
-                                                      200)})
+        epi = time_epilogue(card, dev)
 
     def entry(name, source, replaces, launched, err, t):
         return {"name": name, "route": "cuda", "source": source,
@@ -984,14 +1032,15 @@ def main() -> None:
               timing[SERVING_SHAPE, "float32"]),
         entry("conv3x3_same_dkernel", dk_src, "cfgan/ops/conv.py:165",
               pallas_train_launches["bfloat16"][3],
-              dk_err[SERVING_SHAPE, "bfloat16"], timing["dk", "bfloat16"]),
+              dk_err[SERVING_SHAPE, "bfloat16"],
+              timing["dk", SERVING_SHAPE, "bfloat16"]),
         entry("conv3x3_same_dkernel_f32", dk_src, "cfgan/ops/conv.py:165",
               pallas_train_launches["float32"][3],
-              dk_err[SERVING_SHAPE, "float32"], timing["dk", "float32"]),
+              dk_err[SERVING_SHAPE, "float32"],
+              timing["dk", SERVING_SHAPE, "float32"]),
     ] + [
         entry(name, "cfgan_torch/csrc/epilogue.cu", replaces,
-              train_launches["bfloat16"][k], epi_err[key],
-              {**epi[name], "library_ms": None})
+              train_launches["bfloat16"][k], epi_err[key], epi[name])
         for k, (name, key, replaces) in enumerate((
             ("cf_epilogue_fwd", "fwd", "cfgan/ops/epilogue.py:54"),
             ("cf_epilogue_bwd", "bwd", "cfgan/ops/epilogue.py:67")))]})

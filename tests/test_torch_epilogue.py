@@ -162,12 +162,37 @@ def test_wrappers_do_not_fall_back_when_the_build_fails(monkeypatch, which):
 
 def test_kernel_entry_points_are_declared():
     """The C entry points of both kernels are bound with pointer-sized
-    arguments (a pointer passed as a 32-bit int would be cut)."""
+    arguments (a pointer passed as a 32-bit int would be cut): the tensors
+    and the stream are pointers, the bounds floats, the variant an int."""
     import ctypes
 
-    for name in ("cfgan_epilogue_fwd_f32", "cfgan_epilogue_bwd_f32"):
+    for name, tensors in (("cfgan_epilogue_fwd_f32", 5),
+                          ("cfgan_epilogue_bwd_f32", 9)):
         args = _build.SIGNATURES[name]
-        assert args[-1] is ctypes.c_void_p
-        assert args[-3:-1] == [ctypes.c_float] * 2
+        assert args[:tensors] == [ctypes.c_void_p] * tensors
+        assert args[tensors:] == [ctypes.c_int] * 2 + [ctypes.c_float] * 2 + [
+            ctypes.c_int, ctypes.c_void_p]
     src = (_build.SOURCES[1]).read_text()
     assert "cfgan_epilogue_fwd_f32" in src and "cfgan_epilogue_bwd_f32" in src
+
+
+def _offset_rows(b, n, offset):
+    """A contiguous (b, n) float32 view whose first element lies `offset`
+    elements into its storage."""
+    return torch.zeros(b * n + offset)[offset:].view(b, n)
+
+
+@pytest.mark.parametrize("rows, float4", [
+    (lambda: [torch.zeros(128, 784) for _ in range(3)], True),
+    (lambda: [torch.zeros(5, 17) for _ in range(3)], False),
+    (lambda: [torch.zeros(128, 784), _offset_rows(128, 784, 1),
+              torch.zeros(128, 784)], False),
+    (lambda: [_offset_rows(128, 784, 4) for _ in range(3)], True),
+], ids=["784_aligned", "17", "storage_offset_1", "storage_offset_4"])
+def test_float4_variant_only_for_aligned_rows(rows, float4):
+    """The 16-byte variant needs N % 4 == 0 and every row tensor 16-byte
+    aligned; else the wrapper takes the 4-byte variant of the same kernels
+    (N = 17; a contiguous view one element into its storage)."""
+    rows = rows()
+    assert all(t.is_contiguous() for t in rows)
+    assert tep.float4_rows(*rows) is float4

@@ -18,7 +18,11 @@ from cfgan_torch.nn.layers import Conv
 from cfgan_torch.ops import conv as tconv
 from cfgan_torch.ops import epilogue as tep
 from cfgan_torch.serve.engine import CounterfactualEngine
-from cfgan_torch.train.builders import build_mnist_serving, mnist_models
+from cfgan_torch.train.builders import (
+    build_mnist_countergan,
+    build_mnist_serving,
+    mnist_models,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -272,16 +276,37 @@ def _epilogue_inputs(b, n, dev, seed=0):
     return [t.to(dev) for t in (x, raw, mask, gcf, *cols)]
 
 
-@pytest.mark.parametrize("shape", [(128, 784), (257, 784), (3, 17), (5, 2)],
-                         ids=str)
+def _misaligned(t):
+    """A contiguous copy of `t` that starts one element into its storage,
+    so 4 bytes past a 16-byte boundary."""
+    view = torch.empty(t.numel() + 1, device=t.device)[1:].view(t.shape)
+    return view.copy_(t)
+
+
+# (B, N, misaligned): the step's rows (the 16-byte variant, one quad a
+# thread), more rows than SMs, N % 4 != 0 and N < 4 (the 4-byte variant),
+# a row longer than one block's quads (several trips a thread), and the
+# step's rows as views one element into their storage (4-byte variant)
+EPILOGUE_CASES = [(128, 784, False), (257, 784, False), (3, 17, False),
+                  (5, 2, False), (64, 4096, False), (128, 784, True)]
+
+
+@pytest.mark.parametrize("case", EPILOGUE_CASES,
+                         ids=lambda c: f"{c[0]}x{c[1]}" + ("_misaligned"
+                                                           if c[2] else ""))
 @pytest.mark.parametrize("bounds", [(-1.0, 1.0), (-1e30, 1e30)],
                          ids=["clamp", "no_clamp"])
-def test_epilogue_kernels_match_plain(shape, bounds):
+def test_epilogue_kernels_match_plain(case, bounds):
     """x_cf, dx and draw abs <= 1e-6 (the same elementwise float32 ops;
     the kernels do not contract them into FMAs, so they round where the
     plain version does); the row sums rel <= 1e-5 (summation order)."""
     dev = _card()
-    x, raw, mask, gcf, gl1, gl2, gpen = _epilogue_inputs(*shape, dev)
+    b, n, misaligned = case
+    x, raw, mask, gcf, gl1, gl2, gpen = _epilogue_inputs(b, n, dev)
+    if misaligned:
+        x, raw, mask, gcf = map(_misaligned, (x, raw, mask, gcf))
+    assert tep.float4_rows(x, raw, mask, gcf) is (n % 4 == 0
+                                                  and not misaligned)
     f0, b0 = tep.cf_epilogue_fwd.launches, tep.cf_epilogue_bwd.launches
     got = tep.cf_epilogue_fwd(x, raw, mask, *bounds)
     want = tep.cf_epilogue_fwd_plain(x, raw, mask, *bounds)
@@ -291,6 +316,9 @@ def test_epilogue_kernels_match_plain(shape, bounds):
     torch.cuda.synchronize()
     assert (tep.cf_epilogue_fwd.launches, tep.cf_epilogue_bwd.launches) == (
         f0 + 1, b0 + 1)
+    # the variant each wrapper passed to its kernel
+    assert tep.cf_epilogue_fwd.last_float4 is (n % 4 == 0 and not misaligned)
+    assert tep.cf_epilogue_bwd.last_float4 is (n % 4 == 0 and not misaligned)
     assert (got[0] - want[0]).abs().max().item() <= 1e-6
     for g, w in zip(got[1:], want[1:]):
         assert ((g - w).abs() <= 1e-5 * w.abs() + 1e-30).all()
@@ -310,6 +338,31 @@ def test_epilogue_wrapper_rejects_what_the_kernels_do_not_take():
         tep.cf_epilogue_fwd(x, raw.cpu(), mask, -1.0, 1.0)
     with pytest.raises(ValueError):
         tep.cf_epilogue_bwd(x, raw, mask, gcf, gl1[:2], gl2, gpen, -1.0, 1.0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("conv_impl", [None, "pallas"],
+                         ids=["cudnn_conv", "pallas_conv"])
+def test_train_step_launches_each_epilogue_kernel_once(dtype, conv_impl):
+    """One train step launches the epilogue's forward kernel once and its
+    backward kernel once (width 16 routes the resblock convs to the conv
+    kernel with `conv_impl="pallas"`)."""
+    dev = _card()
+    cfg = replace(MNIST_COUNTERGAN, hidden_dim=16, num_res_blocks=1,
+                  compute_dtype=dtype, conv_impl=conv_impl)
+    clf = mnist_models(cfg, generator=torch.Generator().manual_seed(0))[1]
+    bundle = build_mnist_countergan(cfg, clf.state_dict(), device=dev)
+    draws = torch.Generator(device=dev).manual_seed(0)
+    x = torch.rand((8, 28, 28, 1), device=dev) * 2 - 1
+    y = torch.randint(0, 10, (8,), device=dev)
+    f0, b0 = tep.cf_epilogue_fwd.launches, tep.cf_epilogue_bwd.launches
+    conv0 = tconv.conv3x3_same.launches
+    metrics = bundle.step_fn(bundle.state, x, y, draws)
+    torch.cuda.synchronize()
+    assert (tep.cf_epilogue_fwd.launches - f0,
+            tep.cf_epilogue_bwd.launches - b0) == (1, 1)
+    assert (tconv.conv3x3_same.launches > conv0) == (conv_impl == "pallas")
+    assert all(torch.isfinite(v).all() for v in metrics.values())
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -260,3 +260,121 @@ def test_reference_preset_matches_the_jax_preset():
     for field in MASK:
         assert getattr(MNIST_COUNTERGAN_REFERENCE.mask, field) == getattr(
             want.mask, field)
+
+
+def _counting(fn, calls, key):
+    def spy(*args):
+        calls[key] += 1
+        return fn(*args)
+
+    return spy
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("conv_impl", [None, "pallas"],
+                         ids=["cudnn_conv", "pallas_conv"])
+def test_step_runs_the_epilogue_forward_and_backward_once(monkeypatch, dtype,
+                                                          conv_impl):
+    """Each step calls the epilogue's forward once and its backward once
+    (on the card, one launch of each kernel), in both compute dtypes and
+    with either conv route (width 16 routes the resblock convs to the
+    conv kernel's Function).  Counting wrappers around the plain versions
+    stand in for the wrappers of the kernels."""
+    from cfgan_torch.ops import epilogue as tep
+
+    calls = {"fwd": 0, "bwd": 0}
+    monkeypatch.setattr(tep, "cf_epilogue_fwd", _counting(
+        tep.cf_epilogue_fwd_plain, calls, "fwd"))
+    monkeypatch.setattr(tep, "cf_epilogue_bwd", _counting(
+        tep.cf_epilogue_bwd_plain, calls, "bwd"))
+    _, pcfg = _configs(hidden_dim=16, compute_dtype=dtype,
+                       conv_impl=conv_impl, ema_decay=0.999)
+    bundle = build_mnist_countergan(pcfg, CNNClassifier().state_dict(),
+                                    device="cpu")
+    draws = torch.Generator().manual_seed(0)
+    for i in range(2):
+        x, y = _batch(i)
+        bundle.step_fn(bundle.state, torch.from_numpy(x)[:4],
+                       torch.from_numpy(y).long()[:4], draws)
+        assert calls == {"fwd": i + 1, "bwd": i + 1}
+
+
+def _two_forward_step(cfg, state, clf_model):
+    """The step with two epilogue forwards, as the JAX package runs it: a
+    forward-only epilogue on the detached raw residual for the D update,
+    then the epilogue again for the G loss.  Built from the
+    parts `build_mnist_countergan` builds its step from, for the recipe's
+    BCE loss and clamp, without EMA, `lambda_range` or diagnostics."""
+    from cfgan_torch.losses import countergan as cg_losses
+    from cfgan_torch.losses import gan as gan_losses
+    from cfgan_torch.ops.epilogue import cf_epilogue, epilogue_terms
+    from cfgan_torch.train.builders import (
+        clf_forward_fn,
+        make_mixed_precision,
+    )
+
+    g_forward = make_mixed_precision(state.g.model, cfg.compute_dtype)
+    d_forward = make_mixed_precision(state.d.model, cfg.compute_dtype)
+    clf_forward = clf_forward_fn(clf_model, cfg.compute_dtype)
+    lo, hi = cfg.clamp_cf
+
+    def step(x, y, t, mask):
+        raw, _ = g_forward(x, t, mask)
+        with torch.no_grad():
+            x_cf = cf_epilogue(x, raw.detach(), mask, lo, hi)[0]
+        d_real, d_fake = d_forward(torch.cat([x, x_cf]),
+                                   torch.cat([y, t])).chunk(2)
+        d_loss = gan_losses.d_loss_bce(d_real, d_fake)
+        state.d.opt.zero_grad(set_to_none=True)
+        d_loss.backward()
+        state.d.opt.step()
+        cf, l1s, l2s, pens = cf_epilogue(x, raw, mask, lo, hi)
+        adv = gan_losses.g_loss_bce(d_forward(cf, t, detach=True))
+        cls = cg_losses.classifier_ce(clf_forward(cf), t)
+        l1, _, pen = epilogue_terms(l1s, l2s, pens, x[0].numel(),
+                                    cfg.reg_reduction)
+        l2 = torch.zeros(())
+        total = (cfg.lambda_adv * adv + cfg.lambda_cls * cls
+                 + cfg.lambda_reg_l1 * l1 + cfg.lambda_reg_l2 * l2
+                 + cfg.lambda_mask * pen)
+        state.g.opt.zero_grad(set_to_none=True)
+        total.backward()
+        state.g.opt.step()
+        return {"d_loss": d_loss.detach(), "g_loss": total.detach()}
+
+    return step
+
+
+def test_one_forward_step_equals_the_two_forward_step_bit_for_bit():
+    """The D update changes none of the epilogue's inputs, so computing
+    its forward once per step gives what computing it twice gave: the
+    same metrics at every step, and the same parameters, BatchNorm
+    statistics and Adam moments after three, bit for bit in float32."""
+    _, pcfg = _configs()
+    assert pcfg.lambda_reg_l2 == 0 and not pcfg.ema_decay
+    clf = CNNClassifier(generator=torch.Generator().manual_seed(1))
+    ours, ref = (build_mnist_countergan(pcfg, clf.state_dict(), seed=5,
+                                        device="cpu", diagnostics=False)
+                 for _ in range(2))
+    two_forward = _two_forward_step(pcfg, ref.state, clf)
+    rng = np.random.RandomState(9)
+    for i in range(3):
+        x, y = (torch.from_numpy(a) for a in _batch(i))
+        y = y.long()
+        t = torch.from_numpy(rng.randint(0, 10, B)).long()
+        mask = torch.from_numpy(
+            (rng.uniform(size=(B, 28, 28, 1)) > 0.5).astype(np.float32))
+        got = ours.step_with_draws(ours.state, x, y, t, mask)
+        want = two_forward(x, y, t, mask)
+        assert got.keys() == want.keys()
+        for name in want:
+            assert torch.equal(got[name], want[name]), (i, name)
+    for net in ("g", "d"):
+        a, b = getattr(ours.state, net), getattr(ref.state, net)
+        for (name, p), q in zip(a.model.state_dict().items(),
+                                b.model.state_dict().values()):
+            assert torch.equal(p, q), (net, name)
+        for p, q in zip(a.model.parameters(), b.model.parameters()):
+            sa, sb = a.opt.state[p], b.opt.state[q]
+            assert torch.equal(sa["exp_avg"], sb["exp_avg"])
+            assert torch.equal(sa["exp_avg_sq"], sb["exp_avg_sq"])
