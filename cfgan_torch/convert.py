@@ -15,7 +15,10 @@ discriminator parameters, the generator's batch statistics and its EMA)
 across, so that the parity tests can start both packages from the same
 weights and compare them leaf by leaf after N steps;
 `adam_moments_to_flax` gives the optimizers' first moments in the same
-layout, to compare gradients.
+layout, to compare gradients.  `train_state_to_flax` / `load_train_state`
+carry everything a mid-run checkpoint holds, Adam's count and both
+moments included, in the layout of the JAX package's `GANState` state
+dict (`cfgan_torch.core.checkpoint.save_train_state`).
 """
 from __future__ import annotations
 
@@ -60,9 +63,11 @@ def _convert(sub: nn.Module, collection: str, name: str,
 
 
 def state_dict_from_flax(module: nn.Module,
-                         variables: Mapping[str, Mapping]
+                         variables: Mapping[str, Mapping],
+                         params_only: bool = False
                          ) -> dict[str, torch.Tensor]:
-    """A state dict for `module` from flax `variables` of numpy arrays.
+    """A state dict for `module` from flax `variables` of numpy arrays
+    (with `params_only`, of its parameters alone, from `{"params": ...}`).
     Raises KeyError on a flax leaf the module has no place for (an extra
     key) and on a module entry no leaf fills (a missing key), and
     ValueError on a shape that does not match."""
@@ -84,7 +89,8 @@ def state_dict_from_flax(module: nn.Module,
                                f"{type(module).__name__} has no place for it")
             key = f"{prefix}.{got[0]}" if prefix else got[0]
             out[key] = torch.tensor(np.asarray(got[1]))
-    expected = module.state_dict()
+    expected = (dict(module.named_parameters()) if params_only
+                else module.state_dict())
     missing = sorted(expected.keys() - out.keys())
     if missing:
         raise KeyError(f"missing keys: no flax leaf fills {missing}")
@@ -187,3 +193,87 @@ def adam_moments_to_flax(state: GANState) -> dict:
               for name, p in ns.model.named_parameters()}
         out[net] = flax_from_state_dict(ns.model, mu)["params"]
     return out
+
+
+def _adam_leaf(opt: torch.optim.Optimizer, p: torch.Tensor, key: str):
+    state = opt.state.get(p, {})
+    return state[key] if key in state else torch.zeros_like(p)
+
+
+def adam_state_to_flax(ns: NetState) -> dict:
+    """One network's Adam state in the layout of optax.adam's state dict,
+    `{"0": {"count", "mu", "nu"}, "1": {}}`: torch's per-parameter step
+    is optax's one count (int32), `exp_avg` / `exp_avg_sq` its moments.
+    A parameter that has taken no step has zero moments, as optax's."""
+    params = dict(ns.model.named_parameters())
+    steps = {int(ns.opt.state[p]["step"]) for p in params.values()
+             if "step" in ns.opt.state.get(p, {})}
+    if len(steps) > 1:
+        raise ValueError(f"parameters took different step counts {steps}")
+    moments = {}
+    for name, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+        leaves = {n: _adam_leaf(ns.opt, p, key) for n, p in params.items()}
+        moments[name] = flax_from_state_dict(ns.model, leaves)["params"]
+    count = np.array(steps.pop() if steps else 0, np.int32)
+    return {"0": {"count": count, **moments}, "1": {}}
+
+
+def load_adam_state(ns: NetState, tree: Mapping) -> None:
+    """Copy an optax.adam state dict (`adam_state_to_flax`'s layout) into
+    `ns.opt` in place: existing step and moment tensors are overwritten,
+    missing ones are made (on the device for a capturable optimizer, as
+    torch makes them)."""
+    count = float(np.asarray(tree["0"]["count"]))
+    moments = {key: state_dict_from_flax(ns.model, {"params": tree["0"][name]},
+                                         params_only=True)
+               for name, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq"))}
+    capturable = ns.opt.defaults.get("capturable", False)
+    with torch.no_grad():
+        for name, p in ns.model.named_parameters():
+            state = ns.opt.state[p]
+            if "step" not in state:
+                state["step"] = torch.zeros(
+                    (), dtype=torch.float32,
+                    device=p.device if capturable else "cpu")
+                for key in ("exp_avg", "exp_avg_sq"):
+                    state[key] = torch.zeros_like(
+                        p, memory_format=torch.preserve_format)
+            state["step"].fill_(count)
+            for key, values in moments.items():
+                state[key].copy_(values[name])
+
+
+def _generator_tree(g: nn.Module, state_dict) -> dict:
+    tree = flax_from_state_dict(g, state_dict)
+    return {"params": tree["params"],
+            "stats": ({"batch_stats": tree["batch_stats"]}
+                      if "batch_stats" in tree else {})}
+
+
+def train_state_to_flax(state: GANState) -> dict:
+    """The whole train state as the JAX package's `GANState` state dict:
+    `{"g": {"params", "stats", "opt_state"}, "d": {...}, "step": int32,
+    "g_ema": params or None}`, numpy leaves."""
+    out = {}
+    for net in ("g", "d"):
+        ns = getattr(state, net)
+        out[net] = {**_generator_tree(ns.model, ns.model.state_dict()),
+                    "opt_state": adam_state_to_flax(ns)}
+    out["step"] = np.array(state.step, np.int32)
+    out["g_ema"] = (None if state.g_ema is None else
+                    flax_from_state_dict(state.g.model, state.g_ema)["params"])
+    return out
+
+
+def load_train_state(state: GANState, tree: Mapping) -> None:
+    """Copy a `train_state_to_flax` tree (either package's) into `state`
+    in place: module parameters and buffers by `load_state_dict` (which
+    copies), the EMA and Adam's tensors by `copy_`, so that tensors a
+    captured CUDA graph reads keep their addresses."""
+    load_gan_state(state, {
+        "g": {"params": tree["g"]["params"], **tree["g"]["stats"]},
+        "d": {"params": tree["d"]["params"], **tree["d"]["stats"]},
+        "g_ema": tree["g_ema"]})
+    for net in ("g", "d"):
+        load_adam_state(getattr(state, net), tree[net]["opt_state"])
+    state.step = int(np.asarray(tree["step"]))

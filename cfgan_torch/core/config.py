@@ -1,14 +1,49 @@
-"""Configuration of the MNIST CounteRGAN's serving and training (mirrors
-`cfgan/core/config.py` and the MNIST presets of
-`cfgan/experiments/presets.py`).
+"""Configuration of the MNIST CounteRGAN experiment: its data, classifier
+pretrain, generator serving and training (mirrors `cfgan/core/config.py`;
+the experiment presets are in `cfgan_torch/experiments/presets.py`).
 
-The JAX package's `remat`, `g_microbatch` and `snapshot_every` are not
-ported yet, so they are not fields here: a config cannot ask for them and
-be silently ignored.
+The JAX package's `remat`, `g_microbatch`, `gumbel_tau` and `cat_head_f32`
+are not ported, so they are not fields here: a config cannot ask for them
+and be silently ignored.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """Dataset selection and loading (`cfgan.core.config.DataConfig`)."""
+
+    name: str = "moons"  # moons | mnist | kc_house
+    batch_size: int = 64
+    valid_fraction: float = 0.0  # stratified valid split (mnist: 0.1)
+    test_fraction: float = 0.2  # train/test split for array datasets
+    seed: int = 42
+    path: str | None = None  # dataset directory (None: the search order)
+    image_shape: tuple[int, int, int] = (28, 28, 1)  # NHWC
+    normalize_mean: float = 0.5  # [0, 1] -> [-1, 1]
+    normalize_std: float = 0.5
+    resize_to: int | None = None
+
+
+@dataclass(frozen=True)
+class ClassifierConfig:
+    """The frozen classifier's pretrain (`cfgan.core.config.
+    ClassifierConfig`).  The full-batch regime (`steps`) is the moons
+    experiment's and is not ported."""
+
+    arch: str = "mlp"  # mlp | cnn
+    lr: float = 1e-3
+    epochs: int = 10
+    batch_size: int = 128
+    steps: int | None = None
+    weight_decay: float = 0.0
+    class_weighted: bool = False
+    early_stop_patience: int | None = None
+    lr_plateau: bool = False
+    hidden_dim: int = 32
+    dropout: tuple[float, ...] = ()
 
 
 @dataclass(frozen=True)
@@ -38,6 +73,7 @@ class CounterGANConfig:
     float32 parameters, optimizer state and losses.
     """
 
+    epochs: int = 500
     lr_g: float = 1e-3
     lr_d: float = 1e-3
     lambda_adv: float = 1.0
@@ -58,15 +94,38 @@ class CounterGANConfig:
     residual_scaling: float = 0.1
     compute_dtype: str = "float32"
     conv_impl: str | None = None
+    # > 0: the experiment scores serving candidates every K epochs on the
+    # validation split and ships the best snapshot (cfgan_torch.train.
+    # selection); 0: end-of-training selection only
+    snapshot_every: int = 0
     # > 0: per-step EMA of the generator parameters, starting at the
     # initial parameters
     ema_decay: float = 0.0
     mask: MaskConfig = field(default_factory=MaskConfig)
 
 
+@dataclass(frozen=True)
+class ExperimentConfig:
+    """One runnable experiment (`cfgan.core.config.ExperimentConfig`,
+    without the parts the port has no path for: `gan`, `sharding`,
+    `schema`)."""
+
+    name: str = "moons_countergan"
+    seed: int = 42
+    num_classes: int = 3
+    data: DataConfig = field(default_factory=DataConfig)
+    classifier: ClassifierConfig = field(default_factory=ClassifierConfig)
+    countergan: CounterGANConfig = field(default_factory=CounterGANConfig)
+    out_dir: str = "results"
+
+    def replace(self, **kw) -> "ExperimentConfig":
+        return replace(self, **kw)
+
+
 #: mnist/config.py:3-29, the reference recipe (presets.py
 #: MNIST_COUNTERGAN_REFERENCE)
 MNIST_COUNTERGAN_REFERENCE = CounterGANConfig(
+    epochs=20,
     lr_g=5e-5,
     lr_d=1e-5,
     lambda_adv=1.0,
@@ -83,10 +142,12 @@ MNIST_COUNTERGAN_REFERENCE = CounterGANConfig(
 )
 
 #: The shipped default (presets.py MNIST_COUNTERGAN): the reference recipe
-#: with lambda_cls 2, generator EMA 0.999 and bf16 compute.  Batch 128.
+#: with lambda_cls 2, generator EMA 0.999, bf16 compute and snapshot
+#: selection every 2 epochs.  Batch 128.
 MNIST_COUNTERGAN = replace(
     MNIST_COUNTERGAN_REFERENCE,
     lambda_cls=2.0,
     ema_decay=0.999,
     compute_dtype="bfloat16",
+    snapshot_every=2,
 )

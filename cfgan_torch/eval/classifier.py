@@ -1,0 +1,125 @@
+"""Classifier evaluation: accuracy, confusion matrix and the per-class
+report (mirrors `cfgan/eval/classifier.py`).
+
+The confusion matrix and the per-class precision, recall, f1 and support
+are computed in numpy with scikit-learn's definitions (`confusion_matrix`,
+`classification_report(..., zero_division=0)`): the labels are those
+present in y or the predictions, sorted; f1 = 2 tp / (true + predicted);
+"accuracy" is the micro average.  The text report has scikit-learn's
+layout.  No confusion-matrix image is drawn.
+"""
+from __future__ import annotations
+
+import csv
+import os
+from typing import Callable
+
+import numpy as np
+import torch
+
+HEADERS = ("precision", "recall", "f1-score", "support")
+
+
+def predict_all(logits_fn: Callable, x, batch: int = 4096,
+                device: str | torch.device = "cpu") -> np.ndarray:
+    """Argmax class of `logits_fn` over `x` (numpy or tensor), by
+    batches on `device`."""
+    preds = []
+    with torch.no_grad():
+        for lo in range(0, len(x), batch):
+            xb = torch.as_tensor(x[lo:lo + batch]).to(device)
+            preds.append(logits_fn(xb).argmax(1).cpu().numpy())
+    return np.concatenate(preds)
+
+
+def confusion_matrix(y, preds) -> np.ndarray:
+    """(labels x labels) counts, rows true, columns predicted."""
+    labels = np.unique(np.concatenate([y, preds]))
+    index = {v: i for i, v in enumerate(labels.tolist())}
+    cm = np.zeros((len(labels), len(labels)), np.int64)
+    np.add.at(cm, ([index[v] for v in np.asarray(y).tolist()],
+                   [index[v] for v in np.asarray(preds).tolist()]), 1)
+    return cm
+
+
+def _divide(num, den):
+    num, den = np.asarray(num, np.float64), np.asarray(den, np.float64)
+    out = np.zeros_like(num)
+    np.divide(num, den, out=out, where=den != 0)
+    return out
+
+
+def classification_report(y, preds) -> dict:
+    """scikit-learn's `classification_report(y, preds, output_dict=True,
+    zero_division=0)`."""
+    labels = np.unique(np.concatenate([y, preds]))
+    y, preds = np.asarray(y), np.asarray(preds)
+    tp = np.array([np.sum((y == v) & (preds == v)) for v in labels])
+    true = np.array([np.sum(y == v) for v in labels])
+    pred = np.array([np.sum(preds == v) for v in labels])
+    p, r, f1 = _divide(tp, pred), _divide(tp, true), _divide(2 * tp,
+                                                             true + pred)
+    report = {str(v): dict(zip(HEADERS, (float(p[i]), float(r[i]),
+                                         float(f1[i]), float(true[i]))))
+              for i, v in enumerate(labels.tolist())}
+    total = float(true.sum())
+    report["accuracy"] = float(_divide(tp.sum(), pred.sum()))
+    report["macro avg"] = dict(zip(HEADERS, (
+        float(np.average(p)), float(np.average(r)), float(np.average(f1)),
+        total)))
+    report["weighted avg"] = dict(zip(HEADERS, (
+        float(np.average(p, weights=true)),
+        float(np.average(r, weights=true)),
+        float(np.average(f1, weights=true)), total)))
+    return report
+
+
+def report_text(report: dict, digits: int = 2) -> str:
+    """`report` in the layout of scikit-learn's text report."""
+    names = [k for k in report
+             if k not in ("accuracy", "macro avg", "weighted avg")]
+    width = max(max(len(n) for n in names), len("weighted avg"), digits)
+    out = ("{:>{width}s} " + " {:>9}" * 4).format("", *HEADERS,
+                                                   width=width) + "\n\n"
+    row = "{:>{width}s} " + " {:>9.{digits}f}" * 3 + " {:>9}\n"
+    for name in names:
+        r = report[name]
+        out += row.format(name, r["precision"], r["recall"], r["f1-score"],
+                          int(r["support"]), width=width, digits=digits)
+    out += "\n"
+    total = int(report["macro avg"]["support"])
+    out += ("{:>{width}s} " + " {:>9.{digits}}" * 2 + " {:>9.{digits}f}"
+            + " {:>9}\n").format("accuracy", "", "", report["accuracy"],
+                                 total, width=width, digits=digits)
+    for name in ("macro avg", "weighted avg"):
+        r = report[name]
+        out += row.format(name, r["precision"], r["recall"], r["f1-score"],
+                          total, width=width, digits=digits)
+    return out
+
+
+def evaluate_classifier(logits_fn: Callable, x, y,
+                        out_dir: str | None = None,
+                        device: str | torch.device = "cpu") -> dict:
+    """dict(accuracy, report, confusion); with `out_dir`, writes
+    `confusion_matrix.csv` (pandas' layout: an index column) and
+    `classifier_report.txt`, as the JAX package does."""
+    y = np.asarray(y)
+    preds = predict_all(logits_fn, x, device=device)
+    acc = float((preds == y).mean())
+    cm = confusion_matrix(y, preds)
+    report = classification_report(y, preds)
+    if out_dir is not None:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "confusion_matrix.csv"), "w",
+                  newline="") as f:
+            w = csv.writer(f, lineterminator="\n")
+            w.writerow([""] + list(range(cm.shape[1])))
+            for i, row in enumerate(cm.tolist()):
+                w.writerow([i] + row)
+        with open(os.path.join(out_dir, "classifier_report.txt"), "w") as f:
+            f.write(f"accuracy: {acc:.4f}\n")
+            f.write(f"weighted_f1: {report['weighted avg']['f1-score']:.4f}"
+                    "\n\n")
+            f.write(report_text(report))
+    return {"accuracy": acc, "report": report, "confusion": cm}

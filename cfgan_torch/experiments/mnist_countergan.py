@@ -1,0 +1,243 @@
+"""MNIST CounteRGAN experiment on the port (mirrors
+`cfgan/experiments/mnist_countergan.py`): load MNIST or the synthetic
+corpus -> pretrain or load the CNN classifier -> classifier eval -> train
+the CounteRGAN with the epoch runner, or load it -> pick the serving
+snapshot on validation data -> evaluation CSVs.
+
+    python -m cfgan_torch.experiments.mnist_countergan [--epochs N]
+        [--clf-epochs N] [--limit N] [--seed N] [--out-dir D] [--fresh]
+        [--device cpu]
+
+The run dir is the JAX package's: `classifier/`, `generator/` (the served
+variables, with the `serving_selection` record in its metadata),
+`train_state/` (mid-run checkpoints), `classifier_eval/`
+(`confusion_matrix.csv`, `classifier_report.txt`),
+`countergan_metrics.csv`, `countergan_metrics_per_class.csv` and
+`masked_metrics.csv`; its checkpoints restore in either package.  A stage
+whose checkpoint exists is loaded, not trained again, unless `fresh`.
+Not ported: the legacy stack (`--legacy`), the images and heatmaps, the
+mask analysis and the provenance record.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import time
+from dataclasses import replace
+
+import numpy as np
+import torch
+
+from cfgan_torch.convert import flax_from_state_dict, state_dict_from_flax
+from cfgan_torch.core import checkpoint as ckpt
+from cfgan_torch.core.device import resolve_device
+from cfgan_torch.data.mnist import load_mnist
+from cfgan_torch.data.pipeline import stream_seed
+from cfgan_torch.eval.classifier import evaluate_classifier
+from cfgan_torch.eval.metrics import (
+    evaluate_counterfactual_batch,
+    make_per_target_sweep,
+    masked_metrics,
+    per_target_metrics,
+    write_csv,
+)
+from cfgan_torch.experiments.presets import MNIST_COUNTERGAN
+from cfgan_torch.masks.patch import random_patch_mask
+from cfgan_torch.models.classifiers import CNNClassifier
+from cfgan_torch.train.builders import (
+    build_mnist_countergan,
+    select_g_serving_variables,
+)
+from cfgan_torch.train.classifier import make_eval_fn, train_classifier
+from cfgan_torch.train.loop import train_countergan_loop
+from cfgan_torch.train.selection import SnapshotSelector
+
+SCORE_SUBSAMPLE = 8192  # training images added to the validation scoring
+
+
+def run(cfg=MNIST_COUNTERGAN, out_dir: str | None = None, fresh: bool = False,
+        limit: int | None = None, device: str | torch.device | None = None,
+        log=print) -> dict:
+    """Run the experiment into `out_dir` (default `cfg.out_dir/cfg.name`)
+    on `device` (None: the CUDA card).  Returns the classifier eval, the
+    batch and per-target metrics, the served generator variables, the
+    training history and each stage's wall seconds (`stage_seconds`)."""
+    dev = resolve_device(device)
+    out_dir = out_dir or os.path.join(cfg.out_dir, cfg.name)
+    os.makedirs(out_dir, exist_ok=True)
+    seconds = {}
+    t0 = time.perf_counter()
+    (xtr, ytr), (xva, yva), (xte, yte) = load_mnist(
+        path=cfg.data.path, seed=cfg.data.seed,
+        valid_fraction=cfg.data.valid_fraction, limit=limit)
+    seconds["data"] = time.perf_counter() - t0
+
+    # ---- stage 1: the classifier (mnist/main.py:22-33) ----
+    t0 = time.perf_counter()
+    clf_model = CNNClassifier(
+        num_classes=cfg.num_classes,
+        generator=torch.Generator().manual_seed(cfg.seed))
+    clf_dir = os.path.join(out_dir, "classifier")
+    if ckpt.exists(clf_dir) and not fresh:
+        template = flax_from_state_dict(clf_model, clf_model.state_dict())
+        clf_model.load_state_dict(state_dict_from_flax(
+            clf_model, ckpt.restore(clf_dir, template)))
+        clf_model.to(dev).eval()
+        log(f"Loaded classifier from {clf_dir}")
+    else:
+        train_classifier(clf_model, cfg.classifier, (xtr, ytr), (xva, yva),
+                         seed=cfg.seed, num_classes=cfg.num_classes,
+                         log=log, device=dev)
+        ckpt.save(clf_dir, flax_from_state_dict(clf_model,
+                                                clf_model.state_dict()))
+    seconds["classifier"] = time.perf_counter() - t0
+    logits_fn, _ = make_eval_fn(clf_model)
+    clf_eval = evaluate_classifier(
+        logits_fn, xte, yte, out_dir=os.path.join(out_dir, "classifier_eval"),
+        device=dev)
+    log(f"Classifier test accuracy: {clf_eval['accuracy']:.4f}")
+
+    # ---- stage 2: the CounteRGAN (mnist/main.py:38-47) ----
+    t0 = time.perf_counter()
+    bundle = build_mnist_countergan(cfg.countergan, clf_model.state_dict(),
+                                    seed=cfg.seed, device=dev)
+    g_model = bundle.state.g.model
+    gen_dir = os.path.join(out_dir, "generator")
+    history, selection_s = {}, 0.0
+    if ckpt.exists(gen_dir) and not fresh:
+        # the checkpoint holds the served variables (EMA parameters and
+        # recalibrated statistics when the recipe carries an EMA)
+        template = flax_from_state_dict(g_model, g_model.state_dict())
+        g_vars = {k: v.to(dev) for k, v in state_dict_from_flax(
+            g_model, ckpt.restore(gen_dir, template)).items()}
+        sel_info = (ckpt.load_metadata(gen_dir) or {}).get(
+            "serving_selection", {})
+        log(f"Loaded generator from {gen_dir}")
+    else:
+        xtr_d = torch.as_tensor(xtr).to(dev)
+        recal_seed = stream_seed(cfg.seed, 777)
+        selector = None
+        if cfg.countergan.snapshot_every:
+            # score each rung's candidates on the validation split and a
+            # fixed training subsample under all-ones masks: sorted
+            # per-target flips, mean flip last (test is never seen)
+            sweep = make_per_target_sweep(bundle.cf_fn, logits_fn,
+                                          cfg.num_classes)
+            sub = np.random.RandomState(0).permutation(
+                len(ytr))[:min(SCORE_SUBSAMPLE, len(ytr))]
+            xsc = np.concatenate([xva, xtr[sub]])
+            ysc = np.concatenate([yva, ytr[sub]])
+
+            def snapshot_score(g_vars):
+                cols = per_target_metrics(
+                    sweep, g_vars, xsc, ysc, mask_fn=lambda b: torch.ones(
+                        (b, *xsc.shape[1:]), device=dev),
+                    num_classes=cfg.num_classes, batch_size=2048)
+                flips = cols["class_flip_rate"].astype(np.float64)
+                return tuple(np.sort(flips)) + (float(np.mean(flips)),)
+
+            selector = SnapshotSelector(
+                bundle, score_fn=snapshot_score,
+                every=cfg.countergan.snapshot_every,
+                total_epochs=cfg.countergan.epochs, x_recal=xtr_d,
+                recal_seed=recal_seed)
+
+        def epoch_cb(epoch, state):
+            nonlocal selection_s
+            t = time.perf_counter()
+            selector.epoch_cb(epoch, state)
+            selection_s += time.perf_counter() - t
+
+        state, history = train_countergan_loop(
+            bundle, xtr_d, ytr, epochs=cfg.countergan.epochs,
+            batch_size=cfg.data.batch_size, seed=cfg.seed, log=log,
+            checkpoint_dir=os.path.join(out_dir, "train_state"),
+            checkpoint_every=max(1, cfg.countergan.epochs // 4),
+            resume=not fresh,
+            epoch_cb=epoch_cb if selector is not None else None)
+        t = time.perf_counter()
+        if selector is not None:
+            g_vars, sel_info = selector.best()
+            log(f"Serving candidate: {sel_info['candidate']} (ladder of "
+                f"{len(sel_info['ladder'])} scored snapshots)")
+        else:
+            g_vars, sel_info = select_g_serving_variables(
+                bundle, state, xtr_d, recal_seed, xva, yva, logits_fn)
+            if sel_info["scores"]:
+                log(f"Serving candidate: {sel_info['candidate']} "
+                    f"(validation scores: {sel_info['scores']})")
+        selection_s += time.perf_counter() - t
+        ckpt.save(gen_dir, flax_from_state_dict(g_model, g_vars),
+                  metadata={"serving_selection": sel_info})
+    seconds["countergan"] = time.perf_counter() - t0 - selection_s
+    seconds["selection"] = selection_s
+
+    # ---- stage 3: evaluation (mnist/eval_utils.py:572-647) ----
+    t0 = time.perf_counter()
+    h, w = xte.shape[1], xte.shape[2]
+    ps = cfg.countergan.mask.patch_size
+    nb = min(len(yte), 1024)
+    xb = torch.as_tensor(xte[:nb]).to(dev)
+    yb = torch.as_tensor(yte[:nb]).to(dev, torch.long)
+    t_rand = torch.randint(0, cfg.num_classes, (nb,), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(
+                               stream_seed(cfg.seed, 1)))
+    batch_m, _ = evaluate_counterfactual_batch(
+        bundle.cf_fn, logits_fn, g_vars, xb, yb, t_rand,
+        torch.ones((nb, h, w, 1), device=dev))
+    write_csv(os.path.join(out_dir, "countergan_metrics.csv"), [batch_m])
+    log(f"Batch metrics (all-ones mask): {batch_m}")
+
+    per_target = per_target_metrics(
+        make_per_target_sweep(bundle.cf_fn, logits_fn, cfg.num_classes),
+        g_vars, xte, yte,
+        mask_fn=lambda b: torch.ones((b, h, w, 1), device=dev),
+        num_classes=cfg.num_classes, batch_size=1024)
+    write_csv(os.path.join(out_dir, "countergan_metrics_per_class.csv"),
+              per_target)
+
+    rows = []
+    for policy, shared in (("shared", True), ("per_sample", False)):
+        m = random_patch_mask(
+            nb, (h, w), ps, cfg.countergan.mask.num_modifiable_patches,
+            shared=shared, generator=torch.Generator(device=dev).manual_seed(
+                stream_seed(cfg.seed, 7)), device=dev)
+        x_cf, raw, masked = bundle.cf_fn(g_vars, xb, t_rand, m)
+        rows.append({"mask_policy": policy, **masked_metrics(
+            logits_fn, xb, x_cf, raw, masked, m, yb, t_rand)})
+    write_csv(os.path.join(out_dir, "masked_metrics.csv"), rows)
+    seconds["eval"] = time.perf_counter() - t0
+    return {"classifier": clf_eval, "batch_metrics": batch_m,
+            "per_target": per_target, "g_vars": g_vars, "history": history,
+            "serving_selection": sel_info, "bundle": bundle,
+            "stage_seconds": seconds}
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawTextHelpFormatter)
+    ap.add_argument("--epochs", type=int, default=None)
+    ap.add_argument("--clf-epochs", type=int, default=None)
+    ap.add_argument("--limit", type=int, default=None,
+                    help="truncate the dataset (smoke runs)")
+    ap.add_argument("--out-dir", type=str, default=None)
+    ap.add_argument("--seed", type=int, default=None)
+    ap.add_argument("--fresh", action="store_true")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card)")
+    args = ap.parse_args(argv)
+    cfg = MNIST_COUNTERGAN
+    if args.epochs is not None:
+        cfg = cfg.replace(countergan=replace(cfg.countergan,
+                                             epochs=args.epochs))
+    if args.clf_epochs is not None:
+        cfg = cfg.replace(classifier=replace(cfg.classifier,
+                                             epochs=args.clf_epochs))
+    if args.seed is not None:
+        cfg = cfg.replace(seed=args.seed)
+    run(cfg, out_dir=args.out_dir, fresh=args.fresh, limit=args.limit,
+        device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -27,6 +27,31 @@ def upsample_patch_mask(patch_mask: torch.Tensor, patch_size: int,
     return m[..., None].expand(*m.shape, channels)
 
 
+def patch_mask_draws(shape: tuple[int, ...], image_hw: tuple[int, int],
+                     patch_size: int, num_modifiable: int | None,
+                     generator: torch.Generator) -> torch.Tensor | None:
+    """The random draws `random_patch_mask` takes, for masks of leading
+    `shape` ((B,) for a batch, (steps, B) for an epoch), on the
+    generator's device: (..., ph*pw) uniform scores for the top-k case,
+    0/1 integers for the Bernoulli case, None where every patch is
+    modifiable."""
+    ph, pw = patch_grid_dims(*image_hw, patch_size)
+    total = ph * pw
+    if num_modifiable is not None and num_modifiable >= total:
+        return None
+    if num_modifiable is None:
+        return torch.randint(0, 2, (*shape, total), generator=generator,
+                             device=generator.device)
+    return torch.rand((*shape, total), generator=generator,
+                      device=generator.device)
+
+
+def _needs_draws(generator) -> None:
+    if generator is None:
+        raise ValueError("pass the random draws or a torch.Generator: the "
+                         "global RNG is not drawn from")
+
+
 def random_patch_mask(batch: int, image_hw: tuple[int, int],
                       patch_size: int, num_modifiable: int | None = None,
                       channels: int = 1, shared: bool = False,
@@ -55,11 +80,13 @@ def random_patch_mask(batch: int, image_hw: tuple[int, int],
         flat = torch.ones((rows, total), dtype=torch.float32, device=device)
     elif num_modifiable is None:
         if draws is None:
+            _needs_draws(generator)
             draws = torch.randint(0, 2, (rows, total), generator=generator,
                                   device=device)
         flat = draws.to(torch.float32)
     else:
         if draws is None:
+            _needs_draws(generator)
             draws = torch.rand((rows, total), generator=generator,
                                device=device)
         thresh = torch.topk(draws, num_modifiable, dim=1).values[:, -1:]
@@ -81,6 +108,7 @@ def with_ones_fraction(mask: torch.Tensor, frac: float,
     if not frac:
         return mask
     if draws is None:
+        _needs_draws(generator)
         draws = torch.rand((mask.shape[0],), generator=generator,
                            device=mask.device)
     pick = (draws < frac).reshape((-1,) + (1,) * (mask.dim() - 1))

@@ -33,10 +33,17 @@ class CNNClassifier(nn.Module):
         self.drop = Dropout(0.5)
         self.Linear_1 = Linear(256, num_classes, generator=g)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None,
+                keep: tuple[torch.Tensor, torch.Tensor] | None = None
+                ) -> torch.Tensor:
+        """In train mode the two dropouts take their keep masks from
+        `keep` (channel mask, unit mask) where given, else from
+        `generator` (see `Dropout`)."""
+        k2d, k = keep if keep is not None else (None, None)
         h = F.relu(self.Conv_0(x))
         h = F.relu(self.Conv_1(h))
         h = F.relu(self.Conv_2(h))
-        h = self.drop2d(h).reshape(h.shape[0], -1)
-        h = self.drop(F.relu(self.Linear_0(h)))
+        h = self.drop2d(h, generator, k2d).reshape(h.shape[0], -1)
+        h = self.drop(F.relu(self.Linear_0(h)), generator, k)
         return self.Linear_1(h)

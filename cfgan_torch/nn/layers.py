@@ -187,16 +187,29 @@ class ConvResBlock(nn.Module):
 class Dropout(nn.Module):
     """Inverted dropout (`cfgan.nn.layers.Dropout`); identity in eval mode.
     `channelwise=True` drops whole channels of an NHWC tensor, as the JAX
-    classifier's `broadcast_dims=(1, 2)` (torch's Dropout2d) does."""
+    classifier's `broadcast_dims=(1, 2)` (torch's Dropout2d) does.
+
+    In train mode the keep mask is `keep` where given (a boolean or 0/1
+    tensor, (B, 1, 1, C) when channelwise: the parity tests inject
+    JAX's), else drawn
+    from `generator` on x's device; with neither it raises, since a draw
+    from the global RNG could not be reproduced."""
 
     def __init__(self, rate: float, channelwise: bool = False):
         super().__init__()
         self.rate, self.channelwise = rate, channelwise
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None,
+                keep: torch.Tensor | None = None) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
-        shape = ((x.shape[0], 1, 1, x.shape[-1]) if self.channelwise
-                 else x.shape)
-        keep = torch.rand(shape, device=x.device) >= self.rate
+        if keep is None:
+            if generator is None:
+                raise ValueError("Dropout in train mode needs a generator "
+                                 "or a keep mask")
+            shape = ((x.shape[0], 1, 1, x.shape[-1]) if self.channelwise
+                     else x.shape)
+            keep = torch.rand(shape, generator=generator,
+                              device=x.device) >= self.rate
         return x * keep.to(x.dtype) / (1.0 - self.rate)

@@ -18,8 +18,15 @@ def adam_like_torch(params, lr: float, betas=(0.9, 0.999),
                     eps: float = 1e-8) -> torch.optim.Adam:
     """Adam with optax.adam's defaults, which are torch's
     (`cfgan.train.state.adam_like_torch`: same bias correction, eps
-    outside the square root)."""
-    return torch.optim.Adam(params, lr=lr, betas=betas, eps=eps)
+    outside the square root).
+
+    On a CUDA card it is `capturable`: its step count lives on the device
+    beside the moments, so a CUDA graph of the train step replays the
+    update (`cfgan_torch.train.countergan.make_epoch_runner`)."""
+    params = list(params)
+    capturable = bool(params) and params[0].is_cuda
+    return torch.optim.Adam(params, lr=lr, betas=betas, eps=eps,
+                            capturable=capturable)
 
 
 @dataclass
@@ -32,6 +39,8 @@ class NetState:
 
     @classmethod
     def create(cls, model: nn.Module, lr: float) -> "NetState":
+        """`model` already on its device (Adam's `capturable` follows
+        it)."""
         return cls(model, adam_like_torch(model.parameters(), lr))
 
 

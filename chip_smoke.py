@@ -27,6 +27,24 @@ random weights made from a seed:
   dK kernel 13 times per step, and take the gradients (Adam's first
   moments after the first step) of the same steps with the plain conv.
 
+Then it trains end to end:
+
+- `data`: the port's synthetic MNIST corpus at its real size (60,000
+  train and 10,000 test images, `load_mnist` before any `limit`);
+- `epoch runner`: the preset at batch 128 on that dataset, held on the
+  card, with cuDNN's convs and with `conv_impl="pallas"`: 24 steps
+  through the epoch runner (3 eager, then a captured CUDA graph
+  replayed) equal the same 24 steps run eagerly, bit for bit; the
+  profiler counts the kernels of each replayed step (one epilogue
+  forward and one backward; with the conv kernel 26 conv and 13 dK
+  launches); the replays run with `torch.cuda.set_sync_debug_mode
+  ("error")`; replayed and eager steps are timed in turns;
+- `experiment`: `cfgan_torch.experiments.mnist_countergan.run` at full
+  width (12,800 images, 2 classifier epochs, 4 GAN epochs, snapshot
+  selection every 2) into a scratch directory under `build/`, then again
+  on the same directory, which must train nothing and write the same
+  per-target CSV.
+
 Then it times the kernels, their plain versions, cuDNN for the conv and
 its weight gradient, the serving requests and the train step (bf16 with
 cuDNN's convs and with the kernels, f32 with the kernels).
@@ -136,6 +154,35 @@ TRAIN_ATOL = {"bfloat16": 1e-3, "float32": 1e-4}
 # G and D): f32 8.6e-5 and 1.3e-6, bf16 0.031 and 0.040.
 PALLAS_MU_RTOL = {"float32": 1e-3, "bfloat16": 0.2}
 PALLAS_F32_OUTLIER_SHARE = 1e-2
+# the epoch runner's compared epoch: RUNNER_STEPS steps at batch 128 of
+# which the first WARMUP_STEPS run eagerly and the rest replay the
+# captured graph; the eager run of the same steps takes the same kernels on the
+# same inputs (cuDNN deterministic), so the bar is bit for bit: every
+# step's d_loss and g_loss, and every parameter, statistic, EMA leaf and
+# Adam tensor after the steps
+RUNNER_STEPS = 24
+# each replayed step's launches of our kernels, by the profiler: the
+# epilogue forward and backward once; with conv_impl="pallas" 13 conv
+# launches forward and 13 for dx, and 13 dK launches (each with its
+# reduction kernel)
+REPLAY_LAUNCHES = {
+    None: {"epilogue_fwd_kernel": 1, "epilogue_bwd_kernel": 1},
+    "pallas": {"epilogue_fwd_kernel": 1, "epilogue_bwd_kernel": 1,
+               "conv3x3_wgmma_kernel": 2 * 13,
+               "conv3x3_dkernel_wgmma_kernel": 13,
+               "dkernel_reduce_kernel": 13}}
+PROFILE_TRIES = 3
+# the experiment phase: the shipped preset at full width on the first
+# EXPERIMENT_LIMIT synthetic images (11,520 train, 90 steps an epoch)
+EXPERIMENT_LIMIT = 12800
+EXPERIMENT_EPOCHS = 4
+EXPERIMENT_CLF_EPOCHS = 2
+EXPERIMENT_FILES = (
+    "classifier/checkpoint.msgpack", "generator/checkpoint.msgpack",
+    "generator/metadata.json", "train_state/checkpoint.msgpack",
+    "train_state/metadata.json", "classifier_eval/confusion_matrix.csv",
+    "classifier_eval/classifier_report.txt", "countergan_metrics.csv",
+    "countergan_metrics_per_class.csv", "masked_metrics.csv")
 
 
 def fail(msg: str) -> None:
@@ -422,6 +469,257 @@ def time_train_steps(card: str, dev, clf_sd: dict, train_x, train_y) -> None:
                                     else 1 - busy_ms / median),
               "device_time_by_kernel_ms": top,
               "our_kernels_ms_and_launches_per_step": ours})
+
+
+def _states_equal(a, b) -> bool:
+    """Whether two train states hold equal parameters, statistics, EMA
+    and Adam tensors, bit for bit."""
+    import torch
+
+    for net in ("g", "d"):
+        sa, sb = getattr(a, net), getattr(b, net)
+        for t, u in zip(sa.model.state_dict().values(),
+                        sb.model.state_dict().values()):
+            if not torch.equal(t, u):
+                return False
+        for p, q in zip(sa.model.parameters(), sb.model.parameters()):
+            if any(not torch.equal(sa.opt.state[p][k], sb.opt.state[q][k])
+                   for k in ("exp_avg", "exp_avg_sq", "step")):
+                return False
+    return all(torch.equal(v, b.g_ema[k]) for k, v in a.g_ema.items())
+
+
+def data_phase(card: str) -> tuple:
+    """Load the synthetic corpus at its real size through `load_mnist`
+    (generated at first use, then from its cache under build/); one
+    line.  Returns the splits."""
+    import os
+
+    import numpy as np
+
+    from cfgan_torch.data import mnist
+
+    if os.environ.get("CFGAN_DATA_DIR"):
+        fail("CFGAN_DATA_DIR is set: the data phase loads the synthetic "
+             "corpus")
+    t0 = time.perf_counter()
+    splits = mnist.load_mnist(valid_fraction=0.1)
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = mnist.load_mnist(valid_fraction=0.1)
+    reload_s = time.perf_counter() - t0
+    (xtr, ytr), (xva, yva), (xte, yte) = splits
+    sizes = {"train": len(ytr), "valid": len(yva), "test": len(yte)}
+    counts = {name: np.bincount(y, minlength=10).tolist()
+              for name, y in (("train", ytr), ("valid", yva), ("test", yte))}
+    ok = (sizes == {"train": 54000, "valid": 6000, "test": 10000}
+          and all(min(c) > 0 for c in counts.values())
+          and all(x.dtype == np.float32 and x.shape[1:] == (28, 28, 1)
+                  and np.isfinite(x).all() and x.min() >= -1.0
+                  and x.max() <= 1.0 for x in (xtr, xva, xte))
+          and all(np.array_equal(u, v) for a, b in zip(splits, again)
+                  for u, v in zip(a, b)))
+    emit({"phase": "data", "card": card, "source": "synthetic",
+          "corpus": {"train": mnist.TRAIN_N, "test": mnist.TEST_N},
+          "load_s": load_s, "cached_reload_s": reload_s, "sizes": sizes,
+          "per_class": counts, "ok": ok})
+    if not ok:
+        fail(f"the synthetic corpus came out wrong: {sizes}")
+    return splits
+
+
+def runner_phase(card: str, dev, clf_sd: dict, x, y, counts,
+                 zero_counts) -> None:
+    """The epoch runner against eager steps, its launches per replayed
+    step by the profiler (the wrappers' counters, zeroed before the
+    epoch, count a captured launch once), and replayed and eager steps
+    timed in turns, for cuDNN's convs and the conv kernel; one line
+    each."""
+    import torch
+
+    from cfgan_torch.core.config import MNIST_COUNTERGAN
+    from cfgan_torch.data.pipeline import epoch_perm
+    from cfgan_torch.train.builders import build_mnist_countergan
+    from cfgan_torch.train.countergan import WARMUP_STEPS, make_epoch_runner
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    for impl in (None, "pallas"):
+        cfg = replace(MNIST_COUNTERGAN, conv_impl=impl)
+        ours, ref = (build_mnist_countergan(cfg, clf_sd, seed=SEED)
+                     for _ in range(2))
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        perm = epoch_perm(gen, len(y), TRAIN_BATCH)[:RUNNER_STEPS]
+        draws = ours.draw_fn(gen, tuple(perm.shape))
+        runner = make_epoch_runner(ours.step_from_draws, reduce=False)
+        zero_counts()
+        got = runner(ours.state, x, y, perm, draws)
+        torch.cuda.synchronize()
+        wrapper = counts()
+        if (runner.captures, runner.replays) != (
+                1, RUNNER_STEPS - WARMUP_STEPS):
+            fail(f"runner: {runner.captures} captures and {runner.replays} "
+                 f"replays, not 1 and {RUNNER_STEPS - WARMUP_STEPS}")
+        eager = [ref.step_from_draws(ref.state, x[perm[i]], y[perm[i]],
+                                     {k: v[i] for k, v in draws.items()})
+                 for i in range(RUNNER_STEPS)]
+        eager = [(m["d_loss"].item(), m["g_loss"].item()) for m in eager]
+        replayed = list(zip(got["d_loss"].tolist(), got["g_loss"].tolist()))
+        loss_err = max(abs(a - b) for r, e in zip(replayed, eager)
+                       for a, b in zip(r, e))
+        same_state = _states_equal(ours.state, ref.state)
+        ok = loss_err == 0.0 and same_state and all(
+            math.isfinite(v) for pair in replayed for v in pair)
+        report = {"phase": "epoch runner", "card": card, "conv_impl": impl,
+                  "dtype": cfg.compute_dtype, "batch": TRAIN_BATCH,
+                  "steps": RUNNER_STEPS, "eager_steps": WARMUP_STEPS,
+                  "replayed_steps": RUNNER_STEPS - WARMUP_STEPS,
+                  "dataset_on_device": list(x.shape),
+                  "wrapper_counts_fwd_bwd_conv_dk": wrapper,
+                  "d_g_loss_per_step": replayed,
+                  "loss_max_abs_err_vs_eager": loss_err,
+                  "state_equal_to_eager": same_state,
+                  "tolerance": "bit for bit: losses and state"}
+        if not ok:
+            emit({**report, "eager_d_g_loss_per_step": eager, "ok": False})
+            fail(f"conv_impl={impl}: replayed steps differ from eager "
+                 f"steps (loss err {loss_err}, state equal {same_state})")
+
+        # a second epoch of the same shape replays every step
+        def epoch():
+            runner(ours.state, x, y, perm, draws)
+
+        # a trace of an epoch holds ~26k kernel records, and the profiler
+        # now and then drops a few of them (6 of 624 conv records in one
+        # run on an H100): up to PROFILE_TRIES traces, every one reported;
+        # a graph that really skipped a kernel would miss it in each
+        attempts = []
+        for _ in range(PROFILE_TRIES):
+            busy, top, ours_ms = device_time(
+                epoch, 1, top=8, match=tuple(REPLAY_LAUNCHES[impl]))
+            per_step = {k: (ms / RUNNER_STEPS, n / RUNNER_STEPS)
+                        for k, (ms, n) in ours_ms.items()}
+            attempts.append({k: v[1] for k, v in per_step.items()})
+            exact = busy is not None and all(
+                v[1] == REPLAY_LAUNCHES[impl][k] for k, v in per_step.items())
+            if exact:
+                break
+        report["profiler_launch_counts_per_trace"] = attempts
+        if not exact:
+            fail(f"conv_impl={impl}: launches per replayed step {attempts} "
+                 f"in {len(attempts)} traces, not {REPLAY_LAUNCHES[impl]}")
+
+        def eager_steps():
+            for i in range(RUNNER_STEPS):
+                ref.step_from_draws(ref.state, x[perm[i]], y[perm[i]],
+                                    {k: v[i] for k, v in draws.items()})
+            torch.cuda.synchronize()
+
+        eager_busy = device_time(eager_steps, 1)[0]
+        times = {"replayed": [], "eager": []}
+        for _ in range(3):  # in turns
+            for name, fn in (("replayed", epoch), ("eager", eager_steps)):
+                t0 = time.perf_counter()
+                fn()
+                times[name].append((time.perf_counter() - t0) * 1e3
+                                   / RUNNER_STEPS)
+        med = {k: statistics.median(v) for k, v in times.items()}
+        report.update({
+            "launches_per_replayed_step": {k: v[1]
+                                           for k, v in per_step.items()},
+            "our_kernels_ms_per_replayed_step": {k: v[0]
+                                                 for k, v in per_step.items()},
+            "sync_debug_mode_during_replays": "error",
+            "replayed_ms_per_step_in_turns": times["replayed"],
+            "eager_ms_per_step_in_turns": times["eager"],
+            "replayed_median_ms": med["replayed"],
+            "eager_median_ms": med["eager"],
+            "replayed_images_per_s": TRAIN_BATCH / med["replayed"] * 1e3,
+            "eager_images_per_s": TRAIN_BATCH / med["eager"] * 1e3,
+            "replayed_device_busy_ms": busy / RUNNER_STEPS,
+            "replayed_device_idle_share": 1 - busy / RUNNER_STEPS
+            / med["replayed"],
+            "eager_device_busy_ms": (None if eager_busy is None
+                                     else eager_busy / RUNNER_STEPS),
+            "eager_device_idle_share": (
+                None if eager_busy is None
+                else 1 - eager_busy / RUNNER_STEPS / med["eager"]),
+            "device_time_by_kernel_ms_per_epoch": top, "ok": True})
+        emit(report)
+    torch.backends.cudnn.deterministic = False
+
+
+def experiment_phase(card: str, dev) -> None:
+    """`run()` of the port's MNIST experiment at full width, then again
+    on the same directory; one line."""
+    import csv
+    import shutil
+
+    import numpy as np
+
+    from cfgan_torch.experiments import mnist_countergan as exp
+    from cfgan_torch.experiments.presets import MNIST_COUNTERGAN as PRESET
+
+    cfg = PRESET.replace(
+        classifier=replace(PRESET.classifier, epochs=EXPERIMENT_CLF_EPOCHS),
+        countergan=replace(PRESET.countergan, epochs=EXPERIMENT_EPOCHS))
+    out_dir = HERE / "build" / "smoke_experiment"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    try:
+        logs = [[], []]
+        runs = []
+        for i in range(2):
+            t0 = time.perf_counter()
+            runs.append(exp.run(cfg, out_dir=str(out_dir),
+                                limit=EXPERIMENT_LIMIT, device=dev,
+                                log=logs[i].append))
+            runs[-1]["wall_s"] = time.perf_counter() - t0
+            if i == 0:
+                per_target = (out_dir / "countergan_metrics_per_class.csv"
+                              ).read_text()
+        missing = [f for f in EXPERIMENT_FILES if not (out_dir / f).is_file()]
+        with open(out_dir / "countergan_metrics_per_class.csv") as f:
+            rows = list(csv.DictReader(f))
+        flips = [float(r["class_flip_rate"]) for r in rows]
+        ladder = runs[0]["serving_selection"]["ladder"]
+        rungs = {(r["epoch"], r["candidate"]) for r in ladder}
+        want_rungs = {(e, c) for e in (2, 4) for c in (
+            "live", "ema_recal_train", "ema_recal_ones")}
+        runner = runs[0]["bundle"].epoch_fn
+        trained_again = any("[CounteRGAN] epoch" in ln or "[Classifier]" in ln
+                            for ln in logs[1])
+        report = {
+            "phase": "experiment", "card": card, "preset": cfg.name,
+            "limit": EXPERIMENT_LIMIT, "clf_epochs": EXPERIMENT_CLF_EPOCHS,
+            "epochs": EXPERIMENT_EPOCHS,
+            "steps": runs[0]["bundle"].state.step,
+            "runner_captures": runner.captures,
+            "runner_replays": runner.replays,
+            "stage_seconds": runs[0]["stage_seconds"],
+            "run_wall_s": runs[0]["wall_s"],
+            "rerun_stage_seconds": runs[1]["stage_seconds"],
+            "rerun_wall_s": runs[1]["wall_s"],
+            "classifier_test_accuracy": runs[0]["classifier"]["accuracy"],
+            "serving_candidate": runs[0]["serving_selection"]["candidate"],
+            "ladder": [(r["epoch"], r["candidate"], r["score"][0],
+                        r["score"][-1]) for r in ladder],
+            "per_target_flip": flips,
+            "batch_metrics": runs[0]["batch_metrics"],
+            "history_flip_rate": runs[0]["history"].get("flip_rate"),
+            "missing": missing, "rerun_trained": trained_again}
+        ok = (not missing and len(rows) == 10
+              and all(np.isfinite(float(v)) for r in rows
+                      for v in r.values())
+              and rungs == want_rungs and runner.captures == 1
+              and not trained_again and runs[1]["history"] == {}
+              and (out_dir / "countergan_metrics_per_class.csv")
+              .read_text() == per_target)
+        report["ok"] = ok
+        emit(report)
+        if not ok:
+            fail("the experiment's run dir or its rerun came out wrong")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
 
 
 def main() -> None:
@@ -929,6 +1227,19 @@ def main() -> None:
                 fail(f"{dtype} conv_impl='pallas' training differs from the "
                      f"plain conv")
         torch.backends.cudnn.deterministic = False
+
+    # ------------------------------------------- training end to end
+    with Phase("data"):
+        (xtr, ytr), _, _ = data_phase(card)
+
+    with Phase("epoch runner"):
+        x_dev = torch.as_tensor(xtr).to(dev)
+        y_dev = torch.as_tensor(ytr).to(dev, torch.long)
+        runner_phase(card, dev, clf_sd, x_dev, y_dev, counts, zero_counts)
+        del x_dev, y_dev
+
+    with Phase("experiment"):
+        experiment_phase(card, dev)
 
     # ----------------------------------------------------------- timing
     with Phase("timing"):

@@ -440,3 +440,180 @@ def test_conv_pallas_backward_launches_the_kernel_for_dx():
     y.sum().backward()
     assert tconv.conv3x3_same.launches == before + 2
     assert x.grad is not None and layer.kernel.grad is not None
+
+
+# ------------------------------------------------- the epoch runner
+def _deterministic():
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
+def _runner_pair(dev, conv_impl, dtype, n=192, batch=32, seed=0):
+    """Two bundles from one initial state, a device dataset, one epoch's
+    permutation and draws."""
+    cfg = replace(MNIST_COUNTERGAN, hidden_dim=16, num_res_blocks=1,
+                  compute_dtype=dtype, conv_impl=conv_impl)
+    clf = mnist_models(cfg, generator=torch.Generator().manual_seed(0))[1]
+    a, b = (build_mnist_countergan(cfg, clf.state_dict(), seed=seed,
+                                   device=dev) for _ in range(2))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.rand((n, 28, 28, 1), device=dev, generator=g) * 2 - 1
+    y = torch.randint(0, 10, (n,), device=dev, generator=g)
+    perm = torch.randperm(n, device=dev, generator=g).reshape(-1, batch)
+    draws = a.draw_fn(g, tuple(perm.shape))
+    return a, b, x, y, perm, draws
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("conv_impl", [None, "pallas"],
+                         ids=["cudnn_conv", "pallas_conv"])
+def test_replayed_steps_equal_eager_steps(dtype, conv_impl):
+    """An epoch of 6 steps through the runner (3 eager, a capture, 3
+    replays of the CUDA graph) equals the same 6 steps run eagerly by
+    `step_from_draws` from the same initial state and draws, bit for bit
+    (same kernels, same inputs; cuDNN deterministic): every step's
+    metrics, and every parameter, statistic, EMA leaf and Adam moment."""
+    dev = _card()
+    _deterministic()
+    from cfgan_torch.train.countergan import make_epoch_runner
+
+    a, b, x, y, perm, draws = _runner_pair(dev, conv_impl, dtype)
+    runner = make_epoch_runner(a.step_from_draws, reduce=False)
+    got = runner(a.state, x, y, perm, draws)
+    assert (runner.captures, runner.replays) == (1, perm.shape[0] - 3)
+    want = []
+    for i in range(perm.shape[0]):
+        m = b.step_from_draws(b.state, x[perm[i]], y[perm[i]],
+                              {k: v[i] for k, v in draws.items()})
+        want.append({k: v.item() for k, v in m.items()})
+    for i, w in enumerate(want):
+        for k, v in w.items():
+            assert got[k][i] == np.float32(v), (i, k)
+    assert a.state.step == b.state.step == perm.shape[0]
+    for net in ("g", "d"):
+        sa, sb = getattr(a.state, net), getattr(b.state, net)
+        for (name, t), u in zip(sa.model.state_dict().items(),
+                                sb.model.state_dict().values()):
+            assert torch.equal(t, u), (net, name)
+        for p, q in zip(sa.model.parameters(), sb.model.parameters()):
+            for key in ("exp_avg", "exp_avg_sq", "step"):
+                assert torch.equal(sa.opt.state[p][key], sb.opt.state[q][key])
+    for k, v in a.state.g_ema.items():
+        assert torch.equal(v, b.state.g_ema[k]), k
+
+
+def test_resumed_loop_on_the_card_restores_under_the_captured_graph(
+        tmp_path):
+    """A bundle whose runner has captured its graph trains on, then
+    restores its epoch-1 checkpoint in place and finishes the run: the
+    same graph replays (no second capture) and the state equals the
+    uninterrupted 3-epoch run's exactly."""
+    dev = _card()
+    _deterministic()
+    from cfgan_torch.convert import train_state_to_flax
+    from cfgan_torch.train.loop import train_countergan_loop
+
+    whole, resumed, x, y, _, _ = _runner_pair(dev, None, "bfloat16", n=160)
+
+    def loop(bundle, epochs, **kw):
+        return train_countergan_loop(bundle, x, y, epochs=epochs,
+                                     batch_size=32, seed=3,
+                                     log=lambda s: None, **kw)
+
+    loop(whole, 3)
+    loop(resumed, 1, checkpoint_dir=str(tmp_path), checkpoint_every=1)
+    loop(resumed, 2, resume=False)  # moves the state on, same graph
+    loop(resumed, 3, checkpoint_dir=str(tmp_path), resume=True)
+    assert resumed.epoch_fn.captures == 1
+    assert resumed.state.step == whole.state.step == 15
+    got, want = (train_state_to_flax(b.state) for b in (resumed, whole))
+
+    def equal(u, w):
+        if isinstance(w, dict):
+            assert u.keys() == w.keys()
+            for k in w:
+                equal(u[k], w[k])
+        else:
+            assert np.array_equal(np.asarray(u), np.asarray(w))
+
+    equal(got, want)
+
+
+def test_runner_raises_where_the_step_cannot_be_captured():
+    """A step that reads a value back to the host runs eagerly but cannot
+    be captured: the runner raises instead of running eager steps.  In a
+    child process, so that the failed capture leaves this one alone."""
+    _card()
+    import subprocess
+    import sys
+
+    code = r'''
+import torch
+from cfgan_torch.train.countergan import make_epoch_runner
+
+class State:
+    step = 0
+
+def step(state, x, y, draws):
+    v = float(x.sum())  # a host read: fine eagerly, not in a capture
+    state.step += 1
+    return {"v": torch.full((), v, device=x.device)}
+
+runner = make_epoch_runner(step)
+x = torch.ones((8, 2), device="cuda")
+y = torch.zeros(8, dtype=torch.long, device="cuda")
+perm = torch.arange(8, device="cuda").reshape(4, 2)
+try:
+    runner(State(), x, y, perm, {})
+except RuntimeError as e:
+    print("RAISED", runner.captures, runner.replays, "no eager fallback" in
+          str(e))
+else:
+    print("NO ERROR")
+'''
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300)
+    assert "RAISED 0 0 True" in proc.stdout, proc.stdout + proc.stderr
+
+
+def test_dropout_with_a_generator_is_reproducible_on_the_card():
+    dev = _card()
+    from cfgan_torch.models.classifiers import CNNClassifier
+
+    m = CNNClassifier(generator=torch.Generator().manual_seed(0)).to(dev)
+    m.train()
+    x = torch.rand((16, 28, 28, 1), device=dev)
+
+    def logits(seed):
+        return m(x, torch.Generator(device=dev).manual_seed(seed))
+
+    assert torch.equal(logits(1), logits(1))
+    assert not torch.equal(logits(1), logits(2))
+    with pytest.raises(ValueError):
+        m(x)
+
+
+def test_experiment_runs_on_the_card(tmp_path):
+    """`run()` on the card at width 16 on the IDX fixture: the run dir,
+    a finite per-target CSV, and every epoch's steps through the runner."""
+    dev = _card()
+    import csv
+    from pathlib import Path
+
+    from cfgan_torch.experiments import mnist_countergan as exp
+    from cfgan_torch.experiments.presets import MNIST_COUNTERGAN as PRESET
+
+    fixture = str(Path(__file__).resolve().parent / "fixtures" / "mnist_idx")
+    cfg = PRESET.replace(
+        data=replace(PRESET.data, path=fixture, batch_size=16),
+        classifier=replace(PRESET.classifier, epochs=1, batch_size=32),
+        countergan=replace(PRESET.countergan, epochs=2, hidden_dim=16,
+                           num_res_blocks=1))
+    out = exp.run(cfg, out_dir=str(tmp_path), device=dev,
+                  log=lambda s: None)
+    runner = out["bundle"].epoch_fn
+    assert runner.captures == 1 and runner.replays == 2 * 6 - 3
+    with open(tmp_path / "countergan_metrics_per_class.csv") as f:
+        rows = list(csv.DictReader(f))
+    assert len(rows) == 10
+    assert all(np.isfinite(float(r["class_flip_rate"])) for r in rows)

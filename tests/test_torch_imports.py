@@ -1,5 +1,6 @@
 """The port stands alone: no file of cfgan_torch/ and not chip_smoke.py
-imports JAX, its libraries or the JAX package, no CUDA source includes
+imports JAX, its libraries, the JAX package, or scikit-learn, pandas or
+matplotlib (the card's machine has none of them), no CUDA source includes
 PyTorch's headers, and chip_smoke.py refuses to run without a card or
 without the port beside it."""
 import ast
@@ -12,7 +13,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "orbax", "cfgan"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "orbax", "cfgan",
+             "sklearn", "pandas", "matplotlib"}
 PORT_FILES = sorted((ROOT / "cfgan_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 

@@ -128,12 +128,14 @@ def test_leaky_relu():
 def test_dropout(channelwise):
     """Identity in eval, as the JAX package's deterministic dropout; in
     train mode it keeps 1 - rate of the entries (whole channels when
-    channelwise) and scales them by 1 / (1 - rate)."""
+    channelwise), drawn from the generator it is given, and scales them by
+    1 / (1 - rate).  Without a generator or a keep mask it raises."""
     x = torch.ones(64, 4, 4, 32)
     d = tl.Dropout(0.25, channelwise=channelwise)
     assert d.eval()(x) is x
-    torch.manual_seed(0)
-    y = d.train()(x)
+    with pytest.raises(ValueError):
+        d.train()(x)
+    y = d.train()(x, torch.Generator().manual_seed(0))
     assert set(torch.unique(y).tolist()) <= {0.0, float(np.float32(1 / 0.75))}
     assert abs((y > 0).float().mean().item() - 0.75) < 0.03
     if channelwise:
