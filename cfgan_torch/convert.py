@@ -9,10 +9,13 @@ layer on `F.conv2d` and stays HWIO for a layer routed to the 3x3 kernel,
 which is the kernel's layout.  A flax `Conv` wraps its parameters in a
 child scope `Conv_0`; the port's `Conv` holds them itself.
 
+A `SpectralLinear`'s power-iteration vector is the `u` buffer here and
+`spectral_stats/u` there.
+
 `flax_from_state_dict` is the reverse direction, and `load_gan_state` /
 `gan_state_to_flax` carry a whole CounteRGAN train state (generator and
-discriminator parameters, the generator's batch statistics and its EMA)
-across, so that the parity tests can start both packages from the same
+discriminator parameters, the generator's batch statistics, a spectral
+critic's `u` and the EMA) across, so that the parity tests can start both packages from the same
 weights and compare them leaf by leaf after N steps;
 `adam_moments_to_flax` gives the optimizers' first moments in the same
 layout, to compare gradients.  `train_state_to_flax` / `load_train_state`
@@ -28,8 +31,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from cfgan_torch.nn.layers import BatchNorm, Conv, Embed, Linear
-from cfgan_torch.train.state import GANState
+from cfgan_torch.nn.layers import BatchNorm, Conv, Embed, Linear, SpectralLinear
+from cfgan_torch.train.state import GANState, NetState
 
 
 def _leaves(tree: Mapping, path: tuple = ()) -> Iterator[tuple[tuple, Any]]:
@@ -45,7 +48,7 @@ def _convert(sub: nn.Module, collection: str, name: str,
     """(port parameter name, array in the port's layout), or None where
     `sub` has no counterpart of the flax leaf."""
     if collection == "params":
-        if isinstance(sub, Linear):
+        if isinstance(sub, (Linear, SpectralLinear)):
             return {"kernel": ("weight", a.T), "bias": ("bias", a)}.get(name)
         if isinstance(sub, Conv):
             if name == "kernel":
@@ -59,6 +62,9 @@ def _convert(sub: nn.Module, collection: str, name: str,
     elif collection == "batch_stats" and isinstance(sub, BatchNorm):
         return {"mean": ("running_mean", a),
                 "var": ("running_var", a)}.get(name)
+    elif (collection == "spectral_stats" and isinstance(sub, SpectralLinear)
+          and name == "u"):
+        return "u", a
     return None
 
 
@@ -109,9 +115,10 @@ def _to_flax(sub: nn.Module, name: str, t: np.ndarray
     """(collection, leaf path under the module's scope, array in the flax
     layout) of the port's entry `name` of `sub`; the inverse of
     `_convert`."""
-    if isinstance(sub, Linear):
+    if isinstance(sub, (Linear, SpectralLinear)):
         return {"weight": ("params", ("kernel",), t.T),
-                "bias": ("params", ("bias",), t)}.get(name)
+                "bias": ("params", ("bias",), t),
+                "u": ("spectral_stats", ("u",), t)}.get(name)
     if isinstance(sub, Conv):
         if name == "weight":  # OIHW -> HWIO
             return "params", ("Conv_0", "kernel"), t.transpose(2, 3, 1, 0)
@@ -243,11 +250,12 @@ def load_adam_state(ns: NetState, tree: Mapping) -> None:
                 state[key].copy_(values[name])
 
 
-def _generator_tree(g: nn.Module, state_dict) -> dict:
-    tree = flax_from_state_dict(g, state_dict)
-    return {"params": tree["params"],
-            "stats": ({"batch_stats": tree["batch_stats"]}
-                      if "batch_stats" in tree else {})}
+def _net_tree(net: nn.Module, state_dict) -> dict:
+    """`{"params", "stats"}` of a `NetState`: the stats are the other
+    collections (batch_stats, spectral_stats), none for a stateless
+    net."""
+    tree = flax_from_state_dict(net, state_dict)
+    return {"params": tree.pop("params"), "stats": tree}
 
 
 def train_state_to_flax(state: GANState) -> dict:
@@ -257,7 +265,7 @@ def train_state_to_flax(state: GANState) -> dict:
     out = {}
     for net in ("g", "d"):
         ns = getattr(state, net)
-        out[net] = {**_generator_tree(ns.model, ns.model.state_dict()),
+        out[net] = {**_net_tree(ns.model, ns.model.state_dict()),
                     "opt_state": adam_state_to_flax(ns)}
     out["step"] = np.array(state.step, np.int32)
     out["g_ema"] = (None if state.g_ema is None else

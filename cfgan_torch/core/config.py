@@ -1,14 +1,15 @@
-"""Configuration of the MNIST CounteRGAN experiment: its data, classifier
-pretrain, generator serving and training (mirrors `cfgan/core/config.py`;
+"""Configuration of the MNIST and King County house CounteRGAN
+experiments: their data, classifier pretrain, generator serving and
+training, and the tabular feature schema (mirrors `cfgan/core/config.py`;
 the experiment presets are in `cfgan_torch/experiments/presets.py`).
 
-The JAX package's `remat`, `g_microbatch`, `gumbel_tau` and `cat_head_f32`
-are not ported, so they are not fields here: a config cannot ask for them
-and be silently ignored.
+The JAX package's `remat` and `g_microbatch` are not ported, so they are
+not fields here: a config cannot ask for them and be silently ignored.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
+from typing import Mapping
 
 
 @dataclass(frozen=True)
@@ -30,10 +31,11 @@ class DataConfig:
 @dataclass(frozen=True)
 class ClassifierConfig:
     """The frozen classifier's pretrain (`cfgan.core.config.
-    ClassifierConfig`).  The full-batch regime (`steps`) is the moons
-    experiment's and is not ported."""
+    ClassifierConfig`).  `weight_decay` > 0 trains with AdamW.  The
+    full-batch regime (`steps`) is the moons experiment's and is not
+    ported."""
 
-    arch: str = "mlp"  # mlp | cnn
+    arch: str = "mlp"  # mlp | cnn | tabular
     lr: float = 1e-3
     epochs: int = 10
     batch_size: int = 128
@@ -61,8 +63,9 @@ class MaskConfig:
 
 @dataclass(frozen=True)
 class CounterGANConfig:
-    """The `cfgan.core.config.CounterGANConfig` fields of the MNIST
-    generator, its serving and its train step, with the same defaults.
+    """The `cfgan.core.config.CounterGANConfig` fields of the MNIST and
+    tabular generators, their serving and their train step, with the same
+    defaults.
 
     `conv_impl` selects how the generator's 3x3/stride-1/pad-1 convs run:
     None = cuDNN through `F.conv2d`; "matmul" = nine shifted-tap matmuls in
@@ -70,7 +73,9 @@ class CounterGANConfig:
     (`conv3x3_same_pallas`, forward and dx) that replaces the JAX package's
     Pallas kernel, on every such conv with Cin >= 16 and Cout >= 16.
     `compute_dtype` "bfloat16" runs the forwards and backwards in bf16 with
-    float32 parameters, optimizer state and losses.
+    float32 parameters, optimizer state and losses.  `gumbel_tau` is the
+    tabular generator's Gumbel-Softmax temperature; `cat_head_f32` runs
+    its categorical heads and their softmax in float32 under a bf16 trunk.
     """
 
     epochs: int = 500
@@ -92,8 +97,10 @@ class CounterGANConfig:
     hidden_dim: int = 32
     num_res_blocks: int = 5
     residual_scaling: float = 0.1
+    gumbel_tau: float = 0.5
     compute_dtype: str = "float32"
     conv_impl: str | None = None
+    cat_head_f32: bool = True
     # > 0: the experiment scores serving candidates every K epochs on the
     # validation split and ships the best snapshot (cfgan_torch.train.
     # selection); 0: end-of-training selection only
@@ -102,6 +109,42 @@ class CounterGANConfig:
     # initial parameters
     ema_decay: float = 0.0
     mask: MaskConfig = field(default_factory=MaskConfig)
+
+
+@dataclass(frozen=True)
+class TabularSchema:
+    """Feature schema of a tabular CounteRGAN (`cfgan.core.config.
+    TabularSchema`): the feature names in column order, the features no
+    counterfactual may change, and each categorical feature's values."""
+
+    feature_names: tuple[str, ...] = ()
+    immutable_features: tuple[str, ...] = ()
+    categorical_values: Mapping[str, tuple[float, ...]] = field(
+        default_factory=dict)
+
+    @property
+    def input_dim(self) -> int:
+        return len(self.feature_names)
+
+    @property
+    def immutable_idx(self) -> tuple[int, ...]:
+        return tuple(self.feature_names.index(f)
+                     for f in self.immutable_features)
+
+    @property
+    def categorical_idx(self) -> tuple[int, ...]:
+        return tuple(self.feature_names.index(f)
+                     for f in self.categorical_values)
+
+    @property
+    def categorical_info(self) -> dict[int, tuple[float, ...]]:
+        return {self.feature_names.index(f): tuple(v)
+                for f, v in self.categorical_values.items()}
+
+    @property
+    def continuous_idx(self) -> tuple[int, ...]:
+        cat = set(self.categorical_idx)
+        return tuple(i for i in range(self.input_dim) if i not in cat)
 
 
 @dataclass(frozen=True)
@@ -150,4 +193,35 @@ MNIST_COUNTERGAN = replace(
     ema_decay=0.999,
     compute_dtype="bfloat16",
     snapshot_every=2,
+)
+
+#: house_sales_kc_usa/config.py:13-83, the reference recipe (presets.py
+#: HOUSE_COUNTERGAN_REFERENCE): 50 epochs, no clamp, Wasserstein loss
+HOUSE_COUNTERGAN_REFERENCE = CounterGANConfig(
+    epochs=50,
+    lr_g=1e-3,
+    lr_d=1e-3,
+    lambda_cls=2.0,
+    lambda_reg_l1=1.0,
+    lambda_mask=1.0,
+    adv_loss="wasserstein",
+    reg_reduction="per_sample_norm",
+    clamp_cf=None,
+    resample_target=True,
+    hidden_dim=32,
+    num_res_blocks=5,
+    gumbel_tau=0.5,
+)
+
+#: The shipped default (presets.py HOUSE_COUNTERGAN): clamp to [0, 1] with
+#: the out-of-range penalty, lambda_cls 5 over 350 epochs, generator EMA
+#: 0.999 and snapshot selection every 10 epochs.  Batch 128.
+HOUSE_COUNTERGAN = replace(
+    HOUSE_COUNTERGAN_REFERENCE,
+    epochs=350,
+    lambda_cls=5.0,
+    clamp_cf=(0.0, 1.0),
+    lambda_range=10.0,
+    ema_decay=0.999,
+    snapshot_every=10,
 )

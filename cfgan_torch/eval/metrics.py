@@ -27,11 +27,12 @@ def _per_sample_mean_abs(a: torch.Tensor) -> torch.Tensor:
 
 def make_per_target_sweep(cf_fn: Callable, clf_fn: Callable,
                           num_classes: int):
-    """`sweep(g_vars, x, y, mask) -> (num_classes, 4)` float32 sums per
-    target (flip, gain, actionability, count); `per_target_metrics` is
-    the user-facing form."""
+    """`sweep(g_vars, x, y, mask, key=None) -> (num_classes, 4)` float32
+    sums per target (flip, gain, actionability, count); `key` goes to
+    `cf_fn` (a tabular generator's noise); `per_target_metrics` is the
+    user-facing form."""
 
-    def sweep(g_vars, x, y, mask):
+    def sweep(g_vars, x, y, mask, key=None):
         b = x.shape[0]
         rows = torch.arange(b, device=x.device)
         out = []
@@ -39,7 +40,7 @@ def make_per_target_sweep(cf_fn: Callable, clf_fn: Callable,
             for target in range(num_classes):
                 tvec = torch.full((b,), target, dtype=torch.long,
                                   device=x.device)
-                x_cf, _, _ = cf_fn(g_vars, x, tvec, mask)
+                x_cf, _, _ = cf_fn(g_vars, x, tvec, mask, key)
                 logits = clf_fn(x_cf)
                 probs = F.softmax(logits, dim=1)
                 flip = (logits.argmax(1) == tvec).float()
@@ -55,19 +56,19 @@ def make_per_target_sweep(cf_fn: Callable, clf_fn: Callable,
 
 def per_target_metrics(sweep: Callable, g_vars, x, y,
                        mask_fn: Callable[[int], torch.Tensor],
-                       num_classes: int, batch_size: int = 2048
-                       ) -> dict[str, np.ndarray]:
+                       num_classes: int, batch_size: int = 2048,
+                       key=None) -> dict[str, np.ndarray]:
     """Stream (x, y) (numpy or tensors) through `sweep` in batches on the
-    device of `mask_fn`'s masks; returns the columns of
-    `countergan_metrics_per_class.csv`: target_class, class_flip_rate,
-    prediction_gain, avg_actionability."""
+    device of `mask_fn`'s masks, each batch with `key`; returns the
+    columns of `countergan_metrics_per_class.csv`: target_class,
+    class_flip_rate, prediction_gain, avg_actionability."""
     acc = np.zeros((num_classes, 4))
     for lo in range(0, len(y), batch_size):
         yb_host = y[lo:lo + batch_size]
         mask = mask_fn(len(yb_host))
         xb = torch.as_tensor(x[lo:lo + batch_size]).to(mask.device)
         yb = torch.as_tensor(yb_host).to(mask.device, torch.long)
-        acc += sweep(g_vars, xb, yb, mask).double().cpu().numpy()
+        acc += sweep(g_vars, xb, yb, mask, key).double().cpu().numpy()
     denom = np.where(acc[:, 3] == 0, np.nan, acc[:, 3])
     return {"target_class": np.arange(num_classes),
             "class_flip_rate": acc[:, 0] / denom,

@@ -1,9 +1,9 @@
-"""The MNIST CounteRGAN experiment presets (mirrors the MNIST entries of
-`cfgan/experiments/presets.py`, under the same names).
+"""The MNIST and King County house CounteRGAN experiment presets (mirrors
+those entries of `cfgan/experiments/presets.py`, under the same names).
 
-`cfgan_torch.core.config.MNIST_COUNTERGAN` and `..._REFERENCE` are the
-`CounterGANConfig`s of these experiments (the train step's and serving's
-part of them).
+`cfgan_torch.core.config.MNIST_COUNTERGAN`, `HOUSE_COUNTERGAN` and their
+`..._REFERENCE`s are the `CounterGANConfig`s of these experiments (the
+train step's and serving's part of them).
 """
 from __future__ import annotations
 
@@ -24,3 +24,30 @@ MNIST_COUNTERGAN_REFERENCE = C.ExperimentConfig(
 #: EMA 0.999, bf16 compute and snapshot selection every 2 epochs
 MNIST_COUNTERGAN = MNIST_COUNTERGAN_REFERENCE.replace(
     name="mnist_countergan", countergan=C.MNIST_COUNTERGAN)
+
+#: house_sales_kc_usa/config.py:13-83, the exact reference recipe: the
+#: AdamW classifier with class weights, early stopping and the plateau;
+#: 50 CounteRGAN epochs
+HOUSE_COUNTERGAN_REFERENCE = C.ExperimentConfig(
+    name="house_countergan_reference",
+    seed=42,
+    num_classes=4,
+    data=C.DataConfig(name="kc_house", batch_size=128),
+    classifier=C.ClassifierConfig(
+        arch="tabular", lr=5e-4, epochs=200, batch_size=128,
+        weight_decay=0.01, class_weighted=True, early_stop_patience=15,
+        lr_plateau=True),
+    countergan=C.HOUSE_COUNTERGAN_REFERENCE,
+)
+
+#: The shipped default: clamp-trained with the out-of-range penalty,
+#: lambda_cls 5 over 350 epochs, generator EMA and snapshot selection
+#: every 10 epochs
+HOUSE_COUNTERGAN = HOUSE_COUNTERGAN_REFERENCE.replace(
+    name="house_countergan", countergan=C.HOUSE_COUNTERGAN)
+
+#: The reference's committed per-target flip rates under its own
+#: un-clamped protocol (`house_sales_kc_usa/results/countergan_metrics.csv:
+#: 2-5`), which the house snapshot selection scores margins against
+HOUSE_REFERENCE_FLIPS = (0.9999999824692222, 0.9906153240624596,
+                         0.9796906499301686, 0.995971225640353)

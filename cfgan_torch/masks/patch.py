@@ -98,13 +98,14 @@ def random_patch_mask(batch: int, image_hw: tuple[int, int],
 
 def with_ones_fraction(mask: torch.Tensor, frac: float,
                        draws: torch.Tensor | None = None,
-                       generator: torch.Generator | None = None
-                       ) -> torch.Tensor:
-    """Replace each sample's mask by the all-ones mask with probability
-    `frac` (`cfgan/train/builders.py::_with_ones_fraction`,
+                       generator: torch.Generator | None = None,
+                       full: torch.Tensor | None = None) -> torch.Tensor:
+    """Replace each sample's mask by the "fully modifiable" mask with
+    probability `frac` (`cfgan/train/builders.py::_with_ones_fraction`,
     `MaskConfig.ones_fraction`): sample i is replaced where its uniform
-    draw `draws[i] < frac`, as `jax.random.bernoulli` decides.  Identity at
-    0.0."""
+    draw `draws[i] < frac`, as `jax.random.bernoulli` decides.  The fully
+    modifiable mask is all-ones, or `full` (the tabular family's serving
+    mask, immutable features zeroed).  Identity at 0.0."""
     if not frac:
         return mask
     if draws is None:
@@ -112,7 +113,8 @@ def with_ones_fraction(mask: torch.Tensor, frac: float,
         draws = torch.rand((mask.shape[0],), generator=generator,
                            device=mask.device)
     pick = (draws < frac).reshape((-1,) + (1,) * (mask.dim() - 1))
-    return torch.where(pick, torch.ones_like(mask), mask)
+    return torch.where(pick, torch.ones_like(mask) if full is None
+                       else full.to(mask.dtype), mask)
 
 
 def patch_indices_to_mask(patch_idx: Sequence[int], batch: int,

@@ -1,12 +1,12 @@
-"""The frozen MNIST classifier (mirrors
-`cfgan/models/classifiers.py::CNNClassifier`)."""
+"""The frozen classifiers (mirrors `cfgan/models/classifiers.py`):
+`CNNClassifier` (MNIST) and `TabularClassifier` (King County house)."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cfgan_torch.nn.layers import Conv, Dropout, Linear
+from cfgan_torch.nn.layers import BatchNorm, Conv, Dropout, Linear, leaky_relu
 
 
 class CNNClassifier(nn.Module):
@@ -47,3 +47,38 @@ class CNNClassifier(nn.Module):
         h = self.drop2d(h, generator, k2d).reshape(h.shape[0], -1)
         h = self.drop(F.relu(self.Linear_0(h)), generator, k)
         return self.Linear_1(h)
+
+
+class TabularClassifier(nn.Module):
+    """17 -> 256 -> 256 -> 128 -> 64 -> 4: each hidden layer Linear ->
+    LeakyReLU(0.1) -> BatchNorm -> Dropout(.3 / .2 / .1 / none), the torch
+    order (`cfgan.models.classifiers.TabularClassifier`).  Submodules are
+    named as in the flax tree (`Linear_0`.., `BatchNorm_0`..)."""
+
+    WIDTHS = ((256, 0.3), (256, 0.2), (128, 0.1), (64, None))
+
+    def __init__(self, num_classes: int = 4, input_dim: int = 17,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        cin = input_dim
+        for i, (width, drop) in enumerate(self.WIDTHS):
+            self.add_module(f"Linear_{i}", Linear(cin, width, generator))
+            self.add_module(f"BatchNorm_{i}", BatchNorm(width))
+            if drop is not None:
+                self.add_module(f"drop{i}", Dropout(drop))
+            cin = width
+        self.add_module(f"Linear_{len(self.WIDTHS)}",
+                        Linear(cin, num_classes, generator))
+
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None,
+                keep: tuple[torch.Tensor, ...] | None = None) -> torch.Tensor:
+        """In train mode the three dropouts take their keep masks from
+        `keep` where given, else from `generator` (see `Dropout`)."""
+        for i, (_, drop) in enumerate(self.WIDTHS):
+            x = getattr(self, f"BatchNorm_{i}")(
+                leaky_relu(getattr(self, f"Linear_{i}")(x), 0.1))
+            if drop is not None:
+                x = getattr(self, f"drop{i}")(
+                    x, generator, None if keep is None else keep[i])
+        return getattr(self, f"Linear_{len(self.WIDTHS)}")(x)

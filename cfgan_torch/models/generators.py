@@ -1,11 +1,23 @@
-"""The MNIST CounteRGAN residual generator (mirrors
-`cfgan/models/generators.py::ImageResidualGenerator`).  NHWC throughout."""
+"""The CounteRGAN residual generators (mirrors
+`cfgan/models/generators.py`): `ImageResidualGenerator` (MNIST, NHWC
+throughout) and `TabularResidualGenerator` (King County house)."""
 from __future__ import annotations
 
+from typing import Mapping, Sequence
+
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from cfgan_torch.nn.layers import Conv, ConvResBlock, Embed, leaky_relu
+from cfgan_torch.nn.gumbel import gumbel_softmax
+from cfgan_torch.nn.layers import (
+    Conv,
+    ConvResBlock,
+    Embed,
+    FiLMResidualBlock,
+    Linear,
+    leaky_relu,
+)
 
 
 class ImageResidualGenerator(nn.Module):
@@ -54,3 +66,67 @@ class ImageResidualGenerator(nn.Module):
         z = leaky_relu(self.conv_mid(z))
         raw = self.conv_out(z) * self.residual_scaling
         return raw, raw * mask
+
+
+class TabularResidualGenerator(nn.Module):
+    """FiLM-conditioned tabular residual generator with Gumbel-Softmax
+    categorical heads (`cfgan.models.generators.TabularResidualGenerator`).
+
+    cond = concat[target one-hot, mask]; fc_in on concat[x, cond] + ReLU
+    -> `n_blocks` FiLM residual blocks -> a continuous head (`fc_cont`,
+    scaled by `residual_scaling`) and one logits head per categorical
+    feature (`fc_cat_{idx}`, in sorted feature order), each sampled with
+    Gumbel-Softmax at temperature `tau` on the given noise.
+    `cat_head_f32` runs the heads, the noise and the softmax in float32
+    when the trunk computes in bf16: the heads' parameters are read at
+    float32 from their bf16 casts, as JAX promotes them.
+    Returns (cont_residual, cat_logits, cat_samples); the two dicts map a
+    feature index to (B, n_values)."""
+
+    def __init__(self, input_dim: int, hidden_dim: int, num_classes: int,
+                 continuous_idx: Sequence[int],
+                 categorical_info: Mapping[int, Sequence[float]],
+                 n_blocks: int = 5, residual_scaling: float = 0.1,
+                 tau: float = 0.5, cat_head_f32: bool = False,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        cond_dim = num_classes + input_dim
+        self.n_blocks = n_blocks
+        self.residual_scaling = residual_scaling
+        self.tau = tau
+        self.cat_head_f32 = cat_head_f32
+        self.heads = sorted(categorical_info)
+        self.sizes = [len(categorical_info[i]) for i in self.heads]
+        # named as in the flax tree
+        self.fc_in = Linear(input_dim + cond_dim, hidden_dim, generator)
+        for i in range(n_blocks):
+            self.add_module(f"block{i}", FiLMResidualBlock(
+                hidden_dim, cond_dim, generator))
+        self.fc_cont = Linear(hidden_dim, len(continuous_idx), generator)
+        for idx, n in zip(self.heads, self.sizes):
+            self.add_module(f"fc_cat_{idx}", Linear(hidden_dim, n, generator))
+
+    def forward(self, x: torch.Tensor, target_onehot: torch.Tensor,
+                mask: torch.Tensor, noise, hard: bool = False,
+                temperature: float | None = None):
+        """`noise`: feature index -> (B, n) Gumbel noise, or one (B, sum
+        n) tensor of the heads' noise side by side in sorted order."""
+        if not isinstance(noise, Mapping):
+            noise = dict(zip(self.heads, noise.split(self.sizes, dim=1)))
+        cond = torch.cat([target_onehot, mask], 1)
+        h = F.relu(self.fc_in(torch.cat([x, cond], 1)))
+        for i in range(self.n_blocks):
+            h = getattr(self, f"block{i}")(h, cond)
+        cont = self.fc_cont(h) * self.residual_scaling
+        tau = self.tau if temperature is None else float(temperature)
+        head_dtype = torch.float32 if self.cat_head_f32 else h.dtype
+        h_cat = h.to(head_dtype)
+        logits, samples = {}, {}
+        for idx in self.heads:
+            head = getattr(self, f"fc_cat_{idx}")
+            lg = F.linear(h_cat, head.weight.to(head_dtype),
+                          head.bias.to(head_dtype))
+            logits[idx] = lg
+            samples[idx] = gumbel_softmax(lg, noise[idx].to(head_dtype),
+                                          tau=tau, hard=hard)
+        return cont, logits, samples

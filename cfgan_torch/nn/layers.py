@@ -1,4 +1,5 @@
-"""Core layers of the MNIST CounteRGAN (mirrors `cfgan/nn/layers.py`).
+"""Core layers of the MNIST and tabular CounteRGANs (mirrors
+`cfgan/nn/layers.py`).
 
 Activations are NHWC, as in the JAX package.  Parameter names follow the
 JAX package's flax trees (`cfgan_torch.convert` maps one onto the other):
@@ -143,6 +144,83 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         y = (x - mean) * torch.rsqrt(var + self.epsilon)
         return y * self.weight + self.bias
+
+
+def _l2_normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    return v / (torch.linalg.vector_norm(v) + eps)
+
+
+class SpectralLinear(nn.Module):
+    """Linear layer under spectral normalization
+    (`cfgan.nn.layers.SpectralLinear`): y = x W^T / sigma + b, sigma the
+    power-iteration estimate of W's largest singular value, with u and v
+    detached so that the gradient flows through W alone.
+
+    With `update_stats` (the discriminator's update): v = n(W^T u),
+    u' = n(W v), sigma = u'^T W v, and the buffer `u` becomes u' (in place,
+    under no_grad, so that a replayed CUDA graph advances it once a call).
+    Without: v = n(W^T u), sigma = u^T W v, and `u` stays.  n(a) =
+    a / (|a| + eps).  `u` starts as a normalized N(0, 1) draw; under mixed
+    precision it is read at the weight's dtype and stored in float32."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 eps: float = 1e-12,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(cinit.scaled_uniform(
+            (out_features, in_features), in_features, generator))
+        self.bias = nn.Parameter(cinit.scaled_uniform(
+            (out_features,), in_features, generator))
+        self.register_buffer("u", _l2_normalize(
+            torch.randn((out_features,), generator=generator)))
+
+    def forward(self, x: torch.Tensor, update_stats: bool = True
+                ) -> torch.Tensor:
+        w = self.weight
+        with torch.no_grad():
+            wd = w.detach()
+            u = self.u.to(w.dtype, copy=True)
+            v = _l2_normalize(u @ wd, self.eps)
+            if update_stats:
+                u = _l2_normalize(wd @ v, self.eps)
+                self.u.copy_(u)
+        sigma = torch.dot(w @ v, u)
+        return F.linear(x, w / sigma, self.bias)
+
+
+class FiLM(nn.Module):
+    """Feature-wise linear modulation, gamma(cond) * h + beta(cond)
+    (`cfgan.nn.layers.FiLM`)."""
+
+    def __init__(self, cond_dim: int, hidden_dim: int,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.gamma = Linear(cond_dim, hidden_dim, generator)
+        self.beta = Linear(cond_dim, hidden_dim, generator)
+
+    def forward(self, h: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
+        return self.gamma(cond) * h + self.beta(cond)
+
+
+class FiLMResidualBlock(nn.Module):
+    """Tabular residual block, Linear-BN-FiLM-ReLU-Linear-BN-FiLM plus the
+    skip, with ONE FiLM used at both sites
+    (`cfgan.nn.layers.FiLMResidualBlock`)."""
+
+    def __init__(self, hidden_dim: int, cond_dim: int,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.fc1 = Linear(hidden_dim, hidden_dim, generator)
+        self.bn1 = BatchNorm(hidden_dim)
+        self.film = FiLM(cond_dim, hidden_dim, generator)
+        self.fc2 = Linear(hidden_dim, hidden_dim, generator)
+        self.bn2 = BatchNorm(hidden_dim)
+
+    def forward(self, h: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
+        out = F.relu(self.film(self.bn1(self.fc1(h)), cond))
+        out = self.film(self.bn2(self.fc2(out)), cond)
+        return h + out
 
 
 class Embed(nn.Module):

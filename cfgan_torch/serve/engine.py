@@ -1,13 +1,18 @@
 """Promptable counterfactual serving engine (mirrors
-`cfgan/serve/engine.py::CounterfactualEngine` for image engines).
+`cfgan/serve/engine.py::CounterfactualEngine`), for image engines (NHWC
+requests) and tabular ones ((B, D) requests, with a feature schema).
 
 One request is one call of the generator, the float32 clamp and the
 classifier on the engine's device, under `torch.inference_mode`.  Request
 batches are padded up to a power-of-two bucket (cap 512) by repeating the
 last row, and the padded rows are sliced off the results, exactly as in
-the JAX engine; the MNIST `cf_fn` is deterministic per row, so padding
-changes no value.  Configuration is construct-then-serve: once the first
-request has been served, assigning `pad_to_bucket` raises.
+the JAX engine.  Padding changes no value: the MNIST `cf_fn` is
+deterministic per row, and the tabular one derives each row's Gumbel
+noise from (key, head, row) alone.  A request's key is a JAX key pair
+(`cfgan_torch.models.tabular.jax_key`), `jax_key(0)` when none is given;
+`generate_bulk` serves chunk i with `fold_in(key, i)`, as the JAX engine
+does.  Configuration is construct-then-serve: once the first request has
+been served, assigning `pad_to_bucket` raises.
 
 A constructed engine may be shared by request threads: `generate` and
 `classify` read only the frozen modules and their arguments.
@@ -22,7 +27,12 @@ import numpy as np
 import torch
 
 from cfgan_torch.core.device import resolve_device
+from cfgan_torch.masks.feature import (
+    feature_names_to_mask,
+    immutable_complement_mask,
+)
 from cfgan_torch.masks.patch import patch_indices_to_mask
+from cfgan_torch.models.tabular import fold_in, jax_key
 
 
 @dataclass
@@ -49,15 +59,17 @@ class CounterfactualEngine:
     _MAX_BUCKET = 512
 
     def __init__(self, cf_fn: Callable, clf_fn: Callable, num_classes: int,
-                 patch_size: int | None = None,
+                 patch_size: int | None = None, schema=None,
                  device: str | torch.device | None = None):
         """`cf_fn(x, target, mask, key)` -> (x_cf, raw, masked) and
         `clf_fn(x)` -> logits run on `device` (None: the CUDA card; raises
-        where there is none)."""
+        where there is none).  A tabular engine carries its `schema`
+        (`TabularSchema`)."""
         self.cf_fn = cf_fn
         self.clf_fn = clf_fn
         self.num_classes = num_classes
         self.patch_size = patch_size
+        self.schema = schema
         self.device = resolve_device(device)
         self._pad_to_bucket = True
         self._served = threading.Event()
@@ -85,8 +97,8 @@ class CounterfactualEngine:
         return -(-b // cls._MAX_BUCKET) * cls._MAX_BUCKET
 
     # ------------------------------------------------------- inference
-    def _serve(self, x, t, mask):
-        x_cf, _, masked = self.cf_fn(x, t, mask)
+    def _serve(self, x, t, mask, key):
+        x_cf, _, masked = self.cf_fn(x, t, mask, key)
         probs = torch.softmax(self.clf_fn(x_cf), dim=1)
         probs_orig = torch.softmax(self.clf_fn(x), dim=1)
         return x_cf, masked, probs, probs_orig
@@ -104,15 +116,21 @@ class CounterfactualEngine:
                 f"range [0, {self.num_classes})")
         return t.to(self.device)
 
-    def _inputs(self, x, target, mask):
-        """Batch the request on the device: x float32 (B, H, W, C), target
-        broadcast to (B,), mask broadcast to x's shape."""
+    def _batch(self, x) -> torch.Tensor:
+        """x as float32 on the device, one sample ((H, W, C) or (D,))
+        made a batch of one."""
         x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
-        if x.ndim == 3:
+        if x.ndim in (1, 3):
             x = x[None]
-        if x.ndim != 4:
-            raise ValueError(f"x must be (H, W, C) or (B, H, W, C), got "
-                             f"shape {tuple(x.shape)}")
+        if x.ndim not in (2, 4):
+            raise ValueError(f"x must be (H, W, C), (B, H, W, C), (D,) or "
+                             f"(B, D), got shape {tuple(x.shape)}")
+        return x
+
+    def _inputs(self, x, target, mask):
+        """Batch the request on the device: x float32 (B, H, W, C) or
+        (B, D), target broadcast to (B,), mask broadcast to x's shape."""
+        x = self._batch(x)
         b = x.shape[0]
         t = torch.broadcast_to(self._targets(target), (b,))
         if mask is None:
@@ -137,48 +155,63 @@ class CounterfactualEngine:
     def classify(self, x) -> np.ndarray:
         """Class probabilities of x."""
         self._served.set()
-        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
-        if x.ndim == 3:
-            x = x[None]
-        return torch.softmax(self.clf_fn(x), dim=1).cpu().numpy()
+        return torch.softmax(self.clf_fn(self._batch(x)), dim=1).cpu().numpy()
 
     @torch.inference_mode()
     def generate(self, x, target, mask=None, key=None) -> CFResult:
         """Batched counterfactual generation.  `target` may be an int
-        (broadcast) or a per-sample array; `mask` defaults to all-ones.
-        `key` is accepted for the JAX engine's signature and ignored: the
-        MNIST generator draws no noise."""
+        (broadcast) or a per-sample array; `mask` defaults to
+        `default_mask`; `key` (default `jax_key(0)`) seeds a tabular
+        generator's noise and is ignored by the MNIST one."""
         self._served.set()
         x, t, mask = self._inputs(x, target, mask)
+        key = jax_key(0) if key is None else key
         b = x.shape[0]
         nb = self._bucket(b) if self._pad_to_bucket else b
         outs = self._serve(_pad_rows(x, nb), _pad_rows(t, nb),
-                           _pad_rows(mask, nb))
+                           _pad_rows(mask, nb), key)
         return self._result(*(o[:b] for o in outs), t)
 
     @torch.inference_mode()
     def generate_bulk(self, x, target, mask=None, key=None,
                       chunk: int = 128) -> CFResult:
         """Offline/bulk generation: the batch is cut into fixed-size chunks
-        and each chunk is one serving call; results stay on the device
-        until the last chunk.  As in the JAX engine, the chunk count is
-        padded to a power of two by repeating the last row."""
+        and chunk i is one serving call with key `fold_in(key, i)`; results
+        stay on the device until the last chunk.  As in the JAX engine,
+        the chunk count is padded to a power of two by repeating the last
+        row."""
         self._served.set()
         x, t, mask = self._inputs(x, target, mask)
+        key = jax_key(0) if key is None else key
         b = x.shape[0]
         nc = 1
         while nc < -(-b // chunk):
             nc <<= 1
         xp, tp, mp = (_pad_rows(a, nc * chunk) for a in (x, t, mask))
-        outs = [self._serve(xp[i:i + chunk], tp[i:i + chunk],
-                            mp[i:i + chunk])
-                for i in range(0, nc * chunk, chunk)]
+        outs = [self._serve(xp[i * chunk:(i + 1) * chunk],
+                            tp[i * chunk:(i + 1) * chunk],
+                            mp[i * chunk:(i + 1) * chunk], fold_in(key, i))
+                for i in range(nc)]
         return self._result(*(torch.cat(o)[:b] for o in zip(*outs)), t)
 
     # ----------------------------------------------------------- masks
     def default_mask(self, batch: int, x_shape) -> torch.Tensor:
+        """All-ones; a tabular engine zeroes its immutable features."""
+        if self.schema is not None and len(x_shape) == 2:
+            return immutable_complement_mask(batch, x_shape[1],
+                                             self.schema.immutable_idx,
+                                             device=self.device)
         return torch.ones((batch, *tuple(x_shape)[1:]), dtype=torch.float32,
                           device=self.device)
+
+    def mask_from_feature_names(self, allowed: Sequence[str],
+                                batch: int) -> torch.Tensor:
+        """A request's mask from the features it allows (immutable ones
+        stay 0)."""
+        if self.schema is None:
+            raise ValueError("engine has no schema (not a tabular engine)")
+        return feature_names_to_mask(allowed, batch, self.schema,
+                                     device=self.device)
 
     def mask_from_patches(self, patch_indices: Sequence[int], batch: int,
                           image_hw: tuple[int, int],

@@ -1,15 +1,20 @@
-"""The MNIST CounteRGAN's serving and training entry points (mirrors
-`cfgan/train/builders.py`: `make_mixed_precision`, `_clf_forward_fn`,
-`_init_state`, `build_mnist_countergan` with its `cf_fn`, `epoch_fn` and
+"""The MNIST and King County house CounteRGANs' serving and training
+entry points (mirrors `cfgan/train/builders.py`: `make_mixed_precision`,
+`_clf_forward_fn`, `_init_state`, `build_mnist_countergan` and
+`build_tabular_countergan` with their `cf_fn`, `epoch_fn` and
 `recal_fn`, `make_bn_recalibrator`, `g_serving_variables` and
 `select_g_serving_variables`).
 
 Generator variables (`g_vars`) are the generator's state dict: its float32
 parameters and its BatchNorm running statistics, by the module's names
-(the JAX package's `{"params", "batch_stats"}`).  EMA parameters are
+(the JAX package's `{"params", "batch_stats"}`).  Every function here
+that hands generator variables on (to an engine, a selector or a
+checkpoint) hands copies: the train step updates the live parameters, the
+statistics and the EMA in place, and served variables must not follow
+them, as the JAX package's immutable arrays do not.  EMA parameters are
 never paired with the live parameters' statistics: `g_serving_variables`
-recalibrates them, and `mnist_engine` raises where a state carries an
-EMA and no serving variables are given, as the JAX engine's `from_bundle`
+recalibrates them, and the engines raise where a state carries an EMA
+and no serving variables are given, as the JAX engine's `from_bundle`
 does.
 """
 from __future__ import annotations
@@ -23,16 +28,34 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
-from cfgan_torch.core.config import CounterGANConfig
+from cfgan_torch.core.config import CounterGANConfig, TabularSchema
 from cfgan_torch.core.device import resolve_device, torch_dtype
+from cfgan_torch.data.transforms import NormStats
+from cfgan_torch.masks.feature import (
+    feature_mask_draws,
+    immutable_complement_mask,
+    random_feature_mask,
+)
 from cfgan_torch.masks.patch import (
     patch_mask_draws,
     random_patch_mask,
     with_ones_fraction,
 )
-from cfgan_torch.models.classifiers import CNNClassifier
-from cfgan_torch.models.discriminators import CondConvDiscriminator
-from cfgan_torch.models.generators import ImageResidualGenerator
+from cfgan_torch.models.classifiers import CNNClassifier, TabularClassifier
+from cfgan_torch.models.discriminators import (
+    CondConvDiscriminator,
+    SpectralMLPDiscriminator,
+)
+from cfgan_torch.models.generators import (
+    ImageResidualGenerator,
+    TabularResidualGenerator,
+)
+from cfgan_torch.models.tabular import (
+    Key,
+    ResidualAssembly,
+    build_cat_norm_values,
+    derive_gumbel_noise,
+)
 from cfgan_torch.serve.engine import CounterfactualEngine
 from cfgan_torch.train.countergan import make_countergan_step, make_epoch_runner
 from cfgan_torch.train.state import GANState, NetState
@@ -110,37 +133,49 @@ def build_mnist_serving(cfg: CounterGANConfig,
 
 
 def _cast_floats(a, dtype: torch.dtype):
-    """Cast a floating tensor, or each floating tensor of a tuple."""
+    """Cast a floating tensor, or each floating tensor of a tuple or a
+    dict."""
     if isinstance(a, tuple):
         return tuple(_cast_floats(v, dtype) for v in a)
+    if isinstance(a, dict):
+        return {k: _cast_floats(v, dtype) for k, v in a.items()}
     return a.to(dtype) if a.is_floating_point() else a
 
 
-def make_mixed_precision(module: nn.Module, compute_dtype: str) -> Callable:
-    """`apply(*arrays, detach=False)`: `module`'s forward in
+def make_mixed_precision(module: nn.Module, compute_dtype: str,
+                         post: Callable | None = None) -> Callable:
+    """`apply(*arrays, detach=False, **kwargs)`: `module`'s forward in
     `compute_dtype` with its float32 master parameters
     (`make_mixed_precision`).
 
     The parameters are cast inside the autograd graph (through
     `torch.func.functional_call`), so their gradients arrive in float32;
     floating inputs are cast to the compute dtype and floating outputs back
-    to float32.  Buffers are not cast: BatchNorm's running statistics stay
-    float32 and its train path updates them in place.  `detach=True` stops
-    the gradient at the parameters.  This is not `torch.autocast`, which
-    chooses per op what to cast and so rounds elsewhere."""
+    to float32.  `kwargs` go to the forward as they are (flags, and the
+    tabular generator's noise, whose dtype the generator chooses).
+    `post(out, *arrays)`, where given, runs on the outputs and the cast
+    inputs before the outputs are cast back, in the compute dtype (the
+    tabular residual's assembly, which the JAX package's wrapped
+    `g_forward` holds).  Buffers are not cast: BatchNorm's running
+    statistics stay float32 and its train path updates them in place.
+    `detach=True` stops the gradient at the parameters.  This is not
+    `torch.autocast`, which chooses per op what to cast and so rounds
+    elsewhere."""
     cd = torch_dtype(compute_dtype)
 
-    def apply(*arrays, detach: bool = False):
+    def apply(*arrays, detach: bool = False, **kwargs):
         params = {name: (p.detach() if detach else p).to(cd)
                   for name, p in module.named_parameters()}
-        out = functional_call(module, params, _cast_floats(arrays, cd))
+        arrays = _cast_floats(arrays, cd)
+        out = functional_call(module, params, arrays, kwargs)
+        if post is not None:
+            out = post(out, *arrays)
         return _cast_floats(out, torch.float32)
 
     return apply
 
 
-def clf_forward_fn(clf_model: CNNClassifier, compute_dtype: str
-                   ) -> Callable:
+def clf_forward_fn(clf_model: nn.Module, compute_dtype: str) -> Callable:
     """The frozen classifier's forward at the compute dtype, float32 logits
     (`_clf_forward_fn`): a copy of `clf_model` cast to the compute dtype,
     in eval mode, without gradients for its parameters."""
@@ -154,8 +189,8 @@ def clf_forward_fn(clf_model: CNNClassifier, compute_dtype: str
 
 
 @dataclass
-class MNISTCounterGAN:
-    """What `build_mnist_countergan` returns.
+class CounterGANBundle:
+    """What `build_mnist_countergan` and `build_tabular_countergan` return.
 
     - `step_fn(state, x, y, generator)`, `step_with_draws(state, x, y, t,
       mask)` and `step_from_draws(state, x, y, draws)` update `state` in
@@ -166,10 +201,13 @@ class MNISTCounterGAN:
     - `epoch_fn(state, data_x, data_y, perm, draws)` runs an epoch
       (`cfgan_torch.train.countergan.EpochRunner`: a replayed CUDA graph
       on the card);
-    - `cf_fn(g_vars, x, target, mask) -> (x_cf, raw, masked)` serves
-      generator variables in eval mode at the compute dtype;
+    - `cf_fn(g_vars, x, target, mask, key=None) -> (x_cf, raw, masked)`
+      serves generator variables in eval mode at the compute dtype (the
+      tabular one derives its Gumbel noise from `key`, a JAX key pair);
     - `recal_fn(params, stats, x, generator, *, mask_mode)` recalibrates
       BatchNorm statistics under `params` (`make_bn_recalibrator`).
+
+    A tabular bundle also carries its `schema`.
     """
 
     state: GANState
@@ -182,19 +220,21 @@ class MNISTCounterGAN:
     recal_fn: Callable
     num_classes: int
     cfg: CounterGANConfig
+    schema: TabularSchema | None = None
 
 
 def make_cf_fn(g_model: ImageResidualGenerator, compute_dtype: str
                ) -> Callable:
-    """`cf_fn(g_vars, x, target, mask) -> (x_cf, raw, masked)`: `g_vars`
-    through an eval-mode copy of `g_model` at the compute dtype (all
-    floating variables cast, BatchNorm statistics included, as the JAX
-    package's `cf_fn` casts them), float32 outputs, the clamp to [-1, 1]
-    in float32."""
+    """`cf_fn(g_vars, x, target, mask, key=None) -> (x_cf, raw, masked)`:
+    `g_vars` through an eval-mode copy of `g_model` at the compute dtype
+    (all floating variables cast, BatchNorm statistics included, as the
+    JAX package's `cf_fn` casts them), float32 outputs, the clamp to
+    [-1, 1] in float32.  `key` is accepted for the families' common
+    signature; the MNIST generator draws no noise."""
     cd = torch_dtype(compute_dtype)
     serve_g = copy.deepcopy(g_model).eval().requires_grad_(False)
 
-    def cf_fn(g_vars, x, target, mask):
+    def cf_fn(g_vars, x, target, mask, key=None):
         gv = {k: v.to(cd) if v.is_floating_point() else v
               for k, v in g_vars.items()}
         with torch.no_grad():
@@ -206,9 +246,10 @@ def make_cf_fn(g_model: ImageResidualGenerator, compute_dtype: str
     return cf_fn
 
 
-def make_bn_recalibrator(g_model: ImageResidualGenerator, cfg: CounterGANConfig,
+def make_bn_recalibrator(g_model: nn.Module, cfg: CounterGANConfig,
                          draw_fn: Callable, mask_fn: Callable,
-                         num_classes: int = NUM_CLASSES) -> Callable:
+                         g_forward_of: Callable | None = None,
+                         full_mask_fn: Callable | None = None) -> Callable:
     """BatchNorm recalibration for weight-averaged generators
     (`cfgan.train.builders.make_bn_recalibrator`): the generator EMA
     averages parameters only, and its BatchNorm running statistics track
@@ -219,14 +260,18 @@ def make_bn_recalibrator(g_model: ImageResidualGenerator, cfg: CounterGANConfig,
     mask_mode="train", draws=None) -> stats`: RECAL_STEPS train-mode
     forwards of a copy of the generator (never the live one) holding
     `params` and starting from `stats`, at the compute dtype with float32
-    statistics, on batches of RECAL_BATCH rows of `x` with random targets
-    and masks (`mask_mode` "train": the training masks; "ones": all-ones).
-    The draws come from `generator`, or as `draws` ("idx" (steps, batch)
-    rows of x, "targets", and the mask's; the parity tests hand in JAX's).
-    Returns new statistics; `stats` and the live generator are left as
-    they were."""
+    statistics, on batches of RECAL_BATCH rows of `x` with random targets,
+    masks and noise (`mask_mode` "train": the training masks; "ones": the
+    family's fully modifiable mask, `full_mask_fn(x)` or all-ones).
+    `g_forward_of(module)` gives the family's train-mode
+    `g_forward(x, t, mask[, noise])` of a module (default: its forward at
+    the compute dtype).  The draws come from `generator`, or as `draws`
+    ("idx" (steps, batch) rows of x, "targets", the mask's and the noise's;
+    the parity tests hand in JAX's).  Returns new statistics; `stats` and
+    the live generator are left as they were."""
     recal_g = copy.deepcopy(g_model).requires_grad_(False)
-    forward = make_mixed_precision(recal_g, cfg.compute_dtype)
+    forward = (g_forward_of(recal_g) if g_forward_of is not None
+               else make_mixed_precision(recal_g, cfg.compute_dtype))
 
     def recal_fn(params, stats, x, generator=None, *,
                  mask_mode: str = "train", draws=None):
@@ -248,43 +293,55 @@ def make_bn_recalibrator(g_model: ImageResidualGenerator, cfg: CounterGANConfig,
             recal_g.train()
             for i in range(draws["idx"].shape[0]):
                 xb = x.index_select(0, draws["idx"][i])
-                mask = (mask_fn(xb, {k: v[i] for k, v in draws.items()})
-                        if mask_mode == "train" else torch.ones_like(xb))
-                forward(xb, draws["targets"][i], mask)
+                if mask_mode == "train":
+                    mask = mask_fn(xb, {k: v[i] for k, v in draws.items()})
+                elif full_mask_fn is not None:
+                    mask = full_mask_fn(xb)
+                else:
+                    mask = torch.ones_like(xb)
+                noise = (draws["gumbel"][i],) if "gumbel" in draws else ()
+                forward(xb, draws["targets"][i], mask, *noise)
         buffers = dict(recal_g.named_buffers())
         return {k: buffers[k].detach().clone() for k in stats}
 
     return recal_fn
 
 
+def _copies(variables: Mapping[str, torch.Tensor]
+            ) -> dict[str, torch.Tensor]:
+    return {k: v.detach().clone() for k, v in variables.items()}
+
+
 def live_g_variables(state: GANState) -> dict[str, torch.Tensor]:
-    """The live generator's variables (parameters and statistics)."""
-    return {k: v.detach() for k, v in state.g.model.state_dict().items()}
+    """A copy of the live generator's variables (parameters and
+    statistics)."""
+    return _copies(state.g.model.state_dict())
 
 
 def _stats(state: GANState) -> dict[str, torch.Tensor]:
     return dict(state.g.model.named_buffers())
 
 
-def g_serving_variables(bundle: MNISTCounterGAN, state: GANState, x,
+def g_serving_variables(bundle: CounterGANBundle, state: GANState, x,
                         generator: torch.Generator) -> dict[str, torch.Tensor]:
-    """Generator variables to serve or checkpoint
+    """Generator variables to serve or checkpoint, as copies
     (`cfgan.train.builders.g_serving_variables`): the live ones without an
     EMA; with one, the EMA parameters and BatchNorm statistics
     recalibrated under them (`recal_fn`)."""
     if state.g_ema is None:
         return live_g_variables(state)
     stats = bundle.recal_fn(state.g_ema, _stats(state), x, generator)
-    return {**state.g_ema, **stats}
+    return {**_copies(state.g_ema), **stats}
 
 
-def serving_candidates(bundle: MNISTCounterGAN, state: GANState, x_recal,
+def serving_candidates(bundle: CounterGANBundle, state: GANState, x_recal,
                        generator_seed: int):
-    """(name, g_vars) of each serving candidate of `state`: "live"; with an
-    EMA, "ema_recal_train" and "ema_recal_ones" (EMA parameters with
-    statistics recalibrated under the training masks and under all-ones
-    masks, each from a generator seeded with `generator_seed`, as the JAX
-    package recalibrates both from one key)."""
+    """(name, g_vars) of each serving candidate of `state`, as copies:
+    "live"; with an EMA, "ema_recal_train" and "ema_recal_ones" (EMA
+    parameters with statistics recalibrated under the training masks and
+    under the fully modifiable mask, each from a generator seeded with
+    `generator_seed`, as the JAX package recalibrates both from one
+    key)."""
     yield "live", live_g_variables(state)
     if state.g_ema is None:
         return
@@ -293,29 +350,33 @@ def serving_candidates(bundle: MNISTCounterGAN, state: GANState, x_recal,
         gen = torch.Generator(device=dev).manual_seed(generator_seed)
         stats = bundle.recal_fn(state.g_ema, _stats(state), x_recal, gen,
                                 mask_mode=mode)
-        yield f"ema_recal_{mode}", {**state.g_ema, **stats}
+        yield f"ema_recal_{mode}", {**_copies(state.g_ema), **stats}
 
 
-def select_g_serving_variables(bundle: MNISTCounterGAN, state: GANState,
+def select_g_serving_variables(bundle: CounterGANBundle, state: GANState,
                                x_recal, generator_seed: int, xva, yva,
-                               clf_fn: Callable):
+                               clf_fn: Callable, *,
+                               serving_mask_fn: Callable | None = None,
+                               key: Key | None = None):
     """Validation-scored choice among `serving_candidates`
     (`cfgan.train.builders.select_g_serving_variables`): each candidate's
-    per-target flip rates under all-ones masks on (xva, yva); the best by
-    worst-target flip, then mean flip.  Returns (g_vars, info) with the
-    chosen candidate and every score."""
+    per-target flip rates on (xva, yva) under the family's serving mask
+    (`serving_mask_fn(batch)`; default all-ones), the tabular family's
+    noise from `key`; the best by worst-target flip, then mean flip.
+    Returns (g_vars, info) with the chosen candidate and every score."""
     from cfgan_torch.eval.metrics import make_per_target_sweep, per_target_metrics
 
     if state.g_ema is None:
         return live_g_variables(state), {"candidate": "live", "scores": {}}
     sweep = make_per_target_sweep(bundle.cf_fn, clf_fn, bundle.num_classes)
+    mask_fn = serving_mask_fn or (lambda b: torch.ones(
+        (b, *np.shape(xva)[1:]), device=x_recal.device))
     candidates, scores = {}, {}
     for name, gv in serving_candidates(bundle, state, x_recal,
                                        generator_seed):
         cols = per_target_metrics(
-            sweep, gv, xva, yva, mask_fn=lambda b: torch.ones(
-                (b, *IMAGE_HW, 1), device=x_recal.device),
-            num_classes=bundle.num_classes, batch_size=1024)
+            sweep, gv, xva, yva, mask_fn=mask_fn,
+            num_classes=bundle.num_classes, batch_size=1024, key=key)
         flips = cols["class_flip_rate"]
         candidates[name] = gv
         scores[name] = {"worst_flip": round(float(np.nanmin(flips)), 6),
@@ -325,16 +386,9 @@ def select_g_serving_variables(bundle: MNISTCounterGAN, state: GANState,
     return candidates[best], {"candidate": best, "scores": scores}
 
 
-def mnist_engine(bundle: MNISTCounterGAN, clf_fn: Callable,
-                 g_variables: Mapping[str, torch.Tensor] | None = None,
-                 state: GANState | None = None,
-                 device: str | torch.device | None = None
-                 ) -> CounterfactualEngine:
-    """A `CounterfactualEngine` on a training bundle's generator
-    (`CounterfactualEngine.from_bundle` in the JAX package).  A state that
-    carries an EMA must come with `g_variables` (`g_serving_variables`):
-    serving its live parameters would ignore the EMA, and its EMA
-    parameters against the live statistics would mis-normalize."""
+def _engine(bundle: CounterGANBundle, clf_fn: Callable,
+            g_variables: Mapping[str, torch.Tensor] | None,
+            state: GANState | None, device, **kw) -> CounterfactualEngine:
     state = state if state is not None else bundle.state
     if g_variables is None:
         if state.g_ema is not None:
@@ -342,22 +396,50 @@ def mnist_engine(bundle: MNISTCounterGAN, clf_fn: Callable,
                 "the state carries generator EMA parameters; pass "
                 "g_variables=g_serving_variables(...) so that the "
                 "BatchNorm statistics are recalibrated under them")
-        g_variables = live_g_variables(state)
-    gv = dict(g_variables)
+        g_variables = state.g.model.state_dict()
+    gv = _copies(g_variables)
 
-    def cf_fn(x, target, mask):
-        return bundle.cf_fn(gv, x, target, mask)
+    def cf_fn(x, target, mask, key=None):
+        return bundle.cf_fn(gv, x, target, mask, key)
 
     return CounterfactualEngine(cf_fn, clf_fn, bundle.num_classes,
-                                patch_size=bundle.cfg.mask.patch_size,
-                                device=device)
+                                device=device, **kw)
+
+
+def mnist_engine(bundle: CounterGANBundle, clf_fn: Callable,
+                 g_variables: Mapping[str, torch.Tensor] | None = None,
+                 state: GANState | None = None,
+                 device: str | torch.device | None = None
+                 ) -> CounterfactualEngine:
+    """A `CounterfactualEngine` on a training bundle's generator
+    (`CounterfactualEngine.from_bundle` in the JAX package), serving a copy
+    of the variables: training on does not change what it serves.  A
+    state that carries an EMA must come with `g_variables`
+    (`g_serving_variables`): serving its live parameters would ignore the
+    EMA, and its EMA parameters against the live statistics would
+    mis-normalize."""
+    return _engine(bundle, clf_fn, g_variables, state, device,
+                   patch_size=bundle.cfg.mask.patch_size)
+
+
+def house_engine(bundle: CounterGANBundle, clf_fn: Callable,
+                 g_variables: Mapping[str, torch.Tensor] | None = None,
+                 state: GANState | None = None,
+                 device: str | torch.device | None = None
+                 ) -> CounterfactualEngine:
+    """`mnist_engine` for a tabular bundle: the engine carries the
+    bundle's schema, so its default mask zeroes the immutable features
+    and `mask_from_feature_names` builds requests' masks; each request's
+    Gumbel noise comes from its key."""
+    return _engine(bundle, clf_fn, g_variables, state, device,
+                   schema=bundle.schema)
 
 
 def build_mnist_countergan(cfg: CounterGANConfig,
                            clf_params: Mapping[str, torch.Tensor],
                            seed: int = 42,
                            device: str | torch.device | None = None,
-                           diagnostics: bool = True) -> MNISTCounterGAN:
+                           diagnostics: bool = True) -> CounterGANBundle:
     """The MNIST CounteRGAN train step (`build_mnist_countergan`, the
     residual-generator family) on `device` (None: the CUDA card; raises
     where there is none).
@@ -412,9 +494,176 @@ def build_mnist_countergan(cfg: CounterGANConfig,
         d_forward=make_mixed_precision(d_model, cfg.compute_dtype),
         clf_forward=clf_forward_fn(clf_model.to(device), cfg.compute_dtype),
         draw_fn=draw_fn, mask_fn=mask_fn, diagnostics=diagnostics)
-    return MNISTCounterGAN(
+    return CounterGANBundle(
         state, step_fn, step_with_draws, step_from_draws, draw_fn,
         make_epoch_runner(step_from_draws), make_cf_fn(g_model,
                                                        cfg.compute_dtype),
         make_bn_recalibrator(g_model, cfg, draw_fn, mask_fn),
         NUM_CLASSES, cfg)
+
+
+def _gumbel_draws(shape: tuple[int, ...], generator: torch.Generator
+                  ) -> torch.Tensor:
+    """Standard Gumbel draws of `shape` from `generator`, on its device:
+    -log(-log(u)), u uniform with 0 moved to float32's tiny, as JAX's
+    `gumbel` keeps u in [tiny, 1)."""
+    u = torch.rand(shape, generator=generator, device=generator.device)
+    return -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
+
+
+def _one_hot(t: torch.Tensor, num_classes: int, dtype: torch.dtype
+             ) -> torch.Tensor:
+    """One-hot rows of `t` by comparison, which a CUDA graph captures
+    (`F.one_hot` checks its input's range on the host)."""
+    classes = torch.arange(num_classes, device=t.device)
+    return (t[:, None] == classes).to(dtype)
+
+
+def _tabular_g_forward(g_model: TabularResidualGenerator,
+                       cfg: CounterGANConfig, assembly: ResidualAssembly,
+                       num_classes: int) -> Callable:
+    """The tabular family's train-mode `g_forward(x, t, mask, noise) ->
+    (raw, masked)` through `g_model`: soft Gumbel samples on `noise`, the
+    residual assembled at the compute dtype (as the JAX package's wrapped
+    `g_forward` assembles it), float32 outputs."""
+
+    def assemble(out, x, t_oh, mask):
+        cont, _, samples = out
+        raw = assembly(x, cont, samples)
+        return raw, raw * mask
+
+    apply = make_mixed_precision(g_model, cfg.compute_dtype, post=assemble)
+
+    def g_forward(x, t, mask, noise):
+        return apply(x, _one_hot(t, num_classes, x.dtype), mask,
+                     noise=noise, hard=False, temperature=cfg.gumbel_tau)
+
+    return g_forward
+
+
+def make_tabular_cf_fn(g_model: TabularResidualGenerator,
+                       cfg: CounterGANConfig, schema: TabularSchema,
+                       assembly: ResidualAssembly, num_classes: int
+                       ) -> Callable:
+    """`cf_fn(g_vars, x, target, mask, key, hard=True) -> (x_cf, raw,
+    masked)` (the tabular `cf_fn` of `build_tabular_countergan`):
+    `g_vars` through an eval-mode copy of `g_model` at the compute dtype,
+    hard Gumbel samples on the noise `derive_gumbel_noise(key, B, ...)`
+    derives per row (so a row's counterfactual does not depend on the
+    batch it is served in), the residual assembled in float32, x_cf
+    clamped to [0, 1] data space.  `key` is a JAX key pair."""
+    cd = torch_dtype(cfg.compute_dtype)
+    noise_dtype = torch.float32 if cfg.cat_head_f32 else cd
+    serve_g = copy.deepcopy(g_model).eval().requires_grad_(False)
+    info = schema.categorical_info
+
+    def cf_fn(g_vars, x, target, mask, key: Key, hard: bool = True):
+        gv = {k: v.to(cd) if v.is_floating_point() else v
+              for k, v in g_vars.items()}
+        noise = derive_gumbel_noise(key, x.shape[0], info, noise_dtype,
+                                    device=x.device)
+        t_oh = _one_hot(target, num_classes, cd)
+        with torch.no_grad():
+            cont, _, samples = functional_call(
+                serve_g, gv, (x.to(cd), t_oh, mask.to(cd)),
+                {"noise": noise, "hard": hard,
+                 "temperature": cfg.gumbel_tau})
+        raw = assembly(x, cont.float(),
+                       {k: v.float() for k, v in samples.items()})
+        masked = raw * mask
+        return torch.clamp(x + masked, 0.0, 1.0), raw, masked
+
+    return cf_fn
+
+
+def build_tabular_countergan(cfg: CounterGANConfig,
+                             clf_params: Mapping[str, torch.Tensor],
+                             schema: TabularSchema, stats: NormStats,
+                             num_classes: int = 4, seed: int = 42,
+                             device: str | torch.device | None = None,
+                             diagnostics: bool = True) -> CounterGANBundle:
+    """The tabular CounteRGAN train step (`build_tabular_countergan`) on
+    `device` (None: the CUDA card; raises where there is none).
+
+    `TabularResidualGenerator` (width `cfg.hidden_dim`, `cfg.num_res_blocks`
+    FiLM blocks, Gumbel heads at `cfg.gumbel_tau`) and the spectral-norm
+    critic (widths h, 2h, 4h) get initial weights from a `torch.Generator`
+    seeded with `seed`; Adam at `cfg.lr_g` / `cfg.lr_d`; the EMA starts at
+    the initial parameters.  `clf_params` is the frozen
+    `TabularClassifier`'s state dict.  Each step draws its targets, a
+    per-feature Bernoulli(0.5) mask with the immutable features zeroed and
+    the generator's Gumbel noise ("gumbel", (..., B, sum of the heads'
+    sizes)); recalibration's "ones" mode uses the immutable-complement
+    mask.  The bundle carries `schema`."""
+    device = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    dim = schema.input_dim
+    info = schema.categorical_info
+    n_noise = sum(len(v) for v in info.values())
+    assembly = ResidualAssembly(schema.continuous_idx,
+                                build_cat_norm_values(info, stats))
+    g_model = TabularResidualGenerator(
+        dim, cfg.hidden_dim, num_classes, schema.continuous_idx, info,
+        n_blocks=cfg.num_res_blocks, residual_scaling=cfg.residual_scaling,
+        tau=cfg.gumbel_tau, cat_head_f32=cfg.cat_head_f32, generator=gen)
+    h = cfg.hidden_dim
+    d_model = SpectralMLPDiscriminator(dim + num_classes, (h, 2 * h, 4 * h),
+                                       generator=gen)
+    clf_model = TabularClassifier(num_classes, dim)
+    clf_model.load_state_dict(clf_params, strict=True)
+    g_model.to(device).train()
+    d_model.to(device).train()
+    state = GANState(
+        g=NetState.create(g_model, cfg.lr_g),
+        d=NetState.create(d_model, cfg.lr_d),
+        g_ema=({name: p.detach().clone()
+                for name, p in g_model.named_parameters()}
+               if cfg.ema_decay else None))
+    # the immutable-complement row, made here: the captured step may not
+    # copy it from the host
+    keep = immutable_complement_mask(1, dim, schema.immutable_idx,
+                                     device=device)[0]
+
+    def full_mask_fn(x):
+        return keep.expand(x.shape[0], dim)
+
+    def draw_fn(generator: torch.Generator, shape: tuple[int, ...]) -> dict:
+        draws = {"targets": torch.randint(0, num_classes, shape,
+                                          generator=generator,
+                                          device=generator.device),
+                 "mask": feature_mask_draws(shape, dim, generator),
+                 "gumbel": _gumbel_draws((*shape, n_noise), generator)}
+        if cfg.mask.ones_fraction:
+            draws["ones"] = torch.rand(shape, generator=generator,
+                                       device=generator.device)
+        return draws
+
+    def mask_fn(x, draws):
+        mask = random_feature_mask(draws["mask"], keep=keep)
+        if not cfg.mask.ones_fraction:
+            return mask
+        return with_ones_fraction(mask, cfg.mask.ones_fraction,
+                                  draws=draws["ones"], full=full_mask_fn(x))
+
+    def g_forward_of(module):
+        return _tabular_g_forward(module, cfg, assembly, num_classes)
+
+    d_apply = make_mixed_precision(d_model, cfg.compute_dtype)
+
+    def d_forward(x, t, detach: bool = False, train: bool = True):
+        return d_apply(x, _one_hot(t, num_classes, x.dtype),
+                       detach=detach, train=train)
+
+    step_fn, step_with_draws, step_from_draws = make_countergan_step(
+        cfg=cfg, num_classes=num_classes, g_forward=g_forward_of(g_model),
+        d_forward=d_forward,
+        clf_forward=clf_forward_fn(clf_model.to(device), cfg.compute_dtype),
+        draw_fn=draw_fn, mask_fn=mask_fn, diagnostics=diagnostics)
+    return CounterGANBundle(
+        state, step_fn, step_with_draws, step_from_draws, draw_fn,
+        make_epoch_runner(step_from_draws),
+        make_tabular_cf_fn(g_model, cfg, schema, assembly, num_classes),
+        make_bn_recalibrator(g_model, cfg, draw_fn, mask_fn,
+                             g_forward_of=g_forward_of,
+                             full_mask_fn=full_mask_fn),
+        num_classes, cfg, schema=schema)

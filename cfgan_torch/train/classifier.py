@@ -1,13 +1,14 @@
 """Classifier pretraining, CounteRGAN stage 1 (mirrors
-`cfgan/train/classifier.py`, the epoch regime): Adam and cross-entropy
-over shuffled epochs, optional class weights, a ReduceLROnPlateau-style
-scale, early stopping, and the best validation-accuracy snapshot.
+`cfgan/train/classifier.py`, the epoch regime): Adam, or AdamW with
+`weight_decay` (the house experiment's), and cross-entropy over shuffled
+epochs, optional class weights, a ReduceLROnPlateau-style scale, early
+stopping, and the best validation-accuracy snapshot.
 
 Each epoch's permutation and dropout draws come from generators seeded
 statelessly from (seed, epoch).  The steps run eagerly; the small
 classifier's epoch is not captured as a CUDA graph.  The full-batch
-regime (`ClassifierConfig.steps`, the moons experiment's) and AdamW
-(`weight_decay`, the house experiment's) are not ported and raise.
+regime (`ClassifierConfig.steps`, the moons experiment's) is not ported
+and raises.
 """
 from __future__ import annotations
 
@@ -44,8 +45,8 @@ def make_classifier_step(ns: NetState,
     """`step(x, y, generator=None, keep=None, lr_scale=1.0) -> loss`: one
     train-mode update of `ns` in place.  Dropout masks come from `keep`
     (the classifier's `(channel mask, unit mask)`) or `generator`.
-    `lr_scale` scales the learning rate, which for Adam scales the update
-    (the JAX package scales the update)."""
+    `lr_scale` scales the learning rate, which for Adam and AdamW scales
+    the update (the JAX package scales the update)."""
     base_lrs = [g["lr"] for g in ns.opt.param_groups]
 
     def step(x, y, generator=None, keep=None, lr_scale: float = 1.0):
@@ -91,10 +92,10 @@ def train_classifier(model: nn.Module, cfg: ClassifierConfig, train_set,
     weights; it is moved to `device` (None: the CUDA card) and trained in
     place, and the returned state holds a copy of the model at the best
     validation accuracy (the last epoch without a validation set)."""
-    if cfg.steps is not None or cfg.weight_decay:
+    if cfg.steps is not None:
         raise NotImplementedError(
-            "the full-batch classifier regime (ClassifierConfig.steps) and "
-            "AdamW (weight_decay) are not ported")
+            "the full-batch classifier regime (ClassifierConfig.steps) is "
+            "not ported")
     dev = resolve_device(device)
     x_train = torch.as_tensor(train_set[0]).to(dev)
     y_train = torch.as_tensor(train_set[1]).to(dev, torch.long)
@@ -105,7 +106,7 @@ def train_classifier(model: nn.Module, cfg: ClassifierConfig, train_set,
         counts = np.bincount(y_train.cpu().numpy(), minlength=num_classes)
         class_weights = torch.tensor(len(y_train) / (num_classes * counts),
                                      dtype=torch.float32, device=dev)
-    ns = NetState.create(model, cfg.lr)
+    ns = NetState.create(model, cfg.lr, cfg.weight_decay)
     step = make_classifier_step(ns, class_weights)
     _, accuracy = make_eval_fn(model)
     history = {"val_acc": [], "loss": []}

@@ -4,17 +4,19 @@
 
 Per batch:
 
-1. targets and a random modifiable mask (drawn from a `torch.Generator`,
-   or given: the parity tests hand in JAX's draws);
+1. targets, a random modifiable mask and, for the tabular generator, its
+   Gumbel noise (drawn from a `torch.Generator`, or given: the parity
+   tests hand in JAX's draws);
 2. ONE generator forward in train mode (BatchNorm statistics update once)
    and ONE epilogue on its raw residual, giving the counterfactual and the
    proximity and penalty sums; their graph is kept for the generator
    update;
 3. the discriminator update on (x, y) and the detached (x_cf, t) batched
-   into one pass;
-4. the generator loss through the UPDATED discriminator, whose parameters
-   get no gradient from it, the frozen classifier, and the epilogue's
-   sums;
+   into one pass, D in train mode (a spectral-norm D advances its power
+   iteration here, once a step);
+4. the generator loss through the UPDATED discriminator in eval mode,
+   whose parameters get no gradient from it, the frozen classifier, and
+   the epilogue's sums;
 5. the generator update, then the EMA.
 
 The epilogue (`cfgan_torch.ops.epilogue.cf_epilogue`) runs once per step
@@ -78,17 +80,21 @@ def make_countergan_step(*, cfg: CounterGANConfig, num_classes: int,
       numbers from `generator`, then runs `step_from_draws`;
     - `step_from_draws(state, x, y, draws) -> metrics` takes them as a
       dict of tensors (`draw_fn`'s: "targets", the uniform integer draws
-      of the targets, and the mask's), makes the targets and the mask, and
-      runs `step_with_draws`;
-    - `step_with_draws(state, x, y, t, mask) -> metrics` takes the targets
-      and the mask.
+      of the targets, the mask's, and for the tabular family "gumbel",
+      the generator's noise), makes the targets and the mask, and runs
+      `step_with_draws`;
+    - `step_with_draws(state, x, y, t, mask, noise=None) -> metrics` takes
+      the targets, the mask and the generator's noise (None for a
+      generator that draws none).
 
-    All update `state` in place.  `g_forward(x, t, mask) -> (raw,
-    masked)`, `d_forward(x, t, detach=False) -> scores` (`detach=True`
-    stops the gradient at D's parameters) and `clf_forward(x) -> logits`
-    return float32; `draw_fn(generator, shape) -> draws` draws for a batch
-    of `shape` (`(B,)`, or `(steps, B)` for an epoch) on the generator's
-    device; `mask_fn(x, draws) -> mask`.
+    All update `state` in place.  `g_forward(x, t, mask[, noise]) -> (raw,
+    masked)` (called with `noise` only where there is some),
+    `d_forward(x, t, detach=False, train=True) -> scores` (`detach=True`
+    stops the gradient at D's parameters; `train=False` leaves D's state
+    as it is) and `clf_forward(x) -> logits` return float32;
+    `draw_fn(generator, shape) -> draws` draws for a batch of `shape`
+    (`(B,)`, or `(steps, B)` for an epoch) on the generator's device;
+    `mask_fn(x, draws) -> mask`.
     """
     if cfg.adv_loss not in ADV_LOSSES:
         raise ValueError(f"unknown adv_loss {cfg.adv_loss!r}")
@@ -112,17 +118,19 @@ def make_countergan_step(*, cfg: CounterGANConfig, num_classes: int,
                                                    eps=1e-6)
         return gan_losses.g_loss_wasserstein(scores)
 
-    def step_with_draws(state: GANState, x, y, t, mask) -> dict:
+    def step_with_draws(state: GANState, x, y, t, mask, noise=None) -> dict:
         g, d = state.g, state.d
         n_features = x[0].numel()
 
         # ---- generator forward and the epilogue, kept for the G update;
         # the D update below touches neither ----
-        raw, masked = g_forward(x, t, mask)
+        raw, masked = g_forward(x, t, mask, *(() if noise is None
+                                              else (noise,)))
         cf, l1s, l2s, pens = cf_epilogue(x, raw, mask, lo, hi)
 
         # ---- discriminator update, real and fake in one pass ----
-        scores = d_forward(torch.cat([x, cf.detach()]), torch.cat([y, t]))
+        scores = d_forward(torch.cat([x, cf.detach()]), torch.cat([y, t]),
+                           train=True)
         d_real, d_fake = scores.chunk(2)
         d_loss = d_loss_of(d_real, d_fake)
         d.opt.zero_grad(set_to_none=True)
@@ -130,7 +138,7 @@ def make_countergan_step(*, cfg: CounterGANConfig, num_classes: int,
         d.opt.step()
 
         # ---- generator update through the updated discriminator ----
-        adv = g_adv_of(d_forward(cf, t, detach=True))
+        adv = g_adv_of(d_forward(cf, t, detach=True, train=False))
         cf_logits = clf_forward(cf)
         cls = cg_losses.classifier_ce(cf_logits, t)
         l1, l2, pen = epilogue_terms(l1s, l2s, pens, n_features,
@@ -185,7 +193,8 @@ def make_countergan_step(*, cfg: CounterGANConfig, num_classes: int,
         else:
             t = sample_targets(y, num_classes, cfg.resample_target,
                                draws=draws["targets"])
-        return step_with_draws(state, x, y, t, mask_fn(x, draws))
+        return step_with_draws(state, x, y, t, mask_fn(x, draws),
+                               draws.get("gumbel"))
 
     def step(state: GANState, x, y, generator: torch.Generator) -> dict:
         draws = {k: v.to(x.device)

@@ -15,16 +15,23 @@ from torch import nn
 
 
 def adam_like_torch(params, lr: float, betas=(0.9, 0.999),
-                    eps: float = 1e-8) -> torch.optim.Adam:
+                    eps: float = 1e-8, weight_decay: float = 0.0
+                    ) -> torch.optim.Optimizer:
     """Adam with optax.adam's defaults, which are torch's
     (`cfgan.train.state.adam_like_torch`: same bias correction, eps
-    outside the square root).
+    outside the square root); with `weight_decay`, AdamW, optax.adamw's
+    decoupled decay of every parameter (the update is lr * (adam +
+    weight_decay * p) either way).
 
     On a CUDA card it is `capturable`: its step count lives on the device
     beside the moments, so a CUDA graph of the train step replays the
     update (`cfgan_torch.train.countergan.make_epoch_runner`)."""
     params = list(params)
     capturable = bool(params) and params[0].is_cuda
+    if weight_decay:
+        return torch.optim.AdamW(params, lr=lr, betas=betas, eps=eps,
+                                 weight_decay=weight_decay,
+                                 capturable=capturable)
     return torch.optim.Adam(params, lr=lr, betas=betas, eps=eps,
                             capturable=capturable)
 
@@ -38,10 +45,12 @@ class NetState:
     opt: torch.optim.Optimizer
 
     @classmethod
-    def create(cls, model: nn.Module, lr: float) -> "NetState":
+    def create(cls, model: nn.Module, lr: float,
+               weight_decay: float = 0.0) -> "NetState":
         """`model` already on its device (Adam's `capturable` follows
         it)."""
-        return cls(model, adam_like_torch(model.parameters(), lr))
+        return cls(model, adam_like_torch(model.parameters(), lr,
+                                          weight_decay=weight_decay))
 
 
 @dataclass

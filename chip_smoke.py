@@ -45,9 +45,34 @@ Then it trains end to end:
   on the same directory, which must train nothing and write the same
   per-target CSV.
 
+Then the King County house CounteRGAN (the shipped `HOUSE_COUNTERGAN`
+preset at full width: 32 wide, 5 FiLM blocks, batch 128, float32):
+
+- `house data`: the synthetic table (21,613 rows: 17,290 train, 4,323
+  test), its class counts and price-quartile edges;
+- `house train`: 10 eager steps on the card launch the epilogue kernels
+  once forward and once backward a step, in the 4-byte variant ((128,
+  17) rows), give the losses of the same steps on the plain epilogue,
+  and advance each critic layer's power-iteration `u` exactly once a
+  step (held against a plain power iteration on the weights);
+- `house epoch runner`: one epoch (135 steps) replayed as a CUDA graph
+  equals the same steps eager, bit for bit (metrics, parameters,
+  BatchNorm statistics, `u`, EMA, Adam); the profiler counts one
+  epilogue forward and one backward launch a replayed step; replayed and
+  eager steps are timed in turns;
+- `house experiment`: `cfgan_torch.experiments.house_countergan.run` at
+  full width on the synthetic table (5 classifier epochs, 20 GAN
+  epochs, snapshot selection every 10), then the rerun that loads it;
+- `house serve`: `house_engine` on the committed
+  `results/house_countergan/{classifier,generator}` (the experiment's
+  run dir where a checkout lacks them): `generate` at b=1 and b=128 and
+  `generate_bulk` on the test rows, padded and unpadded requests equal,
+  the card's counterfactuals against the same engine's on the CPU.
+
 Then it times the kernels, their plain versions, cuDNN for the conv and
 its weight gradient, the serving requests and the train step (bf16 with
-cuDNN's convs and with the kernels, f32 with the kernels).
+cuDNN's convs and with the kernels, f32 with the kernels), and the
+epilogue kernels at the house step's (128, 17) rows.
 
     python3 chip_smoke.py --train-timing-only
 
@@ -67,6 +92,7 @@ from __future__ import annotations
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -124,8 +150,10 @@ EPI_SUM_RTOL = 1e-5
 # SMs, N % 4 != 0 and N < 4 (the 4-byte variant), rows longer than one
 # block's quads, and the step's rows one element into their storage (the
 # 4-byte variant)
+# the house step's rows, (128, 17), take the 4-byte variant too
 EPI_CASES = ((128, 784, False), (257, 784, False), (3, 17, False),
-             (5, 2, False), (64, 4096, False), (128, 784, True))
+             (5, 2, False), (64, 4096, False), (128, 784, True),
+             (128, 17, False))
 EPI_BOUNDS = ((-1.0, 1.0), (-1e30, 1e30))  # clamp, no clamp
 # the smoke's train step: the preset's batch, and 10 steps (3 in f32 and
 # with the conv kernel)
@@ -183,6 +211,32 @@ EXPERIMENT_FILES = (
     "train_state/metadata.json", "classifier_eval/confusion_matrix.csv",
     "classifier_eval/classifier_report.txt", "countergan_metrics.csv",
     "countergan_metrics_per_class.csv", "masked_metrics.csv")
+
+
+# the house phases: the shipped preset's (128, 17) step; HOUSE_STEPS
+# eager steps; one whole epoch through the runner, of which the eager
+# device time is profiled over HOUSE_PROFILE_STEPS steps (a trace of a
+# whole eager epoch holds ~10^5 records); the experiment cut to
+# HOUSE_CLF_EPOCHS classifier and HOUSE_EPOCHS GAN epochs with a snapshot
+# rung every HOUSE_EVERY
+HOUSE_FEATURES = 17
+HOUSE_STEPS = 10
+HOUSE_PROFILE_STEPS = 24
+HOUSE_REPLAY_LAUNCHES = {"epilogue_fwd_kernel": 1, "epilogue_bwd_kernel": 1}
+HOUSE_CLF_EPOCHS = 5
+HOUSE_EPOCHS = 20
+HOUSE_EVERY = 10
+HOUSE_FILES = (
+    "classifier/checkpoint.msgpack", "classifier/metadata.json",
+    "generator/checkpoint.msgpack", "generator/metadata.json",
+    "train_state/checkpoint.msgpack", "classifier_eval/confusion_matrix.csv",
+    "countergan_metrics.csv", "countergan_metrics_reference_protocol.csv")
+HOUSE_RUN_DIR = HERE / "results" / "house_countergan"
+# the card's served counterfactuals against the CPU's: float32 matmuls in
+# other orders (TF32 off); a hard Gumbel argmax may flip on a near tie, so
+# HOUSE_PRED_AGREE of the predictions must agree and the rows whose
+# predictions agree are reported with their largest x_cf difference
+HOUSE_PRED_AGREE = 0.99
 
 
 def fail(msg: str) -> None:
@@ -388,17 +442,18 @@ def host_call_ms(fn, windows: int = 5, iters: int = 200) -> float:
     return statistics.median(cuda_ms(fn, iters) for _ in range(windows))
 
 
-def time_epilogue(card: str, dev) -> dict:
+def time_epilogue(card: str, dev, n: int = 28 * 28) -> dict:
     """Device ms per call (profiler) of the epilogue kernels and of their
     plain versions, and the wrappers' host-bound ms per call
-    (`host_call_ms`), at the step's (128, 784) float32 rows: one line
-    each.  Uses only what every checkout's `cfgan_torch.ops.epilogue`
-    has, so `--train-timing-only` runs it on earlier commits too."""
+    (`host_call_ms`), at a step's (128, n) float32 rows (the MNIST step's
+    784, the house step's 17): one line each.  Uses only what every
+    checkout's `cfgan_torch.ops.epilogue` has, so `--train-timing-only`
+    runs it on earlier commits too."""
     import torch
 
     from cfgan_torch.ops import epilogue as tep
 
-    b, n = TRAIN_BATCH, 28 * 28
+    b = TRAIN_BATCH
     x, raw = (torch.rand((b, n), device=dev) * 2 - 1 for _ in range(2))
     mask = (torch.rand((b, n), device=dev) > 0.5).float()
     gcf = torch.randn((b, n), device=dev)
@@ -722,6 +777,415 @@ def experiment_phase(card: str, dev) -> None:
         shutil.rmtree(out_dir, ignore_errors=True)
 
 
+
+def house_data_phase(card: str) -> tuple:
+    """The house table through `load_kc_house` (the synthetic one where no
+    CSV is found), its split sizes, class counts and quartile edges; one
+    line.  Returns what `load_kc_house` returns."""
+    import numpy as np
+
+    from cfgan_torch.data import kc_house
+
+    source = "csv" if kc_house.resolve_csv(None) else "synthetic"
+    t0 = time.perf_counter()
+    data = kc_house.load_kc_house()
+    load_s = time.perf_counter() - t0
+    (xtr, ytr), (xte, yte), stats, bins, schema = data
+    sizes = {"train": len(ytr), "test": len(yte)}
+    counts = {name: np.bincount(y, minlength=4).tolist()
+              for name, y in (("train", ytr), ("test", yte))}
+    ok = (xtr.shape[1] == xte.shape[1] == HOUSE_FEATURES
+          and all(min(c) > 0 for c in counts.values())
+          and all(x.dtype == np.float32 and np.isfinite(x).all()
+                  and x.min() > -1e-5 and x.max() < 1 + 1e-5
+                  for x in (xtr, xte))
+          and len(bins) == 5 and bool(np.all(np.diff(bins) > 0)))
+    if source == "synthetic":
+        ok = ok and sizes == {"train": 17290, "test": 4323}
+    emit({"phase": "house data", "card": card, "source": source,
+          "rows": sizes["train"] + sizes["test"], "sizes": sizes,
+          "per_class": counts, "qcut_edges": [float(b) for b in bins],
+          "load_s": load_s, "ok": ok})
+    if not ok:
+        fail(f"the house table came out wrong: {sizes}, {counts}")
+    return data
+
+
+def _power_iteration(w, u, eps: float = 1e-12):
+    """One plain power iteration of a (out, in) weight from u."""
+    v = u @ w
+    v = v / (v.norm() + eps)
+    u = w @ v
+    return u / (u.norm() + eps)
+
+
+def _house_bundle(dev, data):
+    """The shipped house preset at full width on the card, initial weights
+    from SEED, on a random frozen classifier."""
+    import torch
+
+    from cfgan_torch.core.config import HOUSE_COUNTERGAN
+    from cfgan_torch.models.classifiers import TabularClassifier
+    from cfgan_torch.train.builders import build_tabular_countergan
+
+    _, _, stats, _, schema = data
+    clf = TabularClassifier(generator=torch.Generator().manual_seed(SEED))
+    return build_tabular_countergan(HOUSE_COUNTERGAN, clf.state_dict(),
+                                    schema, stats, seed=SEED, device=dev)
+
+
+def house_train_phase(card: str, dev, data, counts, zero_counts,
+                      plain_epilogue) -> tuple:
+    """HOUSE_STEPS eager steps of the house preset: the epilogue kernels'
+    launches and variant, the losses against the plain epilogue's, and
+    each critic layer's `u` against one plain power iteration a step; one
+    line.  Returns the wrappers' counts of the kernels' run."""
+    import torch
+
+    from cfgan_torch.ops import epilogue as tep
+
+    (xtr, ytr), _, _, _, _ = data
+    n = HOUSE_STEPS * TRAIN_BATCH
+    xs = torch.as_tensor(xtr[:n]).to(dev).reshape(HOUSE_STEPS, TRAIN_BATCH,
+                                                   -1)
+    ys = torch.as_tensor(ytr[:n]).to(dev, torch.long).reshape(HOUSE_STEPS,
+                                                              -1)
+
+    def train():
+        bundle = _house_bundle(dev, data)
+        draws = torch.Generator(device=dev).manual_seed(SEED)
+        layers = list(bundle.state.d.model.children())
+        losses, u_err = [], 0.0
+        for i in range(HOUSE_STEPS):
+            before = [(m.weight.detach().clone(), m.u.clone())
+                      for m in layers]
+            m = bundle.step_fn(bundle.state, xs[i], ys[i], draws)
+            losses.append((m["d_loss"], m["g_loss"]))
+            u_err = max([u_err] + [
+                (layer.u - _power_iteration(w, u)).abs().max().item()
+                for layer, (w, u) in zip(layers, before)])
+        torch.cuda.synchronize()
+        return bundle, [(d.item(), g.item()) for d, g in losses], u_err
+
+    zero_counts()
+    bundle, losses, u_err = train()
+    launched = counts()
+    variant = {k: "16-byte" if f.last_float4 else "4-byte"
+               for k, f in (("fwd", tep.cf_epilogue_fwd),
+                            ("bwd", tep.cf_epilogue_bwd))}
+    if launched != (HOUSE_STEPS, HOUSE_STEPS, 0, 0):
+        fail(f"house training launched (fwd, bwd, conv, dK) = {launched}, "
+             f"not {(HOUSE_STEPS, HOUSE_STEPS, 0, 0)}")
+    if set(variant.values()) != {"4-byte"}:
+        fail(f"house training launched the epilogue variants {variant}")
+    with plain_epilogue():
+        plain_bundle, plain_losses, _ = train()
+    if counts() != launched:
+        fail("the plain-epilogue house run launched a kernel")
+    errs = [max(abs(a - b) for a, b in zip(k, p))
+            for k, p in zip(losses, plain_losses)]
+    finite = all(math.isfinite(v) for pair in losses + plain_losses
+                 for v in pair) and all(
+        bool(torch.isfinite(p).all()) for b in (bundle, plain_bundle)
+        for net in (b.state.g, b.state.d) for p in net.model.parameters())
+    ok = max(errs) <= TRAIN_ATOL["float32"] and u_err <= 1e-6 and finite
+    emit({"phase": "house train", "card": card, "preset": "house_countergan",
+          "dtype": "float32", "batch": TRAIN_BATCH,
+          "features": HOUSE_FEATURES, "steps": HOUSE_STEPS,
+          "epilogue_fwd_launches": launched[0],
+          "epilogue_bwd_launches": launched[1], "variant": variant,
+          "d_g_loss_per_step": losses,
+          "plain_epilogue_d_g_loss_per_step": plain_losses,
+          "loss_max_abs_err_per_step": errs,
+          "u_max_abs_err_vs_one_power_iteration_a_step": u_err,
+          "tolerance": f"loss abs <= {TRAIN_ATOL['float32']}; u abs <= 1e-6",
+          "ok": ok})
+    if not ok:
+        fail(f"house training with the epilogue kernels differs from the "
+             f"plain epilogue, or u did not advance once a step: {errs}, "
+             f"{u_err}")
+    return launched
+
+
+def house_runner_phase(card: str, dev, data, counts, zero_counts) -> None:
+    """One epoch of the house step through the epoch runner against the
+    same steps eager (bit for bit), its launches per replayed step by the
+    profiler, and replayed and eager steps timed in turns; one line."""
+    import torch
+
+    from cfgan_torch.data.pipeline import epoch_perm
+    from cfgan_torch.train.countergan import WARMUP_STEPS, make_epoch_runner
+
+    (xtr, ytr), _, _, _, _ = data
+    x = torch.as_tensor(xtr).to(dev)
+    y = torch.as_tensor(ytr).to(dev, torch.long)
+    ours, ref = _house_bundle(dev, data), _house_bundle(dev, data)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    perm = epoch_perm(gen, len(y), TRAIN_BATCH)
+    steps = perm.shape[0]
+    draws = ours.draw_fn(gen, tuple(perm.shape))
+    runner = make_epoch_runner(ours.step_from_draws, reduce=False)
+    zero_counts()
+    got = runner(ours.state, x, y, perm, draws)
+    torch.cuda.synchronize()
+    wrapper = counts()
+    if (runner.captures, runner.replays) != (1, steps - WARMUP_STEPS):
+        fail(f"house runner: {runner.captures} captures and "
+             f"{runner.replays} replays, not 1 and {steps - WARMUP_STEPS}")
+
+    def eager_step(i):
+        return ref.step_from_draws(ref.state, x[perm[i]], y[perm[i]],
+                                   {k: v[i] for k, v in draws.items()})
+
+    eager = [{k: v.item() for k, v in eager_step(i).items()}
+             for i in range(steps)]
+    mismatched = sorted({k for i, m in enumerate(eager) for k, v in m.items()
+                         if got[k][i] != v})
+    same_state = _states_equal(ours.state, ref.state)
+    finite = all(math.isfinite(v) for m in eager for v in m.values())
+    report = {"phase": "house epoch runner", "card": card,
+              "preset": "house_countergan", "dtype": "float32",
+              "batch": TRAIN_BATCH, "steps": steps,
+              "eager_steps": WARMUP_STEPS,
+              "replayed_steps": steps - WARMUP_STEPS,
+              "dataset_on_device": list(x.shape),
+              "wrapper_counts_fwd_bwd_conv_dk": wrapper,
+              "metrics_differing_from_eager": mismatched,
+              "state_equal_to_eager": same_state,
+              "tolerance": "bit for bit: every metric of every step, and "
+                           "the state (u and BatchNorm statistics "
+                           "included)"}
+    if mismatched or not same_state or not finite:
+        emit({**report, "ok": False})
+        fail(f"house replayed steps differ from eager steps: {mismatched}, "
+             f"state equal {same_state}")
+
+    def epoch():
+        runner(ours.state, x, y, perm, draws)
+
+    attempts = []
+    for _ in range(PROFILE_TRIES):
+        busy, top, ours_ms = device_time(
+            epoch, 1, top=8, match=tuple(HOUSE_REPLAY_LAUNCHES))
+        per_step = {k: (ms / steps, n / steps)
+                    for k, (ms, n) in ours_ms.items()}
+        attempts.append({k: v[1] for k, v in per_step.items()})
+        exact = busy is not None and all(
+            v[1] == HOUSE_REPLAY_LAUNCHES[k] for k, v in per_step.items())
+        if exact:
+            break
+    report["profiler_launch_counts_per_trace"] = attempts
+    if not exact:
+        fail(f"house launches per replayed step {attempts}, not "
+             f"{HOUSE_REPLAY_LAUNCHES}")
+
+    def eager_steps(n=steps):
+        for i in range(n):
+            eager_step(i)
+        torch.cuda.synchronize()
+
+    eager_busy = device_time(lambda: eager_steps(HOUSE_PROFILE_STEPS), 1)[0]
+    times = {"replayed": [], "eager": []}
+    for _ in range(3):  # in turns
+        for name, fn in (("replayed", epoch), ("eager", eager_steps)):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3 / steps)
+    med = {k: statistics.median(v) for k, v in times.items()}
+    eager_busy_ms = (None if eager_busy is None
+                     else eager_busy / HOUSE_PROFILE_STEPS)
+    report.update({
+        "launches_per_replayed_step": {k: v[1] for k, v in per_step.items()},
+        "our_kernels_ms_per_replayed_step": {k: v[0]
+                                             for k, v in per_step.items()},
+        "sync_debug_mode_during_replays": "error",
+        "replayed_ms_per_step_in_turns": times["replayed"],
+        "eager_ms_per_step_in_turns": times["eager"],
+        "replayed_median_ms": med["replayed"],
+        "eager_median_ms": med["eager"],
+        "replay_speedup": med["eager"] / med["replayed"],
+        "replayed_rows_per_s": TRAIN_BATCH / med["replayed"] * 1e3,
+        "eager_rows_per_s": TRAIN_BATCH / med["eager"] * 1e3,
+        "replayed_device_busy_ms": busy / steps,
+        "replayed_device_idle_share": 1 - busy / steps / med["replayed"],
+        "eager_device_busy_ms": eager_busy_ms,
+        "eager_device_idle_share": (None if eager_busy_ms is None
+                                    else 1 - eager_busy_ms / med["eager"]),
+        "eager_busy_profiled_steps": HOUSE_PROFILE_STEPS,
+        "device_time_by_kernel_ms_per_epoch": top, "ok": True})
+    emit(report)
+
+
+def house_experiment_phase(card: str, dev, out_dir: Path) -> None:
+    """`run()` of the port's house experiment at full width into
+    `out_dir`, then again on it; one line."""
+    import csv
+
+    import numpy as np
+
+    from cfgan_torch.experiments import house_countergan as exp
+    from cfgan_torch.experiments.presets import HOUSE_COUNTERGAN as PRESET
+
+    cfg = PRESET.replace(
+        classifier=replace(PRESET.classifier, epochs=HOUSE_CLF_EPOCHS),
+        countergan=replace(PRESET.countergan, epochs=HOUSE_EPOCHS,
+                           snapshot_every=HOUSE_EVERY))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    logs, runs, csvs = [[], []], [], {}
+    names = ("countergan_metrics.csv",
+             "countergan_metrics_reference_protocol.csv")
+    for i in range(2):
+        t0 = time.perf_counter()
+        runs.append(exp.run(cfg, out_dir=str(out_dir), device=dev,
+                            log=logs[i].append))
+        runs[-1]["wall_s"] = time.perf_counter() - t0
+        if i == 0:
+            csvs = {name: (out_dir / name).read_text() for name in names}
+    missing = [f for f in HOUSE_FILES if not (out_dir / f).is_file()]
+    flips = {}
+    for name in names:
+        with open(out_dir / name) as f:
+            flips[name] = [float(r["class_flip_rate"])
+                           for r in csv.DictReader(f)]
+    ladder = runs[0]["serving_selection"]["ladder"]
+    rungs = {(r["epoch"], r["candidate"]) for r in ladder}
+    want_rungs = {(e, c) for e in range(HOUSE_EVERY, HOUSE_EPOCHS + 1,
+                                        HOUSE_EVERY)
+                  for c in ("live", "ema_recal_train", "ema_recal_ones")}
+    runner = runs[0]["bundle"].epoch_fn
+    trained_again = any("[CounteRGAN] epoch" in ln or "[Classifier]" in ln
+                        for ln in logs[1])
+    ok = (not missing and all(len(v) == 4 and np.isfinite(v).all()
+                              for v in flips.values())
+          and rungs == want_rungs and runner.captures == 1
+          and not trained_again and runs[1]["history"] == {}
+          and all((out_dir / n).read_text() == t for n, t in csvs.items()))
+    emit({"phase": "house experiment", "card": card, "preset": cfg.name,
+          "cuts": {"classifier_epochs": [HOUSE_CLF_EPOCHS,
+                                         PRESET.classifier.epochs],
+                   "gan_epochs": [HOUSE_EPOCHS, PRESET.countergan.epochs],
+                   "snapshot_every": [HOUSE_EVERY,
+                                      PRESET.countergan.snapshot_every]},
+          "steps": runs[0]["bundle"].state.step,
+          "runner_captures": runner.captures,
+          "runner_replays": runner.replays,
+          "stage_seconds": runs[0]["stage_seconds"],
+          "run_wall_s": runs[0]["wall_s"],
+          "rerun_stage_seconds": runs[1]["stage_seconds"],
+          "rerun_wall_s": runs[1]["wall_s"],
+          "classifier_test_accuracy": runs[0]["classifier"]["accuracy"],
+          "serving_candidate": runs[0]["serving_selection"]["candidate"],
+          "ladder": [(r["epoch"], r["candidate"], r["score"])
+                     for r in ladder],
+          "per_target_flip": flips[names[0]],
+          "per_target_flip_reference_protocol": flips[names[1]],
+          "missing": missing, "rerun_trained": trained_again, "ok": ok})
+    if not ok:
+        fail("the house experiment's run dir or its rerun came out wrong")
+
+
+def house_serve_phase(card: str, dev, data, fallback_dir: Path) -> None:
+    """`house_engine` on the committed house run dir (or `fallback_dir`
+    where this checkout lacks it) on the card: requests at b=1 and b=128
+    and the bulk path on the test rows, padded against unpadded, the card
+    against the CPU; one line."""
+    import numpy as np
+
+    from cfgan_torch.convert import flax_from_state_dict, state_dict_from_flax
+    from cfgan_torch.core import checkpoint as ckpt
+    from cfgan_torch.core.config import HOUSE_COUNTERGAN
+    from cfgan_torch.models.classifiers import TabularClassifier
+    from cfgan_torch.train.builders import build_tabular_countergan, house_engine
+    from cfgan_torch.train.classifier import make_eval_fn
+
+    _, (xte, _), stats, _, schema = data
+    committed = all(ckpt.exists(str(HOUSE_RUN_DIR / part))
+                    for part in ("classifier", "generator"))
+    run_dir = HOUSE_RUN_DIR if committed else fallback_dir
+
+    def engine(device, pad=True):
+        clf = TabularClassifier()
+        clf.load_state_dict(state_dict_from_flax(clf, ckpt.restore(
+            str(run_dir / "classifier"),
+            flax_from_state_dict(clf, clf.state_dict()))))
+        clf.to(device).eval()
+        bundle = build_tabular_countergan(HOUSE_COUNTERGAN, clf.state_dict(),
+                                          schema, stats, device=device)
+        g = bundle.state.g.model
+        gv = state_dict_from_flax(g, ckpt.restore(
+            str(run_dir / "generator"), flax_from_state_dict(
+                g, g.state_dict())))
+        e = house_engine(bundle, make_eval_fn(clf)[0],
+                         g_variables={k: v.to(device) for k, v in gv.items()},
+                         device=device)
+        e.pad_to_bucket = pad
+        return e
+
+    card_e, exact_e, cpu_e = engine(dev), engine(dev, False), engine("cpu")
+    key = (0, 42)
+    x1, x77, x128 = xte[0], xte[:77], xte[:128]
+    t128 = np.arange(128) % 4
+    t_bulk = np.arange(len(xte)) % 4
+    b1 = card_e.generate(x1, 2, key=key)
+    b128 = card_e.generate(x128, t128, key=key)
+    padded = card_e.generate(x77, 3, key=key)
+    unpadded = exact_e.generate(x77, 3, key=key)
+    bulk = card_e.generate_bulk(xte, t_bulk, key=key)
+    cpu = cpu_e.generate(x128, t128, key=key)
+    agree = cpu.pred == b128.pred
+    pad_err = float(np.abs(padded.x_cf - unpadded.x_cf).max())
+    cpu_err = float(np.abs(cpu.x_cf - b128.x_cf)[agree].max(initial=0.0))
+    imm = list(schema.immutable_idx)
+    ok = (b1.x_cf.shape == (1, HOUSE_FEATURES)
+          and b128.x_cf.shape == (128, HOUSE_FEATURES)
+          and bulk.x_cf.shape == xte.shape
+          and all(np.isfinite(r.x_cf).all() and np.isfinite(r.probs).all()
+                  for r in (b1, b128, bulk, padded))
+          and all(r.x_cf.min() >= 0.0 and r.x_cf.max() <= 1.0
+                  for r in (b1, b128, bulk))
+          and np.array_equal(bulk.x_cf[:, imm], xte[:, imm])
+          and pad_err <= 1e-5 and np.array_equal(padded.pred, unpadded.pred)
+          and agree.mean() >= HOUSE_PRED_AGREE)
+    report = {"phase": "house serve", "card": card,
+              "run_dir": str(run_dir.relative_to(HERE)),
+              "committed_run_dir": committed, "dtype": "float32",
+              "flip_rate": {"b1": float(b1.flipped.mean()),
+                            "b128": float(b128.flipped.mean()),
+                            "bulk": float(bulk.flipped.mean())},
+              "bulk_rows": len(xte),
+              "padded_vs_unpadded_x_cf_max_abs_err": pad_err,
+              "card_vs_cpu_pred_agreement": float(agree.mean()),
+              "card_vs_cpu_x_cf_max_abs_err_where_preds_agree": cpu_err,
+              "tolerance": f"padded vs unpadded x_cf abs <= 1e-5 and equal "
+                           f"predictions; card vs CPU predictions agree on "
+                           f">= {HOUSE_PRED_AGREE}; immutable features "
+                           f"unchanged; x_cf in [0, 1]"}
+    if not ok:
+        emit({**report, "ok": False})
+        fail("house serving came out wrong")
+    for b, x, t in ((1, x1, 2), (128, x128, t128)):
+        lat = host_ms(lambda: card_e.generate(x, t, key=key), 30)
+        busy_ms, top, _ = device_time(
+            lambda: card_e.generate(x, t, key=key), 5)
+        median = statistics.median(lat)
+        report[f"generate_b{b}"] = {
+            "median_ms": median, "p90_ms": sorted(lat)[int(0.9 * len(lat))],
+            "min_ms": min(lat), "device_busy_ms": busy_ms,
+            "device_idle_share": (None if busy_ms is None
+                                  else 1 - busy_ms / median),
+            "device_time_by_kernel_ms": top}
+    bulk_lat = host_ms(lambda: card_e.generate_bulk(xte, t_bulk, key=key),
+                       5, warmup=1)
+    report["generate_bulk"] = {
+        "rows": len(xte), "chunk": 128,
+        "median_ms": statistics.median(bulk_lat),
+        "counterfactuals_per_s": len(xte) / statistics.median(bulk_lat)
+        * 1e3}
+    report["ok"] = True
+    emit(report)
+
+
 def main() -> None:
     import contextlib
 
@@ -1021,6 +1485,7 @@ def main() -> None:
         return view.copy_(t)
 
     epi_err = {"fwd": 0.0, "bwd": 0.0}
+    epi_err_house = {"fwd": 0.0, "bwd": 0.0}  # at the house step's rows
     with Phase("kernel cf_epilogue"):
         variants = set()
         for b, n, off in EPI_CASES:
@@ -1071,6 +1536,11 @@ def main() -> None:
                          f"{(lo, hi)}")
                 epi_err["fwd"] = max(epi_err["fwd"], cf_err, sum_abs)
                 epi_err["bwd"] = max(epi_err["bwd"], dx_err, draw_err)
+                if (b, n) == (TRAIN_BATCH, HOUSE_FEATURES):
+                    epi_err_house["fwd"] = max(epi_err_house["fwd"], cf_err,
+                                               sum_abs)
+                    epi_err_house["bwd"] = max(epi_err_house["bwd"], dx_err,
+                                               draw_err)
         if variants != {(k, v) for k in ("fwd", "bwd")
                         for v in ("16-byte", "4-byte")}:
             fail(f"the epilogue kernels ran the variants {sorted(variants)}, "
@@ -1241,6 +1711,26 @@ def main() -> None:
     with Phase("experiment"):
         experiment_phase(card, dev)
 
+    # ------------------------------------------ the house CounteRGAN
+    with Phase("house data"):
+        house = house_data_phase(card)
+
+    with Phase("house train"):
+        house_launches = house_train_phase(card, dev, house, counts,
+                                           zero_counts, plain_epilogue)
+
+    with Phase("house epoch runner"):
+        house_runner_phase(card, dev, house, counts, zero_counts)
+
+    house_dir = HERE / "build" / "smoke_house_experiment"
+    try:
+        with Phase("house experiment"):
+            house_experiment_phase(card, dev, house_dir)
+        with Phase("house serve"):
+            house_serve_phase(card, dev, house, house_dir)
+    finally:
+        shutil.rmtree(house_dir, ignore_errors=True)
+
     # ----------------------------------------------------------- timing
     with Phase("timing"):
         # device time per call (kernel_ms): at batch 1 a launch is shorter
@@ -1322,6 +1812,7 @@ def main() -> None:
     with Phase("timing train"):
         time_train_steps(card, dev, clf_sd, train_x, train_y)
         epi = time_epilogue(card, dev)
+        epi_house = time_epilogue(card, dev, n=HOUSE_FEATURES)
 
     def entry(name, source, replaces, launched, err, t):
         return {"name": name, "route": "cuda", "source": source,
@@ -1352,6 +1843,13 @@ def main() -> None:
     ] + [
         entry(name, "cfgan_torch/csrc/epilogue.cu", replaces,
               train_launches["bfloat16"][k], epi_err[key], epi[name])
+        for k, (name, key, replaces) in enumerate((
+            ("cf_epilogue_fwd", "fwd", "cfgan/ops/epilogue.py:54"),
+            ("cf_epilogue_bwd", "bwd", "cfgan/ops/epilogue.py:67")))] + [
+        # the same kernels on the house path, at its (128, 17) rows
+        entry(f"{name}_house_128x17", "cfgan_torch/csrc/epilogue.cu",
+              replaces, house_launches[k], epi_err_house[key],
+              epi_house[name])
         for k, (name, key, replaces) in enumerate((
             ("cf_epilogue_fwd", "fwd", "cfgan/ops/epilogue.py:54"),
             ("cf_epilogue_bwd", "bwd", "cfgan/ops/epilogue.py:67")))]})

@@ -617,3 +617,100 @@ def test_experiment_runs_on_the_card(tmp_path):
         rows = list(csv.DictReader(f))
     assert len(rows) == 10
     assert all(np.isfinite(float(r["class_flip_rate"])) for r in rows)
+
+
+# ------------------------------------------------------------ house
+def _house_pair(dev, n=256, batch=32, seed=0):
+    """Two house bundles (the shipped preset at width 16, two FiLM
+    blocks) from one initial state, the synthetic table's first `n`
+    training rows on the card, one epoch's permutation and draws."""
+    from cfgan_torch.core.config import HOUSE_COUNTERGAN
+    from cfgan_torch.data.kc_house import KC_SCHEMA, load_kc_house
+    from cfgan_torch.models.classifiers import TabularClassifier
+    from cfgan_torch.train.builders import build_tabular_countergan
+
+    (xtr, ytr), _, stats, _, _ = load_kc_house()
+    cfg = replace(HOUSE_COUNTERGAN, hidden_dim=16, num_res_blocks=2)
+    clf = TabularClassifier(generator=torch.Generator().manual_seed(0))
+    a, b = (build_tabular_countergan(cfg, clf.state_dict(), KC_SCHEMA,
+                                     stats, seed=seed, device=dev)
+            for _ in range(2))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.as_tensor(xtr[:n]).to(dev)
+    y = torch.as_tensor(ytr[:n]).to(dev, torch.long)
+    perm = torch.randperm(n, device=dev, generator=g).reshape(-1, batch)
+    draws = a.draw_fn(g, tuple(perm.shape))
+    return a, b, x, y, perm, draws
+
+
+def test_house_step_on_the_kernels_equals_the_plain_epilogue(monkeypatch):
+    """Three house steps launch the epilogue kernels once forward and once
+    backward each, in the 4-byte variant ((B, 17) rows), and give the
+    losses of the same steps on the plain epilogue within 1e-4 (float32,
+    the MNIST `train` phase's bar) and the same critic `u`."""
+    dev = _card()
+    a, b, x, y, perm, draws = _house_pair(dev)
+    f0, b0 = tep.cf_epilogue_fwd.launches, tep.cf_epilogue_bwd.launches
+    got = [a.step_from_draws(a.state, x[perm[i]], y[perm[i]],
+                             {k: v[i] for k, v in draws.items()})
+           for i in range(3)]
+    torch.cuda.synchronize()
+    assert (tep.cf_epilogue_fwd.launches - f0,
+            tep.cf_epilogue_bwd.launches - b0) == (3, 3)
+    assert tep.cf_epilogue_fwd.last_float4 is False
+    assert tep.cf_epilogue_bwd.last_float4 is False
+    monkeypatch.setattr(tep, "cf_epilogue_fwd", tep.cf_epilogue_fwd_plain)
+    monkeypatch.setattr(tep, "cf_epilogue_bwd", tep.cf_epilogue_bwd_plain)
+    want = [b.step_from_draws(b.state, x[perm[i]], y[perm[i]],
+                              {k: v[i] for k, v in draws.items()})
+            for i in range(3)]
+    for g_, w in zip(got, want):
+        for k in ("d_loss", "g_loss"):
+            assert abs(g_[k].item() - w[k].item()) <= 1e-4, k
+    for (name, m), n in zip(a.state.d.model.named_children(),
+                            b.state.d.model.children()):
+        assert torch.allclose(m.u, n.u, atol=1e-5), name
+
+
+def test_house_replayed_steps_equal_eager_steps():
+    """An epoch of 8 house steps through the runner (3 eager, a capture,
+    5 replays) equals the same steps run eagerly, bit for bit: every
+    step's metrics, and every parameter, BatchNorm statistic, critic `u`,
+    EMA leaf and Adam tensor."""
+    dev = _card()
+    from cfgan_torch.train.countergan import make_epoch_runner
+
+    a, b, x, y, perm, draws = _house_pair(dev)
+    runner = make_epoch_runner(a.step_from_draws, reduce=False)
+    got = runner(a.state, x, y, perm, draws)
+    assert (runner.captures, runner.replays) == (1, perm.shape[0] - 3)
+    for i in range(perm.shape[0]):
+        m = b.step_from_draws(b.state, x[perm[i]], y[perm[i]],
+                              {k: v[i] for k, v in draws.items()})
+        for k, v in m.items():
+            assert got[k][i] == np.float32(v.item()), (i, k)
+    for net in ("g", "d"):
+        sa, sb = getattr(a.state, net), getattr(b.state, net)
+        for (name, t), u in zip(sa.model.state_dict().items(),
+                                sb.model.state_dict().values()):
+            assert torch.equal(t, u), (net, name)
+        for p, q in zip(sa.model.parameters(), sb.model.parameters()):
+            for key in ("exp_avg", "exp_avg_sq", "step"):
+                assert torch.equal(sa.opt.state[p][key], sb.opt.state[q][key])
+    for k, v in a.state.g_ema.items():
+        assert torch.equal(v, b.state.g_ema[k]), k
+
+
+def test_house_noise_is_derived_on_the_card():
+    """The serving path's threefry noise computed on the card equals the
+    CPU's (integer ops, then two logs)."""
+    dev = _card()
+    from cfgan_torch.data.kc_house import KC_SCHEMA
+    from cfgan_torch.models.tabular import derive_gumbel_noise
+
+    info = KC_SCHEMA.categorical_info
+    cpu = derive_gumbel_noise((0, 42), 128, info)
+    card = derive_gumbel_noise((0, 42), 128, info, device=dev)
+    for idx in info:
+        assert card[idx].device.type == "cuda"
+        assert (card[idx].cpu() - cpu[idx]).abs().max().item() <= 1e-6

@@ -14,6 +14,8 @@ generator EMA; EMA parameters made distinct from the live ones.
   ladder and the same chosen snapshot.
 - Recalibration leaves the live generator's parameters and statistics
   untouched, and EMA parameters are never served with live statistics.
+- Served variables are copies: an engine serves the same after a further
+  train step, and the variables handed out stay as they were.
 """
 import itertools
 
@@ -44,6 +46,7 @@ from cfgan_torch.train.builders import (
     live_g_variables,
     mnist_engine,
     select_g_serving_variables,
+    serving_candidates,
 )
 from cfgan_torch.train.selection import SnapshotSelector, lex_margins
 
@@ -245,3 +248,40 @@ def test_select_g_serving_variables_takes_the_best_candidate(pair):
     params = dict(port.state.g.model.named_parameters())
     want = port.state.g_ema if best != "live" else params
     assert all(torch.equal(gv[k], want[k]) for k in params)
+
+
+@pytest.mark.parametrize("ema", [False, True], ids=["live", "ema"])
+def test_served_variables_do_not_follow_further_training(ema):
+    """Serve, take one `step_fn`, serve again: the engine serves what it
+    served before.  The step updates the parameters (Adam), the BatchNorm
+    statistics and the EMA in place; the variables handed to an engine, a
+    selector or a checkpoint are copies, as the JAX package's immutable
+    arrays are."""
+    _, pcfg = _configs(ema_decay=0.9 if ema else 0.0)
+    clf = CNNClassifier(generator=torch.Generator().manual_seed(1)).eval()
+    port = build_mnist_countergan(pcfg, clf.state_dict(), device="cpu")
+    x, y = _x(6, n=16)
+    xt = torch.from_numpy(x)
+    gv = (g_serving_variables(port, port.state, xt,
+                              torch.Generator().manual_seed(0))
+          if ema else None)
+    engine = mnist_engine(port, clf, g_variables=gv, device="cpu")
+    handed = {"live": live_g_variables(port.state),
+              **dict(serving_candidates(port, port.state, xt, 3))}
+    kept = {n: {k: v.clone() for k, v in vs.items()}
+            for n, vs in handed.items()}
+    before = engine.generate(x[:4], [1, 2, 3, 4])
+    port.step_fn(port.state, xt, torch.from_numpy(y).long(),
+                 torch.Generator().manual_seed(1))
+    after = engine.generate(x[:4], [1, 2, 3, 4])
+    np.testing.assert_array_equal(after.x_cf, before.x_cf)
+    np.testing.assert_array_equal(after.probs, before.probs)
+    for name, vs in handed.items():
+        assert all(torch.equal(v, kept[name][k]) for k, v in vs.items()), name
+    # the step did move what the engine was built from
+    live_now = live_g_variables(port.state)
+    assert any(not torch.equal(live_now[k], kept["live"][k])
+               for k in live_now)
+    if ema:
+        assert any(not torch.equal(v, gv[k])
+                   for k, v in port.state.g_ema.items())
