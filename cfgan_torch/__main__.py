@@ -1,0 +1,26 @@
+"""`python -m cfgan_torch`: what the port runs, and its presets."""
+from __future__ import annotations
+
+
+def main() -> None:
+    from cfgan_torch.experiments.presets import PRESETS
+
+    print(__doc__.strip())
+    print("""
+Experiments (classifier pretrain -> CounteRGAN train -> selection -> eval):
+  python -m cfgan_torch.experiments.mnist_countergan  [--seed N] [--epochs N] [--clf-epochs N] [--limit N] [--fresh] [--device cpu]
+  python -m cfgan_torch.experiments.house_countergan  [--seed N] [--epochs N] [--clf-epochs N] [--limit N] [--preset NAME] [--device cpu]
+
+Serving (the HTTP API; cfgan_torch.serve.CFClient speaks to it):
+  python -m cfgan_torch.serve.launch --app mnist|house|moons --api [--results DIR] [--port P] [--host H] [--device cpu]
+
+Smoke run on one CUDA card (repo checkout):
+  python3 chip_smoke.py
+
+Presets:""")
+    for name in sorted(PRESETS):
+        print(f"  {name}")
+
+
+if __name__ == "__main__":
+    main()

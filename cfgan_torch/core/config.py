@@ -2,6 +2,8 @@
 experiments: their data, classifier pretrain, generator serving and
 training, and the tabular feature schema (mirrors `cfgan/core/config.py`;
 the experiment presets are in `cfgan_torch/experiments/presets.py`).
+The moons CounteRGAN's presets are here for serving; its training is not
+ported.
 
 The JAX package's `remat` and `g_microbatch` are not ported, so they are
 not fields here: a config cannot ask for them and be silently ignored.
@@ -164,6 +166,35 @@ class ExperimentConfig:
     def replace(self, **kw) -> "ExperimentConfig":
         return replace(self, **kw)
 
+
+#: moons/config.py:1-17, the reference recipe (presets.py
+#: MOONS_COUNTERGAN_REFERENCE): hidden 32, L1 and L2 residual penalties,
+#: no clamp, float32
+MOONS_COUNTERGAN_REFERENCE = CounterGANConfig(
+    epochs=500,
+    lr_g=1e-3,
+    lr_d=1e-3,
+    lambda_cls=2.0,
+    lambda_reg_l1=5.0,
+    lambda_reg_l2=5.0,
+    lambda_mask=3.0,
+    adv_loss="wasserstein",
+    reg_reduction="per_sample_norm",
+    clamp_cf=None,
+    resample_target=True,
+    hidden_dim=32,
+    mask=MaskConfig(kind="feature"),
+)
+
+#: The shipped default (presets.py MOONS_COUNTERGAN): lambda_cls 3,
+#: lambda_reg 3/3 and snapshot selection every 50 epochs
+MOONS_COUNTERGAN = replace(
+    MOONS_COUNTERGAN_REFERENCE,
+    lambda_cls=3.0,
+    lambda_reg_l1=3.0,
+    lambda_reg_l2=3.0,
+    snapshot_every=50,
+)
 
 #: mnist/config.py:3-29, the reference recipe (presets.py
 #: MNIST_COUNTERGAN_REFERENCE)

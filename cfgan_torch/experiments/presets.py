@@ -1,13 +1,33 @@
-"""The MNIST and King County house CounteRGAN experiment presets (mirrors
-those entries of `cfgan/experiments/presets.py`, under the same names).
+"""The moons, MNIST and King County house CounteRGAN experiment presets
+(mirrors those entries of `cfgan/experiments/presets.py`, under the same
+names); `PRESETS` maps each name to its preset.
 
-`cfgan_torch.core.config.MNIST_COUNTERGAN`, `HOUSE_COUNTERGAN` and their
-`..._REFERENCE`s are the `CounterGANConfig`s of these experiments (the
-train step's and serving's part of them).
+`cfgan_torch.core.config.MOONS_COUNTERGAN`, `MNIST_COUNTERGAN`,
+`HOUSE_COUNTERGAN` and their `..._REFERENCE`s are the `CounterGANConfig`s
+of these experiments (the train step's and serving's part of them).  The
+moons presets serve (`cfgan_torch.serve.launch --app moons`); the port
+does not train them: their classifier's full-batch regime
+(`ClassifierConfig.steps`) is not ported.
 """
 from __future__ import annotations
 
 from cfgan_torch.core import config as C
+
+#: moons/config.py:1-17, the exact reference recipe
+MOONS_COUNTERGAN_REFERENCE = C.ExperimentConfig(
+    name="moons_countergan_reference",
+    seed=42,
+    num_classes=3,
+    data=C.DataConfig(name="moons", batch_size=64),
+    classifier=C.ClassifierConfig(arch="mlp", lr=1e-2, steps=1000,
+                                  hidden_dim=32),
+    countergan=C.MOONS_COUNTERGAN_REFERENCE,
+)
+
+#: The shipped default: lambda_cls 3 and lambda_reg 3/3, snapshot
+#: selection every 50 epochs
+MOONS_COUNTERGAN = MOONS_COUNTERGAN_REFERENCE.replace(
+    name="moons_countergan", countergan=C.MOONS_COUNTERGAN)
 
 #: mnist/config.py:3-29, the exact reference recipe
 MNIST_COUNTERGAN_REFERENCE = C.ExperimentConfig(
@@ -51,3 +71,7 @@ HOUSE_COUNTERGAN = HOUSE_COUNTERGAN_REFERENCE.replace(
 #: 2-5`), which the house snapshot selection scores margins against
 HOUSE_REFERENCE_FLIPS = (0.9999999824692222, 0.9906153240624596,
                          0.9796906499301686, 0.995971225640353)
+
+PRESETS = {p.name: p for p in (
+    MOONS_COUNTERGAN, MOONS_COUNTERGAN_REFERENCE, MNIST_COUNTERGAN,
+    MNIST_COUNTERGAN_REFERENCE, HOUSE_COUNTERGAN, HOUSE_COUNTERGAN_REFERENCE)}

@@ -1,5 +1,6 @@
 """The frozen classifiers (mirrors `cfgan/models/classifiers.py`):
-`CNNClassifier` (MNIST) and `TabularClassifier` (King County house)."""
+`MLPClassifier` (2-D moons), `CNNClassifier` (MNIST) and
+`TabularClassifier` (King County house)."""
 from __future__ import annotations
 
 import torch
@@ -7,6 +8,22 @@ import torch.nn.functional as F
 from torch import nn
 
 from cfgan_torch.nn.layers import BatchNorm, Conv, Dropout, Linear, leaky_relu
+
+
+class MLPClassifier(nn.Module):
+    """2 -> h -> h -> 3 with ReLU (`moons/models/nn_classifier.py:3-15`).
+    Submodules are named as in the flax tree (`Linear_0`..`Linear_2`)."""
+
+    def __init__(self, num_classes: int = 3, hidden_dim: int = 32,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.Linear_0 = Linear(2, hidden_dim, generator)
+        self.Linear_1 = Linear(hidden_dim, hidden_dim, generator)
+        self.Linear_2 = Linear(hidden_dim, num_classes, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = F.relu(self.Linear_0(x))
+        return self.Linear_2(F.relu(self.Linear_1(h)))
 
 
 class CNNClassifier(nn.Module):

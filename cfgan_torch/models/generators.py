@@ -1,6 +1,7 @@
 """The CounteRGAN residual generators (mirrors
-`cfgan/models/generators.py`): `ImageResidualGenerator` (MNIST, NHWC
-throughout) and `TabularResidualGenerator` (King County house)."""
+`cfgan/models/generators.py`): `MoonsResidualGenerator` (2-D moons),
+`ImageResidualGenerator` (MNIST, NHWC throughout) and
+`TabularResidualGenerator` (King County house)."""
 from __future__ import annotations
 
 from typing import Mapping, Sequence
@@ -11,6 +12,7 @@ from torch import nn
 
 from cfgan_torch.nn.gumbel import gumbel_softmax
 from cfgan_torch.nn.layers import (
+    BatchNorm,
     Conv,
     ConvResBlock,
     Embed,
@@ -18,6 +20,38 @@ from cfgan_torch.nn.layers import (
     Linear,
     leaky_relu,
 )
+
+
+class MoonsResidualGenerator(nn.Module):
+    """MLP residual generator: concat[x, target one-hot, mask] -> h -> h ->
+    h/2, each Linear -> BatchNorm -> ReLU, then Linear -> `input_dim`
+    (`moons/models/generator.py:4-24`).  Returns (raw_residual,
+    raw_residual * mask).  Submodules are named as in the flax tree
+    (`Linear_0`.., `BatchNorm_0`..); BatchNorm uses its running statistics
+    in eval mode."""
+
+    def __init__(self, input_dim: int = 2, hidden_dim: int = 32,
+                 num_classes: int = 3,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        widths = (hidden_dim, hidden_dim, hidden_dim // 2)
+        self.n_hidden = len(widths)
+        cin = 2 * input_dim + num_classes
+        for i, width in enumerate(widths):
+            self.add_module(f"Linear_{i}", Linear(cin, width, generator))
+            self.add_module(f"BatchNorm_{i}", BatchNorm(width))
+            cin = width
+        self.add_module(f"Linear_{len(widths)}",
+                        Linear(cin, input_dim, generator))
+
+    def forward(self, x: torch.Tensor, target_onehot: torch.Tensor,
+                mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        h = torch.cat([x, target_onehot, mask], 1)
+        for i in range(self.n_hidden):
+            h = F.relu(getattr(self, f"BatchNorm_{i}")(
+                getattr(self, f"Linear_{i}")(h)))
+        raw = getattr(self, f"Linear_{self.n_hidden}")(h)
+        return raw, raw * mask
 
 
 class ImageResidualGenerator(nn.Module):

@@ -1,0 +1,155 @@
+"""Serve a trained CounteRGAN's run dir over the HTTP API on the card
+(mirrors `cfgan/serve/launch.py`).
+
+    python -m cfgan_torch.serve.launch --app mnist|house|moons --api
+        [--results DIR] [--host H] [--port P] [--device cpu]
+
+The default run dir is `results/<app>_countergan`.
+
+`setup_mnist`, `setup_house` and `setup_moons` restore a run dir's
+`classifier/` and `generator/` checkpoints (the served generator
+variables), written by either package's experiment, into an engine on
+the device (default: the CUDA card).  `main` serves that engine with
+`cfgan_torch.serve.api.serve` until interrupted, after one warm-up
+request; it switches TF32 off, so that the float32 classifier's convs
+and matmuls compute in float32 as the JAX package's do.  Only the HTTP
+API is served (`--api`): the gradio apps and `--shard` are not ported.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+from dataclasses import replace
+
+import torch
+
+from cfgan_torch.convert import flax_from_state_dict, state_dict_from_flax
+from cfgan_torch.core import checkpoint as ckpt
+from cfgan_torch.core.device import resolve_device
+from cfgan_torch.experiments import presets
+from cfgan_torch.serve.engine import CounterfactualEngine
+
+DEFAULT_RESULTS = {"mnist": "results/mnist_countergan",
+                   "house": "results/house_countergan",
+                   "moons": "results/moons_countergan"}
+
+
+def restore_state_dict(module: torch.nn.Module, path: str
+                       ) -> dict[str, torch.Tensor]:
+    """`module`'s state dict from the flax checkpoint at `path`."""
+    template = flax_from_state_dict(module, module.state_dict())
+    return state_dict_from_flax(module, ckpt.restore(path, template))
+
+
+def setup_mnist(results_dir: str, device: str | torch.device | None = None,
+                conv_impl: str | None = None):
+    """(engine, x_test, y_test, patch_size) of the `MNIST_COUNTERGAN`
+    preset's run dir; `conv_impl` routes the generator's 3x3 convs
+    (None: cuDNN; "pallas": the hand-written kernel)."""
+    from cfgan_torch.data.mnist import load_mnist
+    from cfgan_torch.train.builders import build_mnist_serving, mnist_models
+
+    exp = presets.MNIST_COUNTERGAN
+    cfg = replace(exp.countergan, conv_impl=conv_impl)
+    _, _, (xte, yte) = load_mnist(valid_fraction=exp.data.valid_fraction)
+    g_model, clf_model = mnist_models(cfg)
+    s = build_mnist_serving(
+        cfg, restore_state_dict(g_model, os.path.join(results_dir,
+                                                      "generator")),
+        restore_state_dict(clf_model, os.path.join(results_dir,
+                                                   "classifier")),
+        device=device)
+    engine = CounterfactualEngine(s.cf_fn, s.clf_fn, s.num_classes,
+                                  patch_size=cfg.mask.patch_size,
+                                  device=device)
+    return engine, xte, yte, cfg.mask.patch_size
+
+
+def setup_house(results_dir: str, device: str | torch.device | None = None):
+    """(engine, x_test, y_test, schema, stats, bins) of the
+    `HOUSE_COUNTERGAN` preset's run dir, on the house table."""
+    from cfgan_torch.data.kc_house import load_kc_house
+    from cfgan_torch.models.classifiers import TabularClassifier
+    from cfgan_torch.train.builders import (
+        build_tabular_countergan,
+        house_engine,
+    )
+    from cfgan_torch.train.classifier import make_eval_fn
+
+    dev = resolve_device(device)
+    _, (xte, yte), stats, bins, schema = load_kc_house()
+    clf = TabularClassifier()
+    clf.load_state_dict(restore_state_dict(
+        clf, os.path.join(results_dir, "classifier")))
+    clf.to(dev).eval().requires_grad_(False)
+    bundle = build_tabular_countergan(presets.HOUSE_COUNTERGAN.countergan,
+                                      clf.state_dict(), schema, stats,
+                                      device=dev)
+    g_vars = restore_state_dict(bundle.state.g.model,
+                                os.path.join(results_dir, "generator"))
+    engine = house_engine(bundle, make_eval_fn(clf)[0],
+                          g_variables={k: v.to(dev)
+                                       for k, v in g_vars.items()},
+                          device=dev)
+    return engine, xte, yte, schema, stats, bins
+
+
+def setup_moons(results_dir: str, device: str | torch.device | None = None):
+    """(engine, clf_fn, x_test, y_test) of the `MOONS_COUNTERGAN`
+    preset's run dir; `clf_fn` gives the classifier's logits."""
+    from cfgan_torch.data.moons import load_moons3
+    from cfgan_torch.train.builders import moons_engine, moons_models
+
+    exp = presets.MOONS_COUNTERGAN
+    _, (xte, yte), _ = load_moons3()
+    g_model, clf_model = moons_models(exp.countergan,
+                                      exp.classifier.hidden_dim)
+    engine = moons_engine(
+        exp.countergan,
+        restore_state_dict(g_model, os.path.join(results_dir, "generator")),
+        restore_state_dict(clf_model, os.path.join(results_dir,
+                                                   "classifier")),
+        device=device)
+    return engine, engine.clf_fn, xte, yte
+
+
+SETUPS = {"mnist": setup_mnist, "house": setup_house, "moons": setup_moons}
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(
+        description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
+    ap.add_argument("--app", required=True, choices=sorted(SETUPS))
+    ap.add_argument("--results", default=None,
+                    help="run dir (default: results/<app>_countergan)")
+    ap.add_argument(
+        "--host", default=os.environ.get("CFGAN_SERVE_HOST", "127.0.0.1"),
+        help="bind address; loopback by default (serving on every "
+        "interface is an explicit opt-in: --host 0.0.0.0)")
+    ap.add_argument("--api", action="store_true",
+                    help="serve the HTTP API (cfgan_torch.serve.api)")
+    ap.add_argument("--port", type=int, default=8000,
+                    help="API port (0: a free one, printed on start)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card)")
+    args = ap.parse_args(argv)
+    if not args.api:
+        ap.error("only the HTTP API is served: pass --api (the gradio apps "
+                 "are not ported)")
+    from cfgan_torch.serve.api import serve
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = SETUPS[args.app](args.results or DEFAULT_RESULTS[args.app],
+                           device=args.device)
+    engine = out[0]
+    x_test = out[2] if args.app == "moons" else out[1]
+    # one request before the first client's: builds and first calls
+    # happen here
+    engine.generate(x_test[:1], 0)
+    engine.classify(x_test[:1])
+    serve(engine, args.host, args.port)
+
+
+if __name__ == "__main__":
+    main()

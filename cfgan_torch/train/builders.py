@@ -1,5 +1,6 @@
 """The MNIST and King County house CounteRGANs' serving and training
-entry points (mirrors `cfgan/train/builders.py`: `make_mixed_precision`,
+entry points, and the moons CounteRGAN's serving (mirrors
+`cfgan/train/builders.py`: `make_mixed_precision`,
 `_clf_forward_fn`, `_init_state`, `build_mnist_countergan` and
 `build_tabular_countergan` with their `cf_fn`, `epoch_fn` and
 `recal_fn`, `make_bn_recalibrator`, `g_serving_variables` and
@@ -41,13 +42,18 @@ from cfgan_torch.masks.patch import (
     random_patch_mask,
     with_ones_fraction,
 )
-from cfgan_torch.models.classifiers import CNNClassifier, TabularClassifier
+from cfgan_torch.models.classifiers import (
+    CNNClassifier,
+    MLPClassifier,
+    TabularClassifier,
+)
 from cfgan_torch.models.discriminators import (
     CondConvDiscriminator,
     SpectralMLPDiscriminator,
 )
 from cfgan_torch.models.generators import (
     ImageResidualGenerator,
+    MoonsResidualGenerator,
     TabularResidualGenerator,
 )
 from cfgan_torch.models.tabular import (
@@ -63,6 +69,8 @@ from cfgan_torch.train.state import GANState, NetState
 
 NUM_CLASSES = 10
 IMAGE_HW = (28, 28)
+MOONS_CLASSES = 3
+MOONS_DIM = 2
 # BatchNorm recalibration: train-mode forwards and their batch (the JAX
 # package's `recal_fn` defaults); the running statistics forget their
 # start by 0.9^200, ~7e-10
@@ -130,6 +138,74 @@ def build_mnist_serving(cfg: CounterGANConfig,
         return clf_model(x.float())
 
     return MNISTServing(cf_fn, clf_fn, g_model, clf_model, NUM_CLASSES)
+
+
+@dataclass
+class MoonsServing:
+    # (x, target, mask, key=None) -> (x_cf, raw, masked), all float32
+    cf_fn: Callable
+    clf_fn: Callable  # (x,) -> float32 logits
+    generator: MoonsResidualGenerator
+    classifier: MLPClassifier
+    num_classes: int
+
+
+def moons_models(cfg: CounterGANConfig, clf_hidden_dim: int = 32,
+                 generator: torch.Generator | None = None
+                 ) -> tuple[MoonsResidualGenerator, MLPClassifier]:
+    """The moons generator (width `cfg.hidden_dim`) and classifier (width
+    `clf_hidden_dim`) on 2-D points with three classes, float32 on the
+    CPU, with initial weights drawn from `generator`."""
+    g_model = MoonsResidualGenerator(MOONS_DIM, cfg.hidden_dim, MOONS_CLASSES,
+                                     generator=generator)
+    clf_model = MLPClassifier(MOONS_CLASSES, clf_hidden_dim,
+                              generator=generator)
+    return g_model, clf_model
+
+
+def build_moons_serving(cfg: CounterGANConfig,
+                        g_params: Mapping[str, torch.Tensor],
+                        clf_params: Mapping[str, torch.Tensor],
+                        device: str | torch.device | None = None
+                        ) -> MoonsServing:
+    """The moons generator at `cfg.compute_dtype` and its float32
+    classifier (as wide as `clf_params`) on `device` (None: the CUDA card;
+    raises where there is none) from their state dicts, in eval mode (the
+    `cf_fn` of `build_moons_countergan`): the target one-hot at the
+    compute dtype, BatchNorm on its running statistics, and `x + masked`
+    in float32, unclamped (the moons presets have `clamp_cf=None`)."""
+    device = resolve_device(device)
+    cd = torch_dtype(cfg.compute_dtype)
+    g_model, clf_model = moons_models(
+        cfg, clf_params["Linear_0.weight"].shape[0])
+    for model, params, dtype in ((g_model, g_params, cd),
+                                 (clf_model, clf_params, torch.float32)):
+        model.load_state_dict(params, strict=True)
+        model.to(device=device, dtype=dtype).eval().requires_grad_(False)
+
+    def cf_fn(x, target, mask, key=None):
+        """`key` is accepted for the engine's signature; the moons
+        generator draws no noise."""
+        raw, masked = g_model(x.to(cd), _one_hot(target, MOONS_CLASSES, cd),
+                              mask.to(cd))
+        raw, masked = raw.float(), masked.float()
+        return x + masked, raw, masked
+
+    def clf_fn(x):
+        return clf_model(x.float())
+
+    return MoonsServing(cf_fn, clf_fn, g_model, clf_model, MOONS_CLASSES)
+
+
+def moons_engine(cfg: CounterGANConfig, g_params: Mapping[str, torch.Tensor],
+                 clf_params: Mapping[str, torch.Tensor],
+                 device: str | torch.device | None = None
+                 ) -> CounterfactualEngine:
+    """A generic `CounterfactualEngine` (no patch size, no schema: the
+    default mask is all-ones) on `build_moons_serving`."""
+    s = build_moons_serving(cfg, g_params, clf_params, device)
+    return CounterfactualEngine(s.cf_fn, s.clf_fn, s.num_classes,
+                                device=device)
 
 
 def _cast_floats(a, dtype: torch.dtype):

@@ -714,3 +714,46 @@ def test_house_noise_is_derived_on_the_card():
     for idx in info:
         assert card[idx].device.type == "cuda"
         assert (card[idx].cpu() - cpu[idx]).abs().max().item() <= 1e-6
+
+
+# ------------------------------------------------- the serving front door
+@pytest.mark.parametrize("app", ["mnist", "house", "moons"])
+def test_wire_round_trip_equals_the_engine_on_the_card(app, monkeypatch):
+    """Each family's engine (`cfgan_torch.serve.launch.setup_*` on its
+    committed run dir; MNIST's test split from the IDX fixture) behind
+    `make_server`: a counterfactual at b=1 and b=128 over npz and over
+    JSON equals the engine's own, bit for bit."""
+    import threading
+    from pathlib import Path
+
+    from cfgan_torch.models.tabular import jax_key
+    from cfgan_torch.serve import CFClient, launch
+    from cfgan_torch.serve.api import make_server
+
+    dev = _card()
+    root = Path(__file__).resolve().parent.parent
+    monkeypatch.setenv("CFGAN_DATA_DIR",
+                       str(root / "tests" / "fixtures" / "mnist_idx"))
+    run = root / "results" / {"mnist": "mnist_countergan_seed43",
+                              "house": "house_countergan",
+                              "moons": "moons_countergan"}[app]
+    out = launch.SETUPS[app](str(run), device=dev)
+    engine, x = out[0], out[2] if app == "moons" else out[1]
+    server = make_server(engine, port=0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        for b in (1, 128):
+            xb = np.resize(x, (b, *x.shape[1:])).astype(np.float32)
+            t = np.arange(b) % engine.num_classes
+            want = engine.generate(xb, t, key=jax_key(7))
+            for wire in ("npz", "json"):
+                got = CFClient(base, wire=wire).counterfactual(xb, t, seed=7)
+                for field in ("x_cf", "residual", "pred", "confidence",
+                              "probs", "probs_orig", "flipped"):
+                    assert np.array_equal(getattr(got, field),
+                                          getattr(want, field)), (b, wire,
+                                                                  field)
+    finally:
+        server.shutdown()
+        server.server_close()
