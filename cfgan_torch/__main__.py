@@ -8,6 +8,7 @@ def main() -> None:
     print(__doc__.strip())
     print("""
 Experiments (classifier pretrain -> CounteRGAN train -> selection -> eval):
+  python -m cfgan_torch.experiments.moons_countergan  [--seed N] [--epochs N] [--clf-steps N] [--reference] [--device cpu]
   python -m cfgan_torch.experiments.mnist_countergan  [--seed N] [--epochs N] [--clf-epochs N] [--limit N] [--fresh] [--device cpu]
   python -m cfgan_torch.experiments.house_countergan  [--seed N] [--epochs N] [--clf-epochs N] [--limit N] [--preset NAME] [--device cpu]
 

@@ -12,6 +12,7 @@ child scope `Conv_0`; the port's `Conv` holds them itself.
 A `SpectralLinear`'s power-iteration vector is the `u` buffer here and
 `spectral_stats/u` there.
 
+The state dict's tensors are contiguous, in the module's own layout.
 `flax_from_state_dict` is the reverse direction, and `load_gan_state` /
 `gan_state_to_flax` carry a whole CounteRGAN train state (generator and
 discriminator parameters, the generator's batch statistics, a spectral
@@ -94,7 +95,10 @@ def state_dict_from_flax(module: nn.Module,
                 raise KeyError(f"extra key {where}: the port's "
                                f"{type(module).__name__} has no place for it")
             key = f"{prefix}.{got[0]}" if prefix else got[0]
-            out[key] = torch.tensor(np.asarray(got[1]))
+            # contiguous, as the module's own tensors are: cuBLAS picks its
+            # kernel by layout, so a transposed kernel would round its
+            # products otherwise
+            out[key] = torch.tensor(np.ascontiguousarray(got[1]))
     expected = (dict(module.named_parameters()) if params_only
                 else module.state_dict())
     missing = sorted(expected.keys() - out.keys())

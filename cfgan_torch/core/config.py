@@ -1,9 +1,7 @@
-"""Configuration of the MNIST and King County house CounteRGAN
+"""Configuration of the moons, MNIST and King County house CounteRGAN
 experiments: their data, classifier pretrain, generator serving and
 training, and the tabular feature schema (mirrors `cfgan/core/config.py`;
 the experiment presets are in `cfgan_torch/experiments/presets.py`).
-The moons CounteRGAN's presets are here for serving; its training is not
-ported.
 
 The JAX package's `remat` and `g_microbatch` are not ported, so they are
 not fields here: a config cannot ask for them and be silently ignored.
@@ -33,9 +31,9 @@ class DataConfig:
 @dataclass(frozen=True)
 class ClassifierConfig:
     """The frozen classifier's pretrain (`cfgan.core.config.
-    ClassifierConfig`).  `weight_decay` > 0 trains with AdamW.  The
-    full-batch regime (`steps`) is the moons experiment's and is not
-    ported."""
+    ClassifierConfig`).  `weight_decay` > 0 trains with AdamW.  `steps`
+    selects the full-batch regime (the moons experiment's) over
+    `epochs`."""
 
     arch: str = "mlp"  # mlp | cnn | tabular
     lr: float = 1e-3
@@ -54,11 +52,13 @@ class ClassifierConfig:
 class MaskConfig:
     """Mask-sampling policy (`cfgan.core.config.MaskConfig`).  The MNIST
     builder draws patch masks whatever `kind` says, as the JAX package's
-    does."""
+    does.  `immutable_idx` are the features the moons masks keep at 0
+    (the house builder takes them from its schema)."""
 
     kind: str = "feature"  # feature | patch
     patch_size: int = 7
     num_modifiable_patches: int | None = 10  # None: iid Bernoulli(0.5)
+    immutable_idx: tuple[int, ...] = ()
     # fraction of training samples whose mask is replaced by all-ones
     ones_fraction: float = 0.0
 

@@ -1,26 +1,29 @@
-"""Tabular counterfactual evaluation (mirrors the per-target part of
-`cfgan/eval/tabular.py`): the immutable-complement eval mask, the
-all-target sweep, the per-target metrics of `countergan_metrics.csv`, and
-the snapshot selector's flip scorer under both eval protocols.
+"""Tabular counterfactual evaluation (mirrors `cfgan/eval/tabular.py`):
+the immutable-complement eval mask, the all-target sweep, the per-target
+metrics of `countergan_metrics.csv`, the snapshot selector's flip scorer
+under both eval protocols, and the reports over one sweep: the feature
+shift importance, the class-pair sensitivity and the case-study tree
+(`house eval_utils.py:292-664`).
 
 The eval counterfactual uses hard Gumbel samples on the noise of a key
 and the immutable-complement mask, and clamps to [0, 1]; the reference
 protocol scores the un-clamped `x + masked` instead
 (`house eval_utils.py:244-245`).  The JAX package vmaps over the targets;
 here each target runs in turn over the whole set.  Results are numpy
-arrays, and the metrics a dict of columns for `write_csv`.
-
-Not ported yet: `feature_shift_importance`, `class_pair_sensitivity`,
-`case_study_report` and the mask-policy analysis.
+arrays, and the metrics and reports dicts of columns (or row dicts) for
+`write_csv`, in the JAX package's row order and with its float32 columns
+where it has them.  The reports' plots are not ported.
 """
 from __future__ import annotations
 
+import os
 from typing import Callable, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from cfgan_torch.eval.metrics import write_csv
 from cfgan_torch.masks.feature import immutable_complement_mask
 
 
@@ -105,3 +108,139 @@ def per_target_metrics_from_sweep(sweep: dict, x, y, num_classes: int
         cols["prediction_gain"].append(float(gain.mean()))
         cols["avg_actionability"].append(float(np.abs(delta).mean()))
     return {k: np.asarray(v) for k, v in cols.items()}
+
+
+def descending_order(values: np.ndarray) -> np.ndarray:
+    """Row order of pandas' `sort_values(ascending=False)` (its
+    `nargsort`): numpy's quicksort of the reversed values, reversed back,
+    so that ties fall in pandas' order."""
+    idx = np.arange(len(values))[::-1]
+    return idx[values[::-1].argsort(kind="quicksort")][::-1]
+
+
+def largest(values: np.ndarray, k: int) -> np.ndarray:
+    """Indices of the `k` largest values, largest first, ties in index
+    order (pandas' `nlargest(k, keep="first")`)."""
+    return np.argsort(-np.asarray(values), kind="stable")[:k]
+
+
+def _float32_group_mean(rows) -> np.ndarray:
+    """The column means of float32 `rows` as pandas' `groupby().mean()`
+    takes them: a Kahan-compensated float32 sum, divided in float32."""
+    total = np.zeros_like(rows[0])
+    comp = np.zeros_like(rows[0])
+    for r in rows:
+        y = r - comp
+        t = total + y
+        comp = (t - total) - y
+        total = t
+    return total / np.float32(len(rows))
+
+
+def _write(out_dir: str, name: str, table) -> None:
+    os.makedirs(out_dir, exist_ok=True)
+    write_csv(os.path.join(out_dir, name), table)
+
+
+def feature_shift_importance(sweep: dict, x, y, schema, stats,
+                             out_dir: str | None = None
+                             ) -> dict[str, np.ndarray]:
+    """Mean |x_cf - x| per feature over every (row, target != label) pair,
+    normalized and in raw units (`eval_utils.py:292-348`), features from
+    the most shifted down; with `out_dir`, `feature_shift_importance.csv`
+    there."""
+    x, y = np.asarray(x), np.asarray(y)
+    d = np.concatenate([np.abs(sweep["x_cf"][t][y != t] - x[y != t])
+                        for t in range(sweep["x_cf"].shape[0])], axis=0)
+    mean_norm = d.mean(axis=0)
+    mean_raw = mean_norm * np.asarray(stats.data_range)
+    order = descending_order(mean_norm)
+    cols = {"feature": np.asarray(schema.feature_names)[order],
+            "mean_abs_shift_normalized": mean_norm[order],
+            "mean_abs_shift_raw": mean_raw[order]}
+    if out_dir:
+        _write(out_dir, "feature_shift_importance.csv", cols)
+    return cols
+
+
+def class_pair_sensitivity(sweep: dict, x, y, schema,
+                           out_dir: str | None = None) -> list[dict]:
+    """Mean |x_cf - x| per feature for each (source, target) pair over
+    the source's rows (`eval_utils.py:351-434`); with `out_dir`,
+    `class_pair_sensitivity/class_pair_sensitivity.csv` there."""
+    x, y = np.asarray(x), np.asarray(y)
+    n_classes = sweep["x_cf"].shape[0]
+    records = []
+    for s in range(n_classes):
+        for t in range(n_classes):
+            sel = y == s
+            if s == t or not sel.any():
+                continue
+            d = np.abs(sweep["x_cf"][t][sel] - x[sel]).mean(axis=0)
+            records += [{"source": s, "target": t, "feature": f,
+                         "mean_abs_shift": float(v)}
+                        for f, v in zip(schema.feature_names, d)]
+    if out_dir and records:
+        _write(os.path.join(out_dir, "class_pair_sensitivity"),
+               "class_pair_sensitivity.csv", records)
+    return records
+
+
+def case_study_report(sweep: dict, x, y, schema, stats, out_dir: str,
+                      n_samples: int = 20, seed: int = 0,
+                      change_threshold: float = 1e-3, top_k: int = 5
+                      ) -> list[dict]:
+    """The case-study CSV tree (`eval_utils.py:496-664`): for `n_samples`
+    rows drawn by `np.random.RandomState(seed)`, each with a random target
+    other than its label, `samples/src{S}_tgt{T}/sample_{i}.csv` (every
+    feature's original and counterfactual value in raw units, the change,
+    |delta| normalized, changed, immutable), and the sample, feature and
+    aggregate summaries.  Returns the sample summary's rows."""
+    x, y = np.asarray(x), np.asarray(y)
+    rng = np.random.RandomState(seed)
+    n_classes = sweep["x_cf"].shape[0]
+    idx = rng.choice(len(y), size=min(n_samples, len(y)), replace=False)
+    data_min = np.asarray(stats.data_min)
+    data_rng = np.asarray(stats.data_range)
+    names = list(schema.feature_names)
+    immutable = np.asarray([f in schema.immutable_features for f in names])
+    sample_rows, abs_deltas = [], []
+    for i in idx:
+        s = int(y[i])
+        t = int(rng.choice([c for c in range(n_classes) if c != s]))
+        orig_n, cf_n = x[i], sweep["x_cf"][t, i]
+        orig_raw = orig_n * data_rng + data_min
+        cf_raw = cf_n * data_rng + data_min
+        delta = np.abs(cf_n - orig_n)
+        changed = delta > change_threshold
+        _write(os.path.join(out_dir, "samples", f"src{s}_tgt{t}"),
+               f"sample_{i}.csv",
+               {"feature": names, "original": orig_raw,
+                "counterfactual": cf_raw, "change": cf_raw - orig_raw,
+                "abs_delta_normalized": delta, "changed": changed,
+                "immutable": immutable})
+        sample_rows.append({
+            "sample": int(i), "source": s, "target": t,
+            "flipped": int(sweep["preds_cf"][t, i] == t),
+            "n_changed": int(changed.sum()),
+            "frac_changed": float(changed.mean()),
+            "sparsity": float(1.0 - changed.mean()),
+            "l1_normalized": float(delta.sum()),
+            "top_changed": ";".join(names[j] for j in largest(delta, top_k))})
+        abs_deltas.append(delta)
+    _write(out_dir, "case_study_sample_summary.csv", sample_rows)
+    feat = _float32_group_mean(abs_deltas)
+    pct = np.float32(100.0) * feat
+    _write(out_dir, "case_study_feature_summary.csv",
+           {"feature": names, "abs_delta_normalized": feat,
+            "pct_of_range": pct})
+
+    def mean_of(key):
+        return float(np.mean([r[key] for r in sample_rows]))
+
+    _write(out_dir, "case_study_aggregate_summary.csv", [{
+        "n_samples": len(sample_rows), "flip_rate": mean_of("flipped"),
+        "mean_sparsity": mean_of("sparsity"),
+        "mean_frac_changed": mean_of("frac_changed"),
+        "top_features": ";".join(names[j] for j in largest(pct, top_k))}])
+    return sample_rows

@@ -14,14 +14,15 @@ The run dir is the JAX package's: `classifier/` (with the normalization
 stats and price bins in its metadata), `generator/` (the served
 variables, with the stats and the `serving_selection` record),
 `train_state/` (mid-run checkpoints), `classifier_eval/`,
-`countergan_metrics.csv` (the clamped counterfactuals) and
+`countergan_metrics.csv` (the clamped counterfactuals),
 `countergan_metrics_reference_protocol.csv` (the un-clamped x + masked
-the reference scores); its checkpoints restore in either package, and the
-evaluation's Gumbel noise comes from the JAX package's keys.  A stage
-whose checkpoint exists is loaded, not trained again, unless `fresh`.
-Not ported: the feature-shift importance, the class-pair sensitivity,
-the case studies, the mask-policy analysis, the provenance record and the
-plots.
+the reference scores), `feature_shift_importance.csv`,
+`class_pair_sensitivity/class_pair_sensitivity.csv`, the `case_studies/`
+tree, `mask_policy_analysis.csv` and `run_provenance.json`; its
+checkpoints restore in either package, and the evaluation's Gumbel noise
+comes from the JAX package's keys.  A stage whose checkpoint exists is
+loaded, not trained again, unless `fresh`.  Not ported: the figures (the
+reports' plots, the loss and classifier curves).
 """
 from __future__ import annotations
 
@@ -36,12 +37,21 @@ import torch
 from cfgan_torch.convert import flax_from_state_dict, state_dict_from_flax
 from cfgan_torch.core import checkpoint as ckpt
 from cfgan_torch.core.device import resolve_device
+from cfgan_torch.core.provenance import (
+    clear_stale,
+    serving_candidate_of,
+    write_run_provenance,
+)
 from cfgan_torch.data.kc_house import load_kc_house
 from cfgan_torch.data.mnist import stratified_split
 from cfgan_torch.data.pipeline import stream_seed
 from cfgan_torch.eval.classifier import evaluate_classifier
+from cfgan_torch.eval.mask_analysis import analyze_mask_policies
 from cfgan_torch.eval.metrics import write_csv
 from cfgan_torch.eval.tabular import (
+    case_study_report,
+    class_pair_sensitivity,
+    feature_shift_importance,
     immutable_mask,
     make_protocol_flip_scorer,
     per_target_metrics_from_sweep,
@@ -234,6 +244,29 @@ def run(cfg=presets.HOUSE_COUNTERGAN, out_dir: str | None = None,
               per_target_ref)
     log(f"Per-target flips (reference protocol): "
         f"{per_target_ref['class_flip_rate']}")
+
+    # the reports over the clamped sweep (house eval_utils.py:292-664) and
+    # the mask-policy analysis the reference imports but never shipped
+    # (house eval_utils.py:19-22)
+    feature_shift_importance(sweep, xte, yte, schema, stats, out_dir=out_dir)
+    class_pair_sensitivity(sweep, xte, yte, schema, out_dir=out_dir)
+    cases = case_study_report(sweep, xte, yte, schema, stats,
+                              os.path.join(out_dir, "case_studies"),
+                              seed=cfg.seed)
+    log(f"Case studies: flip rate "
+        f"{np.mean([r['flipped'] for r in cases]):.3f}, mean sparsity "
+        f"{np.mean([r['sparsity'] for r in cases]):.3f}")
+    analyze_mask_policies(bundle.cf_fn, logits_fn, g_vars, xte, yte, schema,
+                          n_classes, key, out_dir=out_dir, device=dev)
+
+    # the provenance record, in the invocation that wrote the CSVs
+    clear_stale(out_dir)
+    write_run_provenance(
+        out_dir, preset=cfg.name, seed=cfg.seed,
+        serving_candidate=serving_candidate_of(out_dir),
+        selection_scores=sel_info.get("scores"),
+        per_target_csv="countergan_metrics.csv",
+        extra={"classifier_test_accuracy": clf_eval["accuracy"]})
     seconds["eval"] = time.perf_counter() - t0
     return {"classifier": clf_eval, "per_target": per_target,
             "per_target_reference": per_target_ref, "g_vars": g_vars,

@@ -12,11 +12,13 @@ The run dir is the JAX package's: `classifier/`, `generator/` (the served
 variables, with the `serving_selection` record in its metadata),
 `train_state/` (mid-run checkpoints), `classifier_eval/`
 (`confusion_matrix.csv`, `classifier_report.txt`),
-`countergan_metrics.csv`, `countergan_metrics_per_class.csv` and
-`masked_metrics.csv`; its checkpoints restore in either package.  A stage
-whose checkpoint exists is loaded, not trained again, unless `fresh`.
-Not ported: the legacy stack (`--legacy`), the images and heatmaps, the
-mask analysis and the provenance record.
+`countergan_metrics.csv`, `countergan_metrics_per_class.csv`,
+`masked_metrics.csv`, `patch_budget_curve.csv` (the flip rate against the
+number of modifiable patches) and `run_provenance.json`; its checkpoints
+restore in either package.  A stage whose checkpoint exists is loaded,
+not trained again, unless `fresh`.  Not ported: the legacy stack
+(`--legacy`) and the figures (the counterfactual grid, the heatmaps, the
+patch grid, the loss curves).
 """
 from __future__ import annotations
 
@@ -31,10 +33,13 @@ import torch
 from cfgan_torch.convert import flax_from_state_dict, state_dict_from_flax
 from cfgan_torch.core import checkpoint as ckpt
 from cfgan_torch.core.device import resolve_device
+from cfgan_torch.core.provenance import clear_stale, write_run_provenance
 from cfgan_torch.data.mnist import load_mnist
 from cfgan_torch.data.pipeline import stream_seed
 from cfgan_torch.eval.classifier import evaluate_classifier
+from cfgan_torch.eval.mask_analysis import patch_budget_curve
 from cfgan_torch.eval.metrics import (
+    MNIST_PROTOCOL,
     evaluate_counterfactual_batch,
     make_per_target_sweep,
     masked_metrics,
@@ -121,8 +126,8 @@ def run(cfg=MNIST_COUNTERGAN, out_dir: str | None = None, fresh: bool = False,
             # score each rung's candidates on the validation split and a
             # fixed training subsample under all-ones masks: sorted
             # per-target flips, mean flip last (test is never seen)
-            sweep = make_per_target_sweep(bundle.cf_fn, logits_fn,
-                                          cfg.num_classes)
+            sweep = make_per_target_sweep(
+                bundle.cf_fn, logits_fn, cfg.num_classes, **MNIST_PROTOCOL)
             sub = np.random.RandomState(0).permutation(
                 len(ytr))[:min(SCORE_SUBSAMPLE, len(ytr))]
             xsc = np.concatenate([xva, xtr[sub]])
@@ -189,7 +194,8 @@ def run(cfg=MNIST_COUNTERGAN, out_dir: str | None = None, fresh: bool = False,
     log(f"Batch metrics (all-ones mask): {batch_m}")
 
     per_target = per_target_metrics(
-        make_per_target_sweep(bundle.cf_fn, logits_fn, cfg.num_classes),
+        make_per_target_sweep(bundle.cf_fn, logits_fn, cfg.num_classes,
+                              **MNIST_PROTOCOL),
         g_vars, xte, yte,
         mask_fn=lambda b: torch.ones((b, h, w, 1), device=dev),
         num_classes=cfg.num_classes, batch_size=1024)
@@ -206,6 +212,19 @@ def run(cfg=MNIST_COUNTERGAN, out_dir: str | None = None, fresh: bool = False,
         rows.append({"mask_policy": policy, **masked_metrics(
             logits_fn, xb, x_cf, raw, masked, m, yb, t_rand)})
     write_csv(os.path.join(out_dir, "masked_metrics.csv"), rows)
+    patch_budget_curve(
+        bundle.cf_fn, logits_fn, g_vars, xte, yte, cfg.num_classes, ps,
+        out_dir=out_dir, generator=torch.Generator(device=dev).manual_seed(
+            stream_seed(cfg.seed, 9)), device=dev)
+
+    # the provenance record, in the invocation that wrote the CSVs
+    clear_stale(out_dir)
+    write_run_provenance(
+        out_dir, preset=cfg.name, seed=cfg.seed,
+        serving_candidate=sel_info.get("candidate"),
+        selection_scores=sel_info.get("scores"),
+        extra={"batch_flip_rate": batch_m["class_flip_rate"],
+               "classifier_test_accuracy": clf_eval["accuracy"]})
     seconds["eval"] = time.perf_counter() - t0
     return {"classifier": clf_eval, "batch_metrics": batch_m,
             "per_target": per_target, "g_vars": g_vars, "history": history,

@@ -4,10 +4,7 @@ names); `PRESETS` maps each name to its preset.
 
 `cfgan_torch.core.config.MOONS_COUNTERGAN`, `MNIST_COUNTERGAN`,
 `HOUSE_COUNTERGAN` and their `..._REFERENCE`s are the `CounterGANConfig`s
-of these experiments (the train step's and serving's part of them).  The
-moons presets serve (`cfgan_torch.serve.launch --app moons`); the port
-does not train them: their classifier's full-batch regime
-(`ClassifierConfig.steps`) is not ported.
+of these experiments (the train step's and serving's part of them).
 """
 from __future__ import annotations
 

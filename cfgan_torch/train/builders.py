@@ -1,7 +1,7 @@
-"""The MNIST and King County house CounteRGANs' serving and training
-entry points, and the moons CounteRGAN's serving (mirrors
-`cfgan/train/builders.py`: `make_mixed_precision`,
-`_clf_forward_fn`, `_init_state`, `build_mnist_countergan` and
+"""The moons, MNIST and King County house CounteRGANs' serving and
+training entry points (mirrors `cfgan/train/builders.py`:
+`make_mixed_precision`, `_clf_forward_fn`, `_init_state`,
+`build_moons_countergan`, `build_mnist_countergan` and
 `build_tabular_countergan` with their `cf_fn`, `epoch_fn` and
 `recal_fn`, `make_bn_recalibrator`, `g_serving_variables` and
 `select_g_serving_variables`).
@@ -266,7 +266,8 @@ def clf_forward_fn(clf_model: nn.Module, compute_dtype: str) -> Callable:
 
 @dataclass
 class CounterGANBundle:
-    """What `build_mnist_countergan` and `build_tabular_countergan` return.
+    """What `build_moons_countergan`, `build_mnist_countergan` and
+    `build_tabular_countergan` return.
 
     - `step_fn(state, x, y, generator)`, `step_with_draws(state, x, y, t,
       mask)` and `step_from_draws(state, x, y, draws)` update `state` in
@@ -440,11 +441,16 @@ def select_g_serving_variables(bundle: CounterGANBundle, state: GANState,
     (`serving_mask_fn(batch)`; default all-ones), the tabular family's
     noise from `key`; the best by worst-target flip, then mean flip.
     Returns (g_vars, info) with the chosen candidate and every score."""
-    from cfgan_torch.eval.metrics import make_per_target_sweep, per_target_metrics
+    from cfgan_torch.eval.metrics import (
+        MNIST_PROTOCOL,
+        make_per_target_sweep,
+        per_target_metrics,
+    )
 
     if state.g_ema is None:
         return live_g_variables(state), {"candidate": "live", "scores": {}}
-    sweep = make_per_target_sweep(bundle.cf_fn, clf_fn, bundle.num_classes)
+    sweep = make_per_target_sweep(bundle.cf_fn, clf_fn, bundle.num_classes,
+                                  **MNIST_PROTOCOL)
     mask_fn = serving_mask_fn or (lambda b: torch.ones(
         (b, *np.shape(xva)[1:]), device=x_recal.device))
     candidates, scores = {}, {}
@@ -743,3 +749,127 @@ def build_tabular_countergan(cfg: CounterGANConfig,
                              g_forward_of=g_forward_of,
                              full_mask_fn=full_mask_fn),
         num_classes, cfg, schema=schema)
+
+
+def make_moons_cf_fn(g_model: MoonsResidualGenerator, compute_dtype: str
+                     ) -> Callable:
+    """`cf_fn(g_vars, x, target, mask, key=None) -> (x_cf, raw, masked)`
+    (the `cf_fn` of `build_moons_countergan`): `g_vars` through an
+    eval-mode copy of `g_model` at the compute dtype, the target one-hot at
+    the compute dtype, float32 outputs and `x + masked` unclamped (the
+    moons presets have `clamp_cf=None`).  `key` is accepted for the
+    families' common signature; the moons generator draws no noise."""
+    cd = torch_dtype(compute_dtype)
+    serve_g = copy.deepcopy(g_model).eval().requires_grad_(False)
+
+    def cf_fn(g_vars, x, target, mask, key=None):
+        gv = {k: v.to(cd) if v.is_floating_point() else v
+              for k, v in g_vars.items()}
+        with torch.no_grad():
+            raw, masked = functional_call(
+                serve_g, gv, (x.to(cd), _one_hot(target, MOONS_CLASSES, cd),
+                              mask.to(cd)))
+        raw, masked = raw.float(), masked.float()
+        return x + masked, raw, masked
+
+    return cf_fn
+
+
+def _moons_g_forward(g_model: MoonsResidualGenerator,
+                     cfg: CounterGANConfig) -> Callable:
+    """The moons family's train-mode `g_forward(x, t, mask) -> (raw,
+    masked)` through `g_model`: the target one-hot, the forward at the
+    compute dtype, float32 outputs."""
+    apply = make_mixed_precision(g_model, cfg.compute_dtype)
+
+    def g_forward(x, t, mask):
+        return apply(x, _one_hot(t, MOONS_CLASSES, x.dtype), mask)
+
+    return g_forward
+
+
+def build_moons_countergan(cfg: CounterGANConfig,
+                           clf_params: Mapping[str, torch.Tensor],
+                           seed: int = 42,
+                           device: str | torch.device | None = None,
+                           diagnostics: bool = True) -> CounterGANBundle:
+    """The moons CounteRGAN train step (`build_moons_countergan`) on
+    `device` (None: the CUDA card; raises where there is none).
+
+    `MoonsResidualGenerator` (width `cfg.hidden_dim`, BatchNorm on batch
+    statistics in train mode) and the spectral-norm critic on concat[x,
+    target one-hot] (widths h, h/2, h/2; its power iteration advances in
+    the D phase only) get initial weights from a `torch.Generator` seeded
+    with `seed`; Adam at `cfg.lr_g` / `cfg.lr_d`; the EMA, where
+    `cfg.ema_decay` asks for one, starts at the initial parameters.
+    `clf_params` is the frozen `MLPClassifier`'s state dict (its width
+    follows it).  Each step draws its targets and a per-feature
+    Bernoulli(0.5) mask with `cfg.mask.immutable_idx` zeroed (and, with
+    `cfg.mask.ones_fraction`, the draws that swap in the fully modifiable
+    mask, the immutable complement, which recalibration's "ones" mode
+    uses too).  2-D points, three classes; x_cf is clamped only where
+    `cfg.clamp_cf` says."""
+    device = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    g_model, clf_model = moons_models(
+        cfg, clf_params["Linear_0.weight"].shape[0], generator=gen)
+    clf_model.load_state_dict(clf_params, strict=True)
+    h = cfg.hidden_dim
+    d_model = SpectralMLPDiscriminator(MOONS_DIM + MOONS_CLASSES,
+                                       (h, h // 2, h // 2), generator=gen)
+    g_model.to(device).train()
+    d_model.to(device).train()
+    state = GANState(
+        g=NetState.create(g_model, cfg.lr_g),
+        d=NetState.create(d_model, cfg.lr_d),
+        g_ema=({name: p.detach().clone()
+                for name, p in g_model.named_parameters()}
+               if cfg.ema_decay else None))
+    m = cfg.mask
+    # the immutable-complement row, made here: the captured step may not
+    # copy it from the host
+    keep = immutable_complement_mask(1, MOONS_DIM, m.immutable_idx,
+                                     device=device)[0]
+
+    def full_mask_fn(x):
+        return keep.expand(x.shape[0], MOONS_DIM)
+
+    def draw_fn(generator: torch.Generator, shape: tuple[int, ...]) -> dict:
+        draws = {"targets": torch.randint(0, MOONS_CLASSES, shape,
+                                          generator=generator,
+                                          device=generator.device),
+                 "mask": feature_mask_draws(shape, MOONS_DIM, generator)}
+        if m.ones_fraction:
+            draws["ones"] = torch.rand(shape, generator=generator,
+                                       device=generator.device)
+        return draws
+
+    def mask_fn(x, draws):
+        mask = random_feature_mask(draws["mask"], keep=keep)
+        if not m.ones_fraction:
+            return mask
+        return with_ones_fraction(mask, m.ones_fraction,
+                                  draws=draws["ones"], full=full_mask_fn(x))
+
+    def g_forward_of(module):
+        return _moons_g_forward(module, cfg)
+
+    d_apply = make_mixed_precision(d_model, cfg.compute_dtype)
+
+    def d_forward(x, t, detach: bool = False, train: bool = True):
+        return d_apply(x, _one_hot(t, MOONS_CLASSES, x.dtype),
+                       detach=detach, train=train)
+
+    step_fn, step_with_draws, step_from_draws = make_countergan_step(
+        cfg=cfg, num_classes=MOONS_CLASSES, g_forward=g_forward_of(g_model),
+        d_forward=d_forward,
+        clf_forward=clf_forward_fn(clf_model.to(device), cfg.compute_dtype),
+        draw_fn=draw_fn, mask_fn=mask_fn, diagnostics=diagnostics)
+    return CounterGANBundle(
+        state, step_fn, step_with_draws, step_from_draws, draw_fn,
+        make_epoch_runner(step_from_draws),
+        make_moons_cf_fn(g_model, cfg.compute_dtype),
+        make_bn_recalibrator(g_model, cfg, draw_fn, mask_fn,
+                             g_forward_of=g_forward_of,
+                             full_mask_fn=full_mask_fn),
+        MOONS_CLASSES, cfg)

@@ -1,14 +1,16 @@
 """Classifier pretraining, CounteRGAN stage 1 (mirrors
-`cfgan/train/classifier.py`, the epoch regime): Adam, or AdamW with
-`weight_decay` (the house experiment's), and cross-entropy over shuffled
-epochs, optional class weights, a ReduceLROnPlateau-style scale, early
-stopping, and the best validation-accuracy snapshot.
+`cfgan/train/classifier.py`): Adam, or AdamW with `weight_decay` (the
+house experiment's), and cross-entropy.  Two regimes:
+
+- epochs (MNIST, house): shuffled minibatches, optional class weights, a
+  ReduceLROnPlateau-style scale, early stopping, and the best
+  validation-accuracy snapshot;
+- full batch (`ClassifierConfig.steps`, the moons experiment's): that
+  many steps on the whole training set, and the final state.
 
 Each epoch's permutation and dropout draws come from generators seeded
 statelessly from (seed, epoch).  The steps run eagerly; the small
-classifier's epoch is not captured as a CUDA graph.  The full-batch
-regime (`ClassifierConfig.steps`, the moons experiment's) is not ported
-and raises.
+classifier's epoch is not captured as a CUDA graph.
 """
 from __future__ import annotations
 
@@ -53,7 +55,10 @@ def make_classifier_step(ns: NetState,
         for group, lr in zip(ns.opt.param_groups, base_lrs):
             group["lr"] = lr * lr_scale
         ns.model.train()
-        loss = ce_loss(ns.model(x, generator, keep), y, class_weights)
+        # a model without dropout (the moons MLP) takes x alone
+        drop = () if generator is None and keep is None else (generator,
+                                                              keep)
+        loss = ce_loss(ns.model(x, *drop), y, class_weights)
         ns.opt.zero_grad(set_to_none=True)
         loss.backward()
         ns.opt.step()
@@ -91,11 +96,9 @@ def train_classifier(model: nn.Module, cfg: ClassifierConfig, train_set,
     """Returns (best NetState, history).  `model` holds its initial
     weights; it is moved to `device` (None: the CUDA card) and trained in
     place, and the returned state holds a copy of the model at the best
-    validation accuracy (the last epoch without a validation set)."""
-    if cfg.steps is not None:
-        raise NotImplementedError(
-            "the full-batch classifier regime (ClassifierConfig.steps) is "
-            "not ported")
+    validation accuracy (the last epoch without a validation set).  With
+    `cfg.steps` it takes that many full-batch steps and returns the final
+    state, `history["loss"]` holding each step's loss."""
     dev = resolve_device(device)
     x_train = torch.as_tensor(train_set[0]).to(dev)
     y_train = torch.as_tensor(train_set[1]).to(dev, torch.long)
@@ -110,6 +113,11 @@ def train_classifier(model: nn.Module, cfg: ClassifierConfig, train_set,
     step = make_classifier_step(ns, class_weights)
     _, accuracy = make_eval_fn(model)
     history = {"val_acc": [], "loss": []}
+    if cfg.steps is not None:
+        losses = [step(x_train, y_train) for _ in range(cfg.steps)]
+        history["loss"] = torch.stack(losses).tolist() if losses else []
+        model.eval()
+        return ns, history
     n, bs = len(y_train), min(cfg.batch_size, len(y_train))
     has_valid = valid_set is not None and valid_set[0] is not None
 

@@ -43,7 +43,8 @@ Then it trains end to end:
   width (12,800 images, 2 classifier epochs, 4 GAN epochs, snapshot
   selection every 2) into a scratch directory under `build/`, then again
   on the same directory, which must train nothing and write the same
-  per-target CSV.
+  per-target and patch-budget CSVs; the port's provenance check must
+  accept the run dir.
 
 Then the King County house CounteRGAN (the shipped `HOUSE_COUNTERGAN`
 preset at full width: 32 wide, 5 FiLM blocks, batch 128, float32):
@@ -62,12 +63,38 @@ preset at full width: 32 wide, 5 FiLM blocks, batch 128, float32):
   eager steps are timed in turns;
 - `house experiment`: `cfgan_torch.experiments.house_countergan.run` at
   full width on the synthetic table (5 classifier epochs, 20 GAN
-  epochs, snapshot selection every 10), then the rerun that loads it;
+  epochs, snapshot selection every 10), then the rerun that loads it and
+  writes every CSV (per-target, feature shifts, class pairs, case
+  studies, mask policies) again byte for byte; the provenance check must
+  accept the run dir;
 - `house serve`: `house_engine` on the committed
   `results/house_countergan/{classifier,generator}` (the experiment's
   run dir where a checkout lacks them): `generate` at b=1 and b=128 and
   `generate_bulk` on the test rows, padded and unpadded requests equal,
   the card's counterfactuals against the same engine's on the CPU.
+
+Then the moons CounteRGAN (the shipped `MOONS_COUNTERGAN` preset at full
+width: hidden 32, critic 32/16/16, batch 64, float32, no clamp):
+
+- `moons data`: `load_moons3`'s 960 train and 240 test points and their
+  class counts;
+- `moons train`: 10 eager steps launch the epilogue kernels once forward
+  and once backward a step, in the 4-byte variant ((64, 2) rows, bounds
+  -1e30 and 1e30), give the losses of the same steps on the plain
+  epilogue, and advance each critic layer's `u` exactly once a step;
+- `moons epoch runner`: one epoch (15 steps) replayed as a CUDA graph
+  equals the same steps eager, bit for bit (metrics, parameters,
+  BatchNorm statistics, `u`, Adam); the profiler counts one epilogue
+  forward and one backward a replayed step; replayed (10 epochs a turn)
+  and eager steps are timed in turns;
+- `moons experiment`: `cfgan_torch.experiments.moons_countergan.run` of
+  the full shipped preset (1,000 full-batch classifier steps, 500 GAN
+  epochs, a snapshot every 50) into `build/`, then the rerun, which must
+  train nothing and write the same two CSVs; the provenance check must
+  accept the run dir; its per-target flips beside the committed
+  `results/moons_countergan/`'s; then `run()` on copies of that committed
+  run dir, on the card and on the CPU: neither trains, and their CSVs
+  agree within 1e-5.
 
 Then the serving front door, `api`: the three launchers (`python -m
 cfgan_torch.serve.launch --app mnist|house|moons --api --port 0`, on the
@@ -87,7 +114,8 @@ exit 0 on SIGINT at the end.
 Then it times the kernels, their plain versions, cuDNN for the conv and
 its weight gradient, the serving requests and the train step (bf16 with
 cuDNN's convs and with the kernels, f32 with the kernels), and the
-epilogue kernels at the house step's (128, 17) rows.
+epilogue kernels at the house step's (128, 17) rows and the moons step's
+(64, 2) rows.
 
     python3 chip_smoke.py --train-timing-only
 
@@ -165,10 +193,11 @@ EPI_SUM_RTOL = 1e-5
 # SMs, N % 4 != 0 and N < 4 (the 4-byte variant), rows longer than one
 # block's quads, and the step's rows one element into their storage (the
 # 4-byte variant)
-# the house step's rows, (128, 17), take the 4-byte variant too
+# the house step's rows, (128, 17), and the moons step's, (64, 2), take
+# the 4-byte variant too
 EPI_CASES = ((128, 784, False), (257, 784, False), (3, 17, False),
              (5, 2, False), (64, 4096, False), (128, 784, True),
-             (128, 17, False))
+             (128, 17, False), (64, 2, False))
 EPI_BOUNDS = ((-1.0, 1.0), (-1e30, 1e30))  # clamp, no clamp
 # the smoke's train step: the preset's batch, and 10 steps (3 in f32 and
 # with the conv kernel)
@@ -225,19 +254,20 @@ EXPERIMENT_FILES = (
     "generator/metadata.json", "train_state/checkpoint.msgpack",
     "train_state/metadata.json", "classifier_eval/confusion_matrix.csv",
     "classifier_eval/classifier_report.txt", "countergan_metrics.csv",
-    "countergan_metrics_per_class.csv", "masked_metrics.csv")
+    "countergan_metrics_per_class.csv", "masked_metrics.csv",
+    "patch_budget_curve.csv", "run_provenance.json")
+# the experiment's CSVs that its rerun must write again byte for byte
+EXPERIMENT_CSVS = ("countergan_metrics_per_class.csv",
+                   "patch_budget_curve.csv")
 
 
 # the house phases: the shipped preset's (128, 17) step; HOUSE_STEPS
 # eager steps; one whole epoch through the runner, of which the eager
-# device time is profiled over HOUSE_PROFILE_STEPS steps (a trace of a
-# whole eager epoch holds ~10^5 records); the experiment cut to
+# device time is profiled over MLP_PROFILE_STEPS steps; the experiment cut to
 # HOUSE_CLF_EPOCHS classifier and HOUSE_EPOCHS GAN epochs with a snapshot
 # rung every HOUSE_EVERY
 HOUSE_FEATURES = 17
 HOUSE_STEPS = 10
-HOUSE_PROFILE_STEPS = 24
-HOUSE_REPLAY_LAUNCHES = {"epilogue_fwd_kernel": 1, "epilogue_bwd_kernel": 1}
 HOUSE_CLF_EPOCHS = 5
 HOUSE_EPOCHS = 20
 HOUSE_EVERY = 10
@@ -245,13 +275,51 @@ HOUSE_FILES = (
     "classifier/checkpoint.msgpack", "classifier/metadata.json",
     "generator/checkpoint.msgpack", "generator/metadata.json",
     "train_state/checkpoint.msgpack", "classifier_eval/confusion_matrix.csv",
-    "countergan_metrics.csv", "countergan_metrics_reference_protocol.csv")
+    "countergan_metrics.csv", "countergan_metrics_reference_protocol.csv",
+    "feature_shift_importance.csv",
+    "class_pair_sensitivity/class_pair_sensitivity.csv",
+    "case_studies/case_study_aggregate_summary.csv",
+    "mask_policy_analysis.csv", "run_provenance.json")
+# the house CSVs that its rerun must write again byte for byte
+HOUSE_CSVS = ("countergan_metrics.csv",
+              "countergan_metrics_reference_protocol.csv",
+              "feature_shift_importance.csv",
+              "class_pair_sensitivity/class_pair_sensitivity.csv",
+              "case_studies/case_study_aggregate_summary.csv",
+              "case_studies/case_study_feature_summary.csv",
+              "case_studies/case_study_sample_summary.csv",
+              "mask_policy_analysis.csv")
 HOUSE_RUN_DIR = HERE / "results" / "house_countergan"
 # the card's served counterfactuals against the CPU's: float32 matmuls in
 # other orders (TF32 off); a hard Gumbel argmax may flip on a near tie, so
 # HOUSE_PRED_AGREE of the predictions must agree and the rows whose
 # predictions agree are reported with their largest x_cf difference
 HOUSE_PRED_AGREE = 0.99
+
+# the moons phases: the shipped preset's (64, 2) step, unclamped (the
+# epilogue's bounds -1e30 and 1e30); MOONS_STEPS eager steps; one epoch
+# (15 steps) through the runner against eager, then MOONS_TIMED_EPOCHS
+# replayed epochs a turn; the experiment at the full shipped preset
+# (1,000 classifier steps, 500 epochs, a snapshot every 50); the committed
+# run dir's weights on the card against the CPU within MOONS_CPU_ATOL
+# (float32 matmuls in other orders, TF32 off)
+MOONS_BATCH = 64
+MOONS_SIZES = {"train": 960, "test": 240}
+MOONS_STEPS = 10
+MOONS_TIMED_EPOCHS = 10
+MOONS_CPU_ATOL = 1e-5
+MOONS_FILES = (
+    "classifier/checkpoint.msgpack", "classifier/metadata.json",
+    "classifier_eval/confusion_matrix.csv", "generator/checkpoint.msgpack",
+    "generator/metadata.json", "train_state/checkpoint.msgpack",
+    "countergan_metrics.csv", "countergan_metrics_per_mask.csv",
+    "run_provenance.json")
+MOONS_RUN_DIR = HERE / "results" / "moons_countergan"
+# each replayed step's launches of our kernels in the two MLP families,
+# and the eager steps whose device time is profiled (a trace of a whole
+# eager house epoch holds ~10^5 records)
+MLP_REPLAY_LAUNCHES = {"epilogue_fwd_kernel": 1, "epilogue_bwd_kernel": 1}
+MLP_PROFILE_STEPS = 24
 
 # the api phase: the launcher's run dirs (results/mnist_countergan/ holds
 # no classifier checkpoint; the seed-43 run dir holds both)
@@ -481,18 +549,20 @@ def host_call_ms(fn, windows: int = 5, iters: int = 200) -> float:
     return statistics.median(cuda_ms(fn, iters) for _ in range(windows))
 
 
-def time_epilogue(card: str, dev, n: int = 28 * 28) -> dict:
+def time_epilogue(card: str, dev, n: int = 28 * 28, b: int = TRAIN_BATCH,
+                  bounds: tuple[float, float] = (-1.0, 1.0)) -> dict:
     """Device ms per call (profiler) of the epilogue kernels and of their
     plain versions, and the wrappers' host-bound ms per call
-    (`host_call_ms`), at a step's (128, n) float32 rows (the MNIST step's
-    784, the house step's 17): one line each.  Uses only what every
-    checkout's `cfgan_torch.ops.epilogue` has, so `--train-timing-only`
-    runs it on earlier commits too."""
+    (`host_call_ms`), at a step's (b, n) float32 rows (the MNIST step's
+    (128, 784), the house step's (128, 17), the moons step's (64, 2)
+    between the bounds -1e30 and 1e30): one line each.  Uses only what
+    every checkout's `cfgan_torch.ops.epilogue` has, so
+    `--train-timing-only` runs it on earlier commits too."""
     import torch
 
     from cfgan_torch.ops import epilogue as tep
 
-    b = TRAIN_BATCH
+    lo, hi = bounds
     x, raw = (torch.rand((b, n), device=dev) * 2 - 1 for _ in range(2))
     mask = (torch.rand((b, n), device=dev) > 0.5).float()
     gcf = torch.randn((b, n), device=dev)
@@ -500,10 +570,10 @@ def time_epilogue(card: str, dev, n: int = 28 * 28) -> dict:
     epi = {}
     for name, kernel, plain, args, backward in (
             ("cf_epilogue_fwd", tep.cf_epilogue_fwd,
-             tep.cf_epilogue_fwd_plain, (x, raw, mask, -1.0, 1.0), False),
+             tep.cf_epilogue_fwd_plain, (x, raw, mask, lo, hi), False),
             ("cf_epilogue_bwd", tep.cf_epilogue_bwd,
              tep.cf_epilogue_bwd_plain,
-             (x, raw, mask, gcf, *cols, -1.0, 1.0), True)):
+             (x, raw, mask, gcf, *cols, lo, hi), True)):
         bound_ms, bound_by = epilogue_bound(b, n, backward)
         # device time per call (kernel_ms): a few microseconds of kernel,
         # shorter than the wrapper's host-side work, so CUDA events around
@@ -514,7 +584,8 @@ def time_epilogue(card: str, dev, n: int = 28 * 28) -> dict:
         epi[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by=bound_by, library_ms=None)
         emit({"phase": "timing", "what": name, "card": card,
-              "shape": (b, n), "dtype": "float32", **epi[name],
+              "shape": (b, n), "bounds": bounds, "dtype": "float32",
+              **epi[name],
               "timed_by": sorted({how, plain_how}),
               "share_of_bound": bound_ms / ms,
               "host_bound_call_ms": host_call_ms(lambda: kernel(*args)),
@@ -580,6 +651,8 @@ def _states_equal(a, b) -> bool:
             if any(not torch.equal(sa.opt.state[p][k], sb.opt.state[q][k])
                    for k in ("exp_avg", "exp_avg_sq", "step")):
                 return False
+    if a.g_ema is None or b.g_ema is None:
+        return a.g_ema is None and b.g_ema is None
     return all(torch.equal(v, b.g_ema[k]) for k, v in a.g_ema.items())
 
 
@@ -751,6 +824,7 @@ def experiment_phase(card: str, dev) -> None:
 
     import numpy as np
 
+    from cfgan_torch.core.provenance import check_run_provenance
     from cfgan_torch.experiments import mnist_countergan as exp
     from cfgan_torch.experiments.presets import MNIST_COUNTERGAN as PRESET
 
@@ -769,9 +843,9 @@ def experiment_phase(card: str, dev) -> None:
                                 log=logs[i].append))
             runs[-1]["wall_s"] = time.perf_counter() - t0
             if i == 0:
-                per_target = (out_dir / "countergan_metrics_per_class.csv"
-                              ).read_text()
+                csvs = {n: (out_dir / n).read_text() for n in EXPERIMENT_CSVS}
         missing = [f for f in EXPERIMENT_FILES if not (out_dir / f).is_file()]
+        provenance = check_run_provenance(str(out_dir))
         with open(out_dir / "countergan_metrics_per_class.csv") as f:
             rows = list(csv.DictReader(f))
         flips = [float(r["class_flip_rate"]) for r in rows]
@@ -800,14 +874,18 @@ def experiment_phase(card: str, dev) -> None:
             "per_target_flip": flips,
             "batch_metrics": runs[0]["batch_metrics"],
             "history_flip_rate": runs[0]["history"].get("flip_rate"),
+            "patch_budget_curve": [
+                (int(r["n_patches"]), float(r["flip_rate"]))
+                for r in _csv_rows(out_dir / "patch_budget_curve.csv")],
+            "provenance": provenance,
             "missing": missing, "rerun_trained": trained_again}
         ok = (not missing and len(rows) == 10
               and all(np.isfinite(float(v)) for r in rows
                       for v in r.values())
               and rungs == want_rungs and runner.captures == 1
               and not trained_again and runs[1]["history"] == {}
-              and (out_dir / "countergan_metrics_per_class.csv")
-              .read_text() == per_target)
+              and all((out_dir / n).read_text() == t
+                      for n, t in csvs.items()))
         report["ok"] = ok
         emit(report)
         if not ok:
@@ -873,29 +951,31 @@ def _house_bundle(dev, data):
                                     schema, stats, seed=SEED, device=dev)
 
 
-def house_train_phase(card: str, dev, data, counts, zero_counts,
-                      plain_epilogue) -> tuple:
-    """HOUSE_STEPS eager steps of the house preset: the epilogue kernels'
-    launches and variant, the losses against the plain epilogue's, and
-    each critic layer's `u` against one plain power iteration a step; one
-    line.  Returns the wrappers' counts of the kernels' run."""
+def mlp_train_phase(card: str, dev, family: str, data, counts, zero_counts,
+                    plain_epilogue) -> tuple:
+    """MLP_FAMILIES[family]["steps"] eager steps of the family's preset:
+    the epilogue kernels' launches and variant, the losses against the
+    plain epilogue's, and each critic layer's `u` against one plain power
+    iteration a step; one line.  Returns the wrappers' counts of the
+    kernels' run."""
     import torch
 
     from cfgan_torch.ops import epilogue as tep
 
-    (xtr, ytr), _, _, _, _ = data
-    n = HOUSE_STEPS * TRAIN_BATCH
-    xs = torch.as_tensor(xtr[:n]).to(dev).reshape(HOUSE_STEPS, TRAIN_BATCH,
-                                                   -1)
-    ys = torch.as_tensor(ytr[:n]).to(dev, torch.long).reshape(HOUSE_STEPS,
+    f = MLP_FAMILIES[family]
+    (xtr, ytr) = data[0]
+    steps, batch = f["steps"], f["batch"]
+    xs = torch.as_tensor(xtr[:steps * batch]).to(dev).reshape(steps, batch,
                                                               -1)
+    ys = torch.as_tensor(ytr[:steps * batch]).to(dev, torch.long).reshape(
+        steps, -1)
 
     def train():
-        bundle = _house_bundle(dev, data)
+        bundle = f["bundle"](dev, data)
         draws = torch.Generator(device=dev).manual_seed(SEED)
         layers = list(bundle.state.d.model.children())
         losses, u_err = [], 0.0
-        for i in range(HOUSE_STEPS):
+        for i in range(steps):
             before = [(m.weight.detach().clone(), m.u.clone())
                       for m in layers]
             m = bundle.step_fn(bundle.state, xs[i], ys[i], draws)
@@ -909,18 +989,18 @@ def house_train_phase(card: str, dev, data, counts, zero_counts,
     zero_counts()
     bundle, losses, u_err = train()
     launched = counts()
-    variant = {k: "16-byte" if f.last_float4 else "4-byte"
-               for k, f in (("fwd", tep.cf_epilogue_fwd),
-                            ("bwd", tep.cf_epilogue_bwd))}
-    if launched != (HOUSE_STEPS, HOUSE_STEPS, 0, 0):
-        fail(f"house training launched (fwd, bwd, conv, dK) = {launched}, "
-             f"not {(HOUSE_STEPS, HOUSE_STEPS, 0, 0)}")
+    variant = {k: "16-byte" if fn.last_float4 else "4-byte"
+               for k, fn in (("fwd", tep.cf_epilogue_fwd),
+                             ("bwd", tep.cf_epilogue_bwd))}
+    if launched != (steps, steps, 0, 0):
+        fail(f"{family} training launched (fwd, bwd, conv, dK) = "
+             f"{launched}, not {(steps, steps, 0, 0)}")
     if set(variant.values()) != {"4-byte"}:
-        fail(f"house training launched the epilogue variants {variant}")
+        fail(f"{family} training launched the epilogue variants {variant}")
     with plain_epilogue():
         plain_bundle, plain_losses, _ = train()
     if counts() != launched:
-        fail("the plain-epilogue house run launched a kernel")
+        fail(f"the plain-epilogue {family} run launched a kernel")
     errs = [max(abs(a - b) for a, b in zip(k, p))
             for k, p in zip(losses, plain_losses)]
     finite = all(math.isfinite(v) for pair in losses + plain_losses
@@ -928,10 +1008,11 @@ def house_train_phase(card: str, dev, data, counts, zero_counts,
         bool(torch.isfinite(p).all()) for b in (bundle, plain_bundle)
         for net in (b.state.g, b.state.d) for p in net.model.parameters())
     ok = max(errs) <= TRAIN_ATOL["float32"] and u_err <= 1e-6 and finite
-    emit({"phase": "house train", "card": card, "preset": "house_countergan",
-          "dtype": "float32", "batch": TRAIN_BATCH,
-          "features": HOUSE_FEATURES, "steps": HOUSE_STEPS,
-          "epilogue_fwd_launches": launched[0],
+    emit({"phase": f"{family} train", "card": card,
+          "preset": f"{family}_countergan", "dtype": "float32",
+          "batch": batch, "features": f["features"],
+          "clamp": list(bundle.cfg.clamp_cf or (-1e30, 1e30)),
+          "steps": steps, "epilogue_fwd_launches": launched[0],
           "epilogue_bwd_launches": launched[1], "variant": variant,
           "d_g_loss_per_step": losses,
           "plain_epilogue_d_g_loss_per_step": plain_losses,
@@ -940,14 +1021,15 @@ def house_train_phase(card: str, dev, data, counts, zero_counts,
           "tolerance": f"loss abs <= {TRAIN_ATOL['float32']}; u abs <= 1e-6",
           "ok": ok})
     if not ok:
-        fail(f"house training with the epilogue kernels differs from the "
+        fail(f"{family} training with the epilogue kernels differs from the "
              f"plain epilogue, or u did not advance once a step: {errs}, "
              f"{u_err}")
     return launched
 
 
-def house_runner_phase(card: str, dev, data, counts, zero_counts) -> None:
-    """One epoch of the house step through the epoch runner against the
+def mlp_runner_phase(card: str, dev, family: str, data, counts,
+                     zero_counts) -> None:
+    """One epoch of the family's step through the epoch runner against the
     same steps eager (bit for bit), its launches per replayed step by the
     profiler, and replayed and eager steps timed in turns; one line."""
     import torch
@@ -955,12 +1037,13 @@ def house_runner_phase(card: str, dev, data, counts, zero_counts) -> None:
     from cfgan_torch.data.pipeline import epoch_perm
     from cfgan_torch.train.countergan import WARMUP_STEPS, make_epoch_runner
 
-    (xtr, ytr), _, _, _, _ = data
+    f = MLP_FAMILIES[family]
+    (xtr, ytr) = data[0]
     x = torch.as_tensor(xtr).to(dev)
     y = torch.as_tensor(ytr).to(dev, torch.long)
-    ours, ref = _house_bundle(dev, data), _house_bundle(dev, data)
+    ours, ref = f["bundle"](dev, data), f["bundle"](dev, data)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    perm = epoch_perm(gen, len(y), TRAIN_BATCH)
+    perm = epoch_perm(gen, len(y), f["batch"])
     steps = perm.shape[0]
     draws = ours.draw_fn(gen, tuple(perm.shape))
     runner = make_epoch_runner(ours.step_from_draws, reduce=False)
@@ -969,7 +1052,7 @@ def house_runner_phase(card: str, dev, data, counts, zero_counts) -> None:
     torch.cuda.synchronize()
     wrapper = counts()
     if (runner.captures, runner.replays) != (1, steps - WARMUP_STEPS):
-        fail(f"house runner: {runner.captures} captures and "
+        fail(f"{family} runner: {runner.captures} captures and "
              f"{runner.replays} replays, not 1 and {steps - WARMUP_STEPS}")
 
     def eager_step(i):
@@ -982,9 +1065,9 @@ def house_runner_phase(card: str, dev, data, counts, zero_counts) -> None:
                          if got[k][i] != v})
     same_state = _states_equal(ours.state, ref.state)
     finite = all(math.isfinite(v) for m in eager for v in m.values())
-    report = {"phase": "house epoch runner", "card": card,
-              "preset": "house_countergan", "dtype": "float32",
-              "batch": TRAIN_BATCH, "steps": steps,
+    report = {"phase": f"{family} epoch runner", "card": card,
+              "preset": f"{family}_countergan", "dtype": "float32",
+              "batch": f["batch"], "steps": steps,
               "eager_steps": WARMUP_STEPS,
               "replayed_steps": steps - WARMUP_STEPS,
               "dataset_on_device": list(x.shape),
@@ -992,66 +1075,69 @@ def house_runner_phase(card: str, dev, data, counts, zero_counts) -> None:
               "metrics_differing_from_eager": mismatched,
               "state_equal_to_eager": same_state,
               "tolerance": "bit for bit: every metric of every step, and "
-                           "the state (u and BatchNorm statistics "
-                           "included)"}
+                           "the state (u, BatchNorm statistics, the EMA "
+                           "and Adam included)"}
     if mismatched or not same_state or not finite:
         emit({**report, "ok": False})
-        fail(f"house replayed steps differ from eager steps: {mismatched}, "
-             f"state equal {same_state}")
+        fail(f"{family} replayed steps differ from eager steps: "
+             f"{mismatched}, state equal {same_state}")
 
-    def epoch():
-        runner(ours.state, x, y, perm, draws)
+    def epochs(n=f["timed_epochs"]):
+        for _ in range(n):
+            runner(ours.state, x, y, perm, draws)
 
     attempts = []
     for _ in range(PROFILE_TRIES):
         busy, top, ours_ms = device_time(
-            epoch, 1, top=8, match=tuple(HOUSE_REPLAY_LAUNCHES))
+            lambda: epochs(1), 1, top=8, match=tuple(MLP_REPLAY_LAUNCHES))
         per_step = {k: (ms / steps, n / steps)
                     for k, (ms, n) in ours_ms.items()}
         attempts.append({k: v[1] for k, v in per_step.items()})
         exact = busy is not None and all(
-            v[1] == HOUSE_REPLAY_LAUNCHES[k] for k, v in per_step.items())
+            v[1] == MLP_REPLAY_LAUNCHES[k] for k, v in per_step.items())
         if exact:
             break
     report["profiler_launch_counts_per_trace"] = attempts
     if not exact:
-        fail(f"house launches per replayed step {attempts}, not "
-             f"{HOUSE_REPLAY_LAUNCHES}")
+        fail(f"{family} launches per replayed step {attempts}, not "
+             f"{MLP_REPLAY_LAUNCHES}")
 
     def eager_steps(n=steps):
         for i in range(n):
             eager_step(i)
         torch.cuda.synchronize()
 
-    eager_busy = device_time(lambda: eager_steps(HOUSE_PROFILE_STEPS), 1)[0]
+    profiled = min(MLP_PROFILE_STEPS, steps)
+    eager_busy = device_time(lambda: eager_steps(profiled), 1)[0]
     times = {"replayed": [], "eager": []}
     for _ in range(3):  # in turns
-        for name, fn in (("replayed", epoch), ("eager", eager_steps)):
+        for name, fn, n in (("replayed", epochs, f["timed_epochs"] * steps),
+                            ("eager", eager_steps, steps)):
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
-            times[name].append((time.perf_counter() - t0) * 1e3 / steps)
+            times[name].append((time.perf_counter() - t0) * 1e3 / n)
     med = {k: statistics.median(v) for k, v in times.items()}
-    eager_busy_ms = (None if eager_busy is None
-                     else eager_busy / HOUSE_PROFILE_STEPS)
+    eager_busy_ms = None if eager_busy is None else eager_busy / profiled
     report.update({
         "launches_per_replayed_step": {k: v[1] for k, v in per_step.items()},
         "our_kernels_ms_per_replayed_step": {k: v[0]
                                              for k, v in per_step.items()},
         "sync_debug_mode_during_replays": "error",
+        "replayed_epochs_per_turn": f["timed_epochs"],
         "replayed_ms_per_step_in_turns": times["replayed"],
         "eager_ms_per_step_in_turns": times["eager"],
         "replayed_median_ms": med["replayed"],
         "eager_median_ms": med["eager"],
         "replay_speedup": med["eager"] / med["replayed"],
-        "replayed_rows_per_s": TRAIN_BATCH / med["replayed"] * 1e3,
-        "eager_rows_per_s": TRAIN_BATCH / med["eager"] * 1e3,
+        "replayed_rows_per_s": f["batch"] / med["replayed"] * 1e3,
+        "eager_rows_per_s": f["batch"] / med["eager"] * 1e3,
         "replayed_device_busy_ms": busy / steps,
         "replayed_device_idle_share": 1 - busy / steps / med["replayed"],
         "eager_device_busy_ms": eager_busy_ms,
         "eager_device_idle_share": (None if eager_busy_ms is None
                                     else 1 - eager_busy_ms / med["eager"]),
-        "eager_busy_profiled_steps": HOUSE_PROFILE_STEPS,
+        "eager_busy_profiled_steps": profiled,
         "device_time_by_kernel_ms_per_epoch": top, "ok": True})
     emit(report)
 
@@ -1063,6 +1149,7 @@ def house_experiment_phase(card: str, dev, out_dir: Path) -> None:
 
     import numpy as np
 
+    from cfgan_torch.core.provenance import check_run_provenance
     from cfgan_torch.experiments import house_countergan as exp
     from cfgan_torch.experiments.presets import HOUSE_COUNTERGAN as PRESET
 
@@ -1080,8 +1167,9 @@ def house_experiment_phase(card: str, dev, out_dir: Path) -> None:
                             log=logs[i].append))
         runs[-1]["wall_s"] = time.perf_counter() - t0
         if i == 0:
-            csvs = {name: (out_dir / name).read_text() for name in names}
+            csvs = {name: (out_dir / name).read_text() for name in HOUSE_CSVS}
     missing = [f for f in HOUSE_FILES if not (out_dir / f).is_file()]
+    provenance = check_run_provenance(str(out_dir))
     flips = {}
     for name in names:
         with open(out_dir / name) as f:
@@ -1119,6 +1207,13 @@ def house_experiment_phase(card: str, dev, out_dir: Path) -> None:
                      for r in ladder],
           "per_target_flip": flips[names[0]],
           "per_target_flip_reference_protocol": flips[names[1]],
+          "feature_shift_top3": [r["feature"] for r in _csv_rows(
+              out_dir / "feature_shift_importance.csv")[:3]],
+          "case_studies": _csv_rows(
+              out_dir / "case_studies/case_study_aggregate_summary.csv")[0],
+          "mask_policies": len(_csv_rows(
+              out_dir / "mask_policy_analysis.csv")) // 4,
+          "provenance": provenance,
           "missing": missing, "rerun_trained": trained_again, "ok": ok})
     if not ok:
         fail("the house experiment's run dir or its rerun came out wrong")
@@ -1223,6 +1318,204 @@ def house_serve_phase(card: str, dev, data, fallback_dir: Path) -> None:
         * 1e3}
     report["ok"] = True
     emit(report)
+
+
+def moons_data_phase(card: str) -> tuple:
+    """The three-class moons through `load_moons3`: split sizes and class
+    counts; one line.  Returns what `load_moons3` returns."""
+    import numpy as np
+
+    from cfgan_torch.data.moons import load_moons3
+
+    t0 = time.perf_counter()
+    data = load_moons3()
+    load_s = time.perf_counter() - t0
+    (xtr, ytr), (xte, yte), _ = data
+    sizes = {"train": len(ytr), "test": len(yte)}
+    counts = {name: np.bincount(y, minlength=3).tolist()
+              for name, y in (("train", ytr), ("test", yte))}
+    ok = (sizes == MOONS_SIZES and xtr.shape[1] == xte.shape[1] == 2
+          and [a + b for a, b in zip(counts["train"], counts["test"])]
+          == [400, 400, 400]
+          and all(x.dtype == np.float32 and np.isfinite(x).all()
+                  and x.min() > -1e-5 and x.max() < 1 + 1e-5
+                  for x in (xtr, xte)))
+    emit({"phase": "moons data", "card": card, "sizes": sizes,
+          "per_class": counts, "load_s": load_s, "ok": ok})
+    if not ok:
+        fail(f"the moons data came out wrong: {sizes}, {counts}")
+    return data
+
+
+def _moons_bundle(dev, data=None):
+    """The shipped moons preset at full width on the card, initial weights
+    from SEED, on a random frozen classifier (`data` is not needed: the
+    signature is the house bundle's)."""
+    import torch
+
+    from cfgan_torch.core.config import MOONS_COUNTERGAN
+    from cfgan_torch.models.classifiers import MLPClassifier
+    from cfgan_torch.train.builders import build_moons_countergan
+
+    clf = MLPClassifier(generator=torch.Generator().manual_seed(SEED))
+    return build_moons_countergan(MOONS_COUNTERGAN, clf.state_dict(),
+                                  seed=SEED, device=dev)
+
+
+# what `mlp_train_phase` and `mlp_runner_phase` take of each family: its
+# bundle, batch, features, eager steps, and the replayed epochs timed a
+# turn (the moons epoch is 15 steps)
+MLP_FAMILIES = {
+    "house": {"bundle": _house_bundle, "batch": TRAIN_BATCH,
+              "features": HOUSE_FEATURES, "steps": HOUSE_STEPS,
+              "timed_epochs": 1},
+    "moons": {"bundle": _moons_bundle, "batch": MOONS_BATCH, "features": 2,
+              "steps": MOONS_STEPS, "timed_epochs": MOONS_TIMED_EPOCHS}}
+
+
+def _csv_rows(path: Path) -> list[dict]:
+    import csv
+
+    with open(path) as f:
+        return list(csv.DictReader(f))
+
+
+def _csv_gap(got: Path, want: Path) -> float | None:
+    """The largest difference between the numbers of two CSVs of the same
+    layout (None where `want` is missing or the layouts differ)."""
+    if not want.is_file():
+        return None
+    a, b = _csv_rows(got), _csv_rows(want)
+    if len(a) != len(b) or any(r.keys() != s.keys() for r, s in zip(a, b)):
+        return None
+    gap = 0.0
+    for r, s in zip(a, b):
+        for k in r:
+            try:
+                gap = max(gap, abs(float(r[k] or "nan")
+                                   - float(s[k] or "nan")))
+            except ValueError:
+                if r[k] != s[k]:
+                    return None
+    return gap
+
+
+def moons_experiment_phase(card: str, dev) -> None:
+    """`run()` of the port's moons experiment with the full shipped preset
+    into build/, then again on it; then `run()` on a copy of the committed
+    run dir, on the card and on the CPU; one line."""
+    import numpy as np
+
+    from cfgan_torch.core.provenance import (
+        check_run_provenance,
+        serving_candidate_of,
+    )
+    from cfgan_torch.experiments import moons_countergan as exp
+    from cfgan_torch.experiments.presets import MOONS_COUNTERGAN as PRESET
+
+    out_dir = HERE / "build" / "smoke_moons_experiment"
+    copies = {d: HERE / "build" / f"smoke_moons_committed_{d}"
+              for d in ("card", "cpu")}
+    names = ("countergan_metrics.csv", "countergan_metrics_per_mask.csv")
+    for d in (out_dir, *copies.values()):
+        shutil.rmtree(d, ignore_errors=True)
+    try:
+        logs, runs, csvs = [[], []], [], {}
+        for i in range(2):
+            t0 = time.perf_counter()
+            runs.append(exp.run(PRESET, out_dir=str(out_dir), device=dev,
+                                log=logs[i].append))
+            runs[-1]["wall_s"] = time.perf_counter() - t0
+            if i == 0:
+                csvs = {n: (out_dir / n).read_text() for n in names}
+        missing = [f for f in MOONS_FILES if not (out_dir / f).is_file()]
+        flips = [float(r["class_flip_rate"])
+                 for r in _csv_rows(out_dir / names[0])]
+        ladder = runs[0]["serving_selection"]["ladder"]
+        rungs = [(r["epoch"], r["candidate"]) for r in ladder]
+        want_rungs = [(e, "live") for e in range(
+            PRESET.countergan.snapshot_every, PRESET.countergan.epochs + 1,
+            PRESET.countergan.snapshot_every)]
+        runner = runs[0]["bundle"].epoch_fn
+        trained_again = any("[CounteRGAN] epoch" in ln or "[Classifier]" in ln
+                            for ln in logs[1])
+        provenance = check_run_provenance(str(out_dir))
+        committed = {"per_target_flip": None, "provenance": None}
+        if (MOONS_RUN_DIR / names[0]).is_file():
+            committed["per_target_flip"] = [
+                float(r["class_flip_rate"])
+                for r in _csv_rows(MOONS_RUN_DIR / names[0])]
+        if (MOONS_RUN_DIR / "run_provenance.json").is_file():
+            committed["provenance"] = json.loads(
+                (MOONS_RUN_DIR / "run_provenance.json").read_text())
+        # the committed run dir's weights, evaluated on the card and on
+        # the CPU
+        loaded = {}
+        for where, d in copies.items():
+            for part in ("classifier", "generator"):
+                shutil.copytree(MOONS_RUN_DIR / part, d / part)
+            lines = []
+            t0 = time.perf_counter()
+            res = exp.run(PRESET, out_dir=str(d),
+                          device=dev if where == "card" else "cpu",
+                          log=lines.append)
+            loaded[where] = {
+                "wall_s": time.perf_counter() - t0,
+                "trained": res["history"] != {} or any(
+                    "[CounteRGAN]" in ln or "[Classifier]" in ln
+                    for ln in lines),
+                "candidate": check_run_provenance(str(d))[
+                    "serving_candidate"]}
+        card_vs_cpu = {n: _csv_gap(copies["card"] / n, copies["cpu"] / n)
+                       for n in names}
+        vs_committed = {n: _csv_gap(copies["card"] / n, MOONS_RUN_DIR / n)
+                        for n in names}
+        report = {
+            "phase": "moons experiment", "card": card, "preset": PRESET.name,
+            "classifier_steps": PRESET.classifier.steps,
+            "epochs": PRESET.countergan.epochs,
+            "snapshot_every": PRESET.countergan.snapshot_every,
+            "steps": runs[0]["bundle"].state.step,
+            "runner_captures": runner.captures,
+            "runner_replays": runner.replays,
+            "stage_seconds": runs[0]["stage_seconds"],
+            "run_wall_s": runs[0]["wall_s"],
+            "rerun_stage_seconds": runs[1]["stage_seconds"],
+            "rerun_wall_s": runs[1]["wall_s"],
+            "classifier_test_accuracy": runs[0]["classifier"]["accuracy"],
+            "serving_candidate": provenance["serving_candidate"],
+            "ladder": [(r["epoch"], r["candidate"], r["score"])
+                       for r in ladder],
+            "per_target_flip": flips,
+            "committed_per_target_flip": committed["per_target_flip"],
+            "committed_serving_candidate": (committed["provenance"] or {}).get(
+                "serving_candidate"),
+            "history_flip_rate_last": runs[0]["history"]["flip_rate"][-1],
+            "missing": missing, "rerun_trained": trained_again,
+            "committed_run_dir": loaded,
+            "committed_card_vs_cpu_max_abs_gap": card_vs_cpu,
+            "committed_card_vs_committed_csv_max_abs_gap": vs_committed,
+            "tolerance": f"rerun CSVs byte for byte; committed weights on "
+                         f"the card vs the CPU within {MOONS_CPU_ATOL}"}
+        ok = (not missing and len(flips) == 3 and np.isfinite(flips).all()
+              and rungs == want_rungs and runner.captures == 1
+              and runs[0]["bundle"].state.step == PRESET.countergan.epochs
+              * MOONS_SIZES["train"] // MOONS_BATCH
+              and not trained_again and runs[1]["history"] == {}
+              and all((out_dir / n).read_text() == t for n, t in csvs.items())
+              and not any(v["trained"] for v in loaded.values())
+              and all(v["candidate"] == serving_candidate_of(
+                  str(MOONS_RUN_DIR)) for v in loaded.values())
+              and all(g is not None and g <= MOONS_CPU_ATOL
+                      for g in card_vs_cpu.values()))
+        report["ok"] = bool(ok)
+        emit(report)
+        if not ok:
+            fail("the moons experiment's run dir, its rerun or the "
+                 "committed run dir's evaluation came out wrong")
+    finally:
+        for d in (out_dir, *copies.values()):
+            shutil.rmtree(d, ignore_errors=True)
 
 
 def _same_result(got, want) -> bool:
@@ -1943,6 +2236,7 @@ def main() -> None:
 
     epi_err = {"fwd": 0.0, "bwd": 0.0}
     epi_err_house = {"fwd": 0.0, "bwd": 0.0}  # at the house step's rows
+    epi_err_moons = {"fwd": 0.0, "bwd": 0.0}  # at the moons step's rows
     with Phase("kernel cf_epilogue"):
         variants = set()
         for b, n, off in EPI_CASES:
@@ -1997,6 +2291,11 @@ def main() -> None:
                     epi_err_house["fwd"] = max(epi_err_house["fwd"], cf_err,
                                                sum_abs)
                     epi_err_house["bwd"] = max(epi_err_house["bwd"], dx_err,
+                                               draw_err)
+                if (b, n) == (MOONS_BATCH, 2):
+                    epi_err_moons["fwd"] = max(epi_err_moons["fwd"], cf_err,
+                                               sum_abs)
+                    epi_err_moons["bwd"] = max(epi_err_moons["bwd"], dx_err,
                                                draw_err)
         if variants != {(k, v) for k in ("fwd", "bwd")
                         for v in ("16-byte", "4-byte")}:
@@ -2173,11 +2472,11 @@ def main() -> None:
         house = house_data_phase(card)
 
     with Phase("house train"):
-        house_launches = house_train_phase(card, dev, house, counts,
-                                           zero_counts, plain_epilogue)
+        house_launches = mlp_train_phase(card, dev, "house", house, counts,
+                                         zero_counts, plain_epilogue)
 
     with Phase("house epoch runner"):
-        house_runner_phase(card, dev, house, counts, zero_counts)
+        mlp_runner_phase(card, dev, "house", house, counts, zero_counts)
 
     house_dir = HERE / "build" / "smoke_house_experiment"
     try:
@@ -2187,6 +2486,20 @@ def main() -> None:
             house_serve_phase(card, dev, house, house_dir)
     finally:
         shutil.rmtree(house_dir, ignore_errors=True)
+
+    # ------------------------------------------ the moons CounteRGAN
+    with Phase("moons data"):
+        moons = moons_data_phase(card)
+
+    with Phase("moons train"):
+        moons_launches = mlp_train_phase(card, dev, "moons", moons, counts,
+                                         zero_counts, plain_epilogue)
+
+    with Phase("moons epoch runner"):
+        mlp_runner_phase(card, dev, "moons", moons, counts, zero_counts)
+
+    with Phase("moons experiment"):
+        moons_experiment_phase(card, dev)
 
     # ------------------------------------------ the serving front door
     with Phase("api"):
@@ -2280,6 +2593,8 @@ def main() -> None:
         time_train_steps(card, dev, clf_sd, train_x, train_y)
         epi = time_epilogue(card, dev)
         epi_house = time_epilogue(card, dev, n=HOUSE_FEATURES)
+        epi_moons = time_epilogue(card, dev, n=2, b=MOONS_BATCH,
+                                  bounds=(-1e30, 1e30))
 
     def entry(name, source, replaces, launched, err, t):
         return {"name": name, "route": "cuda", "source": source,
@@ -2317,6 +2632,13 @@ def main() -> None:
         entry(f"{name}_house_128x17", "cfgan_torch/csrc/epilogue.cu",
               replaces, house_launches[k], epi_err_house[key],
               epi_house[name])
+        for k, (name, key, replaces) in enumerate((
+            ("cf_epilogue_fwd", "fwd", "cfgan/ops/epilogue.py:54"),
+            ("cf_epilogue_bwd", "bwd", "cfgan/ops/epilogue.py:67")))] + [
+        # and on the moons path, at its (64, 2) rows, unclamped
+        entry(f"{name}_moons_64x2", "cfgan_torch/csrc/epilogue.cu",
+              replaces, moons_launches[k], epi_err_moons[key],
+              epi_moons[name])
         for k, (name, key, replaces) in enumerate((
             ("cf_epilogue_fwd", "fwd", "cfgan/ops/epilogue.py:54"),
             ("cf_epilogue_bwd", "bwd", "cfgan/ops/epilogue.py:67")))]})

@@ -757,3 +757,104 @@ def test_wire_round_trip_equals_the_engine_on_the_card(app, monkeypatch):
     finally:
         server.shutdown()
         server.server_close()
+
+
+# ------------------------------------------------------------ moons
+def _moons_pair(dev, seed=0):
+    """Two moons bundles (the shipped preset at full width) from one
+    initial state, the training set on the card, one epoch's permutation
+    (15 steps of 64) and draws."""
+    from cfgan_torch.core.config import MOONS_COUNTERGAN
+    from cfgan_torch.data.moons import load_moons3
+    from cfgan_torch.data.pipeline import epoch_perm
+    from cfgan_torch.models.classifiers import MLPClassifier
+    from cfgan_torch.train.builders import build_moons_countergan
+
+    (xtr, ytr), _, _ = load_moons3()
+    clf = MLPClassifier(generator=torch.Generator().manual_seed(0))
+    a, b = (build_moons_countergan(MOONS_COUNTERGAN, clf.state_dict(),
+                                   seed=seed, device=dev) for _ in range(2))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.as_tensor(xtr).to(dev)
+    y = torch.as_tensor(ytr).to(dev, torch.long)
+    perm = epoch_perm(g, len(y), 64)
+    return a, b, x, y, perm, a.draw_fn(g, tuple(perm.shape))
+
+
+def test_moons_step_on_the_kernels_equals_the_plain_epilogue(monkeypatch):
+    """Three moons steps launch the epilogue kernels once forward and once
+    backward each, in the 4-byte variant ((64, 2) rows, unclamped), and
+    give the losses of the same steps on the plain epilogue within 1e-4
+    and the same critic `u`."""
+    dev = _card()
+    a, b, x, y, perm, draws = _moons_pair(dev)
+    f0, b0 = tep.cf_epilogue_fwd.launches, tep.cf_epilogue_bwd.launches
+    got = [a.step_from_draws(a.state, x[perm[i]], y[perm[i]],
+                             {k: v[i] for k, v in draws.items()})
+           for i in range(3)]
+    torch.cuda.synchronize()
+    assert (tep.cf_epilogue_fwd.launches - f0,
+            tep.cf_epilogue_bwd.launches - b0) == (3, 3)
+    assert tep.cf_epilogue_fwd.last_float4 is False
+    assert tep.cf_epilogue_bwd.last_float4 is False
+    monkeypatch.setattr(tep, "cf_epilogue_fwd", tep.cf_epilogue_fwd_plain)
+    monkeypatch.setattr(tep, "cf_epilogue_bwd", tep.cf_epilogue_bwd_plain)
+    want = [b.step_from_draws(b.state, x[perm[i]], y[perm[i]],
+                              {k: v[i] for k, v in draws.items()})
+            for i in range(3)]
+    for g_, w in zip(got, want):
+        for k in ("d_loss", "g_loss"):
+            assert abs(g_[k].item() - w[k].item()) <= 1e-4, k
+    for (name, m), n in zip(a.state.d.model.named_children(),
+                            b.state.d.model.children()):
+        assert torch.allclose(m.u, n.u, atol=1e-5), name
+
+
+def test_moons_replayed_steps_equal_eager_steps():
+    """A moons epoch (15 steps: 3 eager, a capture, 12 replays) equals the
+    same steps run eagerly, bit for bit: every step's metrics, and every
+    parameter, BatchNorm statistic, critic `u` and Adam tensor."""
+    dev = _card()
+    from cfgan_torch.train.countergan import make_epoch_runner
+
+    a, b, x, y, perm, draws = _moons_pair(dev)
+    runner = make_epoch_runner(a.step_from_draws, reduce=False)
+    got = runner(a.state, x, y, perm, draws)
+    assert (runner.captures, runner.replays) == (1, 15 - 3)
+    for i in range(perm.shape[0]):
+        m = b.step_from_draws(b.state, x[perm[i]], y[perm[i]],
+                              {k: v[i] for k, v in draws.items()})
+        for k, v in m.items():
+            assert got[k][i] == np.float32(v.item()), (i, k)
+    for net in ("g", "d"):
+        sa, sb = getattr(a.state, net), getattr(b.state, net)
+        for (name, t), u in zip(sa.model.state_dict().items(),
+                                sb.model.state_dict().values()):
+            assert torch.equal(t, u), (net, name)
+        for p, q in zip(sa.model.parameters(), sb.model.parameters()):
+            for key in ("exp_avg", "exp_avg_sq", "step"):
+                assert torch.equal(sa.opt.state[p][key], sb.opt.state[q][key])
+    assert a.state.g_ema is None and b.state.g_ema is None
+
+
+def test_moons_experiment_runs_on_the_card(tmp_path):
+    """`run()` of the moons experiment on the card (20 classifier steps, 2
+    epochs): every epoch's steps through the runner, the run dir and its
+    provenance record, and a rerun that trains nothing."""
+    dev = _card()
+    from cfgan_torch.core.provenance import check_run_provenance
+    from cfgan_torch.experiments import moons_countergan as exp
+    from cfgan_torch.experiments.presets import MOONS_COUNTERGAN as PRESET
+
+    cfg = PRESET.replace(classifier=replace(PRESET.classifier, steps=20),
+                         countergan=replace(PRESET.countergan, epochs=2))
+    out = exp.run(cfg, out_dir=str(tmp_path), device=dev, log=lambda s: None)
+    runner = out["bundle"].epoch_fn
+    assert runner.captures == 1 and runner.replays == 2 * 15 - 3
+    assert check_run_provenance(str(tmp_path))["serving_candidate"] == \
+        "snapshot_e2_live"
+    text = (tmp_path / "countergan_metrics_per_mask.csv").read_text()
+    again = exp.run(cfg, out_dir=str(tmp_path), device=dev,
+                    log=lambda s: None)
+    assert again["history"] == {}
+    assert (tmp_path / "countergan_metrics_per_mask.csv").read_text() == text

@@ -434,7 +434,10 @@ def test_select_g_serving_variables_scores_under_the_serving_mask(data):
                                               info["scores"][n]["mean_flip"]))
     assert info["candidate"] == best
     live = per_target_metrics(
-        make_per_target_sweep(port.cf_fn, logits_fn, 4),
+        make_per_target_sweep(port.cf_fn, logits_fn, 4,
+                              exclude_same_class=False,
+                              pred_gain_mode="cf_target_minus_cf_true",
+                              actionability_mode="x_cf_minus_x"),
         live_g_variables(port.state), x, y, mask_fn=mask_fn, num_classes=4,
         key=key)
     assert info["scores"]["live"]["worst_flip"] == round(

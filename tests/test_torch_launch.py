@@ -367,7 +367,7 @@ def test_port_listing_names_its_entry_points_and_presets(capsys):
     out = capsys.readouterr().out
     assert ("python -m cfgan_torch.serve.launch --app mnist|house|moons "
             "--api") in out
-    for exp in ("mnist_countergan", "house_countergan"):
+    for exp in ("moons_countergan", "mnist_countergan", "house_countergan"):
         assert f"python -m cfgan_torch.experiments.{exp}" in out
     for name in PRESETS:
         assert f"  {name}\n" in out

@@ -143,7 +143,10 @@ def test_per_target_metrics_match_jax(pair):
     want = jax_ptm(jsweep, gv_jax, x, y,
                    mask_fn=lambda b: jnp.ones((b, 28, 28, 1), jnp.float32),
                    key=jax.random.key(0), num_classes=10, batch_size=16)
-    psweep = make_per_target_sweep(port.cf_fn, clf, 10)
+    psweep = make_per_target_sweep(
+        port.cf_fn, clf, 10, exclude_same_class=False,
+        pred_gain_mode="cf_target_minus_cf_true",
+        actionability_mode="x_cf_minus_x")
     gv = {**port.state.g_ema, **dict(port.state.g.model.named_buffers())}
     got = per_target_metrics(psweep, gv, x, y,
                              mask_fn=lambda b: torch.ones((b, 28, 28, 1)),
