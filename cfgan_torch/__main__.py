@@ -12,6 +12,9 @@ Experiments (classifier pretrain -> CounteRGAN train -> selection -> eval):
   python -m cfgan_torch.experiments.mnist_countergan  [--seed N] [--epochs N] [--clf-epochs N] [--limit N] [--fresh] [--device cpu]
   python -m cfgan_torch.experiments.house_countergan  [--seed N] [--epochs N] [--clf-epochs N] [--limit N] [--preset NAME] [--device cpu]
 
+Plain generation (the simple, conditional, DCGAN and WGAN-GP families):
+  python -m cfgan_torch.experiments.generation --preset simple_gan_moons|simple_gan_mnist|cgan_moons|wgan_gp_mnist|dcgan_mnist [--epochs N] [--limit N] [--out-dir D] [--seed N] [--device cpu]
+
 Serving (the HTTP API; cfgan_torch.serve.CFClient speaks to it):
   python -m cfgan_torch.serve.launch --app mnist|house|moons --api [--results DIR] [--port P] [--host H] [--device cpu]
 

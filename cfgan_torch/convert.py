@@ -7,7 +7,11 @@ hold them, into a state dict for the port's `module`, with the layouts of
 torch's (out, in); a conv kernel (3, 3, Cin, Cout) becomes OIHW for a
 layer on `F.conv2d` and stays HWIO for a layer routed to the 3x3 kernel,
 which is the kernel's layout.  A flax `Conv` wraps its parameters in a
-child scope `Conv_0`; the port's `Conv` holds them itself.
+child scope `Conv_0`; the port's `Conv` holds them itself.  A
+`ConvTranspose` kernel, flax's `transpose_kernel=True` (k, k, out, in)
+under the child scope `ConvTranspose_0`, becomes torch's (in, out, k, k)
+by `transpose(3, 2, 0, 1)`, with no spatial flip.  An `InstanceNorm`'s
+`scale` is its `weight`.
 
 A `SpectralLinear`'s power-iteration vector is the `u` buffer here and
 `spectral_stats/u` there.
@@ -32,8 +36,19 @@ import numpy as np
 import torch
 from torch import nn
 
-from cfgan_torch.nn.layers import BatchNorm, Conv, Embed, Linear, SpectralLinear
+from cfgan_torch.nn.layers import (
+    BatchNorm,
+    Conv,
+    ConvTranspose,
+    Embed,
+    InstanceNorm,
+    Linear,
+    SpectralLinear,
+)
 from cfgan_torch.train.state import GANState, NetState
+
+# the child scope a flax layer wraps its parameters in, by port layer
+_CHILD_SCOPES = {Conv: "Conv_0", ConvTranspose: "ConvTranspose_0"}
 
 
 def _leaves(tree: Mapping, path: tuple = ()) -> Iterator[tuple[tuple, Any]]:
@@ -56,7 +71,11 @@ def _convert(sub: nn.Module, collection: str, name: str,
                 return (("kernel", a) if sub.impl
                         else ("weight", a.transpose(3, 2, 0, 1)))
             return ("bias", a) if name == "bias" else None
-        if isinstance(sub, BatchNorm):
+        if isinstance(sub, ConvTranspose):
+            if name == "kernel":
+                return "weight", a.transpose(3, 2, 0, 1)
+            return ("bias", a) if name == "bias" else None
+        if isinstance(sub, (BatchNorm, InstanceNorm)):
             return {"scale": ("weight", a), "bias": ("bias", a)}.get(name)
         if isinstance(sub, Embed) and name == "embedding":
             return "weight", a
@@ -84,8 +103,8 @@ def state_dict_from_flax(module: nn.Module,
         for path, leaf in _leaves(tree):
             where = f"{collection}/{'/'.join(path)}"
             scope = path[:-1]
-            if (scope and scope[-1] == "Conv_0"
-                    and isinstance(subs.get(".".join(scope[:-1])), Conv)):
+            if scope and scope[-1] == _CHILD_SCOPES.get(
+                    type(subs.get(".".join(scope[:-1])))):
                 scope = scope[:-1]
             prefix = ".".join(scope)
             sub = subs.get(prefix)
@@ -128,6 +147,15 @@ def _to_flax(sub: nn.Module, name: str, t: np.ndarray
             return "params", ("Conv_0", "kernel"), t.transpose(2, 3, 1, 0)
         return {"kernel": ("params", ("Conv_0", "kernel"), t),
                 "bias": ("params", ("Conv_0", "bias"), t)}.get(name)
+    if isinstance(sub, ConvTranspose):
+        if name == "weight":  # (in, out, k, k) -> (k, k, out, in)
+            return ("params", ("ConvTranspose_0", "kernel"),
+                    t.transpose(2, 3, 1, 0))
+        return (("params", ("ConvTranspose_0", "bias"), t) if name == "bias"
+                else None)
+    if isinstance(sub, InstanceNorm):
+        return {"weight": ("params", ("scale",), t),
+                "bias": ("params", ("bias",), t)}.get(name)
     if isinstance(sub, BatchNorm):
         return {"weight": ("params", ("scale",), t),
                 "bias": ("params", ("bias",), t),

@@ -1,10 +1,12 @@
 """Configuration of the moons, MNIST and King County house CounteRGAN
-experiments: their data, classifier pretrain, generator serving and
-training, and the tabular feature schema (mirrors `cfgan/core/config.py`;
-the experiment presets are in `cfgan_torch/experiments/presets.py`).
+experiments (their data, classifier pretrain, generator serving and
+training, and the tabular feature schema) and of the plain-generation GAN
+families (mirrors `cfgan/core/config.py`; the experiment presets are in
+`cfgan_torch/experiments/presets.py`).
 
-The JAX package's `remat` and `g_microbatch` are not ported, so they are
-not fields here: a config cannot ask for them and be silently ignored.
+The JAX package's `remat` and `g_microbatch` are not ported, and its
+`GANConfig.sample_every` is read by neither package, so they are not
+fields here: a config cannot ask for them and be silently ignored.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ from typing import Mapping
 class DataConfig:
     """Dataset selection and loading (`cfgan.core.config.DataConfig`)."""
 
-    name: str = "moons"  # moons | mnist | kc_house
+    name: str = "moons"  # moons | moons2 | mnist | kc_house
     batch_size: int = 64
     valid_fraction: float = 0.0  # stratified valid split (mnist: 0.1)
     test_fraction: float = 0.2  # train/test split for array datasets
@@ -114,6 +116,33 @@ class CounterGANConfig:
 
 
 @dataclass(frozen=True)
+class GANConfig:
+    """The plain-generation families (`cfgan.core.config.GANConfig`, every
+    field and default but `sample_every`, which nothing reads: the
+    generation run samples its fixed noise every tenth of its epochs).
+    `family` is one of simple_mlp, mlp_image, cgan_mlp, dcgan, wgan_gp;
+    `n_critic` > 1 updates the generator on the
+    steps whose global index is a multiple of it (WGAN-GP: 5);
+    `g_before_d` updates the generator before the discriminator (the
+    simple MNIST GAN); `compute_dtype` "bfloat16" runs both networks'
+    forwards and backwards in bf16 with float32 parameters, optimizer
+    state and losses."""
+
+    family: str = "simple_mlp"
+    epochs: int = 500
+    lr_g: float = 1e-3
+    lr_d: float = 1e-3
+    beta1: float = 0.9
+    beta2: float = 0.999
+    latent_dim: int = 32
+    hidden_dim: int = 128
+    n_critic: int = 1
+    gp_lambda: float = 10.0
+    g_before_d: bool = False
+    compute_dtype: str = "float32"
+
+
+@dataclass(frozen=True)
 class TabularSchema:
     """Feature schema of a tabular CounteRGAN (`cfgan.core.config.
     TabularSchema`): the feature names in column order, the features no
@@ -152,15 +181,18 @@ class TabularSchema:
 @dataclass(frozen=True)
 class ExperimentConfig:
     """One runnable experiment (`cfgan.core.config.ExperimentConfig`,
-    without the parts the port has no path for: `gan`, `sharding`,
-    `schema`)."""
+    without the parts the port has no path for: `sharding` and `schema`).
+    A CounteRGAN experiment sets `countergan`, a plain-generation one
+    `gan` and `countergan=None`."""
 
     name: str = "moons_countergan"
     seed: int = 42
     num_classes: int = 3
     data: DataConfig = field(default_factory=DataConfig)
     classifier: ClassifierConfig = field(default_factory=ClassifierConfig)
-    countergan: CounterGANConfig = field(default_factory=CounterGANConfig)
+    countergan: CounterGANConfig | None = field(
+        default_factory=CounterGANConfig)
+    gan: GANConfig | None = None
     out_dir: str = "results"
 
     def replace(self, **kw) -> "ExperimentConfig":

@@ -1,6 +1,9 @@
 """Device resolution for the port's entry points."""
 from __future__ import annotations
 
+import contextlib
+from typing import Iterator
+
 import torch
 
 
@@ -22,3 +25,18 @@ def torch_dtype(name: str) -> torch.dtype:
     if name not in dtypes:
         raise ValueError(f"unsupported compute dtype {name!r}")
     return dtypes[name]
+
+
+@contextlib.contextmanager
+def deterministic_cudnn() -> Iterator[None]:
+    """cuDNN's deterministic algorithms, with its autotuner off, inside the
+    block; the previous settings after it.  The default algorithms of a
+    transposed conv may give other bits for the same weights and inputs
+    from one call to the next."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved

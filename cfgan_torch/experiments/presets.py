@@ -1,6 +1,7 @@
 """The moons, MNIST and King County house CounteRGAN experiment presets
-(mirrors those entries of `cfgan/experiments/presets.py`, under the same
-names); `PRESETS` maps each name to its preset.
+and the five plain-generation presets (mirrors
+`cfgan/experiments/presets.py`, under the same names); `PRESETS` maps
+each name to its preset.
 
 `cfgan_torch.core.config.MOONS_COUNTERGAN`, `MNIST_COUNTERGAN`,
 `HOUSE_COUNTERGAN` and their `..._REFERENCE`s are the `CounterGANConfig`s
@@ -69,6 +70,62 @@ HOUSE_COUNTERGAN = HOUSE_COUNTERGAN_REFERENCE.replace(
 HOUSE_REFERENCE_FLIPS = (0.9999999824692222, 0.9906153240624596,
                          0.9796906499301686, 0.995971225640353)
 
+# ------------------------------------------------------ generation families
+#: simple_gan/moons/make_moons_gan.py:15-21
+SIMPLE_GAN_MOONS = C.ExperimentConfig(
+    name="simple_gan_moons",
+    num_classes=2,
+    data=C.DataConfig(name="moons2", batch_size=50),
+    countergan=None,
+    gan=C.GANConfig(family="simple_mlp", epochs=500, lr_g=1e-3, lr_d=1e-3,
+                    latent_dim=32, hidden_dim=128),
+)
+
+#: simple_gan/mnist/mnist_gan.py:22-32 (its argparse defaults)
+SIMPLE_GAN_MNIST = C.ExperimentConfig(
+    name="simple_gan_mnist",
+    num_classes=10,
+    data=C.DataConfig(name="mnist", batch_size=64, valid_fraction=0.0),
+    countergan=None,
+    gan=C.GANConfig(family="mlp_image", epochs=20, lr_g=2e-4, lr_d=2e-4,
+                    beta1=0.5, beta2=0.999, latent_dim=100, g_before_d=True),
+)
+
+#: conditional_gan/moons/make_moons_cgan.py:10-21
+CGAN_MOONS = C.ExperimentConfig(
+    name="cgan_moons",
+    num_classes=2,
+    data=C.DataConfig(name="moons2", batch_size=64),
+    countergan=None,
+    gan=C.GANConfig(family="cgan_mlp", epochs=500, lr_g=1e-3, lr_d=1e-3,
+                    latent_dim=32, hidden_dim=128),
+)
+
+#: conditional_gan/mnist/mnist_wgan_conditional.py:20-32
+WGAN_GP_MNIST = C.ExperimentConfig(
+    name="wgan_gp_mnist",
+    num_classes=10,
+    data=C.DataConfig(name="mnist", batch_size=128),
+    countergan=None,
+    gan=C.GANConfig(family="wgan_gp", epochs=20, lr_g=1e-4, lr_d=1e-4,
+                    beta1=0.0, beta2=0.9, latent_dim=32, hidden_dim=1024,
+                    n_critic=5, gp_lambda=10.0),
+)
+
+#: dconv_gan/mnist/mnist_dcgan.py:15-30
+DCGAN_MNIST = C.ExperimentConfig(
+    name="dcgan_mnist",
+    num_classes=10,
+    data=C.DataConfig(name="mnist", batch_size=128, resize_to=64),
+    countergan=None,
+    gan=C.GANConfig(family="dcgan", epochs=5, lr_g=2e-4, lr_d=2e-4,
+                    beta1=0.5, beta2=0.999, latent_dim=100, hidden_dim=64),
+)
+
+GENERATION_PRESETS = (SIMPLE_GAN_MOONS, SIMPLE_GAN_MNIST, CGAN_MOONS,
+                      WGAN_GP_MNIST, DCGAN_MNIST)
+
 PRESETS = {p.name: p for p in (
     MOONS_COUNTERGAN, MOONS_COUNTERGAN_REFERENCE, MNIST_COUNTERGAN,
-    MNIST_COUNTERGAN_REFERENCE, HOUSE_COUNTERGAN, HOUSE_COUNTERGAN_REFERENCE)}
+    MNIST_COUNTERGAN_REFERENCE, HOUSE_COUNTERGAN, HOUSE_COUNTERGAN_REFERENCE,
+    *GENERATION_PRESETS)}

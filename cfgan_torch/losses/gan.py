@@ -1,8 +1,9 @@
-"""The GAN losses the CounteRGAN step uses (mirrors `cfgan/losses/gan.py`).
+"""The GAN losses (mirrors `cfgan/losses/gan.py`).
 
 * BCE-with-logits real/fake (MNIST CounteRGAN).
-* Non-saturating log-loss on sigmoid probabilities (`clipped_log`).
-* Wasserstein mean difference.
+* Non-saturating log-loss on sigmoid probabilities (`clipped_log`, the
+  plain-generation families).
+* Wasserstein mean difference, and WGAN-GP's gradient penalty.
 """
 from __future__ import annotations
 
@@ -70,3 +71,24 @@ def d_loss_wasserstein(real_scores, fake_scores):
 
 def g_loss_wasserstein(fake_scores):
     return -torch.mean(fake_scores)
+
+
+def gradient_penalty(critic_fn, real: torch.Tensor, fake: torch.Tensor,
+                     eps: torch.Tensor, *cond) -> torch.Tensor:
+    """WGAN-GP's penalty without its lambda, mean((|grad_x D(x_hat)| -
+    1)^2) over the batch (`cfgan.losses.gan.gradient_penalty`).
+
+    x_hat = eps real + (1 - eps) fake, `eps` one uniform draw a sample
+    (any shape of B elements; it is broadcast over the sample's other
+    axes); `critic_fn(x, *cond) -> scores`.  The gradient is taken with
+    `create_graph=True`, so the penalty's own gradient reaches the
+    critic's parameters by double backward.  The norm is
+    sqrt(sum g^2 + 1e-12), in float32 for a float32 `real`."""
+    b = real.shape[0]
+    eps = eps.reshape(b, *([1] * (real.dim() - 1))).to(real.dtype)
+    x_hat = (eps * real + (1.0 - eps) * fake).detach().requires_grad_(True)
+    scores = critic_fn(x_hat, *cond)
+    (grads,) = torch.autograd.grad(scores.sum(), x_hat, create_graph=True)
+    norms = torch.sqrt(torch.sum(grads ** 2,
+                                 dim=tuple(range(1, real.dim()))) + 1e-12)
+    return torch.mean((norms - 1.0) ** 2)

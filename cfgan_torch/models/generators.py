@@ -1,20 +1,30 @@
-"""The CounteRGAN residual generators (mirrors
-`cfgan/models/generators.py`): `MoonsResidualGenerator` (2-D moons),
+"""The generators (mirrors `cfgan/models/generators.py`): the CounteRGAN
+residual generators `MoonsResidualGenerator` (2-D moons),
 `ImageResidualGenerator` (MNIST, NHWC throughout) and
-`TabularResidualGenerator` (King County house)."""
+`TabularResidualGenerator` (King County house), and the plain-generation
+families' `MLPGenerator`, `ConditionalMLPGenerator`, `MLPImageGenerator`,
+`DCGANGenerator` and `WGANGenerator`.
+
+The plain-generation generators' BatchNorms use their batch statistics in
+train mode and their running statistics in eval mode (the JAX modules'
+`train` flag is the module's mode here); submodules are named as in the
+flax trees."""
 from __future__ import annotations
 
+import math
 from typing import Mapping, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cfgan_torch.nn import init as cinit
 from cfgan_torch.nn.gumbel import gumbel_softmax
 from cfgan_torch.nn.layers import (
     BatchNorm,
     Conv,
     ConvResBlock,
+    ConvTranspose,
     Embed,
     FiLMResidualBlock,
     Linear,
@@ -164,3 +174,144 @@ class TabularResidualGenerator(nn.Module):
             samples[idx] = gumbel_softmax(lg, noise[idx].to(head_dtype),
                                           tau=tau, hard=hard)
         return cont, logits, samples
+
+
+class MLPGenerator(nn.Module):
+    """The simple moons generator: z -> hidden, ReLU -> `out_dim`
+    (`cfgan.models.generators.MLPGenerator`).  As in the flax tree, whose
+    module builds the output layer first, `Linear_0` is the output layer
+    and `Linear_1` the hidden one."""
+
+    def __init__(self, latent_dim: int = 32, out_dim: int = 2,
+                 hidden_dim: int = 128,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.Linear_1 = Linear(latent_dim, hidden_dim, generator)
+        self.Linear_0 = Linear(hidden_dim, out_dim, generator)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        return self.Linear_0(F.relu(self.Linear_1(z)))
+
+
+class ConditionalMLPGenerator(nn.Module):
+    """The conditional moons generator: concat[z, label one-hot] ->
+    hidden, ReLU -> `out_dim` (`cfgan.models.generators.
+    ConditionalMLPGenerator`); `Linear_0` is the output layer, as in
+    `MLPGenerator`."""
+
+    def __init__(self, latent_dim: int = 32, num_classes: int = 2,
+                 out_dim: int = 2, hidden_dim: int = 128,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.Linear_1 = Linear(latent_dim + num_classes, hidden_dim,
+                               generator)
+        self.Linear_0 = Linear(hidden_dim, out_dim, generator)
+
+    def forward(self, z: torch.Tensor, label_onehot: torch.Tensor
+                ) -> torch.Tensor:
+        h = torch.cat([z, label_onehot], 1)
+        return self.Linear_0(F.relu(self.Linear_1(h)))
+
+
+class MLPImageGenerator(nn.Module):
+    """The simple MNIST generator: z -> [Linear, BatchNorm, LeakyReLU(0.2)]
+    at 128, 256, 512, 1024 (the first block without BatchNorm) -> Linear
+    to H W C, tanh, NHWC (`cfgan.models.generators.MLPImageGenerator`).
+    Its BatchNorms' eps is 0.8, as the reference's BatchNorm1d(out, 0.8)
+    sets it."""
+
+    widths = ((128, False), (256, True), (512, True), (1024, True))
+
+    def __init__(self, latent_dim: int = 100,
+                 img_shape: tuple[int, int, int] = (28, 28, 1),
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.img_shape = tuple(img_shape)
+        cin, n_bn = latent_dim, 0
+        for i, (width, normalize) in enumerate(self.widths):
+            self.add_module(f"Linear_{i}", Linear(cin, width, generator))
+            if normalize:
+                self.add_module(f"BatchNorm_{n_bn}",
+                                BatchNorm(width, epsilon=0.8))
+                n_bn += 1
+            cin = width
+        self.add_module(f"Linear_{len(self.widths)}",
+                        Linear(cin, math.prod(self.img_shape), generator))
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        h, n_bn = z, 0
+        for i, (_, normalize) in enumerate(self.widths):
+            h = getattr(self, f"Linear_{i}")(h)
+            if normalize:
+                h = getattr(self, f"BatchNorm_{n_bn}")(h)
+                n_bn += 1
+            h = leaky_relu(h, 0.2)
+        h = torch.tanh(getattr(self, f"Linear_{len(self.widths)}")(h))
+        return h.reshape(h.shape[0], *self.img_shape)
+
+
+class DCGANGenerator(nn.Module):
+    """The DCGAN generator: z as a (1, 1) image -> ConvTranspose k4 to 8g
+    (s1 p0), 4g, 2g, g (s2 p1), each bias-free with BatchNorm and ReLU ->
+    ConvTranspose k4 s2 p1 to `channels`, tanh: 64x64 NHWC
+    (`cfgan.models.generators.DCGANGenerator`).  N(0, 0.02) kernels,
+    BatchNorm scales 1 + 0.02 N(0, 1)."""
+
+    def __init__(self, latent_dim: int = 100, g_hidden: int = 64,
+                 channels: int = 1,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        g = g_hidden
+        specs = ((8 * g, 1, 0), (4 * g, 2, 1), (2 * g, 2, 1), (g, 2, 1))
+        cin = latent_dim
+        for i, (ch, s, p) in enumerate(specs):
+            self.add_module(f"tconv{i}", ConvTranspose(
+                cin, ch, 4, s, p, use_bias=False, normal_std=0.02,
+                generator=generator))
+            self.add_module(f"bn{i}", BatchNorm(
+                ch, scale_init=cinit.dcgan_bn_scale, generator=generator))
+            cin = ch
+        self.n_blocks = len(specs)
+        self.tconv_out = ConvTranspose(cin, channels, 4, 2, 1, use_bias=False,
+                                       normal_std=0.02, generator=generator)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        h = z.reshape(z.shape[0], 1, 1, z.shape[-1])
+        for i in range(self.n_blocks):
+            h = F.relu(getattr(self, f"bn{i}")(getattr(self, f"tconv{i}")(h)))
+        return torch.tanh(self.tconv_out(h))
+
+
+class WGANGenerator(nn.Module):
+    """The conditional WGAN-GP generator: Linear embeddings of z and the
+    label one-hot to gs/2 each, concat as a (1, 1, gs) image ->
+    ConvTranspose gs (k4 s1 p0), gs/2 (k3 s2 p1), gs/4 (k4 s2 p1), each
+    with BatchNorm and ReLU -> ConvTranspose k4 s2 p1 to 1, tanh: 28x28
+    NHWC (`cfgan.models.generators.WGANGenerator`)."""
+
+    def __init__(self, latent_dim: int = 32, generator_size: int = 1024,
+                 num_classes: int = 10,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        gs = generator_size
+        self.latent_embed = Linear(latent_dim, gs // 2, generator)
+        self.cond_embed = Linear(num_classes, gs // 2, generator)
+        specs = ((gs, 4, 1, 0), (gs // 2, 3, 2, 1), (gs // 4, 4, 2, 1))
+        cin = gs
+        for i, (ch, k, s, p) in enumerate(specs):
+            self.add_module(f"tconv{i}", ConvTranspose(
+                cin, ch, k, s, p, generator=generator))
+            self.add_module(f"bn_tconv{i}", BatchNorm(ch))
+            cin = ch
+        self.n_blocks = len(specs)
+        self.tconv_out = ConvTranspose(cin, 1, 4, 2, 1, generator=generator)
+
+    def forward(self, latent: torch.Tensor, condition_onehot: torch.Tensor
+                ) -> torch.Tensor:
+        h = torch.cat([self.latent_embed(latent),
+                       self.cond_embed(condition_onehot)], 1)
+        h = h.reshape(h.shape[0], 1, 1, h.shape[1])
+        for i in range(self.n_blocks):
+            h = F.relu(getattr(self, f"bn_tconv{i}")(
+                getattr(self, f"tconv{i}")(h)))
+        return torch.tanh(self.tconv_out(h))

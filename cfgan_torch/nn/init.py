@@ -33,3 +33,10 @@ def normal(shape, stddev: float = 0.02,
            generator: torch.Generator | None = None) -> torch.Tensor:
     """N(0, stddev^2) (`cfgan.nn.init.normal`)."""
     return stddev * torch.randn(shape, generator=generator)
+
+
+def dcgan_bn_scale(shape, generator: torch.Generator | None = None
+                   ) -> torch.Tensor:
+    """1 + 0.02 N(0, 1): DCGAN's BatchNorm scale init
+    (`cfgan.models.discriminators._dcgan_bn_scale`)."""
+    return 1.0 + normal(shape, 0.02, generator)

@@ -1,11 +1,12 @@
-"""Core layers of the MNIST and tabular CounteRGANs (mirrors
+"""Core layers of the CounteRGANs and the plain-generation GANs (mirrors
 `cfgan/nn/layers.py`).
 
 Activations are NHWC, as in the JAX package.  Parameter names follow the
 JAX package's flax trees (`cfgan_torch.convert` maps one onto the other):
 `Linear.weight` is torch's (out, in); a `Conv` on cuDNN holds an OIHW
 `weight`; a `Conv` routed to the 3x3 kernel holds the HWIO `kernel`
-(3, 3, Cin, Cout), which is the kernel's own layout.
+(3, 3, Cin, Cout), which is the kernel's own layout; a `ConvTranspose`
+holds torch's (in, out, k, k) `weight`.
 
 Each layer draws its initial weights from an explicit `torch.Generator`
 (`cfgan_torch.nn.init`); serving and the parity tests load trained or
@@ -51,13 +52,15 @@ class Conv(nn.Module):
     package, "pallas" keeps a layer with Cin < 16 or Cout < 16 on cuDNN.
     Every other layer runs `F.conv2d` on a channels-last view of the NHWC
     activation, so no copy is made either way.  `use_bias=False` leaves
-    the bias out (the discriminator's convs).
+    the bias out (the discriminator's convs).  The kernel's init is
+    U(+-1/sqrt(fan_in)), kaiming-normal with `kaiming_slope`, or
+    N(0, normal_std^2) with `normal_std` (DCGAN's 0.02).
     """
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
                  stride: int = 1, padding: int = 0,
                  impl: str | None = None, kaiming_slope: float | None = None,
-                 use_bias: bool = True,
+                 use_bias: bool = True, normal_std: float | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
         if impl not in (None, "matmul", "pallas"):
@@ -70,7 +73,9 @@ class Conv(nn.Module):
         self.impl, self.stride, self.padding = impl, stride, padding
         fan_in = in_ch * k * k
         shape = (k, k, in_ch, out_ch)  # HWIO, the JAX layout
-        if kaiming_slope is None:
+        if normal_std is not None:
+            w = cinit.normal(shape, normal_std, generator)
+        elif kaiming_slope is None:
             w = cinit.scaled_uniform(shape, fan_in, generator)
         else:
             w = cinit.kaiming_normal(shape, fan_in, kaiming_slope, generator)
@@ -104,6 +109,41 @@ class Conv(nn.Module):
         return y if self.bias is None else y + self.bias
 
 
+class ConvTranspose(nn.Module):
+    """2-D NHWC transposed convolution with torch's ConvTranspose2d
+    geometry, output (H - 1) stride - 2 padding + k
+    (`cfgan.nn.layers.ConvTranspose`), on cuDNN through
+    `F.conv_transpose2d` on a channels-last view of the activation.
+
+    `weight` is torch's (in, out, k, k).  The JAX package's kernel is
+    flax's `transpose_kernel=True` (k, k, out, in), which maps onto it by
+    `transpose(3, 2, 0, 1)` without a spatial flip.  Init: kernel and bias
+    U(+-1/sqrt(out k k)) (torch's fan_in of this weight), or a kernel from
+    N(0, normal_std^2) (DCGAN's 0.02)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 4,
+                 stride: int = 2, padding: int = 1, use_bias: bool = True,
+                 normal_std: float | None = None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        k = kernel_size
+        self.stride, self.padding = stride, padding
+        fan_in = out_ch * k * k
+        shape = (in_ch, out_ch, k, k)
+        self.weight = nn.Parameter(
+            cinit.scaled_uniform(shape, fan_in, generator)
+            if normal_std is None else cinit.normal(shape, normal_std,
+                                                    generator))
+        self.bias = (nn.Parameter(cinit.scaled_uniform((out_ch,), fan_in,
+                                                       generator))
+                     if use_bias else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), self.weight, self.bias,
+                               self.stride, self.padding)
+        return y.permute(0, 2, 3, 1).contiguous()
+
+
 class BatchNorm(nn.Module):
     """BatchNorm over the last axis with the JAX package's semantics
     (`cfgan.nn.layers.BatchNorm`).
@@ -113,35 +153,67 @@ class BatchNorm(nn.Module):
     statistics in place with momentum 0.9 in the JAX convention (torch's
     0.1), the running variance from the unbiased variance n/(n-1); the
     running statistics keep their own dtype (float32 under mixed
-    precision).  Eval mode normalizes by the running statistics.  eps 1e-5.
+    precision).  `update_stats=False` normalizes by the batch statistics
+    and leaves the running ones alone (the JAX GAN step's G phase, which
+    drops a BatchNorm discriminator's update).  Eval mode normalizes by
+    the running statistics.  `epsilon` defaults to 1e-5 (the simple MNIST
+    generator's is 0.8); the scale starts at 1, or at `scale_init((n,),
+    generator)`.
     """
 
-    epsilon = 1e-5
     momentum = 0.9
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, epsilon: float = 1e-5,
+                 scale_init=None, generator: torch.Generator | None = None):
         super().__init__()
-        self.weight = nn.Parameter(torch.ones(features))
+        self.epsilon = epsilon
+        self.weight = nn.Parameter(
+            torch.ones(features) if scale_init is None
+            else scale_init((features,), generator))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, update_stats: bool = True
+                ) -> torch.Tensor:
         if self.training:
             axes = tuple(range(x.dim() - 1))
             n = x.numel() // x.shape[-1]
             mean = x.mean(axes)
             var = torch.maximum((x * x).mean(axes) - mean * mean,
                                 x.new_zeros(()))
-            with torch.no_grad():
-                m = self.momentum
-                unbiased = var * (n / max(n - 1, 1))
-                self.running_mean.copy_(m * self.running_mean
-                                        + (1 - m) * mean)
-                self.running_var.copy_(m * self.running_var
-                                       + (1 - m) * unbiased)
+            if update_stats:
+                with torch.no_grad():
+                    m = self.momentum
+                    unbiased = var * (n / max(n - 1, 1))
+                    self.running_mean.copy_(m * self.running_mean
+                                            + (1 - m) * mean)
+                    self.running_var.copy_(m * self.running_var
+                                           + (1 - m) * unbiased)
         else:
             mean, var = self.running_mean, self.running_var
+        y = (x - mean) * torch.rsqrt(var + self.epsilon)
+        return y * self.weight + self.bias
+
+
+class InstanceNorm(nn.Module):
+    """Affine instance norm of an NHWC tensor, torch's
+    InstanceNorm2d(affine=True) without running statistics
+    (`cfgan.nn.layers.InstanceNorm`): per sample and channel over H and W,
+    by the biased variance mean((x - mean)^2), taken in float32 as
+    `jnp.var` does for a bf16 input.  eps 1e-5."""
+
+    def __init__(self, features: int, epsilon: float = 1e-5):
+        super().__init__()
+        self.epsilon = epsilon
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mean = x.mean((1, 2), keepdim=True)
+        xf = x.float()
+        var = ((xf - xf.mean((1, 2), keepdim=True)) ** 2).mean(
+            (1, 2), keepdim=True).to(x.dtype)
         y = (x - mean) * torch.rsqrt(var + self.epsilon)
         return y * self.weight + self.bias
 
@@ -291,3 +363,11 @@ class Dropout(nn.Module):
             keep = torch.rand(shape, generator=generator,
                               device=x.device) >= self.rate
         return x * keep.to(x.dtype) / (1.0 - self.rate)
+
+
+def one_hot(t: torch.Tensor, num_classes: int, dtype: torch.dtype
+            ) -> torch.Tensor:
+    """One-hot rows of `t` by comparison, which a CUDA graph captures
+    (`F.one_hot` checks its input's range on the host)."""
+    classes = torch.arange(num_classes, device=t.device)
+    return (t[:, None] == classes).to(dtype)

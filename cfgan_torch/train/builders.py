@@ -62,8 +62,10 @@ from cfgan_torch.models.tabular import (
     build_cat_norm_values,
     derive_gumbel_noise,
 )
+from cfgan_torch.nn.layers import one_hot
 from cfgan_torch.serve.engine import CounterfactualEngine
-from cfgan_torch.train.countergan import make_countergan_step, make_epoch_runner
+from cfgan_torch.train.countergan import make_countergan_step
+from cfgan_torch.train.loop import make_epoch_runner
 from cfgan_torch.train.state import GANState, NetState
 
 
@@ -186,7 +188,7 @@ def build_moons_serving(cfg: CounterGANConfig,
     def cf_fn(x, target, mask, key=None):
         """`key` is accepted for the engine's signature; the moons
         generator draws no noise."""
-        raw, masked = g_model(x.to(cd), _one_hot(target, MOONS_CLASSES, cd),
+        raw, masked = g_model(x.to(cd), one_hot(target, MOONS_CLASSES, cd),
                               mask.to(cd))
         raw, masked = raw.float(), masked.float()
         return x + masked, raw, masked
@@ -593,14 +595,6 @@ def _gumbel_draws(shape: tuple[int, ...], generator: torch.Generator
     return -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
 
 
-def _one_hot(t: torch.Tensor, num_classes: int, dtype: torch.dtype
-             ) -> torch.Tensor:
-    """One-hot rows of `t` by comparison, which a CUDA graph captures
-    (`F.one_hot` checks its input's range on the host)."""
-    classes = torch.arange(num_classes, device=t.device)
-    return (t[:, None] == classes).to(dtype)
-
-
 def _tabular_g_forward(g_model: TabularResidualGenerator,
                        cfg: CounterGANConfig, assembly: ResidualAssembly,
                        num_classes: int) -> Callable:
@@ -617,7 +611,7 @@ def _tabular_g_forward(g_model: TabularResidualGenerator,
     apply = make_mixed_precision(g_model, cfg.compute_dtype, post=assemble)
 
     def g_forward(x, t, mask, noise):
-        return apply(x, _one_hot(t, num_classes, x.dtype), mask,
+        return apply(x, one_hot(t, num_classes, x.dtype), mask,
                      noise=noise, hard=False, temperature=cfg.gumbel_tau)
 
     return g_forward
@@ -644,7 +638,7 @@ def make_tabular_cf_fn(g_model: TabularResidualGenerator,
               for k, v in g_vars.items()}
         noise = derive_gumbel_noise(key, x.shape[0], info, noise_dtype,
                                     device=x.device)
-        t_oh = _one_hot(target, num_classes, cd)
+        t_oh = one_hot(target, num_classes, cd)
         with torch.no_grad():
             cont, _, samples = functional_call(
                 serve_g, gv, (x.to(cd), t_oh, mask.to(cd)),
@@ -733,7 +727,7 @@ def build_tabular_countergan(cfg: CounterGANConfig,
     d_apply = make_mixed_precision(d_model, cfg.compute_dtype)
 
     def d_forward(x, t, detach: bool = False, train: bool = True):
-        return d_apply(x, _one_hot(t, num_classes, x.dtype),
+        return d_apply(x, one_hot(t, num_classes, x.dtype),
                        detach=detach, train=train)
 
     step_fn, step_with_draws, step_from_draws = make_countergan_step(
@@ -767,7 +761,7 @@ def make_moons_cf_fn(g_model: MoonsResidualGenerator, compute_dtype: str
               for k, v in g_vars.items()}
         with torch.no_grad():
             raw, masked = functional_call(
-                serve_g, gv, (x.to(cd), _one_hot(target, MOONS_CLASSES, cd),
+                serve_g, gv, (x.to(cd), one_hot(target, MOONS_CLASSES, cd),
                               mask.to(cd)))
         raw, masked = raw.float(), masked.float()
         return x + masked, raw, masked
@@ -783,7 +777,7 @@ def _moons_g_forward(g_model: MoonsResidualGenerator,
     apply = make_mixed_precision(g_model, cfg.compute_dtype)
 
     def g_forward(x, t, mask):
-        return apply(x, _one_hot(t, MOONS_CLASSES, x.dtype), mask)
+        return apply(x, one_hot(t, MOONS_CLASSES, x.dtype), mask)
 
     return g_forward
 
@@ -857,7 +851,7 @@ def build_moons_countergan(cfg: CounterGANConfig,
     d_apply = make_mixed_precision(d_model, cfg.compute_dtype)
 
     def d_forward(x, t, detach: bool = False, train: bool = True):
-        return d_apply(x, _one_hot(t, MOONS_CLASSES, x.dtype),
+        return d_apply(x, one_hot(t, MOONS_CLASSES, x.dtype),
                        detach=detach, train=train)
 
     step_fn, step_with_draws, step_from_draws = make_countergan_step(

@@ -1,6 +1,6 @@
-"""The CounteRGAN alternating train step and the epoch runner (mirrors
-`cfgan/train/countergan.py`: `sample_targets`, `make_countergan_step`,
-`make_epoch_runner`).
+"""The CounteRGAN alternating train step (mirrors
+`cfgan/train/countergan.py`: `sample_targets`, `make_countergan_step`;
+its `make_epoch_runner` is `cfgan_torch.train.loop.make_epoch_runner`).
 
 Per batch:
 
@@ -27,11 +27,6 @@ are the same.
 The step returns its metrics as device tensors and reads nothing back to
 the host.
 
-The epoch runner (`make_epoch_runner`) is the counterpart of the JAX
-package's one compiled `lax.scan` per epoch: on a CUDA card it captures
-one step as a CUDA graph and replays it for every step of every epoch,
-with the dataset, the epoch's permutation and random draws and the
-metrics in device buffers (see `EpochRunner`).
 """
 from __future__ import annotations
 
@@ -47,9 +42,6 @@ from cfgan_torch.ops.epilogue import cf_epilogue, epilogue_terms
 from cfgan_torch.train.state import GANState
 
 ADV_LOSSES = ("wasserstein", "bce", "clipped_log")
-# eager steps before a capture: they create the optimizer state (a capture
-# must not) and let cuDNN pick its algorithms
-WARMUP_STEPS = 3
 
 
 def sample_targets(y: torch.Tensor, num_classes: int, resample: bool,
@@ -202,150 +194,3 @@ def make_countergan_step(*, cfg: CounterGANConfig, num_classes: int,
         return step_from_draws(state, x, y, draws)
 
     return step, step_with_draws, step_from_draws
-
-
-class EpochRunner:
-    """`runner(state, data_x, data_y, perm, draws) -> metrics`: one epoch
-    of steps of `step_from_draws` (the counterpart of the JAX package's
-    `make_epoch_runner`).
-
-    `data_x` / `data_y` hold the whole training split on the state's
-    device; `perm` is the epoch's (steps, batch) index matrix; `draws` the
-    epoch's random draws, each (steps, batch, ...) (`draw_fn(generator,
-    perm.shape)`).  Step i trains on rows `perm[i]` with draws `[i]`.
-    Returns the epoch means of the step metrics, as floats, or with
-    `reduce=False` each metric's (steps,) numpy trace.  `state.step`
-    advances by `steps`.
-
-    On the CPU each step runs eagerly.  On a CUDA card the first epoch
-    runs `WARMUP_STEPS` steps eagerly on a side stream (real steps, which
-    create Adam's state and let cuDNN pick its algorithms), then captures
-    one step as a `torch.cuda.CUDAGraph` and replays it for every other
-    step of this and later epochs.  The replayed step reads its batch and
-    draws through a step index held on the device, from static buffers
-    that each epoch's `perm` and `draws` are copied into; it writes its
-    metrics into a device buffer that is read once an epoch; the replays
-    run under `torch.cuda.set_sync_debug_mode("error")`, so a step that
-    synchronises with the host raises.  Nothing is copied from the host
-    per step.  A capture that fails raises RuntimeError: there is no
-    fallback to eager steps on the card.  A new dataset tensor, state or
-    epoch shape recaptures (after `WARMUP_STEPS` more eager steps).
-
-    Restoring a checkpoint into `state` must copy in place
-    (`cfgan_torch.core.checkpoint.restore_train_state` does): the graph
-    holds the addresses of the parameters, buffers and optimizer state.
-    `captures` and `replays` count the graphs captured and the steps
-    replayed.  The kernel wrappers' launch counters count a captured
-    launch once, not its replays.
-    """
-
-    def __init__(self, step_from_draws: Callable, reduce: bool = True):
-        self.step_from_draws = step_from_draws
-        self.reduce = reduce
-        self.graph: torch.cuda.CUDAGraph | None = None
-        self._key = None
-        self._names: list[str] | None = None
-        self.captures = 0
-        self.replays = 0
-
-    def _finish(self, trace: torch.Tensor) -> dict:
-        if self.reduce:
-            means = trace.mean(0).cpu().tolist()
-            return dict(zip(self._names, means))
-        trace = trace.cpu().numpy()
-        return {k: trace[:, i] for i, k in enumerate(self._names)}
-
-    def _row(self, metrics: Mapping[str, torch.Tensor]) -> torch.Tensor:
-        if self._names is None:
-            self._names = list(metrics)
-        return torch.stack([metrics[k].float() for k in self._names])
-
-    def __call__(self, state, data_x, data_y, perm, draws) -> dict:
-        steps = perm.shape[0]
-        if data_x.device.type == "cpu":
-            rows = []
-            for i in range(steps):
-                idx = perm[i].to(data_x.device)
-                rows.append(self._row(self.step_from_draws(
-                    state, data_x.index_select(0, idx),
-                    data_y.index_select(0, idx),
-                    {k: v[i] for k, v in draws.items()})))
-            return self._finish(torch.stack(rows))
-        return self._run_cuda(state, data_x, data_y, perm, draws)
-
-    def _run_cuda(self, state, data_x, data_y, perm, draws) -> dict:
-        dev = data_x.device
-        steps = perm.shape[0]
-        key = (id(state), data_x.data_ptr(), data_y.data_ptr(),
-               tuple(data_x.shape), tuple(perm.shape),
-               tuple((k, tuple(v.shape), v.dtype)
-                     for k, v in sorted(draws.items())))
-        first = self.graph is None or key != self._key
-        if first:
-            # static buffers the graph reads and writes
-            self.graph = None
-            self._perm = torch.empty(perm.shape, dtype=torch.long,
-                                     device=dev)
-            self._draws = {k: torch.empty(v.shape, dtype=v.dtype, device=dev)
-                           for k, v in draws.items()}
-            self._idx = torch.zeros(1, dtype=torch.long, device=dev)
-            self._trace = None
-        self._perm.copy_(perm)
-        for k, v in draws.items():
-            self._draws[k].copy_(v)
-        self._idx.zero_()
-        step0 = state.step
-
-        def body():
-            idx = self._idx
-            rows = self._perm.index_select(0, idx).view(-1)
-            batch = {k: v.index_select(0, idx)[0]
-                     for k, v in self._draws.items()}
-            row = self._row(self.step_from_draws(
-                state, data_x.index_select(0, rows),
-                data_y.index_select(0, rows), batch))
-            if self._trace is None:
-                self._trace = torch.zeros((steps, row.numel()),
-                                          dtype=torch.float32, device=dev)
-            self._trace.index_copy_(0, idx, row[None])
-            idx.add_(1)
-
-        eager = 0
-        if first:
-            eager = min(WARMUP_STEPS, steps)
-            side = torch.cuda.Stream(device=dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
-                for _ in range(eager):
-                    body()
-            torch.cuda.current_stream(dev).wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            try:
-                with torch.cuda.graph(graph):
-                    body()
-            except Exception as e:
-                raise RuntimeError(
-                    "the epoch runner could not capture the train step as "
-                    "a CUDA graph (a step must not synchronise with the "
-                    "host or read a tensor's value on it); there is no "
-                    "eager fallback on the card") from e
-            self.graph, self._key = graph, key
-            self.captures += 1
-        prev = torch.cuda.get_sync_debug_mode()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            for _ in range(steps - eager):
-                self.graph.replay()
-        finally:
-            torch.cuda.set_sync_debug_mode(prev)
-        self.replays += steps - eager
-        state.step = step0 + steps
-        return self._finish(self._trace)
-
-
-def make_epoch_runner(step_from_draws: Callable,
-                      reduce: bool = True) -> EpochRunner:
-    """The epoch runner of `step_from_draws` (see `EpochRunner`);
-    `reduce=False` returns the per-step metric traces instead of their
-    epoch means, as the JAX package's does."""
-    return EpochRunner(step_from_draws, reduce)

@@ -1,14 +1,202 @@
-"""The host loop around the epoch runner (mirrors
-`cfgan/train/loop.py::train_countergan_loop`)."""
+"""The epoch runner and the host loop around it (mirrors
+`cfgan/train/countergan.py::make_epoch_runner` and
+`cfgan/train/loop.py::train_countergan_loop`).
+
+The epoch runner (`make_epoch_runner`) is the counterpart of the JAX
+package's one compiled `lax.scan` per epoch, for a step of any family
+(CounteRGAN or plain generation): on a CUDA card it captures the step as
+a CUDA graph and replays it for every step of every epoch, with the
+dataset, the epoch's permutation and random draws and the metrics in
+device buffers (see `EpochRunner`).
+"""
 from __future__ import annotations
 
 import time
-from typing import Any, Callable
+from typing import Any, Callable, Mapping
 
 import torch
 
 from cfgan_torch.core import checkpoint as ckpt
 from cfgan_torch.data.pipeline import epoch_perm, stream_seed
+
+
+# eager steps before a capture: they create the optimizer state (a capture
+# must not) and let cuDNN pick its algorithms
+WARMUP_STEPS = 3
+
+
+class EpochRunner:
+    """`runner(state, data_x, data_y, perm, draws) -> metrics`: one epoch
+    of steps of `step_from_draws` (the counterpart of the JAX package's
+    `make_epoch_runner`).
+
+    `data_x` / `data_y` hold the whole training split on the state's
+    device; `perm` is the epoch's (steps, batch) index matrix; `draws` the
+    epoch's random draws, each (steps, batch, ...) (`draw_fn(generator,
+    perm.shape)`).  Step i trains on rows `perm[i]` with draws `[i]`.
+    Returns the epoch means of the step metrics, as floats, or with
+    `reduce=False` each metric's (steps,) numpy trace.  `state.step`
+    advances by `steps`.
+
+    On the CPU each step runs eagerly.  On a CUDA card the first epoch
+    runs `WARMUP_STEPS` steps eagerly on a side stream (real steps, which
+    create Adam's state and let cuDNN pick its algorithms), then captures
+    one step as a `torch.cuda.CUDAGraph` and replays it for every other
+    step of this and later epochs.  The replayed step reads its batch and
+    draws through a step index held on the device, from static buffers
+    that each epoch's `perm` and `draws` are copied into; it writes its
+    metrics into a device buffer that is read once an epoch; the replays
+    run under `torch.cuda.set_sync_debug_mode("error")`, so a step that
+    synchronises with the host raises.  Nothing is copied from the host
+    per step.  A capture that fails raises RuntimeError: there is no
+    fallback to eager steps on the card.  A new dataset tensor, state or
+    epoch shape recaptures (after `WARMUP_STEPS` more eager steps).
+
+    A step whose graph depends on the host's step count (WGAN-GP's
+    critic-only step and its critic + generator step) comes with a
+    `schedule(step) -> kind`: the runner captures one graph of each kind,
+    with `state.step` set to a step of that kind, and replays them in the
+    order of the global step; all of them read the one step index on the
+    device.  Before the first capture of a kind, steps run eagerly until
+    one of that kind has (the optimizer state a kind alone updates, such
+    as the generator's Adam on WGAN-GP's G steps, is made then).
+
+    Restoring a checkpoint into `state` must copy in place
+    (`cfgan_torch.core.checkpoint.restore_train_state` does): the graphs
+    hold the addresses of the parameters, buffers and optimizer state.
+    `captures` and `replays` count the graphs captured and the steps
+    replayed.  The kernel wrappers' launch counters count a captured
+    launch once, not its replays.
+    """
+
+    def __init__(self, step_from_draws: Callable, reduce: bool = True,
+                 schedule: Callable[[int], object] | None = None):
+        self.step_from_draws = step_from_draws
+        self.reduce = reduce
+        self.schedule = schedule
+        self.graphs: dict[object, torch.cuda.CUDAGraph] = {}
+        self._key = None
+        self._names: list[str] | None = None
+        self.captures = 0
+        self.replays = 0
+
+    def _finish(self, trace: torch.Tensor) -> dict:
+        if self.reduce:
+            means = trace.mean(0).cpu().tolist()
+            return dict(zip(self._names, means))
+        trace = trace.cpu().numpy()
+        return {k: trace[:, i] for i, k in enumerate(self._names)}
+
+    def _row(self, metrics: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        if self._names is None:
+            self._names = list(metrics)
+        return torch.stack([metrics[k].float() for k in self._names])
+
+    def __call__(self, state, data_x, data_y, perm, draws) -> dict:
+        steps = perm.shape[0]
+        if data_x.device.type == "cpu":
+            rows = []
+            for i in range(steps):
+                idx = perm[i].to(data_x.device)
+                rows.append(self._row(self.step_from_draws(
+                    state, data_x.index_select(0, idx),
+                    data_y.index_select(0, idx),
+                    {k: v[i] for k, v in draws.items()})))
+            return self._finish(torch.stack(rows))
+        return self._run_cuda(state, data_x, data_y, perm, draws)
+
+    def _run_cuda(self, state, data_x, data_y, perm, draws) -> dict:
+        dev = data_x.device
+        steps = perm.shape[0]
+        key = (id(state), data_x.data_ptr(), data_y.data_ptr(),
+               tuple(data_x.shape), tuple(perm.shape),
+               tuple((k, tuple(v.shape), v.dtype)
+                     for k, v in sorted(draws.items())))
+        first = not self.graphs or key != self._key
+        if first:
+            # static buffers the graphs read and write
+            self.graphs = {}
+            self._perm = torch.empty(perm.shape, dtype=torch.long,
+                                     device=dev)
+            self._draws = {k: torch.empty(v.shape, dtype=v.dtype, device=dev)
+                           for k, v in draws.items()}
+            self._idx = torch.zeros(1, dtype=torch.long, device=dev)
+            self._trace = None
+        self._perm.copy_(perm)
+        for k, v in draws.items():
+            self._draws[k].copy_(v)
+        self._idx.zero_()
+        step0 = state.step
+
+        def body():
+            idx = self._idx
+            rows = self._perm.index_select(0, idx).view(-1)
+            batch = {k: v.index_select(0, idx)[0]
+                     for k, v in self._draws.items()}
+            row = self._row(self.step_from_draws(
+                state, data_x.index_select(0, rows),
+                data_y.index_select(0, rows), batch))
+            if self._trace is None:
+                self._trace = torch.zeros((steps, row.numel()),
+                                          dtype=torch.float32, device=dev)
+            self._trace.index_copy_(0, idx, row[None])
+            idx.add_(1)
+
+        kinds = [None if self.schedule is None else self.schedule(step0 + i)
+                 for i in range(steps)]
+        missing = set(kinds) - self.graphs.keys()
+        eager = 0
+        if missing:
+            # eager steps from the epoch's start: WARMUP_STEPS before a
+            # first capture, and on until each kind still without a graph
+            # has run once
+            warmup = WARMUP_STEPS if first else 0
+            side = torch.cuda.Stream(device=dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                while eager < steps and (eager < warmup or not missing
+                                         <= set(kinds[:eager])):
+                    state.step = step0 + eager
+                    body()
+                    eager += 1
+            torch.cuda.current_stream(dev).wait_stream(side)
+            for kind in dict.fromkeys(kinds[:eager]):
+                if kind not in missing:
+                    continue
+                state.step = step0 + kinds.index(kind)
+                graph = torch.cuda.CUDAGraph()
+                try:
+                    with torch.cuda.graph(graph):
+                        body()
+                except Exception as e:
+                    raise RuntimeError(
+                        "the epoch runner could not capture the train step "
+                        "as a CUDA graph (a step must not synchronise with "
+                        "the host or read a tensor's value on it); there is "
+                        "no eager fallback on the card") from e
+                self.graphs[kind] = graph
+                self.captures += 1
+            self._key = key
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for kind in kinds[eager:]:
+                self.graphs[kind].replay()
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+        self.replays += steps - eager
+        state.step = step0 + steps
+        return self._finish(self._trace)
+
+
+def make_epoch_runner(step_from_draws: Callable, reduce: bool = True,
+                      schedule: Callable[[int], object] | None = None
+                      ) -> EpochRunner:
+    """The epoch runner of `step_from_draws` (see `EpochRunner`);
+    `reduce=False` returns the per-step metric traces instead of their
+    epoch means, as the JAX package's does; `schedule` names the kind of
+    each global step where kinds differ in their graph."""
+    return EpochRunner(step_from_draws, reduce, schedule)
 
 
 def epoch_generators(seed: int, epoch: int, device: torch.device

@@ -45,11 +45,11 @@ class NetState:
     opt: torch.optim.Optimizer
 
     @classmethod
-    def create(cls, model: nn.Module, lr: float,
-               weight_decay: float = 0.0) -> "NetState":
+    def create(cls, model: nn.Module, lr: float, weight_decay: float = 0.0,
+               betas=(0.9, 0.999)) -> "NetState":
         """`model` already on its device (Adam's `capturable` follows
         it)."""
-        return cls(model, adam_like_torch(model.parameters(), lr,
+        return cls(model, adam_like_torch(model.parameters(), lr, betas,
                                           weight_decay=weight_decay))
 
 

@@ -96,6 +96,32 @@ width: hidden 32, critic 32/16/16, batch 64, float32, no clamp):
   run dir, on the card and on the CPU: neither trains, and their CSVs
   agree within 1e-5.
 
+Then the four plain-generation families at their presets' shipped
+widths (float32; the simple MNIST GAN's 1.5M + 0.5M parameters, DCGAN
+at 64x64 with 64 hidden, WGAN-GP at size 1024, 23.6M + 14.3M):
+
+- `gan train`: for each of the five generation presets, 11 eager steps
+  (finite losses, both networks' parameters moved; WGAN-GP: G's
+  parameters and its AdamW count move on global steps 0, 5 and 10 only,
+  and G's BatchNorms run two train-mode forwards on those steps, one on
+  the others), then one epoch (moons2's 2,000 points, or 6,400 of the
+  corpus's training images) through the epoch runner equal to the same
+  steps eager, bit for bit (metrics, parameters, BatchNorm statistics,
+  Adam/AdamW; WGAN-GP's two graphs); none of the port's kernels
+  launches on these paths;
+- `gan epoch runner`: DCGAN and WGAN-GP at batch 128, an epoch of 10
+  replayed steps against eager steps in turns, device busy ms and idle
+  share, the longest device entries and the device records a replayed
+  step in three profiler traces (the largest count); WGAN-GP's
+  critic-only step, its critic + G step and its five-step cycle timed
+  apart, and the gradient penalty's share of the critic-only step;
+- `generation`: `cfgan_torch.experiments.generation.run` of each preset
+  (the moons presets whole, the MNIST ones 2 epochs on 12,800 images),
+  each `generator/` restored by the port to the same samples bit for
+  bit; the committed `results/simple_gan_moons/` and
+  `results/cgan_moons/` generators sampled on the card and on the CPU
+  within 1e-6 of the samples' scale.
+
 Then the serving front door, `api`: the three launchers (`python -m
 cfgan_torch.serve.launch --app mnist|house|moons --api --port 0`, on the
 committed run dirs `results/mnist_countergan_seed43/`,
@@ -320,6 +346,23 @@ MOONS_RUN_DIR = HERE / "results" / "moons_countergan"
 # eager house epoch holds ~10^5 records)
 MLP_REPLAY_LAUNCHES = {"epilogue_fwd_kernel": 1, "epilogue_bwd_kernel": 1}
 MLP_PROFILE_STEPS = 24
+
+# the plain-generation phases: eager steps a family (WGAN-GP updates G on
+# the global steps 0, 5 and 10 of 11); the data phase's MNIST training
+# images an epoch of the replay check, and of the timed epoch (10 steps:
+# two WGAN-GP cycles; a profiler trace of 50 took ~20 s to read); the
+# images and epochs of the MNIST presets' `run()` (the moons presets run
+# whole); the bar of the committed moons generators on the card against
+# the CPU, a share of the samples' scale (max |x|, at least 1): the
+# simple moons generator's float32 samples on the CPU lie 1.03e-6 from
+# its float64 ones at a scale of 2.03
+GAN_EAGER_STEPS = 11
+GAN_EPOCH_ROWS = 6400
+GAN_TIMED = ("dcgan_mnist", "wgan_gp_mnist")
+GAN_TIMED_ROWS = 1280
+GENERATION_LIMIT = 12800
+GENERATION_EPOCHS = 2
+GENERATION_CPU_RTOL = 1e-6
 
 # the api phase: the launcher's run dirs (results/mnist_countergan/ holds
 # no classifier checkpoint; the seed-43 run dir holds both)
@@ -707,7 +750,7 @@ def runner_phase(card: str, dev, clf_sd: dict, x, y, counts,
     from cfgan_torch.core.config import MNIST_COUNTERGAN
     from cfgan_torch.data.pipeline import epoch_perm
     from cfgan_torch.train.builders import build_mnist_countergan
-    from cfgan_torch.train.countergan import WARMUP_STEPS, make_epoch_runner
+    from cfgan_torch.train.loop import WARMUP_STEPS, make_epoch_runner
 
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
@@ -1035,7 +1078,7 @@ def mlp_runner_phase(card: str, dev, family: str, data, counts,
     import torch
 
     from cfgan_torch.data.pipeline import epoch_perm
-    from cfgan_torch.train.countergan import WARMUP_STEPS, make_epoch_runner
+    from cfgan_torch.train.loop import WARMUP_STEPS, make_epoch_runner
 
     f = MLP_FAMILIES[family]
     (xtr, ytr) = data[0]
@@ -1516,6 +1559,406 @@ def moons_experiment_phase(card: str, dev) -> None:
     finally:
         for d in (out_dir, *copies.values()):
             shutil.rmtree(d, ignore_errors=True)
+
+
+def _gan_data(preset: str, mnist, dev, rows: int = GAN_EPOCH_ROWS):
+    """(x, y, num_classes) of a generation preset on the card: moons2's
+    2,000 points, or the first `rows` of the data phase's MNIST training
+    images (resized to 64x64 on the card for DCGAN)."""
+    import torch
+
+    from cfgan_torch.data.moons import load_moons2
+    from cfgan_torch.experiments.generation import resize_images
+    from cfgan_torch.experiments.presets import PRESETS
+
+    cfg = PRESETS[preset]
+    if cfg.data.name == "moons2":
+        x, y = load_moons2(seed=cfg.data.seed)
+        nc = 2
+    else:
+        x, y = mnist[0][:rows], mnist[1][:rows]
+        nc = 10
+    x = torch.as_tensor(x).to(dev)
+    if cfg.data.resize_to:
+        x = resize_images(x, cfg.data.resize_to)
+    return x, torch.as_tensor(y).to(dev, torch.long), nc
+
+
+def _gan_bundle(preset: str, nc: int, dev):
+    """The preset's family at its shipped widths on the card, initial
+    weights from SEED."""
+    from cfgan_torch.experiments.presets import PRESETS
+    from cfgan_torch.train.gan_builders import build_gan
+
+    return build_gan(PRESETS[preset].gan, num_classes=nc, seed=SEED,
+                     device=dev)
+
+
+def _n_params(model) -> int:
+    return sum(p.numel() for p in model.parameters())
+
+
+def gan_train_phase(card: str, dev, mnist, counts, zero_counts) -> None:
+    """For each generation preset at its shipped widths: GAN_EAGER_STEPS
+    eager steps (finite losses; both networks' parameters moved; WGAN-GP:
+    G's parameters and AdamW count move on the steps whose global index
+    is a multiple of 5 only, and G's BatchNorms run two train-mode
+    forwards on those steps, one on the others), then one epoch through
+    the epoch runner against the same steps eager, bit for bit (metrics,
+    parameters, BatchNorm statistics, Adam/AdamW); none of the port's
+    kernels launches; one line a preset."""
+    import torch
+
+    from cfgan_torch.experiments.generation import GENERATION_PRESETS
+    from cfgan_torch.experiments.presets import PRESETS
+    from cfgan_torch.nn.layers import BatchNorm
+    from cfgan_torch.train.loop import WARMUP_STEPS, make_epoch_runner
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    for preset in GENERATION_PRESETS:
+        cfg = PRESETS[preset]
+        batch = cfg.data.batch_size
+        x, y, nc = _gan_data(preset, mnist, dev)
+        zero_counts()
+        bundle = _gan_bundle(preset, nc, dev)
+        state = bundle.state
+        start = {net: [p.detach().clone() for p in
+                       getattr(state, net).model.parameters()]
+                 for net in ("g", "d")}
+        bn_calls = []
+        for m in bundle.g_model.modules():
+            if isinstance(m, BatchNorm):
+                m.register_forward_hook(
+                    lambda mod, args, out: bn_calls.append(1))
+        n_bn = len([m for m in bundle.g_model.modules()
+                    if isinstance(m, BatchNorm)])
+        draws = torch.Generator(device=dev).manual_seed(SEED)
+        losses, schedule = [], []
+        for i in range(GAN_EAGER_STEPS):
+            g_before = [p.detach().clone()
+                        for p in bundle.g_model.parameters()]
+            calls = len(bn_calls)
+            j = (i * batch) % (len(y) - batch)
+            m = bundle.step_fn(state, x[j:j + batch], y[j:j + batch], draws)
+            losses.append(m)
+            g_moved = any(not torch.equal(p, q) for p, q in
+                          zip(bundle.g_model.parameters(), g_before))
+            g_count = {int(state.g.opt.state[p]["step"])
+                       for p in bundle.g_model.parameters()
+                       if "step" in state.g.opt.state[p]}
+            schedule.append({"step": i, "g_moved": g_moved,
+                             "g_adam_steps": sorted(g_count),
+                             "g_bn_forwards": ((len(bn_calls) - calls)
+                                               // max(n_bn, 1))})
+        torch.cuda.synchronize()
+        losses = [{k: v.item() for k, v in m.items()} for m in losses]
+        # the share of each network's parameter tensors that moved
+        moved = {net: sum(not torch.equal(p, q) for p, q in zip(
+            getattr(state, net).model.parameters(), start[net]))
+            / len(start[net]) for net in ("g", "d")}
+        finite = all(math.isfinite(v) for m in losses for v in m.values())
+        if cfg.gan.n_critic > 1:
+            want_sched = [{"step": i, "g_moved": i % 5 == 0,
+                           "g_adam_steps": [i // 5 + 1],
+                           "g_bn_forwards": 2 if i % 5 == 0 else 1}
+                          for i in range(GAN_EAGER_STEPS)]
+        else:
+            want_sched = [{"step": i, "g_moved": True,
+                           "g_adam_steps": [i + 1],
+                           "g_bn_forwards": 1 if n_bn else 0}
+                          for i in range(GAN_EAGER_STEPS)]
+        eager_launches = counts()
+
+        # one epoch replayed against the same steps eager
+        ours, ref = _gan_bundle(preset, nc, dev), _gan_bundle(preset, nc,
+                                                             dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+        perm = torch.randperm(len(y), device=dev, generator=gen)
+        steps = len(y) // batch
+        perm = perm[:steps * batch].reshape(steps, batch)
+        epoch_draws = ours.draw_fn(gen, tuple(perm.shape))
+        runner = make_epoch_runner(ours.step_from_draws, reduce=False,
+                                   schedule=ours.schedule)
+        zero_counts()
+        got = runner(ours.state, x, y, perm, epoch_draws)
+        torch.cuda.synchronize()
+        replay_launches = counts()
+        eager = [{k: v.item() for k, v in ref.step_from_draws(
+            ref.state, x[perm[i]], y[perm[i]],
+            {k: v[i] for k, v in epoch_draws.items()}).items()}
+            for i in range(steps)]
+        mismatched = sorted({k for i, m in enumerate(eager)
+                             for k, v in m.items() if got[k][i] != v})
+        same_state = _states_equal(ours.state, ref.state)
+        kinds = 2 if ours.schedule is not None else 1
+        report = {
+            "phase": "gan train", "card": card, "preset": preset,
+            "family": cfg.gan.family, "batch": batch,
+            "hidden_dim": cfg.gan.hidden_dim,
+            "latent_dim": cfg.gan.latent_dim, "n_critic": cfg.gan.n_critic,
+            "params_g_d": [_n_params(bundle.g_model),
+                           _n_params(bundle.d_model)],
+            "input": list(x.shape[1:]), "eager_steps": GAN_EAGER_STEPS,
+            "metrics_per_eager_step": losses,
+            "share_of_param_tensors_moved": moved,
+            "generator_schedule": schedule,
+            "epoch_rows": len(y), "epoch_steps": steps,
+            "runner_captures": runner.captures,
+            "runner_replays": runner.replays,
+            "metrics_differing_from_eager": mismatched,
+            "state_equal_to_eager": same_state,
+            "our_kernel_launches_eager_and_replayed": [eager_launches,
+                                                       replay_launches],
+            "tolerance": "replay bit for bit: every metric of every step "
+                         "and the state (BatchNorm statistics and Adam "
+                         "included)"}
+        ok = (finite and all(moved.values()) and schedule == want_sched
+              and not mismatched and same_state
+              and (runner.captures, runner.replays)
+              == (kinds, steps - WARMUP_STEPS)
+              and eager_launches == replay_launches == (0, 0, 0, 0))
+        report["ok"] = bool(ok)
+        emit(report)
+        if not ok:
+            fail(f"{preset}: the eager steps, the generator's schedule or "
+                 f"the replayed epoch came out wrong")
+        del bundle, ours, ref, runner, x, y
+    torch.backends.cudnn.deterministic = False
+
+
+def _trace_launches(fn, steps: int):
+    """PROFILE_TRIES profiler traces of `fn` (`steps` replayed steps):
+    each trace's (busy ms, top entries, device records a step), for the
+    traces that hold device time.  The records count every kernel, copy
+    and fill, the epoch's few copies into the runner's buffers included.
+    A trace drops records now and then (one of a 10-step DCGAN epoch read
+    10,624 against 10,745; of a 50-step WGAN-GP epoch 45,043 against
+    45,102), so the count is the largest of the traces'."""
+    traces = []
+    for _ in range(PROFILE_TRIES):
+        busy, top, every = device_time(fn, 1, top=8, match=("",))
+        if busy is not None:
+            traces.append((busy / steps, top, every[""][1] / steps))
+    return traces
+
+
+def gan_runner_phase(card: str, dev, mnist) -> None:
+    """For DCGAN and WGAN-GP at their shipped widths and batch 128: an
+    epoch of GAN_TIMED_ROWS images replayed through the epoch runner
+    against the same steps eager, in turns (three turns, medians); device
+    busy ms and idle share, the longest device entries and the launches a
+    replayed step from more than one profiler trace.  WGAN-GP also: its
+    critic-only step, its critic + generator step and its five-step cycle
+    apart (each a CUDA graph of those steps alone, replayed), and the
+    gradient penalty's share of the critic-only step.  One line each."""
+    import torch
+
+    from cfgan_torch.losses.gan import gradient_penalty
+    from cfgan_torch.nn.layers import one_hot
+
+    for preset in GAN_TIMED:
+        x, y, nc = _gan_data(preset, mnist, dev, rows=GAN_TIMED_ROWS)
+        ours, ref = _gan_bundle(preset, nc, dev), _gan_bundle(preset, nc,
+                                                             dev)
+        cfg = ours.cfg
+        batch = 128
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        steps = len(y) // batch
+        perm = torch.randperm(len(y), device=dev, generator=gen)[
+            :steps * batch].reshape(steps, batch)
+        draws = ours.draw_fn(gen, tuple(perm.shape))
+        runner = ours.epoch_fn
+
+        def epoch():
+            runner(ours.state, x, y, perm, draws)
+
+        def eager_epoch(n=steps):
+            for i in range(n):
+                ref.step_from_draws(ref.state, x[perm[i]], y[perm[i]],
+                                    {k: v[i] for k, v in draws.items()})
+            torch.cuda.synchronize()
+
+        epoch()  # warm-up and the captures
+        eager_epoch(2)
+        torch.cuda.synchronize()
+        traces = _trace_launches(epoch, steps)
+        eager_busy = device_time(lambda: eager_epoch(), 1)[0]
+        times = {"replayed": [], "eager": []}
+        for _ in range(3):  # in turns
+            for name, fn in (("replayed", epoch), ("eager", eager_epoch)):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t0) * 1e3 / steps)
+        med = {k: statistics.median(v) for k, v in times.items()}
+        # the busiest trace: a trace that drops records reads low
+        best = max(traces, key=lambda t: t[2]) if traces else None
+        busy = best[0] if best else None
+        report = {
+            "phase": "gan epoch runner", "card": card, "preset": preset,
+            "family": cfg.family, "dtype": cfg.compute_dtype,
+            "tf32": False, "batch": batch, "input": list(x.shape[1:]),
+            "params_g_d": [_n_params(ours.g_model),
+                           _n_params(ours.d_model)],
+            "epoch_steps": steps, "runner_captures": runner.captures,
+            "runner_replays": runner.replays,
+            "replayed_ms_per_step_in_turns": times["replayed"],
+            "eager_ms_per_step_in_turns": times["eager"],
+            "replayed_median_ms": med["replayed"],
+            "eager_median_ms": med["eager"],
+            "replayed_images_per_s": batch / med["replayed"] * 1e3,
+            "eager_images_per_s": batch / med["eager"] * 1e3,
+            "replayed_device_busy_ms": busy,
+            "replayed_device_idle_share": (None if busy is None
+                                           else 1 - busy / med["replayed"]),
+            "eager_device_busy_ms": (None if eager_busy is None
+                                     else eager_busy / steps),
+            "eager_device_idle_share": (
+                None if eager_busy is None
+                else 1 - eager_busy / steps / med["eager"]),
+            "device_records_per_replayed_step_per_trace": [
+                t[2] for t in traces],
+            "device_records_per_replayed_step": best and best[2],
+            "device_time_by_kernel_ms_per_epoch": best and best[1]}
+        if cfg.n_critic > 1:
+            # each kind of step alone, and the cycle, as graphs of their
+            # own on one batch (state.step set to a step of the kind)
+            xb, yb = x[perm[0]], y[perm[0]]
+            one = {k: v[0] for k, v in draws.items()}
+
+            def kind_step(step_index):
+                def fn():
+                    ours.state.step = step_index
+                    ours.step_from_draws(ours.state, xb, yb, one)
+                return fn
+
+            def cycle():
+                ours.state.step = 0
+                for _ in range(cfg.n_critic):
+                    ours.step_from_draws(ours.state, xb, yb, one)
+
+            d_model = ours.d_model
+            with torch.no_grad():
+                fake = ours.g_model(one["z"], one_hot(yb, nc, torch.float32))
+            cond = one_hot(yb, nc, torch.float32)
+
+            def penalty():
+                d_model.zero_grad(set_to_none=True)
+                gradient_penalty(
+                    lambda xh: d_model(xh, cond, update_stats=False), xb,
+                    fake, one["gp_eps"]).backward()
+
+            critic_ms = graph_ms(kind_step(1), iters=5, replays=3)
+            g_step_ms = graph_ms(kind_step(0), iters=5, replays=3)
+            cycle_ms = graph_ms(cycle, iters=2, replays=3)
+            gp_ms = graph_ms(penalty, iters=5, replays=3)
+            report.update({
+                "critic_only_step_ms": critic_ms,
+                "critic_and_generator_step_ms": g_step_ms,
+                "five_step_cycle_ms": cycle_ms,
+                "cycle_images_per_s": cfg.n_critic * batch / cycle_ms * 1e3,
+                "gradient_penalty_ms": gp_ms,
+                "gradient_penalty_share_of_critic_step": gp_ms / critic_ms,
+                "kinds_timed_by": "CUDA events around replays of a graph of "
+                                  "those steps alone, one batch"})
+        ok = len(traces) >= 2 and all(math.isfinite(v) for v in med.values())
+        report["ok"] = bool(ok)
+        emit(report)
+        if not ok:
+            fail(f"{preset}: fewer than two profiler traces of the replayed "
+                 f"epoch held device time, or a time is not finite")
+        del ours, ref, runner, x, y
+
+
+def generation_phase(card: str, dev) -> None:
+    """`run()` of each generation preset through the entry point: the
+    moons presets whole, the MNIST ones GENERATION_EPOCHS epochs on
+    GENERATION_LIMIT images (the corpus the data phase cached); each run's
+    `generator/` restored by the port gives its samples bit for bit; then
+    the committed `results/simple_gan_moons/` and `results/cgan_moons/`
+    generators sampled on the card and on the CPU.  One line."""
+    import numpy as np
+    import torch
+
+    from cfgan_torch.experiments import generation as gen
+    from cfgan_torch.experiments.presets import PRESETS
+    from cfgan_torch.train.gan_builders import build_gan
+
+    root = HERE / "build" / "smoke_generation"
+    shutil.rmtree(root, ignore_errors=True)
+    runs, ok = {}, True
+    # run() trains under cuDNN's default algorithms, as a user runs it; its
+    # sample_fn asks for the deterministic ones, so that a restored
+    # generator samples what the run sampled, bit for bit
+    if torch.backends.cudnn.deterministic or torch.backends.cudnn.benchmark:
+        fail("the generation phase must start from cuDNN's defaults")
+    try:
+        for preset in gen.GENERATION_PRESETS:
+            cut = PRESETS[preset].data.name == "mnist"
+            lines = []
+            t0 = time.perf_counter()
+            res = gen.run(preset,
+                          epochs=GENERATION_EPOCHS if cut else None,
+                          limit=GENERATION_LIMIT if cut else None,
+                          out_dir=str(root / preset), device=dev,
+                          log=lines.append)
+            wall = time.perf_counter() - t0
+            bundle, hist = res["bundle"], res["history"]
+            z, oh, _ = res["fixed_noise"]
+            again = bundle.sample_fn(gen.load_generator(
+                str(root / preset / "generator"), bundle), z, oh)
+            restored = bool(np.array_equal(again.cpu().numpy(),
+                                           res["samples"]))
+            ok = ok and not (torch.backends.cudnn.deterministic
+                             or torch.backends.cudnn.benchmark)
+            runner = bundle.epoch_fn
+            epochs = len(hist["d_loss"])
+            finite = (all(np.isfinite(hist[k]).all() for k in hist)
+                      and np.isfinite(res["samples"]).all())
+            runs[preset] = {
+                "epochs": epochs, "limit": GENERATION_LIMIT if cut else None,
+                "steps": bundle.state.step, "wall_s": wall,
+                "train_wall_s": hist["wall_time_s"],
+                "steps_per_s": bundle.state.step / hist["wall_time_s"],
+                "runner_captures": runner.captures,
+                "runner_replays": runner.replays,
+                "last_epoch": {k: hist[k][-1] for k in ("d_loss", "g_loss",
+                                                       "d_real", "d_fake")},
+                "samples_shape": list(res["samples"].shape),
+                "frames": len(res["frames"]),
+                "restored_samples_equal": restored, "lines": len(lines)}
+            ok = ok and finite and restored and epochs == (
+                GENERATION_EPOCHS if cut else PRESETS[preset].gan.epochs)
+        committed = {}
+        for name in ("simple_gan_moons", "cgan_moons"):
+            run_dir = HERE / "results" / name / "generator"
+            samples = {}
+            for where in ("card", "cpu"):
+                d = dev if where == "card" else torch.device("cpu")
+                b = build_gan(PRESETS[name].gan, num_classes=2, device=d)
+                z, oh, _ = gen.fixed_noise(b, d)
+                samples[where] = b.sample_fn(gen.load_generator(
+                    str(run_dir), b), z, oh).cpu().numpy()
+            gap = float(np.abs(samples["card"] - samples["cpu"]).max())
+            scale = max(1.0, float(np.abs(samples["cpu"]).max()))
+            committed[name] = {"card_vs_cpu_max_abs_gap": gap,
+                               "scale": scale,
+                               "samples": samples["card"].shape[0]}
+            ok = ok and gap <= GENERATION_CPU_RTOL * scale
+        emit({"phase": "generation", "card": card, "runs": runs,
+              "cudnn_in_training": "default algorithms",
+              "cudnn_in_sample_fn": "deterministic algorithms",
+              "committed_generators": committed,
+              "tolerance": f"restored samples bit for bit; committed "
+                           f"generators card vs CPU within "
+                           f"{GENERATION_CPU_RTOL} of the samples' scale",
+              "ok": bool(ok)})
+        if not ok:
+            fail("a generation run, its restored generator or the committed "
+                 "generators came out wrong")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def _same_result(got, want) -> bool:
@@ -2500,6 +2943,17 @@ def main() -> None:
 
     with Phase("moons experiment"):
         moons_experiment_phase(card, dev)
+
+    # ------------------------------------- the plain-generation GANs
+    with Phase("gan train"):
+        gan_train_phase(card, dev, (xtr, ytr), counts, zero_counts)
+
+    with Phase("gan epoch runner"):
+        gan_runner_phase(card, dev, (xtr, ytr))
+
+    with Phase("generation"):
+        generation_phase(card, dev)
+    del xtr, ytr
 
     # ------------------------------------------ the serving front door
     with Phase("api"):

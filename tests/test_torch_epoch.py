@@ -36,7 +36,7 @@ from cfgan_torch.convert import (
 )
 from cfgan_torch.models.classifiers import CNNClassifier
 from cfgan_torch.train.builders import build_mnist_countergan
-from cfgan_torch.train.countergan import make_epoch_runner
+from cfgan_torch.train.loop import make_epoch_runner
 from cfgan_torch.train.loop import train_countergan_loop
 
 from test_torch_step import _configs, _jax_trees, assert_trees_close

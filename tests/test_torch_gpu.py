@@ -475,7 +475,7 @@ def test_replayed_steps_equal_eager_steps(dtype, conv_impl):
     metrics, and every parameter, statistic, EMA leaf and Adam moment."""
     dev = _card()
     _deterministic()
-    from cfgan_torch.train.countergan import make_epoch_runner
+    from cfgan_torch.train.loop import make_epoch_runner
 
     a, b, x, y, perm, draws = _runner_pair(dev, conv_impl, dtype)
     runner = make_epoch_runner(a.step_from_draws, reduce=False)
@@ -549,7 +549,7 @@ def test_runner_raises_where_the_step_cannot_be_captured():
 
     code = r'''
 import torch
-from cfgan_torch.train.countergan import make_epoch_runner
+from cfgan_torch.train.loop import make_epoch_runner
 
 class State:
     step = 0
@@ -678,7 +678,7 @@ def test_house_replayed_steps_equal_eager_steps():
     step's metrics, and every parameter, BatchNorm statistic, critic `u`,
     EMA leaf and Adam tensor."""
     dev = _card()
-    from cfgan_torch.train.countergan import make_epoch_runner
+    from cfgan_torch.train.loop import make_epoch_runner
 
     a, b, x, y, perm, draws = _house_pair(dev)
     runner = make_epoch_runner(a.step_from_draws, reduce=False)
@@ -815,7 +815,7 @@ def test_moons_replayed_steps_equal_eager_steps():
     same steps run eagerly, bit for bit: every step's metrics, and every
     parameter, BatchNorm statistic, critic `u` and Adam tensor."""
     dev = _card()
-    from cfgan_torch.train.countergan import make_epoch_runner
+    from cfgan_torch.train.loop import make_epoch_runner
 
     a, b, x, y, perm, draws = _moons_pair(dev)
     runner = make_epoch_runner(a.step_from_draws, reduce=False)
@@ -858,3 +858,88 @@ def test_moons_experiment_runs_on_the_card(tmp_path):
                     log=lambda s: None)
     assert again["history"] == {}
     assert (tmp_path / "countergan_metrics_per_mask.csv").read_text() == text
+
+
+# ------------------------------------------- the plain-generation GANs
+def _gan_pair(dev, family, n_steps=6, batch=16, seed=0):
+    """Two bundles of the family's preset at small width from one initial
+    state, a device dataset, one epoch's permutation and draws."""
+    from cfgan_torch.experiments import presets
+    from cfgan_torch.train.gan_builders import build_gan
+
+    preset = {"dcgan": presets.DCGAN_MNIST,
+              "wgan_gp": presets.WGAN_GP_MNIST}[family]
+    cfg = replace(preset.gan, hidden_dim=16, latent_dim=8)
+    a, b = (build_gan(cfg, num_classes=10, seed=seed, device=dev)
+            for _ in range(2))
+    side = 64 if family == "dcgan" else 28
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = n_steps * batch
+    x = torch.rand((n, side, side, 1), device=dev, generator=g) * 2 - 1
+    y = torch.randint(0, 10, (n,), device=dev, generator=g)
+    perm = torch.randperm(n, device=dev, generator=g).reshape(-1, batch)
+    return a, b, x, y, perm, a.draw_fn(g, tuple(perm.shape))
+
+
+@pytest.mark.parametrize("family", ["dcgan", "wgan_gp"])
+def test_gan_replayed_steps_equal_eager_steps(family):
+    """Two epochs through the runner equal the same steps run eagerly, bit
+    for bit: metrics, parameters, BatchNorm statistics and Adam/AdamW
+    tensors.  WGAN-GP's runner captures its critic-only step and its
+    critic + generator step (global steps 0, 5, 10 update G) and replays
+    them in the order of the global step."""
+    dev = _card()
+    _deterministic()
+    from cfgan_torch.train.loop import make_epoch_runner
+
+    a, b, x, y, perm, draws = _gan_pair(dev, family)
+    runner = make_epoch_runner(a.step_from_draws, reduce=False,
+                               schedule=a.schedule)
+    got = [runner(a.state, x, y, perm, draws) for _ in range(2)]
+    steps = perm.shape[0]
+    assert runner.captures == (2 if family == "wgan_gp" else 1)
+    assert runner.replays == 2 * steps - 3
+    for epoch in range(2):
+        for i in range(steps):
+            m = b.step_from_draws(b.state, x[perm[i]], y[perm[i]],
+                                  {k: v[i] for k, v in draws.items()})
+            for k, v in m.items():
+                assert got[epoch][k][i] == np.float32(v.item()), (epoch, i, k)
+    assert a.state.step == b.state.step == 2 * steps
+    for net in ("g", "d"):
+        sa, sb = getattr(a.state, net), getattr(b.state, net)
+        for (name, t), u in zip(sa.model.state_dict().items(),
+                                sb.model.state_dict().values()):
+            assert torch.equal(t, u), (net, name)
+        for p, q in zip(sa.model.parameters(), sb.model.parameters()):
+            for key in ("exp_avg", "exp_avg_sq", "step"):
+                assert torch.equal(sa.opt.state[p][key], sb.opt.state[q][key])
+    if family == "wgan_gp":
+        assert {int(a.state.g.opt.state[p]["step"])
+                for p in a.g_model.parameters()} == {3}
+
+
+def test_cgan_moons_generation_runs_on_the_card(tmp_path):
+    """`run()` of cgan_moons on the card (5 epochs of the 31-step moons
+    epoch through the runner) writes a `generator/` that the port restores
+    to the same samples, and the card's samples are the CPU's within
+    1e-6."""
+    dev = _card()
+    from cfgan_torch.experiments import generation as gen
+    from cfgan_torch.train.gan_builders import build_gan
+
+    out = gen.run("cgan_moons", epochs=5, out_dir=str(tmp_path), device=dev,
+                  log=lambda s: None)
+    runner = out["bundle"].epoch_fn
+    assert runner.captures == 1 and runner.replays == 5 * 31 - 3
+    assert sorted(out["history"]) == ["d_fake", "d_loss", "d_real",
+                                      "g_loss", "wall_time_s"]
+    bundle = out["bundle"]
+    z, oh, _ = out["fixed_noise"]
+    g_vars = gen.load_generator(str(tmp_path / "generator"), bundle)
+    again = bundle.sample_fn(g_vars, z, oh).cpu().numpy()
+    assert np.array_equal(again, out["samples"])
+    cpu = build_gan(bundle.cfg, num_classes=2, device="cpu")
+    on_cpu = cpu.sample_fn({k: v.cpu() for k, v in g_vars.items()},
+                           z.cpu(), oh.cpu()).numpy()
+    np.testing.assert_allclose(on_cpu, out["samples"], rtol=0, atol=1e-6)

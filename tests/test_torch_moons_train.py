@@ -63,7 +63,7 @@ from cfgan_torch.data.moons import load_moons3
 from cfgan_torch.models.classifiers import MLPClassifier
 from cfgan_torch.train.builders import build_moons_countergan
 from cfgan_torch.train.classifier import train_classifier
-from cfgan_torch.train.countergan import make_epoch_runner
+from cfgan_torch.train.loop import make_epoch_runner
 
 from test_torch_step import assert_moments_close, assert_trees_close, leaves
 

@@ -71,7 +71,7 @@ from cfgan_torch.core import config as C
 from cfgan_torch.data.kc_house import KC_SCHEMA, load_kc_house
 from cfgan_torch.models.classifiers import TabularClassifier
 from cfgan_torch.train.builders import build_tabular_countergan
-from cfgan_torch.train.countergan import make_epoch_runner
+from cfgan_torch.train.loop import make_epoch_runner
 
 from test_torch_step import assert_moments_close, assert_trees_close, leaves
 
