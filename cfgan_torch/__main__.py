@@ -9,8 +9,13 @@ def main() -> None:
     print("""
 Experiments (classifier pretrain -> CounteRGAN train -> selection -> eval):
   python -m cfgan_torch.experiments.moons_countergan  [--seed N] [--epochs N] [--clf-steps N] [--reference] [--device cpu]
-  python -m cfgan_torch.experiments.mnist_countergan  [--seed N] [--epochs N] [--clf-epochs N] [--limit N] [--fresh] [--device cpu]
+  python -m cfgan_torch.experiments.mnist_countergan  [--seed N] [--epochs N] [--clf-epochs N] [--limit N] [--fresh] [--legacy] [--device cpu]
+  python -m cfgan_torch.experiments.mnist_countergan2 --target C [--epochs N] [--clf-epochs N] [--limit N] [--out-dir D] [--fresh] [--device cpu]
   python -m cfgan_torch.experiments.house_countergan  [--seed N] [--epochs N] [--clf-epochs N] [--limit N] [--preset NAME] [--device cpu]
+
+The CounteRGAN step's memory options (CounterGANConfig fields):
+  remat=True        run the generator's residual blocks again in the backward
+  g_microbatch=K    the generator update in K equal micro-batches
 
 Plain generation (the simple, conditional, DCGAN and WGAN-GP families):
   python -m cfgan_torch.experiments.generation --preset simple_gan_moons|simple_gan_mnist|cgan_moons|wgan_gp_mnist|dcgan_mnist [--epochs N] [--limit N] [--out-dir D] [--seed N] [--device cpu]

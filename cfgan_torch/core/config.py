@@ -4,9 +4,9 @@ training, and the tabular feature schema) and of the plain-generation GAN
 families (mirrors `cfgan/core/config.py`; the experiment presets are in
 `cfgan_torch/experiments/presets.py`).
 
-The JAX package's `remat` and `g_microbatch` are not ported, and its
-`GANConfig.sample_every` is read by neither package, so they are not
-fields here: a config cannot ask for them and be silently ignored.
+The JAX package's `GANConfig.sample_every` is read by neither package,
+so it is not a field here: a config cannot ask for it and be silently
+ignored.
 """
 from __future__ import annotations
 
@@ -103,8 +103,19 @@ class CounterGANConfig:
     residual_scaling: float = 0.1
     gumbel_tau: float = 0.5
     compute_dtype: str = "float32"
+    # run each of the generator's residual blocks again in the backward
+    # (torch.utils.checkpoint, block by block): the step holds the blocks'
+    # inputs, not their activations, and the backward remakes one block's
+    # at a time (the moons and legacy generators have no blocks)
+    remat: bool = False
     conv_impl: str | None = None
     cat_head_f32: bool = True
+    # >= 2: the generator update in this many equal micro-batches (the
+    # gradients summed, then divided by it); the D phase takes a plain
+    # full-batch forward, which alone updates the BatchNorm statistics,
+    # and each chunk's forward normalizes by its own batch statistics (the
+    # tabular chunks on their own Gumbel noise).  0 disables
+    g_microbatch: int = 0
     # > 0: the experiment scores serving candidates every K epochs on the
     # validation split and ships the best snapshot (cfgan_torch.train.
     # selection); 0: end-of-training selection only

@@ -1,10 +1,24 @@
-"""Sample grids of the plain-generation families (mirrors
-`cfgan/eval/samples.py`: `to_uint8_grid`).  The JAX module's figure
-writers (`save_image_grid`, `save_scatter`, `save_loss_plot`, `make_gif`)
-draw with matplotlib and imageio, which the port does not use."""
+"""Sample grids (mirrors `cfgan/eval/samples.py`: `to_uint8_grid`,
+`save_image_grid`) and the PNG writer they need.
+
+The port writes PNG files itself (`png_bytes`, `write_png`: 8-bit gray,
+RGB or RGBA, zlib-compressed rows behind PNG chunks), without matplotlib
+or PIL.  `save_image_grid` writes `to_uint8_grid`'s raster at its own
+size, one pixel a pixel: the JAX package draws the same raster into a
+6x6 in matplotlib figure at 120 dpi, whose file bytes and size the port
+does not reproduce.  The JAX module's other figure writers (`save_scatter`, `save_loss_plot`,
+`make_gif`) are not ported."""
 from __future__ import annotations
 
+import os
+import struct
+import zlib
+
 import numpy as np
+
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# PNG color type by channels: gray, RGB, RGBA
+_COLOR_TYPES = {1: 0, 3: 2, 4: 6}
 
 
 def to_uint8_grid(images, nrow: int = 8, pad: int = 2) -> np.ndarray:
@@ -27,3 +41,42 @@ def to_uint8_grid(images, nrow: int = 8, pad: int = 2) -> np.ndarray:
         grid[y0:y0 + h, x0:x0 + w] = imgs[i]
     grid = (grid * 255).astype(np.uint8)
     return grid[..., 0] if c == 1 else grid
+
+
+def _chunk(tag: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + tag + data
+            + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+
+def png_bytes(pixels) -> bytes:
+    """A PNG file of uint8 `pixels`: (H, W) gray, or (H, W, C) with C 1
+    (gray), 3 (RGB) or 4 (RGBA); 8 bits a sample, no interlace, each row
+    unfiltered (filter type 0)."""
+    a = np.asarray(pixels)
+    if a.dtype != np.uint8:
+        raise ValueError(f"PNG pixels must be uint8, not {a.dtype}")
+    if a.ndim == 2:
+        a = a[..., None]
+    if a.ndim != 3 or a.shape[2] not in _COLOR_TYPES or 0 in a.shape[:2]:
+        raise ValueError(f"cannot write pixels of shape {a.shape} as PNG")
+    h, w, c = a.shape
+    rows = np.ascontiguousarray(a).reshape(h, w * c)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], 1).tobytes()
+    header = struct.pack(">IIBBBBB", w, h, 8, _COLOR_TYPES[c], 0, 0, 0)
+    return (_PNG_SIGNATURE + _chunk(b"IHDR", header)
+            + _chunk(b"IDAT", zlib.compress(raw, 9)) + _chunk(b"IEND", b""))
+
+
+def write_png(path: str, pixels) -> str:
+    """Write `png_bytes(pixels)` to `path`, making its directory."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(png_bytes(pixels))
+    return path
+
+
+def save_image_grid(images, path: str, nrow: int = 8) -> str:
+    """Write `to_uint8_grid(images, nrow)` to `path` as a PNG, at the
+    grid's own size (`cfgan.eval.samples.save_image_grid` draws it in a
+    matplotlib figure instead)."""
+    return write_png(path, to_uint8_grid(images, nrow))

@@ -6,7 +6,13 @@ snapshot on validation data -> evaluation CSVs.
 
     python -m cfgan_torch.experiments.mnist_countergan [--epochs N]
         [--clf-epochs N] [--limit N] [--seed N] [--out-dir D] [--fresh]
-        [--device cpu]
+        [--legacy] [--device cpu]
+
+`--legacy` runs the legacy stack instead (preset
+`mnist_countergan_legacy`): the MaxPool `LegacyCNNClassifier`, the
+mask-free `DeltaImageGenerator` and the unconditional
+`ConvDiscriminator`, trained toward one fixed target with all-ones
+masks (`run(legacy_delta=True)`).
 
 The run dir is the JAX package's: `classifier/`, `generator/` (the served
 variables, with the `serving_selection` record in its metadata),
@@ -16,9 +22,8 @@ variables, with the `serving_selection` record in its metadata),
 `masked_metrics.csv`, `patch_budget_curve.csv` (the flip rate against the
 number of modifiable patches) and `run_provenance.json`; its checkpoints
 restore in either package.  A stage whose checkpoint exists is loaded,
-not trained again, unless `fresh`.  Not ported: the legacy stack
-(`--legacy`) and the figures (the counterfactual grid, the heatmaps, the
-patch grid, the loss curves).
+not trained again, unless `fresh`.  Not ported: the figures (the
+counterfactual grid, the heatmaps, the patch grid, the loss curves).
 """
 from __future__ import annotations
 
@@ -46,9 +51,12 @@ from cfgan_torch.eval.metrics import (
     per_target_metrics,
     write_csv,
 )
-from cfgan_torch.experiments.presets import MNIST_COUNTERGAN
+from cfgan_torch.experiments.presets import (
+    MNIST_COUNTERGAN,
+    MNIST_COUNTERGAN_LEGACY,
+)
 from cfgan_torch.masks.patch import random_patch_mask
-from cfgan_torch.models.classifiers import CNNClassifier
+from cfgan_torch.models.classifiers import CNNClassifier, LegacyCNNClassifier
 from cfgan_torch.train.builders import (
     build_mnist_countergan,
     select_g_serving_variables,
@@ -62,11 +70,13 @@ SCORE_SUBSAMPLE = 8192  # training images added to the validation scoring
 
 def run(cfg=MNIST_COUNTERGAN, out_dir: str | None = None, fresh: bool = False,
         limit: int | None = None, device: str | torch.device | None = None,
-        log=print) -> dict:
+        log=print, legacy_delta: bool = False) -> dict:
     """Run the experiment into `out_dir` (default `cfg.out_dir/cfg.name`)
-    on `device` (None: the CUDA card).  Returns the classifier eval, the
-    batch and per-target metrics, the served generator variables, the
-    training history and each stage's wall seconds (`stage_seconds`)."""
+    on `device` (None: the CUDA card); `legacy_delta` runs the legacy
+    stack (`LegacyCNNClassifier`, `build_mnist_countergan(legacy_delta=
+    True)`).  Returns the classifier eval, the batch and per-target
+    metrics, the served generator variables, the training history and
+    each stage's wall seconds (`stage_seconds`)."""
     dev = resolve_device(device)
     out_dir = out_dir or os.path.join(cfg.out_dir, cfg.name)
     os.makedirs(out_dir, exist_ok=True)
@@ -79,7 +89,10 @@ def run(cfg=MNIST_COUNTERGAN, out_dir: str | None = None, fresh: bool = False,
 
     # ---- stage 1: the classifier (mnist/main.py:22-33) ----
     t0 = time.perf_counter()
-    clf_model = CNNClassifier(
+    # the legacy stack's faithful MaxPool classifier
+    # (`mnist/modules/classifier.py:4-30`)
+    clf_cls = LegacyCNNClassifier if legacy_delta else CNNClassifier
+    clf_model = clf_cls(
         num_classes=cfg.num_classes,
         generator=torch.Generator().manual_seed(cfg.seed))
     clf_dir = os.path.join(out_dir, "classifier")
@@ -105,7 +118,8 @@ def run(cfg=MNIST_COUNTERGAN, out_dir: str | None = None, fresh: bool = False,
     # ---- stage 2: the CounteRGAN (mnist/main.py:38-47) ----
     t0 = time.perf_counter()
     bundle = build_mnist_countergan(cfg.countergan, clf_model.state_dict(),
-                                    seed=cfg.seed, device=dev)
+                                    seed=cfg.seed, device=dev,
+                                    legacy_delta=legacy_delta)
     g_model = bundle.state.g.model
     gen_dir = os.path.join(out_dir, "generator")
     history, selection_s = {}, 0.0
@@ -242,10 +256,13 @@ def main(argv=None) -> None:
     ap.add_argument("--out-dir", type=str, default=None)
     ap.add_argument("--seed", type=int, default=None)
     ap.add_argument("--fresh", action="store_true")
+    ap.add_argument("--legacy", action="store_true",
+                    help="the legacy delta-generator stack with a fixed "
+                         "target (preset mnist_countergan_legacy)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
-    cfg = MNIST_COUNTERGAN
+    cfg = MNIST_COUNTERGAN_LEGACY if args.legacy else MNIST_COUNTERGAN
     if args.epochs is not None:
         cfg = cfg.replace(countergan=replace(cfg.countergan,
                                              epochs=args.epochs))
@@ -255,7 +272,7 @@ def main(argv=None) -> None:
     if args.seed is not None:
         cfg = cfg.replace(seed=args.seed)
     run(cfg, out_dir=args.out_dir, fresh=args.fresh, limit=args.limit,
-        device=args.device)
+        device=args.device, legacy_delta=args.legacy)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
-"""The moons, MNIST and King County house CounteRGAN experiment presets
-and the five plain-generation presets (mirrors
+"""The moons, MNIST and King County house CounteRGAN experiment presets,
+the legacy MNIST stack's two, and the five plain-generation presets
+(mirrors
 `cfgan/experiments/presets.py`, under the same names); `PRESETS` maps
 each name to its preset.
 
@@ -8,6 +9,8 @@ each name to its preset.
 of these experiments (the train step's and serving's part of them).
 """
 from __future__ import annotations
+
+from dataclasses import replace
 
 from cfgan_torch.core import config as C
 
@@ -43,6 +46,47 @@ MNIST_COUNTERGAN_REFERENCE = C.ExperimentConfig(
 MNIST_COUNTERGAN = MNIST_COUNTERGAN_REFERENCE.replace(
     name="mnist_countergan", countergan=C.MNIST_COUNTERGAN)
 
+#: The reference recipe in bf16 compute, the rest as it is
+MNIST_COUNTERGAN_BF16 = MNIST_COUNTERGAN_REFERENCE.replace(
+    name="mnist_countergan_bf16",
+    countergan=replace(C.MNIST_COUNTERGAN_REFERENCE,
+                       compute_dtype="bfloat16"))
+
+#: The legacy fixed-target delta CounteRGAN (`mnist/gan_train.py:17-30`:
+#: target class 5, lambda_cls 3, lambda_reg 0.05; `countergan2.py`'s
+#: clipped-log losses), run with `legacy_delta=True`
+MNIST_COUNTERGAN_LEGACY = C.ExperimentConfig(
+    name="mnist_countergan_legacy",
+    seed=42,
+    num_classes=10,
+    data=C.DataConfig(name="mnist", batch_size=128, valid_fraction=0.1),
+    classifier=C.ClassifierConfig(arch="cnn", lr=1e-3, epochs=10,
+                                  batch_size=128),
+    countergan=C.CounterGANConfig(
+        epochs=20, lr_g=5e-5, lr_d=1e-5, lambda_adv=1.0, lambda_cls=3.0,
+        lambda_reg_l1=0.05, lambda_mask=0.0, adv_loss="clipped_log",
+        reg_reduction="mean_abs", clamp_cf=(-1.0, 1.0), fixed_target=5,
+        resample_target=False, hidden_dim=32),
+)
+
+#: `countergan2.py`'s self-contained variant (`mnist/countergan2.py:16-30,
+#: 186-205`): 50 epochs, Adam 1e-3 for both nets, the legacy MaxPool
+#: classifier; its `fixed_target` comes from the command line
+#: (`cfgan_torch.experiments.mnist_countergan2 --target`)
+MNIST_COUNTERGAN2 = C.ExperimentConfig(
+    name="mnist_countergan2",
+    seed=42,
+    num_classes=10,
+    data=C.DataConfig(name="mnist", batch_size=128, valid_fraction=0.1),
+    classifier=C.ClassifierConfig(arch="cnn_legacy", lr=1e-3, epochs=10,
+                                  batch_size=128),
+    countergan=C.CounterGANConfig(
+        epochs=50, lr_g=1e-3, lr_d=1e-3, lambda_adv=1.0, lambda_cls=3.0,
+        lambda_reg_l1=0.05, lambda_mask=0.0, adv_loss="clipped_log",
+        reg_reduction="mean_abs", clamp_cf=(-1.0, 1.0), fixed_target=None,
+        resample_target=False, hidden_dim=64),
+)
+
 #: house_sales_kc_usa/config.py:13-83, the exact reference recipe: the
 #: AdamW classifier with class weights, early stopping and the plateau;
 #: 50 CounteRGAN epochs
@@ -63,6 +107,18 @@ HOUSE_COUNTERGAN_REFERENCE = C.ExperimentConfig(
 #: every 10 epochs
 HOUSE_COUNTERGAN = HOUSE_COUNTERGAN_REFERENCE.replace(
     name="house_countergan", countergan=C.HOUSE_COUNTERGAN)
+
+#: The round-3 clamp-trained recipe (the reference recipe with the clamp
+#: to [0, 1] in training, lambda_cls 4, 150 epochs), kept for its result
+#: dirs
+HOUSE_COUNTERGAN_CLAMPED = HOUSE_COUNTERGAN_REFERENCE.replace(
+    name="house_countergan_clamped",
+    countergan=C.CounterGANConfig(
+        epochs=150, lr_g=1e-3, lr_d=1e-3, lambda_cls=4.0, lambda_reg_l1=1.0,
+        lambda_mask=1.0, adv_loss="wasserstein",
+        reg_reduction="per_sample_norm", clamp_cf=(0.0, 1.0),
+        resample_target=True, hidden_dim=32, num_res_blocks=5,
+        gumbel_tau=0.5))
 
 #: The reference's committed per-target flip rates under its own
 #: un-clamped protocol (`house_sales_kc_usa/results/countergan_metrics.csv:
@@ -128,4 +184,5 @@ GENERATION_PRESETS = (SIMPLE_GAN_MOONS, SIMPLE_GAN_MNIST, CGAN_MOONS,
 PRESETS = {p.name: p for p in (
     MOONS_COUNTERGAN, MOONS_COUNTERGAN_REFERENCE, MNIST_COUNTERGAN,
     MNIST_COUNTERGAN_REFERENCE, HOUSE_COUNTERGAN, HOUSE_COUNTERGAN_REFERENCE,
-    *GENERATION_PRESETS)}
+    *GENERATION_PRESETS, MNIST_COUNTERGAN_LEGACY, MNIST_COUNTERGAN2,
+    HOUSE_COUNTERGAN_CLAMPED, MNIST_COUNTERGAN_BF16)}

@@ -1,13 +1,21 @@
 """The frozen classifiers (mirrors `cfgan/models/classifiers.py`):
-`MLPClassifier` (2-D moons), `CNNClassifier` (MNIST) and
-`TabularClassifier` (King County house)."""
+`MLPClassifier` (2-D moons), `CNNClassifier` (MNIST),
+`LegacyCNNClassifier` (the legacy MNIST stack's) and `TabularClassifier`
+(King County house)."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cfgan_torch.nn.layers import BatchNorm, Conv, Dropout, Linear, leaky_relu
+from cfgan_torch.nn.layers import (
+    BatchNorm,
+    Conv,
+    Dropout,
+    Linear,
+    leaky_relu,
+    max_pool2d,
+)
 
 
 class MLPClassifier(nn.Module):
@@ -63,6 +71,38 @@ class CNNClassifier(nn.Module):
         h = F.relu(self.Conv_2(h))
         h = self.drop2d(h, generator, k2d).reshape(h.shape[0], -1)
         h = self.drop(F.relu(self.Linear_0(h)), generator, k)
+        return self.Linear_1(h)
+
+
+class LegacyCNNClassifier(nn.Module):
+    """The legacy MaxPool CNN (`cfgan.models.classifiers.
+    LegacyCNNClassifier`, `mnist/modules/classifier.py:4-30`): Conv(1->32,
+    pad 1), ReLU, 2x2 max pool; Conv(32->64, pad 1), ReLU, 2x2 max pool;
+    FC 64*7*7 -> 128, ReLU; FC 128 -> 10.  Input NHWC, the flatten in NHWC
+    order as `CNNClassifier`'s.  No dropout: `forward` accepts the
+    `generator` and `keep` that `train_classifier` passes and ignores
+    them.  Submodules are named as in the flax tree (`Conv_0`, `Conv_1`,
+    `Linear_0`, `Linear_1`)."""
+
+    def __init__(self, num_classes: int = 10,
+                 image_hw: tuple[int, int] = (28, 28),
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        g = generator
+        self.Conv_0 = Conv(1, 32, 3, 1, 1, generator=g)
+        self.Conv_1 = Conv(32, 64, 3, 1, 1, generator=g)
+        h, w = image_hw
+        for _ in range(2):  # two floor-sized 2x2 pools
+            h, w = h // 2, w // 2
+        self.Linear_0 = Linear(64 * h * w, 128, generator=g)
+        self.Linear_1 = Linear(128, num_classes, generator=g)
+
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None,
+                keep=None) -> torch.Tensor:
+        h = max_pool2d(F.relu(self.Conv_0(x)))
+        h = max_pool2d(F.relu(self.Conv_1(h)))
+        h = F.relu(self.Linear_0(h.reshape(h.shape[0], -1)))
         return self.Linear_1(h)
 
 

@@ -1,6 +1,7 @@
 """The discriminators (mirrors `cfgan/models/discriminators.py`): the
-CounteRGAN critics `CondConvDiscriminator` (MNIST, NHWC) and
-`SpectralMLPDiscriminator` (tabular), and the plain-generation families'
+CounteRGAN critics `CondConvDiscriminator` (MNIST, NHWC), the legacy
+MNIST stack's `ConvDiscriminator` and `SpectralMLPDiscriminator`
+(tabular), and the plain-generation families'
 `MLPDiscriminator`, `ConditionalMLPDiscriminator`, `DCGANDiscriminator`
 and `WGANCritic`.
 
@@ -65,6 +66,37 @@ class CondConvDiscriminator(nn.Module):
         for i in range(4):
             z = leaky_relu(getattr(self, f"conv{i}")(z), self.negative_slope)
         return self.adv_head(z.mean(dim=(1, 2)))
+
+
+class ConvDiscriminator(nn.Module):
+    """The legacy unconditional conv discriminator
+    (`cfgan.models.discriminators.ConvDiscriminator`,
+    `mnist/modules/discriminator.py:4-23`): three stride-2, pad-1 3x3
+    convs with biases (`conv0`..`conv2`; d, 2d, 4d channels), each followed
+    by LeakyReLU(0.2) -> spatial mean -> `head` Linear(4d -> 1) logit.  It
+    takes the condition and ignores it, so that it stands in for the
+    conditional discriminator in the CounteRGAN step.  Its convs are
+    strided, so they run on cuDNN, as the JAX module's are `lax.conv`."""
+
+    negative_slope = 0.2
+
+    def __init__(self, d_hidden: int = 64, channels: int = 1,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        widths = (channels, d_hidden, 2 * d_hidden, 4 * d_hidden)
+        for i, (cin, cout) in enumerate(zip(widths[:-1], widths[1:])):
+            self.add_module(f"conv{i}", Conv(cin, cout, 3, 2, 1,
+                                             generator=generator))
+        self.head = Linear(widths[-1], 1, generator=generator)
+
+    def forward(self, x: torch.Tensor, cond_idx: torch.Tensor | None = None,
+                train: bool = True) -> torch.Tensor:
+        """`cond_idx` and the step's `train` flag are ignored: the network
+        holds no state."""
+        z = x
+        for i in range(3):
+            z = leaky_relu(getattr(self, f"conv{i}")(z), self.negative_slope)
+        return self.head(z.mean(dim=(1, 2)))
 
 
 class SpectralMLPDiscriminator(nn.Module):

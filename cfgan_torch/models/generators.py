@@ -1,14 +1,21 @@
 """The generators (mirrors `cfgan/models/generators.py`): the CounteRGAN
 residual generators `MoonsResidualGenerator` (2-D moons),
 `ImageResidualGenerator` (MNIST, NHWC throughout) and
-`TabularResidualGenerator` (King County house), and the plain-generation
+`TabularResidualGenerator` (King County house), the legacy MNIST
+`DeltaImageGenerator`, and the plain-generation
 families' `MLPGenerator`, `ConditionalMLPGenerator`, `MLPImageGenerator`,
 `DCGANGenerator` and `WGANGenerator`.
 
 The plain-generation generators' BatchNorms use their batch statistics in
 train mode and their running statistics in eval mode (the JAX modules'
 `train` flag is the module's mode here); submodules are named as in the
-flax trees."""
+flax trees.  The CounteRGAN generators take `update_stats`: with False a
+train-mode forward normalizes by its batch statistics and leaves the
+running statistics alone (the step's `g_microbatch` chunks).  The two
+with residual blocks take `remat` (`CounterGANConfig.remat`): a forward
+in train mode that records a graph runs each block under `remat_call`,
+so the backward remakes one block's activations at a time; the moons
+and legacy generators have no blocks to run again."""
 from __future__ import annotations
 
 import math
@@ -29,7 +36,17 @@ from cfgan_torch.nn.layers import (
     FiLMResidualBlock,
     Linear,
     leaky_relu,
+    remat_call,
 )
+
+
+def _run_block(owner: nn.Module, block: nn.Module, *args,
+               update_stats: bool) -> torch.Tensor:
+    """`block(*args, update_stats)`, under `remat_call` where `owner`
+    has `remat` on and its forward records a graph in train mode."""
+    if owner.remat and owner.training and torch.is_grad_enabled():
+        return remat_call(block, *args, update_stats=update_stats)
+    return block(*args, update_stats)
 
 
 class MoonsResidualGenerator(nn.Module):
@@ -55,11 +72,12 @@ class MoonsResidualGenerator(nn.Module):
                         Linear(cin, input_dim, generator))
 
     def forward(self, x: torch.Tensor, target_onehot: torch.Tensor,
-                mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+                mask: torch.Tensor, update_stats: bool = True
+                ) -> tuple[torch.Tensor, torch.Tensor]:
         h = torch.cat([x, target_onehot, mask], 1)
         for i in range(self.n_hidden):
             h = F.relu(getattr(self, f"BatchNorm_{i}")(
-                getattr(self, f"Linear_{i}")(h)))
+                getattr(self, f"Linear_{i}")(h), update_stats))
         raw = getattr(self, f"Linear_{self.n_hidden}")(h)
         return raw, raw * mask
 
@@ -80,12 +98,13 @@ class ImageResidualGenerator(nn.Module):
     def __init__(self, image_hw: tuple[int, int] = (28, 28),
                  num_classes: int = 10, base_ch: int = 64,
                  n_resblocks: int = 6, residual_scaling: float = 0.1,
-                 conv_impl: str | None = None,
+                 conv_impl: str | None = None, remat: bool = False,
                  generator: torch.Generator | None = None):
         super().__init__()
         h, w = image_hw
         self.residual_scaling = residual_scaling
         self.n_resblocks = n_resblocks
+        self.remat = remat
 
         def conv(cin, cout):
             return Conv(cin, cout, 3, 1, 1, impl=conv_impl,
@@ -101,12 +120,14 @@ class ImageResidualGenerator(nn.Module):
         self.conv_out = conv(base_ch, 1)
 
     def forward(self, x: torch.Tensor, target: torch.Tensor,
-                mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+                mask: torch.Tensor, update_stats: bool = True
+                ) -> tuple[torch.Tensor, torch.Tensor]:
         b, h, w, _ = x.shape
         plane = self.embed(target).reshape(b, h, w, 1)
         z = leaky_relu(self.conv_in(torch.cat([x, plane, mask], dim=-1)))
         for i in range(self.n_resblocks):
-            z = getattr(self, f"res{i}")(z)
+            z = _run_block(self, getattr(self, f"res{i}"), z,
+                           update_stats=update_stats)
         z = leaky_relu(self.conv_mid(z))
         raw = self.conv_out(z) * self.residual_scaling
         return raw, raw * mask
@@ -132,10 +153,12 @@ class TabularResidualGenerator(nn.Module):
                  categorical_info: Mapping[int, Sequence[float]],
                  n_blocks: int = 5, residual_scaling: float = 0.1,
                  tau: float = 0.5, cat_head_f32: bool = False,
+                 remat: bool = False,
                  generator: torch.Generator | None = None):
         super().__init__()
         cond_dim = num_classes + input_dim
         self.n_blocks = n_blocks
+        self.remat = remat
         self.residual_scaling = residual_scaling
         self.tau = tau
         self.cat_head_f32 = cat_head_f32
@@ -152,7 +175,7 @@ class TabularResidualGenerator(nn.Module):
 
     def forward(self, x: torch.Tensor, target_onehot: torch.Tensor,
                 mask: torch.Tensor, noise, hard: bool = False,
-                temperature: float | None = None):
+                temperature: float | None = None, update_stats: bool = True):
         """`noise`: feature index -> (B, n) Gumbel noise, or one (B, sum
         n) tensor of the heads' noise side by side in sorted order."""
         if not isinstance(noise, Mapping):
@@ -160,7 +183,8 @@ class TabularResidualGenerator(nn.Module):
         cond = torch.cat([target_onehot, mask], 1)
         h = F.relu(self.fc_in(torch.cat([x, cond], 1)))
         for i in range(self.n_blocks):
-            h = getattr(self, f"block{i}")(h, cond)
+            h = _run_block(self, getattr(self, f"block{i}"), h, cond,
+                           update_stats=update_stats)
         cont = self.fc_cont(h) * self.residual_scaling
         tau = self.tau if temperature is None else float(temperature)
         head_dtype = torch.float32 if self.cat_head_f32 else h.dtype
@@ -174,6 +198,46 @@ class TabularResidualGenerator(nn.Module):
             samples[idx] = gumbel_softmax(lg, noise[idx].to(head_dtype),
                                           tau=tau, hard=hard)
         return cont, logits, samples
+
+
+class DeltaImageGenerator(nn.Module):
+    """The legacy mask-free delta generator
+    (`cfgan.models.generators.DeltaImageGenerator`,
+    `mnist/modules/generator.py:4-22`): a label plane (`embed`, N(0, .01)
+    init) beside the image; conv0, LeakyReLU(0.2), `bn0`; conv1,
+    LeakyReLU(0.2), `bn1` (the BatchNorm after the activation);
+    `conv_out`, tanh, times `delta_scale`.  Returns (delta, delta): the
+    family has no mask, and the step treats it as all ones.  Its 3x3
+    stride-1 convs stay on cuDNN (`F.conv2d`), as the JAX module's are
+    `lax.conv`; it takes no `conv_impl`."""
+
+    def __init__(self, num_classes: int = 10, base_ch: int = 32,
+                 delta_scale: float = 1.0,
+                 image_hw: tuple[int, int] = (28, 28), channels: int = 1,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        h, w = image_hw
+        self.delta_scale = delta_scale
+        self.embed = Embed(num_classes, h * w, stddev=0.01,
+                           generator=generator)
+        self.conv0 = Conv(channels + 1, base_ch, 3, 1, 1, generator=generator)
+        self.bn0 = BatchNorm(base_ch)
+        self.conv1 = Conv(base_ch, base_ch, 3, 1, 1, generator=generator)
+        self.bn1 = BatchNorm(base_ch)
+        self.conv_out = Conv(base_ch, channels, 3, 1, 1, generator=generator)
+
+    def forward(self, x: torch.Tensor, target: torch.Tensor,
+                mask: torch.Tensor | None = None, update_stats: bool = True
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        """`mask` is accepted for the families' common signature and
+        ignored."""
+        b, h, w, _ = x.shape
+        plane = self.embed(target).reshape(b, h, w, 1)
+        z = torch.cat([x, plane], dim=-1)
+        z = self.bn0(leaky_relu(self.conv0(z)), update_stats)
+        z = self.bn1(leaky_relu(self.conv1(z)), update_stats)
+        delta = torch.tanh(self.conv_out(z)) * self.delta_scale
+        return delta, delta
 
 
 class MLPGenerator(nn.Module):

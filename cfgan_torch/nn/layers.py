@@ -17,6 +17,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from cfgan_torch.nn import init as cinit
 from cfgan_torch.ops import conv as conv_ops
@@ -155,7 +157,9 @@ class BatchNorm(nn.Module):
     running statistics keep their own dtype (float32 under mixed
     precision).  `update_stats=False` normalizes by the batch statistics
     and leaves the running ones alone (the JAX GAN step's G phase, which
-    drops a BatchNorm discriminator's update).  Eval mode normalizes by
+    drops a BatchNorm discriminator's update; the CounteRGAN step's
+    recomputed forward under `remat` and its `g_microbatch` chunks, whose
+    statistics JAX drops too).  Eval mode normalizes by
     the running statistics.  `epsilon` defaults to 1e-5 (the simple MNIST
     generator's is 0.8); the scale starts at 1, or at `scale_init((n,),
     generator)`.
@@ -289,9 +293,10 @@ class FiLMResidualBlock(nn.Module):
         self.fc2 = Linear(hidden_dim, hidden_dim, generator)
         self.bn2 = BatchNorm(hidden_dim)
 
-    def forward(self, h: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
-        out = F.relu(self.film(self.bn1(self.fc1(h)), cond))
-        out = self.film(self.bn2(self.fc2(out)), cond)
+    def forward(self, h: torch.Tensor, cond: torch.Tensor,
+                update_stats: bool = True) -> torch.Tensor:
+        out = F.relu(self.film(self.bn1(self.fc1(h), update_stats), cond))
+        out = self.film(self.bn2(self.fc2(out), update_stats), cond)
         return h + out
 
 
@@ -328,9 +333,11 @@ class ConvResBlock(nn.Module):
         self.conv1, self.bn1 = conv(), BatchNorm(channels)
         self.conv2, self.bn2 = conv(), BatchNorm(channels)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = leaky_relu(self.bn1(self.conv1(x)), self.negative_slope)
-        out = self.bn2(self.conv2(out))
+    def forward(self, x: torch.Tensor, update_stats: bool = True
+                ) -> torch.Tensor:
+        out = leaky_relu(self.bn1(self.conv1(x), update_stats),
+                         self.negative_slope)
+        out = self.bn2(self.conv2(out), update_stats)
         return x + self.damping * out
 
 
@@ -363,6 +370,44 @@ class Dropout(nn.Module):
             keep = torch.rand(shape, generator=generator,
                               device=x.device) >= self.rate
         return x * keep.to(x.dtype) / (1.0 - self.rate)
+
+
+def remat_call(block: nn.Module, *args: torch.Tensor,
+               update_stats: bool = True) -> torch.Tensor:
+    """`block(*args, update_stats)` under `torch.utils.checkpoint`
+    (non-reentrant): the forward keeps the block's inputs and none of its
+    activations, and the backward runs the block again to remake them.
+
+    The block's parameters go in as the checkpoint's inputs, as they are
+    at the call: under `make_mixed_precision` they are the compute-dtype
+    casts that `functional_call` put in place, which are gone by the time
+    the backward runs the block again.  The second run leaves the
+    BatchNorm running statistics alone, as `jax.checkpoint` returns them
+    once.  Nothing in a block draws random numbers, so the RNG state is
+    not kept (`preserve_rng_state=False`), which also keeps `checkpoint`
+    from reading the CUDA RNG state, as a CUDA graph capture forbids."""
+    names, params = zip(*block.named_parameters())
+    calls = []
+
+    def run(*inputs):
+        first = not calls
+        calls.append(None)
+        return functional_call(
+            block, dict(zip(names, inputs[len(args):])), inputs[:len(args)],
+            {"update_stats": update_stats and first})
+
+    return checkpoint(run, *args, *params, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def max_pool2d(x: torch.Tensor, window: int = 2,
+               stride: int | None = None) -> torch.Tensor:
+    """torch's MaxPool2d on an NHWC tensor (`cfgan.nn.layers.max_pool2d`):
+    kernel `window`, stride defaulting to the kernel, no padding, floor
+    output size (trailing rows and columns that fill no window are
+    dropped)."""
+    y = F.max_pool2d(x.permute(0, 3, 1, 2), window, stride or window)
+    return y.permute(0, 2, 3, 1).contiguous()
 
 
 def one_hot(t: torch.Tensor, num_classes: int, dtype: torch.dtype

@@ -44,14 +44,17 @@ from cfgan_torch.masks.patch import (
 )
 from cfgan_torch.models.classifiers import (
     CNNClassifier,
+    LegacyCNNClassifier,
     MLPClassifier,
     TabularClassifier,
 )
 from cfgan_torch.models.discriminators import (
     CondConvDiscriminator,
+    ConvDiscriminator,
     SpectralMLPDiscriminator,
 )
 from cfgan_torch.models.generators import (
+    DeltaImageGenerator,
     ImageResidualGenerator,
     MoonsResidualGenerator,
     TabularResidualGenerator,
@@ -91,16 +94,24 @@ class MNISTServing:
 
 
 def mnist_models(cfg: CounterGANConfig,
-                 generator: torch.Generator | None = None
-                 ) -> tuple[ImageResidualGenerator, CNNClassifier]:
+                 generator: torch.Generator | None = None,
+                 legacy_delta: bool = False) -> tuple[nn.Module, nn.Module]:
     """The MNIST generator and classifier (28x28x1 images, ten classes)
     that `cfg` describes, float32 on the CPU, with initial weights drawn
-    from `generator`."""
+    from `generator`: `ImageResidualGenerator` and `CNNClassifier`, or with
+    `legacy_delta` the legacy stack's `DeltaImageGenerator` (width
+    `cfg.hidden_dim`) and `LegacyCNNClassifier`."""
+    if legacy_delta:
+        return (DeltaImageGenerator(num_classes=NUM_CLASSES,
+                                    base_ch=cfg.hidden_dim,
+                                    generator=generator),
+                LegacyCNNClassifier(num_classes=NUM_CLASSES,
+                                    generator=generator))
     g_model = ImageResidualGenerator(
         num_classes=NUM_CLASSES, base_ch=cfg.hidden_dim,
         n_resblocks=cfg.num_res_blocks,
         residual_scaling=cfg.residual_scaling, conv_impl=cfg.conv_impl,
-        generator=generator)
+        remat=cfg.remat, generator=generator)
     clf_model = CNNClassifier(num_classes=NUM_CLASSES, generator=generator)
     return g_model, clf_model
 
@@ -272,7 +283,8 @@ class CounterGANBundle:
     `build_tabular_countergan` return.
 
     - `step_fn(state, x, y, generator)`, `step_with_draws(state, x, y, t,
-      mask)` and `step_from_draws(state, x, y, draws)` update `state` in
+      mask, noise=None, chunk_noise=None)` and `step_from_draws(state, x,
+      y, draws)` update `state` in
       place and return the step's metrics as device tensors
       (`make_countergan_step`);
     - `draw_fn(generator, shape)` draws the random numbers of a batch
@@ -302,14 +314,15 @@ class CounterGANBundle:
     schema: TabularSchema | None = None
 
 
-def make_cf_fn(g_model: ImageResidualGenerator, compute_dtype: str
-               ) -> Callable:
+def make_cf_fn(g_model: nn.Module, compute_dtype: str) -> Callable:
     """`cf_fn(g_vars, x, target, mask, key=None) -> (x_cf, raw, masked)`:
-    `g_vars` through an eval-mode copy of `g_model` at the compute dtype
+    `g_vars` through an eval-mode copy of `g_model` (an
+    `ImageResidualGenerator`, or the legacy `DeltaImageGenerator`, which
+    ignores the mask and returns its delta twice) at the compute dtype
     (all floating variables cast, BatchNorm statistics included, as the
     JAX package's `cf_fn` casts them), float32 outputs, the clamp to
     [-1, 1] in float32.  `key` is accepted for the families' common
-    signature; the MNIST generator draws no noise."""
+    signature; the MNIST generators draw no noise."""
     cd = torch_dtype(compute_dtype)
     serve_g = copy.deepcopy(g_model).eval().requires_grad_(False)
 
@@ -523,25 +536,34 @@ def build_mnist_countergan(cfg: CounterGANConfig,
                            clf_params: Mapping[str, torch.Tensor],
                            seed: int = 42,
                            device: str | torch.device | None = None,
-                           diagnostics: bool = True) -> CounterGANBundle:
-    """The MNIST CounteRGAN train step (`build_mnist_countergan`, the
-    residual-generator family) on `device` (None: the CUDA card; raises
-    where there is none).
+                           diagnostics: bool = True,
+                           legacy_delta: bool = False) -> CounterGANBundle:
+    """The MNIST CounteRGAN train step (`build_mnist_countergan`) on
+    `device` (None: the CUDA card; raises where there is none).
 
-    Generator and `CondConvDiscriminator` get initial weights from a
-    `torch.Generator` seeded with `seed` (`cfgan_torch.convert.
-    load_gan_state` loads others over them), Adam at `cfg.lr_g` /
-    `cfg.lr_d`, and the generator EMA starts at the initial parameters.
-    `clf_params` is the frozen classifier's state dict.  Masks are random
-    patch masks (`cfg.mask`); 28x28x1 images, ten classes.
-    `diagnostics=False` leaves the metrics at d_loss and g_loss, and the
-    step without the extra classifier forward they take."""
+    The residual-generator family: `ImageResidualGenerator` and
+    `CondConvDiscriminator`, random patch masks (`cfg.mask`).  With
+    `legacy_delta` the legacy delta-generator family
+    (`mnist/gan_train.py`, `countergan2.py`): `DeltaImageGenerator`, the
+    unconditional `ConvDiscriminator` and all-ones masks, drawn from
+    nothing (the step's target is usually `cfg.fixed_target`);
+    `clf_params` is then a `LegacyCNNClassifier`'s.  Both get initial
+    weights from a `torch.Generator` seeded with `seed`
+    (`cfgan_torch.convert.load_gan_state` loads others over them), Adam
+    at `cfg.lr_g` / `cfg.lr_d`, and the generator EMA starts at the
+    initial parameters.  `clf_params` is the frozen classifier's state
+    dict.  28x28x1 images, ten classes.  `diagnostics=False` leaves the
+    metrics at d_loss and g_loss, and the step without the extra
+    classifier forward they take."""
     device = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
-    g_model, clf_model = mnist_models(cfg, generator=gen)
+    g_model, clf_model = mnist_models(cfg, generator=gen,
+                                      legacy_delta=legacy_delta)
     clf_model.load_state_dict(clf_params, strict=True)
-    d_model = CondConvDiscriminator(NUM_CLASSES, cfg.hidden_dim, IMAGE_HW,
-                                    generator=gen)
+    d_model = (ConvDiscriminator(cfg.hidden_dim, generator=gen)
+               if legacy_delta else
+               CondConvDiscriminator(NUM_CLASSES, cfg.hidden_dim, IMAGE_HW,
+                                     generator=gen))
     g_model.to(device).train()
     d_model.to(device).train()
     state = GANState(
@@ -556,6 +578,8 @@ def build_mnist_countergan(cfg: CounterGANConfig,
         draws = {"targets": torch.randint(0, NUM_CLASSES, shape,
                                           generator=generator,
                                           device=generator.device)}
+        if legacy_delta:
+            return draws
         scores = patch_mask_draws(shape, IMAGE_HW, m.patch_size,
                                   m.num_modifiable_patches, generator)
         if scores is not None:
@@ -566,6 +590,8 @@ def build_mnist_countergan(cfg: CounterGANConfig,
         return draws
 
     def mask_fn(x, draws):
+        if legacy_delta:  # the legacy family has no masks
+            return torch.ones_like(x)
         mask = random_patch_mask(
             x.shape[0], IMAGE_HW, m.patch_size, m.num_modifiable_patches,
             channels=x.shape[-1], draws=draws.get("mask"), device=x.device)
@@ -610,9 +636,10 @@ def _tabular_g_forward(g_model: TabularResidualGenerator,
 
     apply = make_mixed_precision(g_model, cfg.compute_dtype, post=assemble)
 
-    def g_forward(x, t, mask, noise):
+    def g_forward(x, t, mask, noise, update_stats: bool = True):
         return apply(x, one_hot(t, num_classes, x.dtype), mask,
-                     noise=noise, hard=False, temperature=cfg.gumbel_tau)
+                     noise=noise, hard=False, temperature=cfg.gumbel_tau,
+                     update_stats=update_stats)
 
     return g_forward
 
@@ -669,8 +696,9 @@ def build_tabular_countergan(cfg: CounterGANConfig,
     `TabularClassifier`'s state dict.  Each step draws its targets, a
     per-feature Bernoulli(0.5) mask with the immutable features zeroed and
     the generator's Gumbel noise ("gumbel", (..., B, sum of the heads'
-    sizes)); recalibration's "ones" mode uses the immutable-complement
-    mask.  The bundle carries `schema`."""
+    sizes); under `cfg.g_microbatch` = K also "gumbel_chunks", (..., K,
+    B/K, sum of sizes), the chunks'); recalibration's "ones" mode uses the
+    immutable-complement mask.  The bundle carries `schema`."""
     device = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     dim = schema.input_dim
@@ -681,7 +709,8 @@ def build_tabular_countergan(cfg: CounterGANConfig,
     g_model = TabularResidualGenerator(
         dim, cfg.hidden_dim, num_classes, schema.continuous_idx, info,
         n_blocks=cfg.num_res_blocks, residual_scaling=cfg.residual_scaling,
-        tau=cfg.gumbel_tau, cat_head_f32=cfg.cat_head_f32, generator=gen)
+        tau=cfg.gumbel_tau, cat_head_f32=cfg.cat_head_f32, remat=cfg.remat,
+        generator=gen)
     h = cfg.hidden_dim
     d_model = SpectralMLPDiscriminator(dim + num_classes, (h, 2 * h, 4 * h),
                                        generator=gen)
@@ -703,12 +732,21 @@ def build_tabular_countergan(cfg: CounterGANConfig,
     def full_mask_fn(x):
         return keep.expand(x.shape[0], dim)
 
+    k_micro = cfg.g_microbatch
+
     def draw_fn(generator: torch.Generator, shape: tuple[int, ...]) -> dict:
         draws = {"targets": torch.randint(0, num_classes, shape,
                                           generator=generator,
                                           device=generator.device),
                  "mask": feature_mask_draws(shape, dim, generator),
                  "gumbel": _gumbel_draws((*shape, n_noise), generator)}
+        if k_micro >= 2 and shape[-1] % k_micro == 0:
+            # each micro-batch chunk's own noise, as JAX draws it from
+            # fold_in(k_g, chunk) and not from the D phase's (a batch K
+            # does not divide gets none: the step raises on it)
+            draws["gumbel_chunks"] = _gumbel_draws(
+                (*shape[:-1], k_micro, shape[-1] // k_micro, n_noise),
+                generator)
         if cfg.mask.ones_fraction:
             draws["ones"] = torch.rand(shape, generator=generator,
                                        device=generator.device)
@@ -776,8 +814,9 @@ def _moons_g_forward(g_model: MoonsResidualGenerator,
     compute dtype, float32 outputs."""
     apply = make_mixed_precision(g_model, cfg.compute_dtype)
 
-    def g_forward(x, t, mask):
-        return apply(x, one_hot(t, MOONS_CLASSES, x.dtype), mask)
+    def g_forward(x, t, mask, update_stats: bool = True):
+        return apply(x, one_hot(t, MOONS_CLASSES, x.dtype), mask,
+                     update_stats=update_stats)
 
     return g_forward
 

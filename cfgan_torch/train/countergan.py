@@ -27,6 +27,14 @@ are the same.
 The step returns its metrics as device tensors and reads nothing back to
 the host.
 
+The JAX package's two memory options (`CounterGANConfig.remat`,
+`g_microbatch`): `remat` lives in the generator, which the builders make
+with it (`cfgan_torch.models.generators`: each residual block is run
+again in the backward, without a second update of the BatchNorm
+statistics); `g_microbatch` = K >= 2 gives the D phase its own forward
+and epilogue without a graph, then runs the generator update in K
+chunks, each with its forward, its epilogue and its backward: K + 1
+epilogue forwards and K backwards a step.
 """
 from __future__ import annotations
 
@@ -73,26 +81,42 @@ def make_countergan_step(*, cfg: CounterGANConfig, num_classes: int,
     - `step_from_draws(state, x, y, draws) -> metrics` takes them as a
       dict of tensors (`draw_fn`'s: "targets", the uniform integer draws
       of the targets, the mask's, and for the tabular family "gumbel",
-      the generator's noise), makes the targets and the mask, and runs
+      the generator's noise, and under `g_microbatch` "gumbel_chunks",
+      each chunk's), makes the targets and the mask, and runs
       `step_with_draws`;
-    - `step_with_draws(state, x, y, t, mask, noise=None) -> metrics` takes
-      the targets, the mask and the generator's noise (None for a
-      generator that draws none).
+    - `step_with_draws(state, x, y, t, mask, noise=None, chunk_noise=None)
+      -> metrics` takes the targets, the mask and the generator's noise
+      (None for a generator that draws none); under `g_microbatch` = K a
+      noisy generator's chunks take `chunk_noise[i]`, i < K.
 
-    All update `state` in place.  `g_forward(x, t, mask[, noise]) -> (raw,
-    masked)` (called with `noise` only where there is some),
-    `d_forward(x, t, detach=False, train=True) -> scores` (`detach=True`
-    stops the gradient at D's parameters; `train=False` leaves D's state
-    as it is) and `clf_forward(x) -> logits` return float32;
-    `draw_fn(generator, shape) -> draws` draws for a batch of `shape`
-    (`(B,)`, or `(steps, B)` for an epoch) on the generator's device;
-    `mask_fn(x, draws) -> mask`.
+    All update `state` in place.  `g_forward(x, t, mask[, noise],
+    update_stats=True) -> (raw, masked)` (called with `noise` only where
+    there is some; `update_stats=False` leaves the BatchNorm statistics
+    alone), `d_forward(x, t, detach=False, train=True) -> scores`
+    (`detach=True` stops the gradient at D's parameters; `train=False`
+    leaves D's state as it is) and `clf_forward(x) -> logits` return
+    float32; `draw_fn(generator, shape) -> draws` draws for a batch of
+    `shape` (`(B,)`, or `(steps, B)` for an epoch) on the generator's
+    device; `mask_fn(x, draws) -> mask`.
+
+    `cfg.g_microbatch` = K >= 2 mirrors the JAX package's micro-batched
+    generator update: the D phase takes a full-batch generator forward
+    and epilogue without a graph (the BatchNorm statistics update once,
+    from the full batch); then each of the K equal chunks takes its own
+    generator forward (`update_stats=False`), epilogue, discriminator
+    (updated, eval mode) and classifier, and its backward; the gradients
+    are summed over the chunks and divided by K, the loss terms are the
+    means of the chunks', and the flip rate reads the chunks' logits.  K
+    must divide the batch (ValueError, raised on the host before the
+    generator forward, so before any capture).
     """
     if cfg.adv_loss not in ADV_LOSSES:
         raise ValueError(f"unknown adv_loss {cfg.adv_loss!r}")
     lo, hi = cfg.clamp_cf if cfg.clamp_cf is not None else (-1e30, 1e30)
     use_bce = cfg.adv_loss == "bce"
     clipped = cfg.adv_loss == "clipped_log"
+    k_micro = cfg.g_microbatch
+    micro = k_micro >= 2
 
     def d_loss_of(real, fake):
         if use_bce:
@@ -110,31 +134,13 @@ def make_countergan_step(*, cfg: CounterGANConfig, num_classes: int,
                                                    eps=1e-6)
         return gan_losses.g_loss_wasserstein(scores)
 
-    def step_with_draws(state: GANState, x, y, t, mask, noise=None) -> dict:
-        g, d = state.g, state.d
-        n_features = x[0].numel()
-
-        # ---- generator forward and the epilogue, kept for the G update;
-        # the D update below touches neither ----
-        raw, masked = g_forward(x, t, mask, *(() if noise is None
-                                              else (noise,)))
-        cf, l1s, l2s, pens = cf_epilogue(x, raw, mask, lo, hi)
-
-        # ---- discriminator update, real and fake in one pass ----
-        scores = d_forward(torch.cat([x, cf.detach()]), torch.cat([y, t]),
-                           train=True)
-        d_real, d_fake = scores.chunk(2)
-        d_loss = d_loss_of(d_real, d_fake)
-        d.opt.zero_grad(set_to_none=True)
-        d_loss.backward()
-        d.opt.step()
-
-        # ---- generator update through the updated discriminator ----
+    def g_terms(cf, sums, raw, x, t, mask):
+        """The generator loss of a batch through the updated
+        discriminator: (total, (adv, cls, l1, l2, pen), cf_logits)."""
         adv = g_adv_of(d_forward(cf, t, detach=True, train=False))
         cf_logits = clf_forward(cf)
         cls = cg_losses.classifier_ce(cf_logits, t)
-        l1, l2, pen = epilogue_terms(l1s, l2s, pens, n_features,
-                                     cfg.reg_reduction)
+        l1, l2, pen = epilogue_terms(*sums, x[0].numel(), cfg.reg_reduction)
         if not cfg.lambda_reg_l2:
             l2 = torch.zeros((), device=x.device)
         total = (cfg.lambda_adv * adv + cfg.lambda_cls * cls
@@ -146,8 +152,71 @@ def make_countergan_step(*, cfg: CounterGANConfig, num_classes: int,
             zero = un.new_zeros(())
             total = total + cfg.lambda_range * torch.mean(
                 torch.maximum(un - hi, zero) + torch.maximum(lo - un, zero))
+        return total, (adv, cls, l1, l2, pen), cf_logits
+
+    def micro_g_backward(g_params, x, t, mask, chunk_noise):
+        """The chunks' forwards and backwards; the summed gradients
+        divided by K.  Returns (total, terms, cf_logits) as the chunks'
+        means and their logits concatenated."""
+        mbs = x.shape[0] // k_micro
+        totals, terms, logits = [], [], []
+        for i in range(k_micro):
+            rows = slice(i * mbs, (i + 1) * mbs)
+            xb, tb, mb = x[rows], t[rows], mask[rows]
+            noise = () if chunk_noise is None else (chunk_noise[i],)
+            rawb, _ = g_forward(xb, tb, mb, *noise, update_stats=False)
+            cfb, *sums = cf_epilogue(xb, rawb, mb, lo, hi)
+            total, tb_terms, tb_logits = g_terms(cfb, sums, rawb, xb, tb, mb)
+            total.backward()
+            totals.append(total.detach())
+            terms.append(torch.stack([v.detach() for v in tb_terms]))
+            logits.append(tb_logits.detach())
+        torch._foreach_div_([p.grad for p in g_params if p.grad is not None],
+                            float(k_micro))
+        return (torch.stack(totals).mean(), torch.stack(terms).mean(0),
+                torch.cat(logits))
+
+    def step_with_draws(state: GANState, x, y, t, mask, noise=None,
+                        chunk_noise=None) -> dict:
+        if micro and x.shape[0] % k_micro:
+            raise ValueError(f"g_microbatch={k_micro} must divide the batch "
+                             f"size {x.shape[0]}")
+        if micro and noise is not None and chunk_noise is None:
+            raise ValueError("a micro-batched step of a generator that "
+                             "draws noise needs each chunk's noise")
+        g, d = state.g, state.d
+        extra = () if noise is None else (noise,)
+
+        # ---- generator forward and the epilogue; in the one-forward step
+        # their graph is kept for the G update, which the D update below
+        # does not touch ----
+        if micro:
+            with torch.no_grad():
+                raw, masked = g_forward(x, t, mask, *extra)
+                cf = cf_epilogue(x, raw, mask, lo, hi)[0]
+        else:
+            raw, masked = g_forward(x, t, mask, *extra)
+            cf, *sums = cf_epilogue(x, raw, mask, lo, hi)
+
+        # ---- discriminator update, real and fake in one pass ----
+        scores = d_forward(torch.cat([x, cf.detach()]), torch.cat([y, t]),
+                           train=True)
+        d_real, d_fake = scores.chunk(2)
+        d_loss = d_loss_of(d_real, d_fake)
+        d.opt.zero_grad(set_to_none=True)
+        d_loss.backward()
+        d.opt.step()
+
+        # ---- generator update through the updated discriminator ----
         g.opt.zero_grad(set_to_none=True)
-        total.backward()
+        if micro:
+            total, terms, cf_logits = micro_g_backward(
+                list(g.model.parameters()), x, t, mask, chunk_noise)
+            adv, cls, l1, l2, pen = terms.unbind()
+        else:
+            total, (adv, cls, l1, l2, pen), cf_logits = g_terms(
+                cf, sums, raw, x, t, mask)
+            total.backward()
         g.opt.step()
 
         if state.g_ema is not None:
@@ -186,7 +255,7 @@ def make_countergan_step(*, cfg: CounterGANConfig, num_classes: int,
             t = sample_targets(y, num_classes, cfg.resample_target,
                                draws=draws["targets"])
         return step_with_draws(state, x, y, t, mask_fn(x, draws),
-                               draws.get("gumbel"))
+                               draws.get("gumbel"), draws.get("gumbel_chunks"))
 
     def step(state: GANState, x, y, generator: torch.Generator) -> dict:
         draws = {k: v.to(x.device)

@@ -46,6 +46,35 @@ Then it trains end to end:
   per-target and patch-budget CSVs; the port's provenance check must
   accept the run dir.
 
+Then the legacy delta-generator stack (`MNIST_COUNTERGAN_LEGACY`: the
+delta generator at hidden 32, the unconditional conv discriminator, the
+MaxPool classifier, float32, clipped-log losses, a fixed target, all-ones
+masks) and the step's memory options:
+
+- `legacy train`: 10 eager steps at batch 128 on the corpus launch the
+  epilogue kernels once forward and once backward a step at (128, 784),
+  and give the losses of the same steps on the plain epilogue;
+- `legacy epoch runner`: 27 steps through the epoch runner (3 eager, 24
+  replayed under sync debug mode "error") equal to the same steps eager,
+  bit for bit; the profiler's launches a replayed step (1 + 1);
+  replayed and eager steps timed in turns;
+- `legacy experiment`: `python -m cfgan_torch.experiments.
+  mnist_countergan2 --target 5` (the preset's hidden 64) on 12,800
+  images, one classifier and one GAN epoch: the run dir and its three
+  PNG grids, decoded here with zlib and equal to `to_uint8_grid` of the
+  same arrays; the rerun loads the checkpoints and writes the same
+  bytes;
+- `memory options`: the shipped MNIST preset (bf16) at batch 128 with
+  `remat` off and on x `g_microbatch` 0, 2 and 4, with cuDNN's convs and
+  with the conv kernel: an eager step's launches against
+  `memory_launches` (K + 1 epilogue forwards and K backwards; on the
+  kernel route 13 conv launches a generator forward and 13 a dx, 13 dK a
+  backward, and with `remat` the residual blocks' 12 again) and its peak
+  memory, 8 steps through the epoch runner equal
+  to eager bit for bit, the plain epilogue's losses, and the replayed
+  step timed in turns against the arm without options; then float32 at
+  batch 1024 (remat x K in {0, 4}): peak memory and the eager step.
+
 Then the King County house CounteRGAN (the shipped `HOUSE_COUNTERGAN`
 preset at full width: 32 wide, 5 FiLM blocks, batch 128, float32):
 
@@ -140,8 +169,8 @@ exit 0 on SIGINT at the end.
 Then it times the kernels, their plain versions, cuDNN for the conv and
 its weight gradient, the serving requests and the train step (bf16 with
 cuDNN's convs and with the kernels, f32 with the kernels), and the
-epilogue kernels at the house step's (128, 17) rows and the moons step's
-(64, 2) rows.
+epilogue kernels at the house step's (128, 17) rows, the moons step's
+(64, 2) rows and the micro-batched step's (64, 784) and (32, 784).
 
     python3 chip_smoke.py --train-timing-only
 
@@ -193,6 +222,7 @@ F32_ROW_RTOL = 1e-5
 BF16_CF_ATOL = 2.0 ** -7
 PROBS_ATOL = {"float32": 1e-4, "bfloat16": 1e-2}
 KERNEL_LAYERS_PER_FORWARD = 13  # 12 resblock convs + conv_mid
+RESBLOCK_KERNEL_LAYERS = 12  # what `remat` runs again in the backward
 OUR_KERNELS = ("conv3x3_wgmma_kernel", "conv3x3_tf32_kernel",
                "conv3x3_tf32_split_kernel", "conv3x3_dkernel_wgmma_kernel",
                "conv3x3_dkernel_tf32_kernel", "dkernel_reduce_kernel",
@@ -200,10 +230,13 @@ OUR_KERNELS = ("conv3x3_wgmma_kernel", "conv3x3_tf32_kernel",
 # (B, H, W, Cin, Cout) the conv kernels are held at: the serving layer at
 # batch 128 and 1 (the tensor-core kernel's narrow tiles); Cin not a
 # multiple of 8 or 16 and W odd; Cin and Cout of the narrow test presets;
-# a batch that is not a multiple of anything
+# a batch that is not a multiple of anything; the micro-batched step's
+# chunks at g_microbatch 2 and 4 (dK sums over B*H*W, so its partial
+# blocks change with the batch)
 SERVING_SHAPE = (128, 28, 28, 64, 64)
+CHUNK_SHAPES = ((64, 28, 28, 64, 64), (32, 28, 28, 64, 64))
 CONV_SHAPES = (SERVING_SHAPE, (1, 28, 28, 64, 64), (2, 13, 11, 20, 40),
-               (3, 28, 28, 16, 24), (9, 7, 5, 32, 64))
+               (3, 28, 28, 16, 24), (9, 7, 5, 32, 64)) + CHUNK_SHAPES
 # dK kernel vs plain, both float32 before the cast: each tap's (Cin, Cout)
 # block within DK_RTOL of its 2-norm.  The two sum up to B*H*W = 100,352
 # products per entry in other orders (the kernel per block of pixels, then
@@ -221,9 +254,12 @@ EPI_SUM_RTOL = 1e-5
 # 4-byte variant)
 # the house step's rows, (128, 17), and the moons step's, (64, 2), take
 # the 4-byte variant too
+# the micro-batched step's chunks, (64, 784) and (32, 784), the 16-byte
+# variant
 EPI_CASES = ((128, 784, False), (257, 784, False), (3, 17, False),
              (5, 2, False), (64, 4096, False), (128, 784, True),
-             (128, 17, False), (64, 2, False))
+             (128, 17, False), (64, 2, False), (64, 784, False),
+             (32, 784, False))
 EPI_BOUNDS = ((-1.0, 1.0), (-1e30, 1e30))  # clamp, no clamp
 # the smoke's train step: the preset's batch, and 10 steps (3 in f32 and
 # with the conv kernel)
@@ -286,6 +322,19 @@ EXPERIMENT_FILES = (
 EXPERIMENT_CSVS = ("countergan_metrics_per_class.csv",
                    "patch_budget_curve.csv")
 
+
+# the legacy phases: LEGACY_STEPS eager steps of the legacy preset (f32,
+# hidden 32) with the kernels and with the plain epilogue; an epoch of
+# LEGACY_RUNNER_STEPS steps (WARMUP_STEPS eager, the rest replayed)
+# against eager; `mnist_countergan2 --target LEGACY_TARGET` on
+# EXPERIMENT_LIMIT images, one epoch each
+LEGACY_STEPS = 10
+LEGACY_RUNNER_STEPS = 27
+LEGACY_TARGET = 5
+# the memory options: MEMORY_STEPS steps an arm at batch 128 (bf16), and
+# float32 at MEMORY_F32_BATCH, where the activations dominate the memory
+MEMORY_STEPS = 8
+MEMORY_F32_BATCH = 1024
 
 # the house phases: the shipped preset's (128, 17) step; HOUSE_STEPS
 # eager steps; one whole epoch through the runner, of which the eager
@@ -462,16 +511,23 @@ def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
 def kernel_ms(fn, iters: int = 20, floor_ms: float = 0.0
               ) -> tuple[float, str]:
     """(ms per call, how it was timed): profiler device time, which counts
-    kernel time only; a trace that reads under `floor_ms` (the call's
-    operations at the card's bf16 peak, which no cache beats: the trace
-    lost kernel records) is taken again, up to PROFILE_TRIES times; where
-    none reads a time, the replays of a CUDA graph of the calls."""
-    for _ in range(PROFILE_TRIES):
-        ms = device_time(fn, iters)[0]
+    kernel time only.  A trace can lose kernel records and then reads
+    short, so a reading is kept only where two traces hold the same whole
+    number of kernel records a call and both read at least `floor_ms`
+    (the call's operations at the card's peak for its dtype, which no
+    cache beats); the later one's time is kept.  Up to PROFILE_TRIES + 1
+    traces; where none agree, the replays of a CUDA graph of the calls."""
+    seen = {}  # kernel records a call -> ms
+    for _ in range(PROFILE_TRIES + 1):
+        ms, _, every = device_time(fn, iters, match=("",))
         if ms is None:
             break
-        if ms >= floor_ms:
-            return ms, "profiler"
+        records = every[""][1]
+        if ms < floor_ms or records != int(records):
+            continue
+        if records in seen:
+            return ms, f"profiler ({int(records)} kernels a call, two traces)"
+        seen[records] = ms
     return graph_ms(fn, iters), "cuda graph"
 
 
@@ -620,10 +676,11 @@ def time_epilogue(card: str, dev, n: int = 28 * 28, b: int = TRAIN_BATCH,
         bound_ms, bound_by = epilogue_bound(b, n, backward)
         # device time per call (kernel_ms): a few microseconds of kernel,
         # shorter than the wrapper's host-side work, so CUDA events around
-        # back-to-back calls time the host
+        # back-to-back calls time the host.  20 calls a trace: traces of
+        # 200 lost records nearly every time (the plain version's ~2,000)
         (ms, how), (plain_ms, plain_how) = (
-            kernel_ms(lambda: kernel(*args), 200),
-            kernel_ms(lambda: plain(*args), 200))
+            kernel_ms(lambda: kernel(*args)),
+            kernel_ms(lambda: plain(*args)))
         epi[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by=bound_by, library_ms=None)
         emit({"phase": "timing", "what": name, "card": card,
@@ -936,6 +993,462 @@ def experiment_phase(card: str, dev) -> None:
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
 
+
+
+# ------------------------------------------------- the legacy stack
+def _legacy_bundle(cfg, dev, clf_sd: dict):
+    from cfgan_torch.train.builders import build_mnist_countergan
+
+    return build_mnist_countergan(cfg, clf_sd, seed=SEED, device=dev,
+                                  legacy_delta=True)
+
+
+def legacy_train_phase(card: str, dev, x, y, counts, zero_counts,
+                       plain_epilogue) -> tuple:
+    """LEGACY_STEPS eager steps of the legacy preset at full width (f32,
+    hidden 32) on the corpus's first batches: the epilogue kernels launch
+    once forward and once backward a step at (128, 784), and the losses
+    equal the same steps' on the plain epilogue within TRAIN_ATOL; one
+    line.  Returns the wrappers' counts."""
+    import torch
+
+    from cfgan_torch.experiments.presets import MNIST_COUNTERGAN_LEGACY
+    from cfgan_torch.train.builders import mnist_models
+
+    cfg = MNIST_COUNTERGAN_LEGACY.countergan
+    clf_sd = mnist_models(cfg, generator=torch.Generator().manual_seed(SEED),
+                          legacy_delta=True)[1].state_dict()
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+    def steps():
+        bundle = _legacy_bundle(cfg, dev, clf_sd)
+        draws = torch.Generator(device=dev).manual_seed(SEED)
+        out = [bundle.step_fn(bundle.state, x[i * TRAIN_BATCH:(i + 1)
+                                              * TRAIN_BATCH],
+                              y[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH], draws)
+               for i in range(LEGACY_STEPS)]
+        torch.cuda.synchronize()
+        return bundle, [(m["d_loss"].item(), m["g_loss"].item(),
+                         m["flip_rate"].item()) for m in out]
+
+    zero_counts()
+    bundle, losses = steps()
+    launched = counts()
+    with plain_epilogue():
+        _, plain_losses = steps()
+    torch.backends.cudnn.deterministic = False
+    want = (LEGACY_STEPS, LEGACY_STEPS, 0, 0)
+    errs = [max(abs(a - b) for a, b in zip(k[:2], p[:2]))
+            for k, p in zip(losses, plain_losses)]
+    finite = all(math.isfinite(v) for row in losses for v in row) and all(
+        bool(torch.isfinite(p).all()) for net in (bundle.state.g,
+                                                  bundle.state.d)
+        for p in net.model.parameters())
+    ok = (launched == want and counts() == want and finite
+          and max(errs) <= TRAIN_ATOL["float32"])
+    emit({"phase": "legacy train", "card": card, "preset":
+          "mnist_countergan_legacy", "dtype": cfg.compute_dtype,
+          "hidden": cfg.hidden_dim, "batch": TRAIN_BATCH,
+          "steps": LEGACY_STEPS, "fixed_target": cfg.fixed_target,
+          "wrapper_counts_fwd_bwd_conv_dk": launched,
+          "d_g_loss_flip_per_step": losses,
+          "plain_epilogue_d_g_loss_flip_per_step": plain_losses,
+          "loss_max_abs_err_per_step": errs,
+          "tolerance": f"abs <= {TRAIN_ATOL['float32']}", "ok": ok})
+    if not ok:
+        fail(f"legacy training launched {launched}, not {want}, or differs "
+             f"from the plain epilogue: {errs}")
+    return launched
+
+
+def legacy_runner_phase(card: str, dev, x, y, counts, zero_counts) -> None:
+    """One epoch of LEGACY_RUNNER_STEPS legacy steps through the epoch
+    runner (3 eager, then replays under sync debug mode "error") against
+    the same steps eager, bit for bit; launches per replayed step by the
+    profiler; replayed and eager steps timed in turns; one line."""
+    import numpy as np
+    import torch
+
+    from cfgan_torch.data.pipeline import epoch_perm
+    from cfgan_torch.experiments.presets import MNIST_COUNTERGAN_LEGACY
+    from cfgan_torch.train.builders import mnist_models
+    from cfgan_torch.train.loop import WARMUP_STEPS, make_epoch_runner
+
+    cfg = MNIST_COUNTERGAN_LEGACY.countergan
+    clf_sd = mnist_models(cfg, generator=torch.Generator().manual_seed(SEED),
+                          legacy_delta=True)[1].state_dict()
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    ours, ref = (_legacy_bundle(cfg, dev, clf_sd) for _ in range(2))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    perm = epoch_perm(gen, len(y), TRAIN_BATCH)[:LEGACY_RUNNER_STEPS]
+    draws = ours.draw_fn(gen, tuple(perm.shape))
+    runner = make_epoch_runner(ours.step_from_draws, reduce=False)
+    zero_counts()
+    got = runner(ours.state, x, y, perm, draws)
+    torch.cuda.synchronize()
+    wrapper = counts()
+    graphs = (runner.captures, runner.replays)
+    eager = [ref.step_from_draws(ref.state, x[perm[i]], y[perm[i]],
+                                 {k: v[i] for k, v in draws.items()})
+             for i in range(LEGACY_RUNNER_STEPS)]
+    eager = {k: [m[k].item() for m in eager] for k in got}
+    equal = all(np.float32(e) == g for k in got
+                for g, e in zip(got[k], eager[k]))
+    same_state = _states_equal(ours.state, ref.state)
+    replays = LEGACY_RUNNER_STEPS - WARMUP_STEPS
+
+    def epoch():
+        runner(ours.state, x, y, perm, draws)
+
+    attempts = []
+    for _ in range(PROFILE_TRIES):
+        busy, top, per = device_time(epoch, 1, top=6,
+                                     match=tuple(MLP_REPLAY_LAUNCHES))
+        attempts.append({k: n / LEGACY_RUNNER_STEPS
+                         for k, (_, n) in per.items()})
+        if busy is not None and attempts[-1] == MLP_REPLAY_LAUNCHES:
+            break
+
+    def eager_steps():
+        for i in range(LEGACY_RUNNER_STEPS):
+            ref.step_from_draws(ref.state, x[perm[i]], y[perm[i]],
+                                {k: v[i] for k, v in draws.items()})
+        torch.cuda.synchronize()
+
+    times = {"replayed": [], "eager": []}
+    for _ in range(3):
+        for name, fn in (("replayed", epoch), ("eager", eager_steps)):
+            t0 = time.perf_counter()
+            fn()
+            times[name].append((time.perf_counter() - t0) * 1e3
+                               / LEGACY_RUNNER_STEPS)
+    med = {k: statistics.median(v) for k, v in times.items()}
+    torch.backends.cudnn.deterministic = False
+    ok = (equal and same_state and graphs == (1, replays)
+          and attempts[-1] == MLP_REPLAY_LAUNCHES
+          and wrapper[:2] == (WARMUP_STEPS + 1, WARMUP_STEPS + 1))
+    emit({"phase": "legacy epoch runner", "card": card,
+          "dtype": cfg.compute_dtype, "batch": TRAIN_BATCH,
+          "steps": LEGACY_RUNNER_STEPS, "eager_steps": WARMUP_STEPS,
+          "replayed_steps": replays, "captures_and_replays": graphs,
+          "metrics_equal_to_eager": equal, "state_equal_to_eager": same_state,
+          "wrapper_counts_fwd_bwd_conv_dk": wrapper,
+          "profiler_launches_per_replayed_step_per_trace": attempts,
+          "sync_debug_mode_during_replays": "error",
+          "replayed_ms_per_step_in_turns": times["replayed"],
+          "eager_ms_per_step_in_turns": times["eager"],
+          "replayed_median_ms": med["replayed"],
+          "eager_median_ms": med["eager"],
+          "replayed_images_per_s": TRAIN_BATCH / med["replayed"] * 1e3,
+          "replayed_device_busy_ms": (None if busy is None
+                                      else busy / LEGACY_RUNNER_STEPS),
+          "replayed_device_idle_share": (
+              None if busy is None
+              else 1 - busy / LEGACY_RUNNER_STEPS / med["replayed"]),
+          "device_time_by_kernel_ms_per_epoch": top,
+          "tolerance": "bit for bit: metrics and state", "ok": ok})
+    if not ok:
+        fail("the legacy epoch runner differs from eager steps or launched "
+             f"{attempts} a replayed step")
+
+
+def _decode_png(path: Path):
+    """The uint8 pixels of an 8-bit gray PNG with unfiltered rows (what
+    the port writes), read with zlib alone."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    blob = path.read_bytes()
+    if blob[:8] != b"\x89PNG\r\n\x1a\n":
+        fail(f"{path} is not a PNG")
+    pos, header, idat = 8, None, b""
+    while pos < len(blob):
+        (n,) = struct.unpack(">I", blob[pos:pos + 4])
+        tag, data = blob[pos + 4:pos + 8], blob[pos + 8:pos + 8 + n]
+        if zlib.crc32(tag + data) != struct.unpack(
+                ">I", blob[pos + 8 + n:pos + 12 + n])[0]:
+            fail(f"{path}: bad CRC in {tag!r}")
+        if tag == b"IHDR":
+            header = struct.unpack(">IIBBBBB", data)
+        elif tag == b"IDAT":
+            idat += data
+        pos += 12 + n
+    w, h, depth, color = header[:4]
+    if (depth, color) != (8, 0):
+        fail(f"{path}: not 8-bit gray ({header})")
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, w + 1)
+    if rows[:, 0].any():
+        fail(f"{path}: filtered rows")
+    return rows[:, 1:]
+
+
+def legacy_experiment_phase(card: str, dev) -> None:
+    """`mnist_countergan2 --target 5` at the preset's width (hidden 64) on
+    EXPERIMENT_LIMIT corpus images, one classifier and one GAN epoch;
+    the run dir and its three PNG grids, decoded here with zlib against
+    `to_uint8_grid` of the same arrays; then the rerun, which loads the
+    checkpoints and writes the same grids; one line."""
+    import numpy as np
+    import torch
+
+    from cfgan_torch.core.provenance import check_run_provenance
+    from cfgan_torch.data.mnist import load_mnist
+    from cfgan_torch.eval.samples import to_uint8_grid
+    from cfgan_torch.experiments import mnist_countergan2 as exp2
+
+    out_dir = HERE / "build" / "smoke_legacy_experiment"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    argv = ["--target", str(LEGACY_TARGET), "--epochs", "1",
+            "--clf-epochs", "1", "--limit", str(EXPERIMENT_LIMIT),
+            "--out-dir", str(out_dir)]
+    try:
+        logs, runs = [[], []], []
+        for i in range(2):
+            t0 = time.perf_counter()
+            runs.append(exp2.main(argv, log=logs[i].append))
+            runs[-1]["wall_s"] = time.perf_counter() - t0
+            if i == 0:
+                pngs = {n: (out_dir / n).read_bytes() for n in exp2.GRIDS}
+        res = runs[0]
+        _, _, (xte, _) = load_mnist(limit=EXPERIMENT_LIMIT)
+        x = torch.as_tensor(xte[:exp2.GRID_IMAGES]).to(dev)
+        t = torch.full((len(x),), LEGACY_TARGET, device=dev)
+        x_cf, delta, _ = res["bundle"].cf_fn(res["g_vars"], x, t,
+                                             torch.ones_like(x))
+        arrays = {"original.png": x, "counterfactual.png": x_cf,
+                  "delta.png": delta * 0.5}
+        grids_equal = {n: bool(np.array_equal(
+            _decode_png(out_dir / n),
+            to_uint8_grid(a.cpu().numpy(), nrow=4))) for n, a in
+            arrays.items()}
+        missing = [f for f in (*EXPERIMENT_FILES, *exp2.GRIDS)
+                   if not (out_dir / f).is_file()]
+        trained_again = any("[CounteRGAN] epoch" in ln or "[Classifier]" in ln
+                            for ln in logs[1])
+        flips = [float(r["class_flip_rate"]) for r in _csv_rows(
+            out_dir / "countergan_metrics_per_class.csv")]
+        provenance = check_run_provenance(str(out_dir))
+        ok = (not missing and all(grids_equal.values())
+              and not trained_again and runs[1]["history"] == {}
+              and all((out_dir / n).read_bytes() == b
+                      for n, b in pngs.items())
+              and res["bundle"].state.step > 0
+              and all(np.isfinite(flips)))
+        emit({"phase": "legacy experiment", "card": card,
+              "preset": "mnist_countergan2", "target": LEGACY_TARGET,
+              "hidden": res["bundle"].cfg.hidden_dim,
+              "limit": EXPERIMENT_LIMIT, "epochs": 1, "clf_epochs": 1,
+              "steps": res["bundle"].state.step,
+              "runner_captures": res["bundle"].epoch_fn.captures,
+              "stage_seconds": res["stage_seconds"],
+              "run_wall_s": runs[0]["wall_s"],
+              "rerun_wall_s": runs[1]["wall_s"],
+              "classifier_test_accuracy": res["classifier"]["accuracy"],
+              "batch_metrics": res["batch_metrics"],
+              "per_target_flip": flips,
+              "history_flip_rate": res["history"].get("flip_rate"),
+              "png_bytes": {n: len(b) for n, b in pngs.items()},
+              "pngs_equal_to_uint8_grid": grids_equal,
+              "provenance": provenance, "missing": missing,
+              "rerun_trained": trained_again, "ok": ok})
+        if not ok:
+            fail("the legacy experiment's run dir, grids or rerun came out "
+                 "wrong")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+# ------------------------------------------------- the memory options
+def memory_launches(impl, remat: bool, k: int) -> tuple:
+    """The wrappers' (epilogue fwd, epilogue bwd, conv3x3, dK) launches of
+    one MNIST step: the micro step's D phase takes a plain forward and
+    each of its K chunks a forward and a backward; the conv kernel runs on
+    KERNEL_LAYERS_PER_FORWARD layers a forward, and again for their dx;
+    `remat` runs each differentiated forward's residual blocks
+    (RESBLOCK_KERNEL_LAYERS of those layers) again in the backward."""
+    pallas = impl == "pallas"
+    n = KERNEL_LAYERS_PER_FORWARD if pallas else 0
+    chunks = k if k >= 2 else 1
+    plain_fwd = 1 if k >= 2 else 0
+    conv = (n * (plain_fwd + 2 * chunks)
+            + remat * pallas * RESBLOCK_KERNEL_LAYERS * chunks)
+    return (plain_fwd + chunks, chunks, conv, n * chunks)
+
+
+def memory_phase(card: str, dev, x, y, clf_sd: dict, counts, zero_counts,
+                 plain_epilogue) -> dict:
+    """The shipped MNIST preset (bf16, 64 channels, 6 blocks) at batch
+    128, each of remat {off, on} x g_microbatch {0, 2, 4}, with cuDNN's
+    convs and with the conv kernel: an eager step's launches against
+    `memory_launches` and its peak memory; MEMORY_STEPS steps through the
+    epoch runner against the same steps eager, bit for bit; the same
+    eager steps on the plain epilogue (losses within TRAIN_ATOL); the
+    replayed step timed in turns against the remat-off, K = 0 arm's.
+    Then float32 at batch MEMORY_F32_BATCH, remat {off, on} x K {0, 4}:
+    peak memory and eager step ms.  One line an arm.  Returns the
+    launches a step at the chunks' rows (B/2 and B/4) of g_microbatch 2
+    and 4 without remat: {B/K: (epilogue fwd, epilogue bwd)} on cuDNN's
+    convs and {B/K: (conv3x3, dK)} on the conv kernel (bf16)."""
+    import numpy as np
+    import torch
+
+    from cfgan_torch.core.config import MNIST_COUNTERGAN
+    from cfgan_torch.data.pipeline import epoch_perm
+    from cfgan_torch.train.builders import build_mnist_countergan
+    from cfgan_torch.train.loop import make_epoch_runner
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    perm = epoch_perm(gen, len(y), TRAIN_BATCH)[:MEMORY_STEPS]
+    chunk_launches, chunk_conv_launches = {}, {}
+
+    def arm_bundles(cfg):
+        return [build_mnist_countergan(cfg, clf_sd, seed=SEED, device=dev)
+                for _ in range(2)]
+
+    def eager(bundle, draws, steps):
+        out = [bundle.step_from_draws(bundle.state, x[perm[i]], y[perm[i]],
+                                      {k: v[i] for k, v in draws.items()})
+               for i in range(steps)]
+        return [(m["d_loss"].item(), m["g_loss"].item()) for m in out]
+
+    def timed_epoch(runner, bundle, draws):
+        def fn():
+            runner(bundle.state, x, y, perm, draws)
+        return fn
+
+    for impl in (None, "pallas"):
+        base = None
+        for remat in (False, True):
+            for k in (0, 2, 4):
+                cfg = replace(MNIST_COUNTERGAN, conv_impl=impl, remat=remat,
+                              g_microbatch=k)
+                ours, ref = arm_bundles(cfg)
+                draws = ours.draw_fn(gen, tuple(perm.shape))
+                # one eager step: launches and peak memory
+                probe = build_mnist_countergan(cfg, clf_sd, seed=SEED,
+                                               device=dev)
+                eager(probe, draws, 1)  # Adam's state, cuDNN's choices
+                torch.cuda.synchronize()
+                zero_counts()
+                resident = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                eager(probe, draws, 1)
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated()
+                launched = counts()
+                want = memory_launches(impl, remat, k)
+                # all but the D phase's full-batch forward run at the
+                # chunks' rows
+                if k and impl is None and not remat:
+                    chunk_launches[TRAIN_BATCH // k] = (launched[0] - 1,
+                                                        launched[1])
+                if k and impl == "pallas" and not remat:
+                    chunk_conv_launches[TRAIN_BATCH // k] = (
+                        launched[2] - KERNEL_LAYERS_PER_FORWARD, launched[3])
+                del probe
+                runner = make_epoch_runner(ours.step_from_draws,
+                                           reduce=False)
+                got = runner(ours.state, x, y, perm, draws)
+                eager_losses = eager(ref, draws, MEMORY_STEPS)
+                replayed = list(zip(got["d_loss"].tolist(),
+                                    got["g_loss"].tolist()))
+                replay_equal = (all(np.float32(a) == r for e, g in
+                                    zip(eager_losses, replayed)
+                                    for a, r in zip(e, g))
+                                and _states_equal(ours.state, ref.state))
+                plain = build_mnist_countergan(cfg, clf_sd, seed=SEED,
+                                               device=dev)
+                with plain_epilogue():
+                    plain_losses = eager(plain, draws, MEMORY_STEPS)
+                del plain
+                errs = [max(abs(a - b) for a, b in zip(e, p))
+                        for e, p in zip(eager_losses, plain_losses)]
+                fn = timed_epoch(runner, ours, draws)
+                if base is None:
+                    base = fn
+                times = {"arm": [], "base": []}
+                for _ in range(3):  # in turns
+                    for name, f in (("arm", fn), ("base", base)):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        f()
+                        torch.cuda.synchronize()
+                        times[name].append((time.perf_counter() - t0) * 1e3
+                                           / MEMORY_STEPS)
+                med = {n: statistics.median(v) for n, v in times.items()}
+                finite = all(math.isfinite(v) for e in eager_losses
+                             for v in e)
+                ok = (launched == want and replay_equal and finite
+                      and max(errs) <= TRAIN_ATOL[cfg.compute_dtype]
+                      and runner.captures == 1)
+                emit({"phase": "memory options", "card": card,
+                      "conv_impl": impl, "remat": remat, "g_microbatch": k,
+                      "dtype": cfg.compute_dtype, "batch": TRAIN_BATCH,
+                      "steps": MEMORY_STEPS,
+                      "wrapper_counts_fwd_bwd_conv_dk": launched,
+                      "expected_counts": want,
+                      "peak_allocated_mib": peak / 2 ** 20,
+                      "step_peak_over_resident_mib": (peak - resident)
+                      / 2 ** 20,
+                      "replayed_equal_to_eager": replay_equal,
+                      "d_g_loss_per_step": eager_losses,
+                      "plain_epilogue_loss_max_abs_err": max(errs),
+                      "loss_tolerance": f"abs <= "
+                                        f"{TRAIN_ATOL[cfg.compute_dtype]}",
+                      "replayed_ms_per_step_in_turns": times["arm"],
+                      "base_replayed_ms_per_step_in_turns": times["base"],
+                      "replayed_median_ms": med["arm"],
+                      "base_median_ms": med["base"],
+                      "images_per_s": TRAIN_BATCH / med["arm"] * 1e3,
+                      "base": "remat off, g_microbatch 0, same conv_impl",
+                      "ok": ok})
+                if not ok:
+                    fail(f"memory options {impl} remat={remat} K={k}: "
+                         f"launches {launched} (want {want}), replay equal "
+                         f"{replay_equal}, plain-epilogue err {max(errs)}")
+                del ours, ref, runner
+        del base
+    torch.backends.cudnn.deterministic = False
+
+    # float32 at a batch where the activations dominate
+    xb = x[:MEMORY_F32_BATCH]
+    yb = y[:MEMORY_F32_BATCH]
+    for remat in (False, True):
+        for k in (0, 4):
+            cfg = replace(MNIST_COUNTERGAN, compute_dtype="float32",
+                          remat=remat, g_microbatch=k)
+            bundle = build_mnist_countergan(cfg, clf_sd, seed=SEED,
+                                            device=dev)
+            draws = torch.Generator(device=dev).manual_seed(SEED)
+
+            def step():
+                bundle.step_fn(bundle.state, xb, yb, draws)
+                torch.cuda.synchronize()
+
+            step()
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            step()
+            peak = torch.cuda.max_memory_allocated()
+            lat = host_ms(step, 5, warmup=1)
+            median = statistics.median(lat)
+            emit({"phase": "memory options", "card": card,
+                  "conv_impl": None, "remat": remat, "g_microbatch": k,
+                  "dtype": "float32", "batch": MEMORY_F32_BATCH,
+                  "peak_allocated_mib": peak / 2 ** 20,
+                  "step_peak_over_resident_mib": (peak - resident) / 2 ** 20,
+                  "eager_step_ms": lat, "eager_median_ms": median,
+                  "images_per_s": MEMORY_F32_BATCH / median * 1e3,
+                  "ok": True})
+            del bundle
+    torch.cuda.empty_cache()
+    return chunk_launches, chunk_conv_launches
 
 
 def house_data_phase(card: str) -> tuple:
@@ -2680,6 +3193,8 @@ def main() -> None:
     epi_err = {"fwd": 0.0, "bwd": 0.0}
     epi_err_house = {"fwd": 0.0, "bwd": 0.0}  # at the house step's rows
     epi_err_moons = {"fwd": 0.0, "bwd": 0.0}  # at the moons step's rows
+    # at the micro-batched step's chunk rows, by rows
+    epi_err_chunk = {b: {"fwd": 0.0, "bwd": 0.0} for b in (64, 32)}
     with Phase("kernel cf_epilogue"):
         variants = set()
         for b, n, off in EPI_CASES:
@@ -2740,6 +3255,10 @@ def main() -> None:
                                                sum_abs)
                     epi_err_moons["bwd"] = max(epi_err_moons["bwd"], dx_err,
                                                draw_err)
+                if n == 784 and b in epi_err_chunk and not off:
+                    e = epi_err_chunk[b]
+                    e["fwd"] = max(e["fwd"], cf_err, sum_abs)
+                    e["bwd"] = max(e["bwd"], dx_err, draw_err)
         if variants != {(k, v) for k in ("fwd", "bwd")
                         for v in ("16-byte", "4-byte")}:
             fail(f"the epilogue kernels ran the variants {sorted(variants)}, "
@@ -2910,6 +3429,26 @@ def main() -> None:
     with Phase("experiment"):
         experiment_phase(card, dev)
 
+    # ------------------------------------------------ the legacy stack
+    x_dev = torch.as_tensor(xtr).to(dev)
+    y_dev = torch.as_tensor(ytr).to(dev, torch.long)
+    with Phase("legacy train"):
+        legacy_launches = legacy_train_phase(card, dev, x_dev, y_dev, counts,
+                                             zero_counts, plain_epilogue)
+
+    with Phase("legacy epoch runner"):
+        legacy_runner_phase(card, dev, x_dev, y_dev, counts, zero_counts)
+
+    with Phase("legacy experiment"):
+        legacy_experiment_phase(card, dev)
+
+    # ------------------------------------------------ the memory options
+    with Phase("memory options"):
+        chunk_launches, chunk_conv_launches = memory_phase(
+            card, dev, x_dev, y_dev, clf_sd, counts, zero_counts,
+            plain_epilogue)
+    del x_dev, y_dev
+
     # ------------------------------------------ the house CounteRGAN
     with Phase("house data"):
         house = house_data_phase(card)
@@ -2964,43 +3503,51 @@ def main() -> None:
         # device time per call (kernel_ms): at batch 1 a launch is shorter
         # than the wrapper's host work, and CUDA events around back-to-back
         # calls would time the host
-        def dev_ms(fn, ops: int, timed_by: dict, key: str) -> float:
-            ms, timed_by[key] = kernel_ms(fn, floor_ms=ops / PEAK_OPS_PER_S[
-                "bfloat16"] * 1e3)
+        def dev_ms(fn, ops: int, dtype: str, timed_by: dict,
+                   key: str) -> float:
+            # the floor is the dtype's bound on operations (f32: three tf32
+            # products each, the fastest any of the three computes it): a
+            # trace that lost the conv's records read the f32 kernel
+            # under its bound against a bf16-peak floor
+            ms, timed_by[key] = kernel_ms(fn, floor_ms=_bound(0, ops, dtype)[0])
             return ms
 
         timing = {}
-        for shape in (SERVING_SHAPE, (1, 28, 28, 64, 64)):
-            for dtype in ("bfloat16", "float32"):
-                x, k = conv_inputs(*shape, getattr(torch, dtype))
-                x_nchw = x.permute(0, 3, 1, 2)  # channels-last view, no copy
-                w_oihw = k.permute(3, 2, 0, 1).contiguous()
-                bound_ms, bound_by, nbytes, ops = conv_bound(*shape, dtype)
-                timed_by = {}
-                ms = dev_ms(lambda: conv3x3_same(x, k), ops, timed_by, "ms")
-                plain_ms = dev_ms(lambda: conv3x3_same_plain(x, k), ops,
-                                  timed_by, "plain_ms")
-                lib_ms = dev_ms(lambda: F.conv2d(x_nchw, w_oihw, padding=1),
-                                ops, timed_by, "library_ms")
-                timing[shape, dtype] = dict(
-                    ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                    bound_ms=bound_ms, bound_by=bound_by)
-                emit({"phase": "timing", "what": "conv3x3", "card": card,
-                      "shape": shape, "dtype": dtype, "ms": ms,
-                      "plain_ms": plain_ms, "library_ms": lib_ms,
-                      "library": "F.conv2d (cuDNN, TF32 off; its weight "
-                                 "re-layout kernel included; in f32 `ms` "
-                                 "includes K's split)",
-                      "bound_ms": bound_ms, "bound_by": bound_by,
-                      "bytes": nbytes, "operations": ops,
-                      "share_of_bound": bound_ms / ms,
-                      "tflops": ops / ms / 1e9,
-                      "timed_by": timed_by,
-                      "events_call_ms": cuda_ms(lambda: conv3x3_same(x, k),
-                                                50)})
-        for shape, dtype in ((s_, d_) for s_ in (SERVING_SHAPE,
-                                                 (1, 28, 28, 64, 64))
-                             for d_ in ("bfloat16", "float32")):
+        # the serving shapes in both dtypes; the micro chunks' in bf16,
+        # the dtype of the memory options' pallas arms
+        timed = [(s_, d_) for s_ in (SERVING_SHAPE, (1, 28, 28, 64, 64))
+                 for d_ in ("bfloat16", "float32")]
+        timed += [(s_, "bfloat16") for s_ in CHUNK_SHAPES]
+        for shape, dtype in timed:
+            x, k = conv_inputs(*shape, getattr(torch, dtype))
+            x_nchw = x.permute(0, 3, 1, 2)  # channels-last view, no copy
+            w_oihw = k.permute(3, 2, 0, 1).contiguous()
+            bound_ms, bound_by, nbytes, ops = conv_bound(*shape, dtype)
+            timed_by = {}
+            ms = dev_ms(lambda: conv3x3_same(x, k), ops, dtype, timed_by,
+                        "ms")
+            plain_ms = dev_ms(lambda: conv3x3_same_plain(x, k), ops,
+                              dtype, timed_by, "plain_ms")
+            lib_ms = dev_ms(lambda: F.conv2d(x_nchw, w_oihw, padding=1),
+                            ops, dtype, timed_by, "library_ms")
+            timing[shape, dtype] = dict(
+                ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+            emit({"phase": "timing", "what": "conv3x3", "card": card,
+                  "shape": shape, "dtype": dtype, "ms": ms,
+                  "plain_ms": plain_ms, "library_ms": lib_ms,
+                  "library": "F.conv2d (cuDNN, TF32 off; its weight "
+                             "re-layout kernel included; in f32 `ms` "
+                             "includes K's split)",
+                  "bound_ms": bound_ms, "bound_by": bound_by,
+                  "bytes": nbytes, "operations": ops,
+                  "share_of_bound": bound_ms / ms,
+                  "tflops": ops / ms / 1e9,
+                  "timed_by": timed_by,
+                  "events_call_ms": cuda_ms(lambda: conv3x3_same(x, k),
+                                            50),
+                  "graph_call_ms": graph_ms(lambda: conv3x3_same(x, k))})
+        for shape, dtype in timed:
             x, _ = conv_inputs(*shape, getattr(torch, dtype))
             g, _ = conv_inputs(*shape[:3], shape[4], shape[4],
                                getattr(torch, dtype))
@@ -3010,19 +3557,25 @@ def main() -> None:
             ops = conv_flops(shape[0], shape[1:3], shape[3], shape[4])
             timed_by = {}
             dk = timing["dk", shape, dtype] = dict(
-                ms=dev_ms(lambda: conv3x3_same_dkernel(x, g), ops, timed_by,
-                          "ms"),
+                ms=dev_ms(lambda: conv3x3_same_dkernel(x, g), ops, dtype,
+                          timed_by, "ms"),
                 plain_ms=dev_ms(lambda: conv3x3_same_dkernel_plain(x, g),
-                                ops, timed_by, "plain_ms"),
+                                ops, dtype, timed_by, "plain_ms"),
                 library_ms=dev_ms(lambda: torch.nn.grad.conv2d_weight(
-                    x_nchw, w_shape, g_nchw, padding=1), ops, timed_by,
-                    "library_ms"),
+                    x_nchw, w_shape, g_nchw, padding=1), ops, dtype,
+                    timed_by, "library_ms"),
                 bound_ms=bound_ms, bound_by=bound_by)
+            # the profiler's reading against a clock it does not touch:
+            # CUDA events around replays of a graph of 20 calls (the
+            # kernel and its reduction, with the graph's gaps)
+            graph_call = graph_ms(lambda: conv3x3_same_dkernel(x, g))
             emit({"phase": "timing", "what": "conv3x3 dK", "card": card,
                   "shape": shape, "dtype": dtype, **dk,
                   "library": "torch.nn.grad.conv2d_weight (cuDNN wgrad, "
                              "channels-last, TF32 off)",
-                  "timed_by": timed_by,
+                  "timed_by": timed_by, "graph_call_ms": graph_call,
+                  "events_call_ms": cuda_ms(
+                      lambda: conv3x3_same_dkernel(x, g), 200),
                   "share_of_bound": bound_ms / dk["ms"]})
         e = engine("bfloat16")
         for b, x, t in ((1, x1, 3), (128, x128, t128)):
@@ -3049,6 +3602,7 @@ def main() -> None:
         epi_house = time_epilogue(card, dev, n=HOUSE_FEATURES)
         epi_moons = time_epilogue(card, dev, n=2, b=MOONS_BATCH,
                                   bounds=(-1e30, 1e30))
+        epi_chunk = {b: time_epilogue(card, dev, b=b) for b in (64, 32)}
 
     def entry(name, source, replaces, launched, err, t):
         return {"name": name, "route": "cuda", "source": source,
@@ -3077,6 +3631,17 @@ def main() -> None:
               dk_err[SERVING_SHAPE, "float32"],
               timing["dk", SERVING_SHAPE, "float32"]),
     ] + [
+        # the conv and dK on the micro-batched step's chunks (bf16, the
+        # pallas route): launches a step of g_microbatch 128 / B
+        entry(f"{name}_micro_{shape[0]}", src, replaces,
+              chunk_conv_launches[shape[0]][i], err[shape, "bfloat16"],
+              timing[(*key, shape, "bfloat16")])
+        for shape in CHUNK_SHAPES
+        for i, (name, src, replaces, err, key) in enumerate((
+            ("conv3x3_same", conv_src, "cfgan/ops/conv.py:71",
+             kernel_err, ()),
+            ("conv3x3_same_dkernel", dk_src, "cfgan/ops/conv.py:165",
+             dk_err, ("dk",))))] + [
         entry(name, "cfgan_torch/csrc/epilogue.cu", replaces,
               train_launches["bfloat16"][k], epi_err[key], epi[name])
         for k, (name, key, replaces) in enumerate((
@@ -3093,6 +3658,21 @@ def main() -> None:
         entry(f"{name}_moons_64x2", "cfgan_torch/csrc/epilogue.cu",
               replaces, moons_launches[k], epi_err_moons[key],
               epi_moons[name])
+        for k, (name, key, replaces) in enumerate((
+            ("cf_epilogue_fwd", "fwd", "cfgan/ops/epilogue.py:54"),
+            ("cf_epilogue_bwd", "bwd", "cfgan/ops/epilogue.py:67")))] + [
+        # on the legacy step's (128, 784) rows (all-ones masks)
+        entry(f"{name}_legacy_128x784", "cfgan_torch/csrc/epilogue.cu",
+              replaces, legacy_launches[k], epi_err[key], epi[name])
+        for k, (name, key, replaces) in enumerate((
+            ("cf_epilogue_fwd", "fwd", "cfgan/ops/epilogue.py:54"),
+            ("cf_epilogue_bwd", "bwd", "cfgan/ops/epilogue.py:67")))] + [
+        # on the micro-batched step's chunk rows: launches a step of
+        # g_microbatch 128 / b
+        entry(f"{name}_micro_{b}x784", "cfgan_torch/csrc/epilogue.cu",
+              replaces, chunk_launches[b][k], epi_err_chunk[b][key],
+              epi_chunk[b][name])
+        for b in (64, 32)
         for k, (name, key, replaces) in enumerate((
             ("cf_epilogue_fwd", "fwd", "cfgan/ops/epilogue.py:54"),
             ("cf_epilogue_bwd", "bwd", "cfgan/ops/epilogue.py:67")))]})

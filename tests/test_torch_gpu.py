@@ -448,14 +448,17 @@ def _deterministic():
     torch.backends.cudnn.benchmark = False
 
 
-def _runner_pair(dev, conv_impl, dtype, n=192, batch=32, seed=0):
+def _runner_pair(dev, conv_impl, dtype, n=192, batch=32, seed=0,
+                 base=MNIST_COUNTERGAN, legacy_delta=False, **options):
     """Two bundles from one initial state, a device dataset, one epoch's
     permutation and draws."""
-    cfg = replace(MNIST_COUNTERGAN, hidden_dim=16, num_res_blocks=1,
-                  compute_dtype=dtype, conv_impl=conv_impl)
-    clf = mnist_models(cfg, generator=torch.Generator().manual_seed(0))[1]
+    cfg = replace(base, hidden_dim=16, num_res_blocks=1,
+                  compute_dtype=dtype, conv_impl=conv_impl, **options)
+    clf = mnist_models(cfg, generator=torch.Generator().manual_seed(0),
+                       legacy_delta=legacy_delta)[1]
     a, b = (build_mnist_countergan(cfg, clf.state_dict(), seed=seed,
-                                   device=dev) for _ in range(2))
+                                   device=dev, legacy_delta=legacy_delta)
+            for _ in range(2))
     g = torch.Generator(device=dev).manual_seed(seed)
     x = torch.rand((n, 28, 28, 1), device=dev, generator=g) * 2 - 1
     y = torch.randint(0, 10, (n,), device=dev, generator=g)
@@ -500,6 +503,100 @@ def test_replayed_steps_equal_eager_steps(dtype, conv_impl):
                 assert torch.equal(sa.opt.state[p][key], sb.opt.state[q][key])
     for k, v in a.state.g_ema.items():
         assert torch.equal(v, b.state.g_ema[k]), k
+
+
+def _assert_replay_equals_eager(a, b, x, y, perm, draws):
+    """An epoch through the runner (3 eager steps, a capture, replays)
+    against the same steps eager: metrics and state bit for bit."""
+    from cfgan_torch.train.loop import make_epoch_runner
+
+    runner = make_epoch_runner(a.step_from_draws, reduce=False)
+    got = runner(a.state, x, y, perm, draws)
+    assert (runner.captures, runner.replays) == (1, perm.shape[0] - 3)
+    for i in range(perm.shape[0]):
+        m = b.step_from_draws(b.state, x[perm[i]], y[perm[i]],
+                              {k: v[i] for k, v in draws.items()})
+        for k, v in m.items():
+            assert got[k][i] == np.float32(v.item()), (i, k)
+    for net in ("g", "d"):
+        sa, sb = getattr(a.state, net), getattr(b.state, net)
+        for (name, t), u in zip(sa.model.state_dict().items(),
+                                sb.model.state_dict().values()):
+            assert torch.equal(t, u), (net, name)
+        for p, q in zip(sa.model.parameters(), sb.model.parameters()):
+            for key in ("exp_avg", "exp_avg_sq", "step"):
+                assert torch.equal(sa.opt.state[p][key], sb.opt.state[q][key])
+    if a.state.g_ema is not None:
+        for k, v in a.state.g_ema.items():
+            assert torch.equal(v, b.state.g_ema[k]), k
+
+
+def test_legacy_replayed_steps_equal_eager_steps():
+    """The legacy delta CounteRGAN (fixed target, all-ones masks,
+    clipped-log losses) through the epoch runner equals its eager steps,
+    bit for bit."""
+    from cfgan_torch.experiments.presets import MNIST_COUNTERGAN_LEGACY
+
+    dev = _card()
+    _deterministic()
+    _assert_replay_equals_eager(*_runner_pair(
+        dev, None, "float32", base=MNIST_COUNTERGAN_LEGACY.countergan,
+        legacy_delta=True))
+
+
+@pytest.mark.parametrize("conv_impl", [None, "pallas"],
+                         ids=["cudnn_conv", "pallas_conv"])
+@pytest.mark.parametrize("options", [{"remat": True}, {"g_microbatch": 2},
+                                     {"remat": True, "g_microbatch": 2}],
+                         ids=["remat", "micro2", "remat_micro2"])
+def test_memory_options_replayed_steps_equal_eager_steps(conv_impl, options):
+    """`remat` and `g_microbatch` inside the captured CUDA graph (the
+    checkpointed forward does not read the RNG state; the chunks copy
+    nothing from the host): the replayed epoch equals its eager steps,
+    bit for bit."""
+    dev = _card()
+    _deterministic()
+    _assert_replay_equals_eager(*_runner_pair(dev, conv_impl, "bfloat16",
+                                              **options))
+
+
+def test_house_micro_replayed_steps_equal_eager_steps():
+    """The house step with g_microbatch = 2, each chunk on its own Gumbel
+    noise from the epoch's draws, replayed equals eager, bit for bit."""
+    dev = _card()
+    _assert_replay_equals_eager(*_house_pair(dev, g_microbatch=2))
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_micro_step_launches_the_epilogue_k_plus_one_times(k):
+    dev = _card()
+    a, _, x, y, perm, draws = _runner_pair(dev, "pallas", "bfloat16",
+                                           g_microbatch=k)
+    tep.cf_epilogue_fwd.launches = tep.cf_epilogue_bwd.launches = 0
+    tconv.conv3x3_same.launches = tconv.conv3x3_same_dkernel.launches = 0
+    a.step_from_draws(a.state, x[perm[0]], y[perm[0]],
+                      {n: v[0] for n, v in draws.items()})
+    torch.cuda.synchronize()
+    # one resblock (2 convs) + conv_mid: 3 kernel layers a forward
+    assert (tep.cf_epilogue_fwd.launches, tep.cf_epilogue_bwd.launches) == (
+        k + 1, k)
+    assert tconv.conv3x3_same.launches == 3 * (k + 1) + 3 * k
+    assert tconv.conv3x3_same_dkernel.launches == 3 * k
+
+
+def test_remat_step_runs_the_residual_blocks_again():
+    """`remat` on the kernel route: the one residual block's two convs
+    run once more in the backward (conv_mid is not checkpointed), and
+    dK runs once a layer."""
+    dev = _card()
+    a, _, x, y, perm, draws = _runner_pair(dev, "pallas", "bfloat16",
+                                           remat=True)
+    tconv.conv3x3_same.launches = tconv.conv3x3_same_dkernel.launches = 0
+    a.step_from_draws(a.state, x[perm[0]], y[perm[0]],
+                      {n: v[0] for n, v in draws.items()})
+    torch.cuda.synchronize()
+    assert tconv.conv3x3_same.launches == 2 * 3 + 2
+    assert tconv.conv3x3_same_dkernel.launches == 3
 
 
 def test_resumed_loop_on_the_card_restores_under_the_captured_graph(
@@ -620,7 +717,7 @@ def test_experiment_runs_on_the_card(tmp_path):
 
 
 # ------------------------------------------------------------ house
-def _house_pair(dev, n=256, batch=32, seed=0):
+def _house_pair(dev, n=256, batch=32, seed=0, **options):
     """Two house bundles (the shipped preset at width 16, two FiLM
     blocks) from one initial state, the synthetic table's first `n`
     training rows on the card, one epoch's permutation and draws."""
@@ -630,7 +727,8 @@ def _house_pair(dev, n=256, batch=32, seed=0):
     from cfgan_torch.train.builders import build_tabular_countergan
 
     (xtr, ytr), _, stats, _, _ = load_kc_house()
-    cfg = replace(HOUSE_COUNTERGAN, hidden_dim=16, num_res_blocks=2)
+    cfg = replace(HOUSE_COUNTERGAN, hidden_dim=16, num_res_blocks=2,
+                  **options)
     clf = TabularClassifier(generator=torch.Generator().manual_seed(0))
     a, b = (build_tabular_countergan(cfg, clf.state_dict(), KC_SCHEMA,
                                      stats, seed=seed, device=dev)

@@ -360,8 +360,9 @@ def test_train_preset_matches_the_jax_preset():
     for field in MNIST_COUNTERGAN.mask.__dataclass_fields__:
         assert getattr(MNIST_COUNTERGAN.mask, field) == getattr(
             want.mask, field), field
-    assert not hasattr(MNIST_COUNTERGAN, "remat")
-    assert not hasattr(MNIST_COUNTERGAN, "g_microbatch")
+    # the memory options exist, at the JAX preset's values (its defaults)
+    assert MNIST_COUNTERGAN.remat is want.remat is False
+    assert MNIST_COUNTERGAN.g_microbatch == want.g_microbatch == 0
 
 
 def test_build_mnist_countergan_raises_without_a_card(monkeypatch):
