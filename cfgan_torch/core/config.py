@@ -10,8 +10,12 @@ ignored.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field, replace
-from typing import Mapping
+import dataclasses
+from collections.abc import Mapping as ABCMapping
+from dataclasses import dataclass, field
+from typing import Any, Mapping
+
+import numpy as np
 
 
 @dataclass(frozen=True)
@@ -188,13 +192,52 @@ class TabularSchema:
         cat = set(self.categorical_idx)
         return tuple(i for i in range(self.input_dim) if i not in cat)
 
+    @classmethod
+    def from_dataframe(cls, df, immutable: tuple[str, ...] = (),
+                       categorical=None, max_categorical_cardinality: int = 32,
+                       exclude: tuple[str, ...] = ()) -> "TabularSchema":
+        """Infer a schema from a table (`cfgan.core.config.TabularSchema.
+        from_dataframe`): a pandas DataFrame, or anything else with
+        `df.columns` and `df[col]`.
+
+        Every column with at most `max_categorical_cardinality` distinct
+        values becomes categorical with its observed sorted values.
+        `categorical` overrides inference: a sequence of column names
+        (values observed from the data) or a mapping name -> explicit value
+        tuple; `categorical=()` turns inference off.  `exclude` drops
+        columns (targets, ids).  Raises ValueError where an immutable
+        feature or a mapped categorical one is not a column; a listed one
+        that is not fails on `df[col]`."""
+        names = tuple(c for c in df.columns if c not in exclude)
+        for f in immutable:
+            if f not in names:
+                raise ValueError(f"immutable feature {f!r} not a column")
+
+        def observed(col) -> tuple[float, ...]:
+            return tuple(float(v)
+                         for v in np.unique(np.asarray(df[col], np.float64)))
+
+        if categorical is None:
+            cat_values = {c: v for c, v in ((c, observed(c)) for c in names)
+                          if len(v) <= max_categorical_cardinality}
+        elif isinstance(categorical, ABCMapping):
+            cat_values = {c: tuple(float(v) for v in vs)
+                          for c, vs in categorical.items()}
+        else:
+            cat_values = {c: observed(c) for c in categorical}
+        for c in cat_values:
+            if c not in names:
+                raise ValueError(f"categorical feature {c!r} not a column")
+        return cls(feature_names=names, immutable_features=tuple(immutable),
+                   categorical_values=cat_values)
+
 
 @dataclass(frozen=True)
 class ExperimentConfig:
     """One runnable experiment (`cfgan.core.config.ExperimentConfig`,
-    without the parts the port has no path for: `sharding` and `schema`).
-    A CounteRGAN experiment sets `countergan`, a plain-generation one
-    `gan` and `countergan=None`."""
+    without `sharding`, for which the port has no path).  A CounteRGAN
+    experiment sets `countergan`, a plain-generation one `gan` and
+    `countergan=None`; a tabular one may carry its feature `schema`."""
 
     name: str = "moons_countergan"
     seed: int = 42
@@ -204,10 +247,21 @@ class ExperimentConfig:
     countergan: CounterGANConfig | None = field(
         default_factory=CounterGANConfig)
     gan: GANConfig | None = None
+    schema: TabularSchema | None = None
     out_dir: str = "results"
 
     def replace(self, **kw) -> "ExperimentConfig":
         return replace(self, **kw)
+
+
+def replace(cfg, **kw):
+    """A copy of any config with the fields in `kw` changed."""
+    return dataclasses.replace(cfg, **kw)
+
+
+def to_dict(cfg) -> dict[str, Any]:
+    """Any config as nested dicts of its fields."""
+    return dataclasses.asdict(cfg)
 
 
 #: moons/config.py:1-17, the reference recipe (presets.py

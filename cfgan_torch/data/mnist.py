@@ -92,6 +92,33 @@ def _upsample_matrix(coarse: int, out: int) -> np.ndarray:
     return U
 
 
+def _elastic_field(U: np.ndarray, grid: np.ndarray) -> np.ndarray:
+    """`np.einsum("ij,njkc,lk->nilc", U, grid, U)` bit for bit, without
+    its loop over every (i, j, k, l): numpy's einsum adds the
+    float32 products (U[i, j] * grid[n, j, k, c]) * U[l, k] to a sum that
+    starts at 0, j then k ascending.  A row of the bilinear `U` is zero
+    but at `lo` and `lo + 1`, and a zero product leaves a sum as it is,
+    so only those four terms are added, in the same order."""
+    out, coarse = U.shape
+    lo = np.floor(np.linspace(0, coarse - 1, out)).astype(np.int64)
+    rows = np.arange(out)
+    # a zero column and row past the grid stand for `lo + 1` at its edge
+    u = np.zeros((out, coarse + 1), np.float32)
+    u[:, :coarse] = U
+    g = np.zeros((grid.shape[0], coarse + 1, coarse + 1, grid.shape[-1]),
+                 np.float32)
+    g[:, :coarse, :coarse] = grid
+    field = np.zeros((grid.shape[0], out, out, grid.shape[-1]), np.float32)
+    term = np.empty_like(field)
+    for j in (lo, lo + 1):
+        gj = g.take(j, axis=1) * u[rows, j][None, :, None, None]
+        for k in (lo, lo + 1):
+            np.multiply(gj.take(k, axis=2), u[rows, k][None, None, :, None],
+                        out=term)
+            field += term
+    return field
+
+
 def _warp_sample(glyphs, variants, labels, thetas, scales, tx, ty,
                  disp=None, out: int = 28):
     """Bilinear sampling of per-sample affine (and elastic) transforms of
@@ -114,7 +141,12 @@ def _warp_sample(glyphs, variants, labels, thetas, scales, tx, ty,
     factor = (gsize / out) / scales
     rot = np.stack([np.stack([cos, -sin], -1), np.stack([sin, cos], -1)],
                    -2)  # (n, 2, 2)
-    coords = np.einsum("npk,nkj->npj", base, rot) * factor[:, None, None]
+    # np.einsum("npk,nkj->npj", base, rot) bit for bit: its sum of two
+    # float32 products, k ascending, at a fifth of its cost
+    rotated = np.stack([base[..., 0] * rot[:, None, 0, j]
+                        + base[..., 1] * rot[:, None, 1, j]
+                        for j in range(2)], -1)
+    coords = rotated * factor[:, None, None]
     coords[..., 0] += cy_in + ty[:, None] * (gsize / out)
     coords[..., 1] += cy_in + tx[:, None] * (gsize / out)
 
@@ -123,11 +155,14 @@ def _warp_sample(glyphs, variants, labels, thetas, scales, tx, ty,
     fy = coords[..., 0] - y0
     fx = coords[..., 1] - x0
 
+    flat = glyphs.reshape(-1)
+    glyph = (variants * glyphs.shape[1] + labels)[:, None] * gsize
+
     def gather(yi, xi):
         valid = (yi >= 0) & (yi < gsize) & (xi >= 0) & (xi < gsize)
         yi = np.clip(yi, 0, gsize - 1)
         xi = np.clip(xi, 0, gsize - 1)
-        return glyphs[variants[:, None], labels[:, None], yi, xi] * valid
+        return flat.take((glyph + yi) * gsize + xi) * valid
 
     v = (gather(y0, x0) * (1 - fy) * (1 - fx)
          + gather(y0, x0 + 1) * (1 - fy) * fx
@@ -156,7 +191,7 @@ def synthesize(n: int, seed: int, glyphs: np.ndarray | None = None):
     alpha = rng.uniform(0.3, 2.0, (n, 1, 1, 1)).astype(np.float32)
     grid = rng.normal(0.0, 1.0, (n, coarse, coarse, 2)).astype(np.float32)
     U = _upsample_matrix(coarse, 28)
-    disp = np.einsum("ij,njkc,lk->nilc", U, grid * alpha, U)
+    disp = _elastic_field(U, grid * alpha)
     # stroke weight: gamma < 1 thickens antialiased strokes, > 1 thins
     gamma = rng.uniform(0.6, 1.7, (n, 1, 1)).astype(np.float32)
 

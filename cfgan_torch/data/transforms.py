@@ -1,5 +1,7 @@
-"""MinMax normalization as checkpointable metadata (mirrors
-`cfgan/data/transforms.py`: `NormStats`, `fit_minmax`), in numpy.
+"""MinMax normalization as checkpointable metadata, and the images'
+[0, 1] <-> [-1, 1] mapping (mirrors `cfgan/data/transforms.py`:
+`NormStats`, `fit_minmax`, `image_normalize`, `image_denormalize`), in
+numpy.
 
 The stats travel with the run dir's checkpoints as `{"data_min": [...],
 "data_max": [...]}`, the JAX package's metadata dict, so either package
@@ -54,3 +56,19 @@ class NormStats(NamedTuple):
 def fit_minmax(x_train: np.ndarray) -> NormStats:
     return NormStats(x_train.min(axis=0).astype(np.float32),
                      x_train.max(axis=0).astype(np.float32))
+
+
+def image_normalize(x, mean: float = 0.5, std: float = 0.5) -> np.ndarray:
+    """[0, 1] (or uint8, divided by 255 first) images -> (x - mean) / std in
+    float32, [-1, 1] by default (torchvision's Normalize((.5), (.5)) in
+    `mnist/data_utils.py:9-12`)."""
+    x = np.asarray(x)
+    x = (x.astype(np.float32) / np.float32(255.0) if x.dtype == np.uint8
+         else x.astype(np.float32))
+    return (x - np.float32(mean)) / np.float32(std)
+
+
+def image_denormalize(x, mean: float = 0.5, std: float = 0.5) -> np.ndarray:
+    """The inverse of `image_normalize`, float32."""
+    return (np.asarray(x, np.float32) * np.float32(std)
+            + np.float32(mean))

@@ -19,13 +19,15 @@ from cfgan_torch.nn.layers import (
 
 
 class MLPClassifier(nn.Module):
-    """2 -> h -> h -> 3 with ReLU (`moons/models/nn_classifier.py:3-15`).
-    Submodules are named as in the flax tree (`Linear_0`..`Linear_2`)."""
+    """input_dim -> h -> h -> num_classes with ReLU (2 -> h -> h -> 3 on
+    moons, `moons/models/nn_classifier.py:3-15`).  Submodules are named as
+    in the flax tree (`Linear_0`..`Linear_2`)."""
 
     def __init__(self, num_classes: int = 3, hidden_dim: int = 32,
+                 input_dim: int = 2,
                  generator: torch.Generator | None = None):
         super().__init__()
-        self.Linear_0 = Linear(2, hidden_dim, generator)
+        self.Linear_0 = Linear(input_dim, hidden_dim, generator)
         self.Linear_1 = Linear(hidden_dim, hidden_dim, generator)
         self.Linear_2 = Linear(hidden_dim, num_classes, generator)
 

@@ -60,16 +60,19 @@ class CounterfactualEngine:
 
     def __init__(self, cf_fn: Callable, clf_fn: Callable, num_classes: int,
                  patch_size: int | None = None, schema=None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, stats=None):
         """`cf_fn(x, target, mask, key)` -> (x_cf, raw, masked) and
         `clf_fn(x)` -> logits run on `device` (None: the CUDA card; raises
         where there is none).  A tabular engine carries its `schema`
-        (`TabularSchema`)."""
+        (`TabularSchema`) and may carry the MinMax `stats` (`NormStats`)
+        that map its [0, 1] data space back to the features' units; the
+        engine itself does not read them."""
         self.cf_fn = cf_fn
         self.clf_fn = clf_fn
         self.num_classes = num_classes
         self.patch_size = patch_size
         self.schema = schema
+        self.stats = stats
         self.device = resolve_device(device)
         self._pad_to_bucket = True
         self._served = threading.Event()

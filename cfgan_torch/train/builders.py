@@ -72,6 +72,9 @@ from cfgan_torch.train.loop import make_epoch_runner
 from cfgan_torch.train.state import GANState, NetState
 
 
+# the shipped datasets' shapes, the builders' defaults (as the JAX
+# builders'): MNIST's 28x28 images of ten classes, moons' 2-D points of
+# three
 NUM_CLASSES = 10
 IMAGE_HW = (28, 28)
 MOONS_CLASSES = 3
@@ -95,36 +98,43 @@ class MNISTServing:
 
 def mnist_models(cfg: CounterGANConfig,
                  generator: torch.Generator | None = None,
-                 legacy_delta: bool = False) -> tuple[nn.Module, nn.Module]:
-    """The MNIST generator and classifier (28x28x1 images, ten classes)
-    that `cfg` describes, float32 on the CPU, with initial weights drawn
-    from `generator`: `ImageResidualGenerator` and `CNNClassifier`, or with
+                 legacy_delta: bool = False, num_classes: int = NUM_CLASSES,
+                 image_hw: tuple[int, int] = IMAGE_HW
+                 ) -> tuple[nn.Module, nn.Module]:
+    """The image generator and classifier (one-channel `image_hw` images,
+    `num_classes` classes; MNIST's 28x28 and ten by default) that `cfg`
+    describes, float32 on the CPU, with initial weights drawn from
+    `generator`: `ImageResidualGenerator` and `CNNClassifier`, or with
     `legacy_delta` the legacy stack's `DeltaImageGenerator` (width
     `cfg.hidden_dim`) and `LegacyCNNClassifier`."""
     if legacy_delta:
-        return (DeltaImageGenerator(num_classes=NUM_CLASSES,
+        return (DeltaImageGenerator(num_classes=num_classes,
                                     base_ch=cfg.hidden_dim,
-                                    generator=generator),
-                LegacyCNNClassifier(num_classes=NUM_CLASSES,
-                                    generator=generator))
+                                    image_hw=image_hw, generator=generator),
+                LegacyCNNClassifier(num_classes=num_classes,
+                                    image_hw=image_hw, generator=generator))
     g_model = ImageResidualGenerator(
-        num_classes=NUM_CLASSES, base_ch=cfg.hidden_dim,
+        image_hw=image_hw, num_classes=num_classes, base_ch=cfg.hidden_dim,
         n_resblocks=cfg.num_res_blocks,
         residual_scaling=cfg.residual_scaling, conv_impl=cfg.conv_impl,
         remat=cfg.remat, generator=generator)
-    clf_model = CNNClassifier(num_classes=NUM_CLASSES, generator=generator)
+    clf_model = CNNClassifier(num_classes=num_classes, image_hw=image_hw,
+                              generator=generator)
     return g_model, clf_model
 
 
 def build_mnist_serving(cfg: CounterGANConfig,
                         g_params: Mapping[str, torch.Tensor],
                         clf_params: Mapping[str, torch.Tensor],
-                        device: str | torch.device | None = None
+                        device: str | torch.device | None = None,
+                        num_classes: int = NUM_CLASSES,
+                        image_hw: tuple[int, int] = IMAGE_HW
                         ) -> MNISTServing:
     """Generator and classifier at `cfg.compute_dtype` on `device` (None:
     the CUDA card; raises where there is none) from their state dicts
     (`cfgan_torch.convert` makes them from the JAX package's variables;
-    a conv's weight loads whichever `conv_impl` it was saved under).
+    a conv's weight loads whichever `conv_impl` it was saved under), for
+    `image_hw` images of `num_classes` classes (`mnist_models`).
 
     The generator's parameters, BatchNorm statistics and activations are
     cast to the compute dtype, as `_cast_floats` does; `raw` and `masked`
@@ -134,7 +144,8 @@ def build_mnist_serving(cfg: CounterGANConfig,
     """
     device = resolve_device(device)
     cd = torch_dtype(cfg.compute_dtype)
-    g_model, clf_model = mnist_models(cfg)
+    g_model, clf_model = mnist_models(cfg, num_classes=num_classes,
+                                      image_hw=image_hw)
     for model, params, dtype in ((g_model, g_params, cd),
                                  (clf_model, clf_params, torch.float32)):
         model.load_state_dict(params, strict=True)
@@ -150,7 +161,7 @@ def build_mnist_serving(cfg: CounterGANConfig,
     def clf_fn(x):
         return clf_model(x.float())
 
-    return MNISTServing(cf_fn, clf_fn, g_model, clf_model, NUM_CLASSES)
+    return MNISTServing(cf_fn, clf_fn, g_model, clf_model, num_classes)
 
 
 @dataclass
@@ -164,14 +175,16 @@ class MoonsServing:
 
 
 def moons_models(cfg: CounterGANConfig, clf_hidden_dim: int = 32,
-                 generator: torch.Generator | None = None
+                 generator: torch.Generator | None = None,
+                 num_classes: int = MOONS_CLASSES, input_dim: int = MOONS_DIM
                  ) -> tuple[MoonsResidualGenerator, MLPClassifier]:
     """The moons generator (width `cfg.hidden_dim`) and classifier (width
-    `clf_hidden_dim`) on 2-D points with three classes, float32 on the
-    CPU, with initial weights drawn from `generator`."""
-    g_model = MoonsResidualGenerator(MOONS_DIM, cfg.hidden_dim, MOONS_CLASSES,
+    `clf_hidden_dim`) on `input_dim`-D points with `num_classes` classes
+    (2 and 3 by default), float32 on the CPU, with initial weights drawn
+    from `generator`."""
+    g_model = MoonsResidualGenerator(input_dim, cfg.hidden_dim, num_classes,
                                      generator=generator)
-    clf_model = MLPClassifier(MOONS_CLASSES, clf_hidden_dim,
+    clf_model = MLPClassifier(num_classes, clf_hidden_dim, input_dim,
                               generator=generator)
     return g_model, clf_model
 
@@ -179,18 +192,21 @@ def moons_models(cfg: CounterGANConfig, clf_hidden_dim: int = 32,
 def build_moons_serving(cfg: CounterGANConfig,
                         g_params: Mapping[str, torch.Tensor],
                         clf_params: Mapping[str, torch.Tensor],
-                        device: str | torch.device | None = None
-                        ) -> MoonsServing:
+                        device: str | torch.device | None = None,
+                        num_classes: int = MOONS_CLASSES,
+                        input_dim: int = MOONS_DIM) -> MoonsServing:
     """The moons generator at `cfg.compute_dtype` and its float32
     classifier (as wide as `clf_params`) on `device` (None: the CUDA card;
     raises where there is none) from their state dicts, in eval mode (the
     `cf_fn` of `build_moons_countergan`): the target one-hot at the
     compute dtype, BatchNorm on its running statistics, and `x + masked`
-    in float32, unclamped (the moons presets have `clamp_cf=None`)."""
+    in float32, unclamped (the moons presets have `clamp_cf=None`);
+    `input_dim`-D points of `num_classes` classes (`moons_models`)."""
     device = resolve_device(device)
     cd = torch_dtype(cfg.compute_dtype)
     g_model, clf_model = moons_models(
-        cfg, clf_params["Linear_0.weight"].shape[0])
+        cfg, clf_params["Linear_0.weight"].shape[0], num_classes=num_classes,
+        input_dim=input_dim)
     for model, params, dtype in ((g_model, g_params, cd),
                                  (clf_model, clf_params, torch.float32)):
         model.load_state_dict(params, strict=True)
@@ -199,7 +215,7 @@ def build_moons_serving(cfg: CounterGANConfig,
     def cf_fn(x, target, mask, key=None):
         """`key` is accepted for the engine's signature; the moons
         generator draws no noise."""
-        raw, masked = g_model(x.to(cd), one_hot(target, MOONS_CLASSES, cd),
+        raw, masked = g_model(x.to(cd), one_hot(target, num_classes, cd),
                               mask.to(cd))
         raw, masked = raw.float(), masked.float()
         return x + masked, raw, masked
@@ -207,7 +223,7 @@ def build_moons_serving(cfg: CounterGANConfig,
     def clf_fn(x):
         return clf_model(x.float())
 
-    return MoonsServing(cf_fn, clf_fn, g_model, clf_model, MOONS_CLASSES)
+    return MoonsServing(cf_fn, clf_fn, g_model, clf_model, num_classes)
 
 
 def moons_engine(cfg: CounterGANConfig, g_params: Mapping[str, torch.Tensor],
@@ -298,7 +314,7 @@ class CounterGANBundle:
     - `recal_fn(params, stats, x, generator, *, mask_mode)` recalibrates
       BatchNorm statistics under `params` (`make_bn_recalibrator`).
 
-    A tabular bundle also carries its `schema`.
+    A tabular bundle also carries its `schema` and its MinMax `stats`.
     """
 
     state: GANState
@@ -312,6 +328,7 @@ class CounterGANBundle:
     num_classes: int
     cfg: CounterGANConfig
     schema: TabularSchema | None = None
+    stats: NormStats | None = None
 
 
 def make_cf_fn(g_model: nn.Module, compute_dtype: str) -> Callable:
@@ -526,10 +543,11 @@ def house_engine(bundle: CounterGANBundle, clf_fn: Callable,
                  ) -> CounterfactualEngine:
     """`mnist_engine` for a tabular bundle: the engine carries the
     bundle's schema, so its default mask zeroes the immutable features
-    and `mask_from_feature_names` builds requests' masks; each request's
-    Gumbel noise comes from its key."""
+    and `mask_from_feature_names` builds requests' masks, and the bundle's
+    MinMax stats (`engine.stats`), which map its data space back to the
+    features' units; each request's Gumbel noise comes from its key."""
     return _engine(bundle, clf_fn, g_variables, state, device,
-                   schema=bundle.schema)
+                   schema=bundle.schema, stats=bundle.stats)
 
 
 def build_mnist_countergan(cfg: CounterGANConfig,
@@ -537,7 +555,10 @@ def build_mnist_countergan(cfg: CounterGANConfig,
                            seed: int = 42,
                            device: str | torch.device | None = None,
                            diagnostics: bool = True,
-                           legacy_delta: bool = False) -> CounterGANBundle:
+                           legacy_delta: bool = False,
+                           num_classes: int = NUM_CLASSES,
+                           image_hw: tuple[int, int] = IMAGE_HW
+                           ) -> CounterGANBundle:
     """The MNIST CounteRGAN train step (`build_mnist_countergan`) on
     `device` (None: the CUDA card; raises where there is none).
 
@@ -552,17 +573,21 @@ def build_mnist_countergan(cfg: CounterGANConfig,
     (`cfgan_torch.convert.load_gan_state` loads others over them), Adam
     at `cfg.lr_g` / `cfg.lr_d`, and the generator EMA starts at the
     initial parameters.  `clf_params` is the frozen classifier's state
-    dict.  28x28x1 images, ten classes.  `diagnostics=False` leaves the
+    dict.  One-channel `image_hw` images of `num_classes` classes
+    (MNIST's 28x28 and ten by default; the patch grid is `image_hw` cut
+    into `cfg.mask.patch_size` squares).  `diagnostics=False` leaves the
     metrics at d_loss and g_loss, and the step without the extra
     classifier forward they take."""
     device = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     g_model, clf_model = mnist_models(cfg, generator=gen,
-                                      legacy_delta=legacy_delta)
+                                      legacy_delta=legacy_delta,
+                                      num_classes=num_classes,
+                                      image_hw=image_hw)
     clf_model.load_state_dict(clf_params, strict=True)
     d_model = (ConvDiscriminator(cfg.hidden_dim, generator=gen)
                if legacy_delta else
-               CondConvDiscriminator(NUM_CLASSES, cfg.hidden_dim, IMAGE_HW,
+               CondConvDiscriminator(num_classes, cfg.hidden_dim, image_hw,
                                      generator=gen))
     g_model.to(device).train()
     d_model.to(device).train()
@@ -575,12 +600,12 @@ def build_mnist_countergan(cfg: CounterGANConfig,
     m = cfg.mask
 
     def draw_fn(generator: torch.Generator, shape: tuple[int, ...]) -> dict:
-        draws = {"targets": torch.randint(0, NUM_CLASSES, shape,
+        draws = {"targets": torch.randint(0, num_classes, shape,
                                           generator=generator,
                                           device=generator.device)}
         if legacy_delta:
             return draws
-        scores = patch_mask_draws(shape, IMAGE_HW, m.patch_size,
+        scores = patch_mask_draws(shape, image_hw, m.patch_size,
                                   m.num_modifiable_patches, generator)
         if scores is not None:
             draws["mask"] = scores
@@ -593,14 +618,14 @@ def build_mnist_countergan(cfg: CounterGANConfig,
         if legacy_delta:  # the legacy family has no masks
             return torch.ones_like(x)
         mask = random_patch_mask(
-            x.shape[0], IMAGE_HW, m.patch_size, m.num_modifiable_patches,
+            x.shape[0], image_hw, m.patch_size, m.num_modifiable_patches,
             channels=x.shape[-1], draws=draws.get("mask"), device=x.device)
         return with_ones_fraction(mask, m.ones_fraction,
                                   draws=draws.get("ones"))
 
     g_forward = make_mixed_precision(g_model, cfg.compute_dtype)
     step_fn, step_with_draws, step_from_draws = make_countergan_step(
-        cfg=cfg, num_classes=NUM_CLASSES, g_forward=g_forward,
+        cfg=cfg, num_classes=num_classes, g_forward=g_forward,
         d_forward=make_mixed_precision(d_model, cfg.compute_dtype),
         clf_forward=clf_forward_fn(clf_model.to(device), cfg.compute_dtype),
         draw_fn=draw_fn, mask_fn=mask_fn, diagnostics=diagnostics)
@@ -609,7 +634,7 @@ def build_mnist_countergan(cfg: CounterGANConfig,
         make_epoch_runner(step_from_draws), make_cf_fn(g_model,
                                                        cfg.compute_dtype),
         make_bn_recalibrator(g_model, cfg, draw_fn, mask_fn),
-        NUM_CLASSES, cfg)
+        num_classes, cfg)
 
 
 def _gumbel_draws(shape: tuple[int, ...], generator: torch.Generator
@@ -780,11 +805,11 @@ def build_tabular_countergan(cfg: CounterGANConfig,
         make_bn_recalibrator(g_model, cfg, draw_fn, mask_fn,
                              g_forward_of=g_forward_of,
                              full_mask_fn=full_mask_fn),
-        num_classes, cfg, schema=schema)
+        num_classes, cfg, schema=schema, stats=stats)
 
 
-def make_moons_cf_fn(g_model: MoonsResidualGenerator, compute_dtype: str
-                     ) -> Callable:
+def make_moons_cf_fn(g_model: MoonsResidualGenerator, compute_dtype: str,
+                     num_classes: int = MOONS_CLASSES) -> Callable:
     """`cf_fn(g_vars, x, target, mask, key=None) -> (x_cf, raw, masked)`
     (the `cf_fn` of `build_moons_countergan`): `g_vars` through an
     eval-mode copy of `g_model` at the compute dtype, the target one-hot at
@@ -799,7 +824,7 @@ def make_moons_cf_fn(g_model: MoonsResidualGenerator, compute_dtype: str
               for k, v in g_vars.items()}
         with torch.no_grad():
             raw, masked = functional_call(
-                serve_g, gv, (x.to(cd), one_hot(target, MOONS_CLASSES, cd),
+                serve_g, gv, (x.to(cd), one_hot(target, num_classes, cd),
                               mask.to(cd)))
         raw, masked = raw.float(), masked.float()
         return x + masked, raw, masked
@@ -808,14 +833,14 @@ def make_moons_cf_fn(g_model: MoonsResidualGenerator, compute_dtype: str
 
 
 def _moons_g_forward(g_model: MoonsResidualGenerator,
-                     cfg: CounterGANConfig) -> Callable:
+                     cfg: CounterGANConfig, num_classes: int) -> Callable:
     """The moons family's train-mode `g_forward(x, t, mask) -> (raw,
     masked)` through `g_model`: the target one-hot, the forward at the
     compute dtype, float32 outputs."""
     apply = make_mixed_precision(g_model, cfg.compute_dtype)
 
     def g_forward(x, t, mask, update_stats: bool = True):
-        return apply(x, one_hot(t, MOONS_CLASSES, x.dtype), mask,
+        return apply(x, one_hot(t, num_classes, x.dtype), mask,
                      update_stats=update_stats)
 
     return g_forward
@@ -825,7 +850,9 @@ def build_moons_countergan(cfg: CounterGANConfig,
                            clf_params: Mapping[str, torch.Tensor],
                            seed: int = 42,
                            device: str | torch.device | None = None,
-                           diagnostics: bool = True) -> CounterGANBundle:
+                           diagnostics: bool = True,
+                           num_classes: int = MOONS_CLASSES,
+                           input_dim: int = MOONS_DIM) -> CounterGANBundle:
     """The moons CounteRGAN train step (`build_moons_countergan`) on
     `device` (None: the CUDA card; raises where there is none).
 
@@ -840,15 +867,16 @@ def build_moons_countergan(cfg: CounterGANConfig,
     Bernoulli(0.5) mask with `cfg.mask.immutable_idx` zeroed (and, with
     `cfg.mask.ones_fraction`, the draws that swap in the fully modifiable
     mask, the immutable complement, which recalibration's "ones" mode
-    uses too).  2-D points, three classes; x_cf is clamped only where
-    `cfg.clamp_cf` says."""
+    uses too).  `input_dim`-D points of `num_classes` classes (2 and 3 by
+    default); x_cf is clamped only where `cfg.clamp_cf` says."""
     device = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     g_model, clf_model = moons_models(
-        cfg, clf_params["Linear_0.weight"].shape[0], generator=gen)
+        cfg, clf_params["Linear_0.weight"].shape[0], generator=gen,
+        num_classes=num_classes, input_dim=input_dim)
     clf_model.load_state_dict(clf_params, strict=True)
     h = cfg.hidden_dim
-    d_model = SpectralMLPDiscriminator(MOONS_DIM + MOONS_CLASSES,
+    d_model = SpectralMLPDiscriminator(input_dim + num_classes,
                                        (h, h // 2, h // 2), generator=gen)
     g_model.to(device).train()
     d_model.to(device).train()
@@ -861,17 +889,17 @@ def build_moons_countergan(cfg: CounterGANConfig,
     m = cfg.mask
     # the immutable-complement row, made here: the captured step may not
     # copy it from the host
-    keep = immutable_complement_mask(1, MOONS_DIM, m.immutable_idx,
+    keep = immutable_complement_mask(1, input_dim, m.immutable_idx,
                                      device=device)[0]
 
     def full_mask_fn(x):
-        return keep.expand(x.shape[0], MOONS_DIM)
+        return keep.expand(x.shape[0], input_dim)
 
     def draw_fn(generator: torch.Generator, shape: tuple[int, ...]) -> dict:
-        draws = {"targets": torch.randint(0, MOONS_CLASSES, shape,
+        draws = {"targets": torch.randint(0, num_classes, shape,
                                           generator=generator,
                                           device=generator.device),
-                 "mask": feature_mask_draws(shape, MOONS_DIM, generator)}
+                 "mask": feature_mask_draws(shape, input_dim, generator)}
         if m.ones_fraction:
             draws["ones"] = torch.rand(shape, generator=generator,
                                        device=generator.device)
@@ -885,24 +913,24 @@ def build_moons_countergan(cfg: CounterGANConfig,
                                   draws=draws["ones"], full=full_mask_fn(x))
 
     def g_forward_of(module):
-        return _moons_g_forward(module, cfg)
+        return _moons_g_forward(module, cfg, num_classes)
 
     d_apply = make_mixed_precision(d_model, cfg.compute_dtype)
 
     def d_forward(x, t, detach: bool = False, train: bool = True):
-        return d_apply(x, one_hot(t, MOONS_CLASSES, x.dtype),
+        return d_apply(x, one_hot(t, num_classes, x.dtype),
                        detach=detach, train=train)
 
     step_fn, step_with_draws, step_from_draws = make_countergan_step(
-        cfg=cfg, num_classes=MOONS_CLASSES, g_forward=g_forward_of(g_model),
+        cfg=cfg, num_classes=num_classes, g_forward=g_forward_of(g_model),
         d_forward=d_forward,
         clf_forward=clf_forward_fn(clf_model.to(device), cfg.compute_dtype),
         draw_fn=draw_fn, mask_fn=mask_fn, diagnostics=diagnostics)
     return CounterGANBundle(
         state, step_fn, step_with_draws, step_from_draws, draw_fn,
         make_epoch_runner(step_from_draws),
-        make_moons_cf_fn(g_model, cfg.compute_dtype),
+        make_moons_cf_fn(g_model, cfg.compute_dtype, num_classes),
         make_bn_recalibrator(g_model, cfg, draw_fn, mask_fn,
                              g_forward_of=g_forward_of,
                              full_mask_fn=full_mask_fn),
-        MOONS_CLASSES, cfg)
+        num_classes, cfg)

@@ -38,7 +38,8 @@ Then it trains end to end:
   profiler counts the kernels of each replayed step (one epilogue
   forward and one backward; with the conv kernel 26 conv and 13 dK
   launches); the replays run with `torch.cuda.set_sync_debug_mode
-  ("error")`; replayed and eager steps are timed in turns;
+  ("error")`; replayed and eager steps are timed in turns, the eager
+  step's device time read from a trace of 6;
 - `experiment`: `cfgan_torch.experiments.mnist_countergan.run` at full
   width (12,800 images, 2 classifier epochs, 4 GAN epochs, snapshot
   selection every 2) into a scratch directory under `build/`, then again
@@ -70,10 +71,32 @@ masks) and the step's memory options:
   `memory_launches` (K + 1 epilogue forwards and K backwards; on the
   kernel route 13 conv launches a generator forward and 13 a dx, 13 dK a
   backward, and with `remat` the residual blocks' 12 again) and its peak
-  memory, 8 steps through the epoch runner equal
+  memory, 5 steps through the epoch runner (3 eager, 2 replayed) equal
   to eager bit for bit, the plain epilogue's losses, and the replayed
   step timed in turns against the arm without options; then float32 at
   batch 1024 (remat x K in {0, 4}): peak memory and the eager step.
+
+Then images of another size and class count, and a table of another
+schema:
+
+- `custom shapes`: the shipped MNIST preset (64 channels, 6 blocks,
+  bf16, EMA 0.999) built with `num_classes=3, image_hw=(20, 20)`, the
+  image example's 4x4 grid of 5-px patches and the conv kernel, on that
+  example's shape data: the conv (forward and dx) and dK, bf16 and f32,
+  at (128 and 64, 20, 20, 64, 64), and the epilogue at (128, 400), (64,
+  400) and the credit rows' (128, 7) (the 4-byte variant), against their
+  plain versions at the bars of the 28x28 shapes; 3 eager steps at batch
+  128 and 64, bf16 and f32 (26 conv, 13 dK, 1 + 1 epilogue launches a
+  step), against the same steps on the plain conv; one epoch replayed by
+  the epoch runner equal to eager, bit for bit; the served preset at
+  20x20 equal to cuDNN's route on the same weights (13 conv launches a
+  forward, b=64 among them), no edit outside a patch mask; the device
+  times of those shapes, their bounds and cuDNN's times;
+- `examples`: `examples/torch_custom_images.py` and
+  `examples/torch_custom_tabular.py` whole, at their shipped sizes, with
+  their own checks (classifier accuracy over 0.9, mean flip rate over
+  0.7, no edit outside the allowed patches; only the allowed features
+  changed).
 
 Then the King County house CounteRGAN (the shipped `HOUSE_COUNTERGAN`
 preset at full width: 32 wide, 5 FiLM blocks, batch 128, float32):
@@ -87,9 +110,10 @@ preset at full width: 32 wide, 5 FiLM blocks, batch 128, float32):
   step (held against a plain power iteration on the weights);
 - `house epoch runner`: one epoch (135 steps) replayed as a CUDA graph
   equals the same steps eager, bit for bit (metrics, parameters,
-  BatchNorm statistics, `u`, EMA, Adam); the profiler counts one
-  epilogue forward and one backward launch a replayed step; replayed and
-  eager steps are timed in turns;
+  BatchNorm statistics, `u`, EMA, Adam); replayed epochs and the first
+  24 eager steps are timed in turns; then an epoch of those 24 steps is
+  captured and replayed, and the profiler counts one epilogue forward and
+  one backward launch a replayed step in its trace;
 - `house experiment`: `cfgan_torch.experiments.house_countergan.run` at
   full width on the synthetic table (5 classifier epochs, 20 GAN
   epochs, snapshot selection every 10), then the rerun that loads it and
@@ -171,6 +195,12 @@ its weight gradient, the serving requests and the train step (bf16 with
 cuDNN's convs and with the kernels, f32 with the kernels), and the
 epilogue kernels at the house step's (128, 17) rows, the moons step's
 (64, 2) rows and the micro-batched step's (64, 784) and (32, 784).
+
+    python3 chip_smoke.py --phases "custom shapes,examples"
+
+builds the kernels and runs only the named phases (those that need
+nothing of the others'), for iterating by hand; its last line says which
+ran.
 
     python3 chip_smoke.py --train-timing-only
 
@@ -295,6 +325,10 @@ PALLAS_F32_OUTLIER_SHARE = 1e-2
 # step's d_loss and g_loss, and every parameter, statistic, EMA leaf and
 # Adam tensor after the steps
 RUNNER_STEPS = 24
+# the eager steps a profiler trace reads the eager step's device time
+# from: each holds ~1,000 kernels and their host ops, and a trace is read
+# back slowly
+EAGER_PROFILE_STEPS = 6
 # each replayed step's launches of our kernels, by the profiler: the
 # epilogue forward and backward once; with conv_impl="pallas" 13 conv
 # launches forward and 13 for dx, and 13 dK launches (each with its
@@ -331,10 +365,24 @@ EXPERIMENT_CSVS = ("countergan_metrics_per_class.csv",
 LEGACY_STEPS = 10
 LEGACY_RUNNER_STEPS = 27
 LEGACY_TARGET = 5
-# the memory options: MEMORY_STEPS steps an arm at batch 128 (bf16), and
+# the memory options: MEMORY_STEPS steps an arm at batch 128 (bf16: 3
+# eager, 2 replayed), and
 # float32 at MEMORY_F32_BATCH, where the activations dominate the memory
-MEMORY_STEPS = 8
+MEMORY_STEPS = 5
 MEMORY_F32_BATCH = 1024
+# the custom-shapes phase: the shipped preset at the image example's
+# shape (20x20, three classes, a 4x4 grid of 5-px patches, 8 modifiable);
+# the conv and dK at its steps' and requests' batches, the epilogue at its
+# rows (128 and 64 images of 400 pixels) and at the credit example's (128
+# rows of 7 features, the 4-byte variant); CUSTOM_STEPS eager steps a
+# dtype and batch
+CUSTOM_HW = (20, 20)
+CUSTOM_CLASSES = 3
+CUSTOM_PATCH, CUSTOM_MODIFIABLE = 5, 8
+CUSTOM_PATCHES = [1, 2, 5, 6, 9, 10, 13, 14]  # a vertical strip
+CUSTOM_CONV_SHAPES = ((128, 20, 20, 64, 64), (64, 20, 20, 64, 64))
+CUSTOM_EPI_ROWS = ((128, 400), (64, 400), (128, 7))
+CUSTOM_STEPS = 3
 
 # the house phases: the shipped preset's (128, 17) step; HOUSE_STEPS
 # eager steps; one whole epoch through the runner, of which the eager
@@ -391,8 +439,9 @@ MOONS_FILES = (
     "run_provenance.json")
 MOONS_RUN_DIR = HERE / "results" / "moons_countergan"
 # each replayed step's launches of our kernels in the two MLP families,
-# and the eager steps whose device time is profiled (a trace of a whole
-# eager house epoch holds ~10^5 records)
+# and the steps of the epochs whose replays the profiler counts and of
+# the eager steps timed a turn (a trace of a whole replayed house epoch
+# holds ~10^5 records)
 MLP_REPLAY_LAUNCHES = {"epilogue_fwd_kernel": 1, "epilogue_bwd_kernel": 1}
 MLP_PROFILE_STEPS = 24
 
@@ -454,6 +503,20 @@ class Phase:
             print(f"phase {self.name}: {time.perf_counter() - self.t0:.3f} s",
                   flush=True)
         return False
+
+
+class Laps:
+    """Wall seconds of a phase's parts: `laps(name)` ends the part
+    `name`; `laps.s` maps each part to its seconds."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+        self.s = {}
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        self.s[name] = now - self.t
+        self.t = now
 
 
 def bf16_ulp(t):
@@ -693,6 +756,287 @@ def time_epilogue(card: str, dev, n: int = 28 * 28, b: int = TRAIN_BATCH,
     return epi
 
 
+# ------------------------------------------- kernels against their plain
+# versions, at a shape (the `kernel ...` phases and `custom shapes`)
+def make_conv_inputs(gen, dev, b, h, w, cin, cout, dtype):
+    """An NHWC input and a 3x3 kernel at the generator's kaiming init,
+    drawn from `gen`, on `dev` at `dtype`."""
+    import torch
+
+    x = torch.randn((b, h, w, cin), generator=gen)
+    k = torch.randn((3, 3, cin, cout), generator=gen) * math.sqrt(
+        2 / 1.04 / (9 * cin))  # the generator's kaiming init
+    return x.to(dev, dtype), k.to(dev, dtype)
+
+
+def row_rel_err(got, ref) -> float:
+    """The largest over output pixels of |got - ref| / |ref| in the
+    2-norm of the pixel's channels."""
+    d = (got - ref).reshape(-1, ref.shape[-1]).norm(dim=1)
+    n = ref.reshape(-1, ref.shape[-1]).norm(dim=1)
+    return (d / n.clamp_min(1e-30)).max().item()
+
+
+def conv_ok(got, ref, dtype):
+    """(ok, tolerance): f32 abs <= F32_ATOL and row rel <=
+    F32_ROW_RTOL; bf16 within one bf16 ulp of the plain f32 result
+    rounded to bf16, + F32_ATOL."""
+    if dtype == "bfloat16":
+        ref = ref.bfloat16().float()
+        return (bool(((got - ref).abs() <= bf16_ulp(ref) + F32_ATOL)
+                     .all()),
+                f"1 bf16 ulp of the plain f32 result rounded to bf16, "
+                f"+ {F32_ATOL}")
+    return ((got - ref).abs().max().item() <= F32_ATOL
+            and row_rel_err(got, ref) <= F32_ROW_RTOL,
+            f"abs <= {F32_ATOL} and each output pixel's channels within "
+            f"{F32_ROW_RTOL} of their 2-norm")
+
+
+def check_conv(gen, dev, shape, dtype: str, phase: str,
+               tf32_witness: bool = False) -> float:
+    """The conv kernel (forward, and dx: the cotangent through K read
+    flipped and transposed) against its plain version at `shape` (B, H,
+    W, Cin, Cout) and `dtype`; one line.  In f32 also the TF32 matmul's
+    error beside it, and with `tf32_witness` a check that the row bar
+    still tells 3xTF32 from one tf32 product.  Fails where they
+    disagree; returns the largest abs error of the two."""
+    import torch
+
+    from cfgan_torch.ops.conv import conv3x3_same, conv3x3_same_plain
+
+    x, k = make_conv_inputs(gen, dev, *shape, getattr(torch, dtype))
+    g, _ = make_conv_inputs(gen, dev, *shape[:3], shape[4], shape[4],
+                            getattr(torch, dtype))
+    got = conv3x3_same(x, k).float()
+    got_t = conv3x3_same(g, k, transposed=True).float()
+    ref = conv3x3_same_plain(x.float(), k.float())
+    ref_t = conv3x3_same_plain(
+        g.float(), k.float().flip(0, 1).transpose(2, 3).contiguous())
+    torch.cuda.synchronize()
+    ok, tol = conv_ok(got, ref, dtype)
+    ok_t, _ = conv_ok(got_t, ref_t, dtype)
+    if dtype == "bfloat16":
+        ref, ref_t = ref.bfloat16().float(), ref_t.bfloat16().float()
+    err = (got - ref).abs().max().item()
+    err_t = (got_t - ref_t).abs().max().item()
+    rel = ((got - ref).abs() / ref.abs().clamp_min(1e-3)).max()
+    report = {"phase": phase, "shape": shape, "dtype": dtype,
+              "max_abs_err": err, "max_rel_err": rel.item(),
+              "dx_max_abs_err": err_t, "tolerance": tol}
+    if dtype == "float32":
+        # one tf32 product: the plain version's matmuls, TF32 on
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = conv3x3_same_plain(x, k)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        report.update(
+            max_row_rel_err=row_rel_err(got, ref),
+            dx_max_row_rel_err=row_rel_err(got_t, ref_t),
+            tf32_matmul_max_row_rel_err=row_rel_err(tf32, ref),
+            tf32_matmul_max_abs_err=(tf32 - ref).abs().max().item())
+        if (tf32_witness
+                and report["tf32_matmul_max_row_rel_err"] <= F32_ROW_RTOL):
+            fail("the TF32 matmul meets the f32 row bar: the bar no longer "
+                 "tells 3xTF32 from one tf32 product")
+    report["ok"] = ok and ok_t
+    emit(report)
+    if not (ok and ok_t) or not (torch.isfinite(got).all()
+                                 and torch.isfinite(got_t).all()):
+        fail(f"conv3x3 kernel disagrees with its plain version at {shape} "
+             f"{dtype}: max abs err {err}, dx {err_t}")
+    return max(err, err_t)
+
+
+def check_dkernel(gen, dev, shape, dtype: str, phase: str) -> float:
+    """The dK kernel against its plain version at `shape` and `dtype`
+    (each tap within DK_RTOL of its 2-norm, the same bits over two
+    calls); one line.  Fails where they disagree; returns the largest
+    abs error."""
+    import torch
+
+    from cfgan_torch.ops.conv import (
+        conv3x3_same_dkernel,
+        conv3x3_same_dkernel_plain,
+    )
+
+    x, _ = make_conv_inputs(gen, dev, *shape, getattr(torch, dtype))
+    g, _ = make_conv_inputs(gen, dev, *shape[:3], shape[4], shape[4],
+                            getattr(torch, dtype))
+    got = conv3x3_same_dkernel(x, g)
+    again = conv3x3_same_dkernel(x, g)
+    ref = conv3x3_same_dkernel_plain(x, g)
+    torch.cuda.synchronize()
+    norm = ref.reshape(9, -1).norm(dim=1)
+    rel = (got - ref).reshape(9, -1).norm(dim=1) / norm.clamp_min(1e-30)
+    same_bits = torch.equal(got, again)
+    ok = (bool((rel <= DK_RTOL).all()) and same_bits
+          and got.dtype == torch.float32
+          and bool(torch.isfinite(got).all()))
+    err = (got - ref).abs().max().item()
+    emit({"phase": phase, "shape": shape, "dtype": dtype,
+          "max_abs_err": err, "max_tap_rel_err": rel.max().item(),
+          "two_calls_equal_bits": same_bits,
+          "tolerance": f"per tap: 2-norm of the error <= {DK_RTOL} of the "
+                       f"plain dK's (float32 sums of up to B*H*W products "
+                       f"in another order)",
+          "ok": ok})
+    if not ok:
+        fail(f"conv3x3 dK kernel disagrees with its plain version at "
+             f"{shape} {dtype}: per-tap rel err {rel.max().item()}, equal "
+             f"bits over two calls {same_bits}")
+    return err
+
+
+def check_epilogue(gen, dev, b: int, n: int, misaligned: bool, lo: float,
+                   hi: float, phase: str) -> dict:
+    """The epilogue kernels, forward and backward, against their plain
+    versions on (b, n) float32 rows (x on and about the bounds, zeros in
+    raw for sign(0); with `misaligned` each row array one element into
+    its storage); one line naming the variant each wrapper launched.
+    Fails where they disagree; returns {"variant": {"fwd": .., "bwd":
+    ..}, "fwd": the forward's largest abs error (x_cf, sums), "bwd": the
+    backward's (dx, d_raw)}."""
+    import torch
+
+    from cfgan_torch.ops import epilogue as tep
+
+    def shifted(t):
+        """A contiguous copy of `t` one element into its storage."""
+        view = torch.empty(t.numel() + 1, device=t.device)[1:].view(t.shape)
+        return view.copy_(t)
+
+    x = torch.rand((b, n), generator=gen) * 2.4 - 1.2
+    raw = torch.randn((b, n), generator=gen) * 0.4
+    mask = (torch.rand((b, n), generator=gen) > 0.5).float()
+    raw[:, ::5] = 0.0  # sign(0) in the backward
+    x[:, 1::5], mask[:, 1::5] = 1.0, 0.0  # u exactly on hi ...
+    x[:, 2::5], raw[:, 2::5] = -1.0, 0.0  # ... and on lo
+    gcf = torch.randn((b, n), generator=gen)
+    cols = [torch.randn((b,), generator=gen) for _ in range(3)]
+    x, raw, mask, gcf, *cols = (t.to(dev) for t in (x, raw, mask, gcf, *cols))
+    if misaligned:
+        x, raw, mask, gcf = map(shifted, (x, raw, mask, gcf))
+    got = tep.cf_epilogue_fwd(x, raw, mask, lo, hi)
+    ref = tep.cf_epilogue_fwd_plain(x, raw, mask, lo, hi)
+    got_b = tep.cf_epilogue_bwd(x, raw, mask, gcf, *cols, lo, hi)
+    # the variant each wrapper passed to its kernel
+    variant = {k: "16-byte" if f.last_float4 else "4-byte"
+               for k, f in (("fwd", tep.cf_epilogue_fwd),
+                            ("bwd", tep.cf_epilogue_bwd))}
+    ref_b = tep.cf_epilogue_bwd_plain(x, raw, mask, gcf, *cols, lo, hi)
+    torch.cuda.synchronize()
+    cf_err = (got[0] - ref[0]).abs().max().item()
+    sum_err = max(((g - r).abs() / r.abs().clamp_min(1e-30)).max().item()
+                  for g, r in zip(got[1:], ref[1:]))
+    sum_abs = max((g - r).abs().max().item() for g, r in zip(got[1:], ref[1:]))
+    dx_err, draw_err = ((g - r).abs().max().item()
+                        for g, r in zip(got_b, ref_b))
+    ok = (max(cf_err, dx_err, draw_err) <= EPI_ATOL
+          and sum_err <= EPI_SUM_RTOL
+          and all(torch.isfinite(t).all() for t in (*got, *got_b)))
+    emit({"phase": phase, "shape": (b, n), "misaligned": misaligned,
+          "variant": variant, "lo": lo, "hi": hi, "x_cf_max_abs_err": cf_err,
+          "sums_max_rel_err": sum_err, "sums_max_abs_err": sum_abs,
+          "dx_max_abs_err": dx_err, "draw_max_abs_err": draw_err,
+          "tolerance": f"x_cf, dx, draw abs <= {EPI_ATOL}; sums rel <= "
+                       f"{EPI_SUM_RTOL}", "ok": ok})
+    if not ok:
+        fail(f"cf_epilogue kernels disagree with their plain versions at "
+             f"{(b, n)} {variant}, bounds {(lo, hi)}")
+    return {"variant": variant, "fwd": max(cf_err, sum_abs),
+            "bwd": max(dx_err, draw_err)}
+
+
+# --------------------------------------- device time of a kernel and of
+# its plain and library counterparts (`timing`, `custom shapes`)
+def _dev_ms(fn, ops: int, dtype: str, timed_by: dict, key: str) -> float:
+    """`kernel_ms` with the dtype's bound on operations for a floor (f32:
+    three tf32 products each, the fastest any of the three computes it):
+    a trace that lost the conv's records read the f32 kernel under its
+    bound against a bf16-peak floor."""
+    ms, timed_by[key] = kernel_ms(fn, floor_ms=_bound(0, ops, dtype)[0])
+    return ms
+
+
+def time_conv(card: str, gen, dev, shape, dtype: str, phase: str) -> dict:
+    """Device ms per call of the conv kernel, its plain version and
+    cuDNN's `F.conv2d` at `shape` and `dtype`, with the bound; one line.
+    Returns {ms, plain_ms, library_ms, bound_ms, bound_by}."""
+    import torch
+    import torch.nn.functional as F
+
+    from cfgan_torch.ops.conv import conv3x3_same, conv3x3_same_plain
+
+    x, k = make_conv_inputs(gen, dev, *shape, getattr(torch, dtype))
+    x_nchw = x.permute(0, 3, 1, 2)  # channels-last view, no copy
+    w_oihw = k.permute(3, 2, 0, 1).contiguous()
+    bound_ms, bound_by, nbytes, ops = conv_bound(*shape, dtype)
+    timed_by = {}
+    ms = _dev_ms(lambda: conv3x3_same(x, k), ops, dtype, timed_by, "ms")
+    plain_ms = _dev_ms(lambda: conv3x3_same_plain(x, k), ops, dtype,
+                       timed_by, "plain_ms")
+    lib_ms = _dev_ms(lambda: F.conv2d(x_nchw, w_oihw, padding=1), ops,
+                     dtype, timed_by, "library_ms")
+    emit({"phase": phase, "what": "conv3x3", "card": card, "shape": shape,
+          "dtype": dtype, "ms": ms, "plain_ms": plain_ms,
+          "library_ms": lib_ms,
+          "library": "F.conv2d (cuDNN, TF32 off; its weight re-layout "
+                     "kernel included; in f32 `ms` includes K's split)",
+          "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+          "operations": ops, "share_of_bound": bound_ms / ms,
+          "tflops": ops / ms / 1e9, "timed_by": timed_by,
+          "events_call_ms": cuda_ms(lambda: conv3x3_same(x, k), 50),
+          "graph_call_ms": graph_ms(lambda: conv3x3_same(x, k))})
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def time_dkernel(card: str, gen, dev, shape, dtype: str, phase: str) -> dict:
+    """Device ms per call of the dK kernel, its plain version and cuDNN's
+    wgrad at `shape` and `dtype`, with the bound, and a CUDA graph's
+    reading beside the profiler's; one line.  Returns {ms, plain_ms,
+    library_ms, bound_ms, bound_by}."""
+    import torch
+
+    from cfgan_torch.ops.conv import (
+        conv3x3_same_dkernel,
+        conv3x3_same_dkernel_plain,
+        conv_flops,
+    )
+
+    x, _ = make_conv_inputs(gen, dev, *shape, getattr(torch, dtype))
+    g, _ = make_conv_inputs(gen, dev, *shape[:3], shape[4], shape[4],
+                            getattr(torch, dtype))
+    x_nchw, g_nchw = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+    w_shape = (shape[4], shape[3], 3, 3)
+    bound_ms, bound_by = dkernel_bound(*shape, dtype)
+    ops = conv_flops(shape[0], shape[1:3], shape[3], shape[4])
+    timed_by = {}
+    dk = dict(
+        ms=_dev_ms(lambda: conv3x3_same_dkernel(x, g), ops, dtype, timed_by,
+                   "ms"),
+        plain_ms=_dev_ms(lambda: conv3x3_same_dkernel_plain(x, g), ops,
+                         dtype, timed_by, "plain_ms"),
+        library_ms=_dev_ms(lambda: torch.nn.grad.conv2d_weight(
+            x_nchw, w_shape, g_nchw, padding=1), ops, dtype, timed_by,
+            "library_ms"),
+        bound_ms=bound_ms, bound_by=bound_by)
+    # the profiler's reading against a clock it does not touch: CUDA
+    # events around replays of a graph of 20 calls (the kernel and its
+    # reduction, with the graph's gaps)
+    graph_call = graph_ms(lambda: conv3x3_same_dkernel(x, g))
+    emit({"phase": phase, "what": "conv3x3 dK", "card": card,
+          "shape": shape, "dtype": dtype, **dk,
+          "library": "torch.nn.grad.conv2d_weight (cuDNN wgrad, "
+                     "channels-last, TF32 off)",
+          "timed_by": timed_by, "graph_call_ms": graph_call,
+          "events_call_ms": cuda_ms(lambda: conv3x3_same_dkernel(x, g), 200),
+          "share_of_bound": bound_ms / dk["ms"]})
+    return dk
+
+
 # the train steps `timing train` times: (compute dtype, conv_impl); None is
 # the preset's cuDNN conv
 TIMED_STEPS = (("bfloat16", None), ("bfloat16", "pallas"),
@@ -812,6 +1156,7 @@ def runner_phase(card: str, dev, clf_sd: dict, x, y, counts,
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
     for impl in (None, "pallas"):
+        laps = Laps()
         cfg = replace(MNIST_COUNTERGAN, conv_impl=impl)
         ours, ref = (build_mnist_countergan(cfg, clf_sd, seed=SEED)
                      for _ in range(2))
@@ -852,6 +1197,8 @@ def runner_phase(card: str, dev, clf_sd: dict, x, y, counts,
             fail(f"conv_impl={impl}: replayed steps differ from eager "
                  f"steps (loss err {loss_err}, state equal {same_state})")
 
+        laps("compare_s")
+
         # a second epoch of the same shape replays every step
         def epoch():
             runner(ours.state, x, y, perm, draws)
@@ -875,14 +1222,17 @@ def runner_phase(card: str, dev, clf_sd: dict, x, y, counts,
         if not exact:
             fail(f"conv_impl={impl}: launches per replayed step {attempts} "
                  f"in {len(attempts)} traces, not {REPLAY_LAUNCHES[impl]}")
+        laps("replay_traces_s")
 
-        def eager_steps():
-            for i in range(RUNNER_STEPS):
+        def eager_steps(n=RUNNER_STEPS):
+            for i in range(n):
                 ref.step_from_draws(ref.state, x[perm[i]], y[perm[i]],
                                     {k: v[i] for k, v in draws.items()})
             torch.cuda.synchronize()
 
-        eager_busy = device_time(eager_steps, 1)[0]
+        eager_busy = device_time(lambda: eager_steps(EAGER_PROFILE_STEPS),
+                                 1)[0]
+        laps("eager_trace_s")
         times = {"replayed": [], "eager": []}
         for _ in range(3):  # in turns
             for name, fn in (("replayed", epoch), ("eager", eager_steps)):
@@ -891,7 +1241,9 @@ def runner_phase(card: str, dev, clf_sd: dict, x, y, counts,
                 times[name].append((time.perf_counter() - t0) * 1e3
                                    / RUNNER_STEPS)
         med = {k: statistics.median(v) for k, v in times.items()}
+        laps("turns_s")
         report.update({
+            "part_seconds": laps.s,
             "launches_per_replayed_step": {k: v[1]
                                            for k, v in per_step.items()},
             "our_kernels_ms_per_replayed_step": {k: v[0]
@@ -907,10 +1259,11 @@ def runner_phase(card: str, dev, clf_sd: dict, x, y, counts,
             "replayed_device_idle_share": 1 - busy / RUNNER_STEPS
             / med["replayed"],
             "eager_device_busy_ms": (None if eager_busy is None
-                                     else eager_busy / RUNNER_STEPS),
+                                     else eager_busy / EAGER_PROFILE_STEPS),
             "eager_device_idle_share": (
                 None if eager_busy is None
-                else 1 - eager_busy / RUNNER_STEPS / med["eager"]),
+                else 1 - eager_busy / EAGER_PROFILE_STEPS / med["eager"]),
+            "eager_busy_profiled_steps": EAGER_PROFILE_STEPS,
             "device_time_by_kernel_ms_per_epoch": top, "ok": True})
         emit(report)
     torch.backends.cudnn.deterministic = False
@@ -1326,6 +1679,7 @@ def memory_phase(card: str, dev, x, y, clf_sd: dict, counts, zero_counts,
         base = None
         for remat in (False, True):
             for k in (0, 2, 4):
+                t_arm = time.perf_counter()
                 cfg = replace(MNIST_COUNTERGAN, conv_impl=impl, remat=remat,
                               g_microbatch=k)
                 ours, ref = arm_bundles(cfg)
@@ -1407,7 +1761,7 @@ def memory_phase(card: str, dev, x, y, clf_sd: dict, counts, zero_counts,
                       "base_median_ms": med["base"],
                       "images_per_s": TRAIN_BATCH / med["arm"] * 1e3,
                       "base": "remat off, g_microbatch 0, same conv_impl",
-                      "ok": ok})
+                      "arm_s": time.perf_counter() - t_arm, "ok": ok})
                 if not ok:
                     fail(f"memory options {impl} remat={remat} K={k}: "
                          f"launches {launched} (want {want}), replay equal "
@@ -1449,6 +1803,374 @@ def memory_phase(card: str, dev, x, y, clf_sd: dict, counts, zero_counts,
             del bundle
     torch.cuda.empty_cache()
     return chunk_launches, chunk_conv_launches
+
+
+def randomize_batch_norms(model, gen) -> None:
+    """Non-trivial BatchNorm statistics, scales and shifts for `model`'s
+    served BatchNorms, drawn from `gen`."""
+    import torch
+
+    from cfgan_torch.nn.layers import BatchNorm
+
+    for bn in model.modules():
+        if isinstance(bn, BatchNorm):
+            n = bn.running_mean.shape[0]
+            bn.running_mean.copy_(0.1 * torch.randn(n, generator=gen))
+            bn.running_var.copy_(0.5 + torch.rand(n, generator=gen))
+            bn.weight.data.copy_(0.5 + torch.rand(n, generator=gen))
+            bn.bias.data.copy_(0.1 * torch.randn(n, generator=gen))
+
+
+def served_engine(cfg, g_sd: dict, c_sd: dict, dev, dtype: str,
+                  plain: bool = False, **shape):
+    """The served preset `cfg` at `dtype` (`build_mnist_serving`; `shape`:
+    its `num_classes` and `image_hw`); `plain=True` switches the layers
+    routed to the conv kernel over to its plain version, and nothing
+    else.  Fails unless KERNEL_LAYERS_PER_FORWARD layers are routed."""
+    from cfgan_torch.nn.layers import Conv
+    from cfgan_torch.serve.engine import CounterfactualEngine
+    from cfgan_torch.train.builders import build_mnist_serving
+
+    s = build_mnist_serving(replace(cfg, compute_dtype=dtype), g_sd, c_sd,
+                            device=dev, **shape)
+    routed = [m for m in s.generator.modules()
+              if isinstance(m, Conv) and m.impl == "pallas"]
+    if len(routed) != KERNEL_LAYERS_PER_FORWARD:
+        fail(f"{len(routed)} generator layers routed to the kernel, not "
+             f"{KERNEL_LAYERS_PER_FORWARD}")
+    for m in routed if plain else ():
+        m.impl = "matmul"
+    return CounterfactualEngine(s.cf_fn, s.clf_fn, s.num_classes,
+                                patch_size=cfg.mask.patch_size, device=dev)
+
+
+def compare_served(report: dict, ours: dict, plain: dict, num_classes: int,
+                   dtype: str, what: str) -> None:
+    """Each request of `ours` (name -> CFResult) against the same request
+    of `plain` at the serving bars (x_cf F32_ATOL in f32, BF16_CF_ATOL in
+    bf16; probabilities PROBS_ATOL), shapes and finite values, into
+    `report[name]`; fails on the first that misses."""
+    import numpy as np
+
+    cf_atol = F32_ATOL if dtype == "float32" else BF16_CF_ATOL
+    for name, r in ours.items():
+        p = plain[name]
+        shape_ok = (r.x_cf.shape == p.x_cf.shape
+                    and r.probs.shape == (p.x_cf.shape[0], num_classes)
+                    and np.isfinite(r.x_cf).all()
+                    and np.isfinite(r.probs).all())
+        cf_err = float(np.abs(r.x_cf - p.x_cf).max())
+        pr_err = float(np.abs(r.probs - p.probs).max())
+        report[name] = {"rows": int(r.x_cf.shape[0]),
+                        "x_cf_max_abs_err": cf_err,
+                        "probs_max_abs_err": pr_err,
+                        "flip_rate": float(r.flipped.mean())}
+        if not shape_ok:
+            fail(f"{what} {dtype} {name}: bad shape or non-finite values")
+        if cf_err > cf_atol or pr_err > PROBS_ATOL[dtype]:
+            fail(f"{what} {dtype} {name}: kernel engine differs from the "
+                 f"plain-conv engine (x_cf {cf_err}, probs {pr_err})")
+
+
+# ------------------------------------------ any shape and class count
+def _example(name: str):
+    """The port's example module `examples/{name}.py`, imported from this
+    checkout."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, HERE / "examples" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def moment_report(mu: dict, plain_mu: dict, ours: dict, theirs: dict,
+                  lr: float, dtype: str) -> tuple[dict, bool]:
+    """The `train pallas` bars on one net of two runs: every weight leaf's
+    first moment after the first step within PALLAS_MU_RTOL[dtype] of its
+    2-norm (bias leaves left out), and in f32 at most
+    PALLAS_F32_OUTLIER_SHARE of the parameters more than lr / 10 apart.
+    Returns (report, ok)."""
+    import numpy as np
+
+    rel = {name: float(np.linalg.norm(m - plain_mu[name])
+                       / np.linalg.norm(plain_mu[name]))
+           for name, m in mu.items() if not name.endswith("bias")}
+    worst = max(rel, key=rel.get)
+    if ours.keys() != theirs.keys():
+        fail("the two runs hold other parameters")
+    diff = np.concatenate([np.abs(ours[k] - theirs[k]).ravel() for k in ours])
+    share = float((diff > lr / 10).mean())
+    report = {"first_moment_worst_rel_err": rel[worst], "worst_leaf": worst,
+              "first_moment_rtol": PALLAS_MU_RTOL[dtype],
+              "param_max_abs_diff": float(diff.max()),
+              "share_over_lr_10": share}
+    ok = rel[worst] <= PALLAS_MU_RTOL[dtype]
+    if dtype == "float32":
+        report["share_bound"] = PALLAS_F32_OUTLIER_SHARE
+        ok = ok and share <= PALLAS_F32_OUTLIER_SHARE
+    return report, ok
+
+
+def custom_shapes_phase(card: str, dev, counts, zero_counts) -> dict:
+    """The shipped MNIST preset (64 channels, 6 blocks, bf16, EMA 0.999)
+    built at CUSTOM_CLASSES classes and CUSTOM_HW images with the conv
+    kernel and the image example's 4x4 grid of 5-px patches, on the
+    example's shape data:
+
+    (a) the conv kernel (forward, dx) and dK, bf16 and f32, at
+        CUSTOM_CONV_SHAPES, and the epilogue kernels at CUSTOM_EPI_ROWS,
+        against their plain versions at the bars of the 28x28 shapes,
+        naming the epilogue variant each launched;
+    (b) CUSTOM_STEPS eager steps at batch 128 and 64, bf16 and f32: 26
+        conv, 13 dK and 1 + 1 epilogue launches a step, the losses and
+        Adam's first moments of the same steps with the plain conv at the
+        `train pallas` bars;
+    (c) one epoch of the bf16 step through the epoch runner equal to the
+        same steps eager, bit for bit;
+    (d) the served preset at 20x20 (13 conv launches a generator forward,
+        b=64 alone among them) equal to the same weights on cuDNN's convs
+        at the serving bars, edits outside a patch mask zero;
+    (e) the device times of the new shapes, each with its bound and
+        cuDNN's time (`time_conv`, `time_dkernel`, `time_epilogue`).
+
+    Returns the errors, launches and timings for the `kernels` line."""
+    import numpy as np
+    import torch
+
+    from cfgan_torch.convert import adam_moments_to_flax, gan_state_to_flax
+    from cfgan_torch.core.config import MNIST_COUNTERGAN, MaskConfig
+    from cfgan_torch.data.pipeline import epoch_perm
+    from cfgan_torch.models.classifiers import CNNClassifier
+    from cfgan_torch.train.builders import build_mnist_countergan, mnist_models
+    from cfgan_torch.train.loop import WARMUP_STEPS, make_epoch_runner
+
+    hw, nc = CUSTOM_HW, CUSTOM_CLASSES
+    gen = torch.Generator().manual_seed(SEED + 20)
+    out = {"conv_err": {}, "dk_err": {}, "epi_err": {}, "launches": {},
+           "timing": {}}
+
+    # (a) the kernels against their plain versions
+    for shape in CUSTOM_CONV_SHAPES:
+        for dtype in ("float32", "bfloat16"):
+            out["conv_err"][shape, dtype] = check_conv(
+                gen, dev, shape, dtype, "custom shapes")
+            out["dk_err"][shape, dtype] = check_dkernel(
+                gen, dev, shape, dtype, "custom shapes")
+    for b, n in CUSTOM_EPI_ROWS:
+        errs = [check_epilogue(gen, dev, b, n, False, lo, hi,
+                               "custom shapes") for lo, hi in EPI_BOUNDS]
+        want = "16-byte" if n % 4 == 0 else "4-byte"
+        if any(e["variant"] != {"fwd": want, "bwd": want} for e in errs):
+            fail(f"the epilogue at {(b, n)} ran {errs[0]['variant']}, not "
+                 f"the {want} variant")
+        out["epi_err"][b, n] = {k: max(e[k] for e in errs)
+                                for k in ("fwd", "bwd")}
+
+    # (b) eager steps, kernels against plain convs
+    xs, ys = _example("torch_custom_images").make_shape_dataset()
+    n_train = int(0.8 * len(ys))
+    x = torch.as_tensor(xs[:n_train]).to(dev)
+    y = torch.as_tensor(ys[:n_train]).to(dev, torch.long)
+    cfg = replace(MNIST_COUNTERGAN, conv_impl="pallas",
+                  mask=MaskConfig(kind="patch", patch_size=CUSTOM_PATCH,
+                                  num_modifiable_patches=CUSTOM_MODIFIABLE))
+    clf_sd = CNNClassifier(nc, image_hw=hw, generator=gen).state_dict()
+
+    def bundle_of(c):
+        return build_mnist_countergan(c, clf_sd, seed=SEED, device=dev,
+                                      num_classes=nc, image_hw=hw)
+
+    def run_steps(c, batch: int):
+        bundle = bundle_of(c)
+        draws = torch.Generator(device=dev).manual_seed(SEED)
+        losses = []
+        for i in range(CUSTOM_STEPS):
+            rows = slice(i * batch, (i + 1) * batch)
+            m = bundle.step_fn(bundle.state, x[rows], y[rows], draws)
+            losses.append((m["d_loss"], m["g_loss"]))
+            if i == 0:
+                mu = {net: _flat(t) for net, t in
+                      adam_moments_to_flax(bundle.state).items()}
+        torch.cuda.synchronize()
+        return bundle, [(d.item(), g.item()) for d, g in losses], mu
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    for dtype in ("bfloat16", "float32"):
+        for batch in (128, 64):
+            c = replace(cfg, compute_dtype=dtype)
+            want = (CUSTOM_STEPS, CUSTOM_STEPS,
+                    2 * KERNEL_LAYERS_PER_FORWARD * CUSTOM_STEPS,
+                    KERNEL_LAYERS_PER_FORWARD * CUSTOM_STEPS)
+            zero_counts()
+            bundle, losses, mu = run_steps(c, batch)
+            launched = counts()
+            if launched != want:
+                fail(f"custom shapes {dtype} batch {batch}: (fwd, bwd, "
+                     f"conv, dK) = {launched}, not {want}")
+            plain, plain_losses, plain_mu = run_steps(
+                replace(c, conv_impl="matmul"), batch)
+            if counts()[2:] != launched[2:]:
+                fail("the plain-conv run launched the conv or dK kernel")
+            out["launches"][dtype, batch] = launched
+            errs = [max(abs(a - b) for a, b in zip(k, p))
+                    for k, p in zip(losses, plain_losses)]
+            finite = all(math.isfinite(v) for pair in losses + plain_losses
+                         for v in pair)
+            report = {"phase": "custom shapes", "part": "steps",
+                      "card": card, "dtype": dtype, "batch": batch,
+                      "image_hw": hw, "num_classes": nc,
+                      "steps": CUSTOM_STEPS,
+                      "wrapper_counts_fwd_bwd_conv_dk": launched,
+                      "d_g_loss_per_step": losses,
+                      "plain_conv_d_g_loss_per_step": plain_losses,
+                      "loss_max_abs_err_per_step": errs,
+                      "loss_tolerance": f"abs <= {TRAIN_ATOL[dtype]}"}
+            ok = finite and max(errs) <= TRAIN_ATOL[dtype]
+            ours = gan_state_to_flax(bundle.state)
+            theirs = gan_state_to_flax(plain.state)
+            for net, lr in (("g", c.lr_g), ("d", c.lr_d)):
+                report[net], net_ok = moment_report(
+                    mu[net], plain_mu[net], _flat(ours[net]["params"]),
+                    _flat(theirs[net]["params"]), lr, dtype)
+                ok = ok and net_ok
+            report["ok"] = bool(ok)
+            emit(report)
+            if not ok:
+                fail(f"custom shapes {dtype} batch {batch}: the conv kernel's "
+                     f"steps differ from the plain conv's")
+            del bundle, plain
+
+    # (c) one epoch through the runner against eager, bit for bit
+    c = replace(cfg, compute_dtype="bfloat16")
+    ours, ref = bundle_of(c), bundle_of(c)
+    g_perm = torch.Generator(device=dev).manual_seed(SEED)
+    perm = epoch_perm(g_perm, len(y), TRAIN_BATCH)
+    draws = ours.draw_fn(g_perm, tuple(perm.shape))
+    runner = make_epoch_runner(ours.step_from_draws, reduce=False)
+    got = runner(ours.state, x, y, perm, draws)
+    eager = [ref.step_from_draws(ref.state, x[perm[i]], y[perm[i]],
+                                 {k: v[i] for k, v in draws.items()})
+             for i in range(perm.shape[0])]
+    eager = [(m["d_loss"].item(), m["g_loss"].item()) for m in eager]
+    replayed = list(zip(got["d_loss"].tolist(), got["g_loss"].tolist()))
+    same_losses = all(np.float32(a) == r for e, g in zip(eager, replayed)
+                      for a, r in zip(e, g))
+    same_state = _states_equal(ours.state, ref.state)
+    ok = (same_losses and same_state and runner.captures == 1
+          and runner.replays == perm.shape[0] - WARMUP_STEPS)
+    emit({"phase": "custom shapes", "part": "epoch runner", "card": card,
+          "dtype": "bfloat16", "batch": TRAIN_BATCH, "steps": perm.shape[0],
+          "captures": runner.captures, "replays": runner.replays,
+          "d_g_loss_per_step": replayed, "losses_equal_to_eager": same_losses,
+          "state_equal_to_eager": same_state,
+          "tolerance": "bit for bit: losses and state", "ok": ok})
+    if not ok:
+        fail("custom shapes: the replayed epoch differs from eager steps")
+    del ours, ref, runner
+    torch.backends.cudnn.deterministic = False
+
+    # (d) serving, the kernel route against cuDNN's convs
+    g_model, c_model = mnist_models(cfg, generator=gen, num_classes=nc,
+                                    image_hw=hw)
+    randomize_batch_norms(g_model, gen)
+    g_sd, c_sd = g_model.state_dict(), c_model.state_dict()
+    xq = xs[n_train:]
+    tq = np.arange(len(xq)) % nc
+
+    for dtype in ("bfloat16", "float32"):
+        served, launched = {}, {}
+        for plain in (False, True):
+            e = served_engine(cfg, g_sd, c_sd, dev, dtype, plain,
+                              num_classes=nc, image_hw=hw)
+            mask = e.mask_from_patches(CUSTOM_PATCHES, 128, hw)
+            zero_counts()
+            b64 = e.generate(xq[:64], tq[:64])
+            launched[plain, "b64"] = counts()[2]
+            served[plain] = {
+                "b1": e.generate(xq[0], 1), "b64": b64,
+                "b128_patches": e.generate(xq[:128], tq[:128], mask),
+                "zero_mask": e.generate(xq[:128], tq[:128],
+                                        np.zeros_like(xq[:128])),
+                "bulk": e.generate_bulk(xq, tq, chunk=128)}
+            torch.cuda.synchronize()
+            launched[plain] = counts()[2]
+        # four generate calls and four bulk chunks (three padded to four)
+        want = KERNEL_LAYERS_PER_FORWARD * 8
+        if (launched[False], launched[False, "b64"]) != (
+                want, KERNEL_LAYERS_PER_FORWARD) or launched[True] != 0:
+            fail(f"custom shapes serving {dtype}: conv launches {launched}, "
+                 f"not {want} (13 at b=64) and none on cuDNN's route")
+        out["launches"]["serve", dtype] = launched[False]
+        out["launches"]["serve_b64", dtype] = launched[False, "b64"]
+        report = {"phase": "custom shapes", "part": "serve", "card": card,
+                  "dtype": dtype, "image_hw": hw, "num_classes": nc,
+                  "kernel_launches": launched[False],
+                  "b64_kernel_launches": launched[False, "b64"],
+                  "x_cf_atol": (F32_ATOL if dtype == "float32"
+                                else BF16_CF_ATOL),
+                  "probs_atol": PROBS_ATOL[dtype]}
+        compare_served(report, served[False], served[True], nc, dtype,
+                       "custom shapes")
+        keep = mask.cpu().numpy()
+        leak = float((np.abs(served[False]["b128_patches"].x_cf - xq[:128])
+                      * (1 - keep)).max())
+        zero = served[False]["zero_mask"]
+        report["max_edit_outside_patches"] = leak
+        report["zero_mask_returns_x"] = bool(
+            np.array_equal(zero.x_cf, xq[:128]) and not zero.residual.any())
+        report["ok"] = leak == 0.0 and report["zero_mask_returns_x"]
+        emit(report)
+        if not report["ok"]:
+            fail(f"custom shapes serving {dtype}: an edit outside the mask")
+
+    # (e) device times at the new shapes
+    for shape in CUSTOM_CONV_SHAPES:
+        for dtype in ("bfloat16", "float32"):
+            out["timing"][shape, dtype] = time_conv(
+                card, gen, dev, shape, dtype, "custom shapes")
+            out["timing"]["dk", shape, dtype] = time_dkernel(
+                card, gen, dev, shape, dtype, "custom shapes")
+    for b, n in CUSTOM_EPI_ROWS:
+        out["timing"]["epi", b, n] = time_epilogue(
+            card, dev, n=n, b=b, bounds=(-1.0, 1.0) if n == 400 else
+            (0.0, 1.0))
+    return out
+
+
+def examples_phase(card: str, dev, counts, zero_counts) -> dict:
+    """Both port examples whole at their shipped sizes on the card, with
+    their own checks (an AssertionError fails the phase); one line each
+    with the wall seconds, the classifier's accuracy, the mean flip rate,
+    the largest edit outside the allowed patches or the features changed,
+    and the wrappers' launches.  Returns {example: (fwd, bwd, conv, dK)}
+    launches."""
+    import contextlib
+    import io
+
+    launches = {}
+    for name in ("torch_custom_images", "torch_custom_tabular"):
+        module = _example(name)
+        zero_counts()
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(log):
+                result = module.main(device=dev)
+        except AssertionError as e:
+            print(log.getvalue()[-3000:], flush=True)
+            fail(f"{name}: {e}")
+        wall = time.perf_counter() - t0
+        launches[name] = counts()
+        emit({"phase": "examples", "example": f"examples/{name}.py",
+              "card": card, "wall_s": wall, **result,
+              "wrapper_counts_fwd_bwd_conv_dk": launches[name],
+              "log_tail": log.getvalue().splitlines()[-4:], "ok": True})
+        if not launches[name][0]:
+            fail(f"{name}: the epilogue kernel never launched")
+    return launches
 
 
 def house_data_phase(card: str) -> tuple:
@@ -1593,6 +2315,7 @@ def mlp_runner_phase(card: str, dev, family: str, data, counts,
     from cfgan_torch.data.pipeline import epoch_perm
     from cfgan_torch.train.loop import WARMUP_STEPS, make_epoch_runner
 
+    laps = Laps()
     f = MLP_FAMILIES[family]
     (xtr, ytr) = data[0]
     x = torch.as_tensor(xtr).to(dev)
@@ -1638,15 +2361,46 @@ def mlp_runner_phase(card: str, dev, family: str, data, counts,
         fail(f"{family} replayed steps differ from eager steps: "
              f"{mismatched}, state equal {same_state}")
 
+    laps("compare_s")
+
     def epochs(n=f["timed_epochs"]):
         for _ in range(n):
             runner(ours.state, x, y, perm, draws)
 
+    def eager_steps(n):
+        for i in range(n):
+            eager_step(i)
+        torch.cuda.synchronize()
+
+    # eager steps are timed over the first `profiled` of the epoch's
+    profiled = min(MLP_PROFILE_STEPS, steps)
+    times = {"replayed": [], "eager": []}
+    for _ in range(3):  # in turns
+        for name, fn, n in (("replayed", epochs, f["timed_epochs"] * steps),
+                            ("eager", lambda: eager_steps(profiled),
+                             profiled)):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3 / n)
+    med = {k: statistics.median(v) for k, v in times.items()}
+    laps("turns_s")
+    eager_busy = device_time(lambda: eager_steps(EAGER_PROFILE_STEPS), 1)[0]
+    eager_busy_ms = (None if eager_busy is None
+                     else eager_busy / EAGER_PROFILE_STEPS)
+    laps("eager_trace_s")
+
+    # the launches and device time of replayed steps, from traces of an
+    # epoch of the first `profiled` steps (captured, then replayed whole):
+    # a whole replayed house epoch holds ~10^5 kernel records
+    short = (perm[:profiled], {k: v[:profiled] for k, v in draws.items()})
+    runner(ours.state, x, y, *short)
     attempts = []
     for _ in range(PROFILE_TRIES):
         busy, top, ours_ms = device_time(
-            lambda: epochs(1), 1, top=8, match=tuple(MLP_REPLAY_LAUNCHES))
-        per_step = {k: (ms / steps, n / steps)
+            lambda: runner(ours.state, x, y, *short), 1, top=8,
+            match=tuple(MLP_REPLAY_LAUNCHES))
+        per_step = {k: (ms / profiled, n / profiled)
                     for k, (ms, n) in ours_ms.items()}
         attempts.append({k: v[1] for k, v in per_step.items()})
         exact = busy is not None and all(
@@ -1657,25 +2411,9 @@ def mlp_runner_phase(card: str, dev, family: str, data, counts,
     if not exact:
         fail(f"{family} launches per replayed step {attempts}, not "
              f"{MLP_REPLAY_LAUNCHES}")
-
-    def eager_steps(n=steps):
-        for i in range(n):
-            eager_step(i)
-        torch.cuda.synchronize()
-
-    profiled = min(MLP_PROFILE_STEPS, steps)
-    eager_busy = device_time(lambda: eager_steps(profiled), 1)[0]
-    times = {"replayed": [], "eager": []}
-    for _ in range(3):  # in turns
-        for name, fn, n in (("replayed", epochs, f["timed_epochs"] * steps),
-                            ("eager", eager_steps, steps)):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times[name].append((time.perf_counter() - t0) * 1e3 / n)
-    med = {k: statistics.median(v) for k, v in times.items()}
-    eager_busy_ms = None if eager_busy is None else eager_busy / profiled
+    laps("replay_traces_s")
     report.update({
+        "part_seconds": laps.s,
         "launches_per_replayed_step": {k: v[1] for k, v in per_step.items()},
         "our_kernels_ms_per_replayed_step": {k: v[0]
                                              for k, v in per_step.items()},
@@ -1688,13 +2426,15 @@ def mlp_runner_phase(card: str, dev, family: str, data, counts,
         "replay_speedup": med["eager"] / med["replayed"],
         "replayed_rows_per_s": f["batch"] / med["replayed"] * 1e3,
         "eager_rows_per_s": f["batch"] / med["eager"] * 1e3,
-        "replayed_device_busy_ms": busy / steps,
-        "replayed_device_idle_share": 1 - busy / steps / med["replayed"],
+        "replayed_device_busy_ms": busy / profiled,
+        "replayed_device_idle_share": 1 - busy / profiled / med["replayed"],
         "eager_device_busy_ms": eager_busy_ms,
         "eager_device_idle_share": (None if eager_busy_ms is None
                                     else 1 - eager_busy_ms / med["eager"]),
-        "eager_busy_profiled_steps": profiled,
-        "device_time_by_kernel_ms_per_epoch": top, "ok": True})
+        "eager_timed_steps_per_turn": profiled,
+        "eager_busy_profiled_steps": EAGER_PROFILE_STEPS,
+        "replayed_steps_profiled": profiled,
+        "device_time_by_kernel_ms_per_profiled_steps": top, "ok": True})
     emit(report)
 
 
@@ -2891,38 +3631,48 @@ def api_phase(card: str, dev) -> None:
           "launcher_exit_codes": codes, "ok": True})
 
 
+# the phases `--phases` may name: each needs only the built kernels
+STANDALONE_PHASES = {"custom shapes": custom_shapes_phase,
+                     "examples": examples_phase}
+
+
+def _selected_phases(argv: list[str]) -> list[str] | None:
+    """The phases `--phases a,b` names (None: every phase, as the smoke
+    runs without arguments); exits 2 on a name it cannot run alone."""
+    if "--phases" not in argv:
+        return None
+    i = argv.index("--phases")
+    names = [n.strip() for n in (argv[i + 1] if i + 1 < len(argv)
+                                 else "").split(",") if n.strip()]
+    unknown = [n for n in names if n not in STANDALONE_PHASES]
+    if unknown or not names:
+        print(f"chip_smoke: --phases takes a comma-separated list of "
+              f"{sorted(STANDALONE_PHASES)}, not {argv[i + 1:i + 2]}",
+              file=sys.stderr)
+        sys.exit(2)
+    return names
+
+
 def main() -> None:
     import contextlib
 
     import numpy as np
     import torch
 
+    selected = _selected_phases(sys.argv[1:])
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs a card")
     if not (HERE / "cfgan_torch" / "__init__.py").is_file():
         fail(f"no cfgan_torch package beside {Path(__file__).name}")
     sys.path.insert(0, str(HERE))
 
-    import torch.nn.functional as F
-
     from cfgan_torch.convert import adam_moments_to_flax, gan_state_to_flax
     from cfgan_torch.core.config import MNIST_COUNTERGAN
-    from cfgan_torch.nn.layers import BatchNorm, Conv
     from cfgan_torch.ops import _build
     from cfgan_torch.ops import epilogue as tep
-    from cfgan_torch.ops.conv import (
-        conv3x3_same,
-        conv3x3_same_dkernel,
-        conv3x3_same_dkernel_plain,
-        conv3x3_same_plain,
-        conv_flops,
-    )
+    from cfgan_torch.ops.conv import conv3x3_same, conv3x3_same_dkernel
     from cfgan_torch.serve.engine import CounterfactualEngine
-    from cfgan_torch.train.builders import (
-        build_mnist_countergan,
-        build_mnist_serving,
-        mnist_models,
-    )
+    from cfgan_torch.train.builders import build_mnist_countergan, mnist_models
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED)
@@ -2958,6 +3708,23 @@ def main() -> None:
         if spills:
             fail(f"a kernel spills registers: {spills}")
 
+    def counts():
+        return (tep.cf_epilogue_fwd.launches, tep.cf_epilogue_bwd.launches,
+                conv3x3_same.launches, conv3x3_same_dkernel.launches)
+
+    def zero_counts():
+        tep.cf_epilogue_fwd.launches = tep.cf_epilogue_bwd.launches = 0
+        conv3x3_same.launches = conv3x3_same_dkernel.launches = 0
+
+    if selected is not None:  # --phases: only the phases named
+        for name in selected:
+            with Phase(name):
+                STANDALONE_PHASES[name](card, dev, counts, zero_counts)
+        print(card, flush=True)
+        emit({"ok": True, "phases": selected,
+              "device": {"platform": "gpu", "kind": kind, "count": count}})
+        return
+
     if "--train-timing-only" in sys.argv[1:]:
         clf_sd = mnist_models(MNIST_COUNTERGAN, generator=gen)[1].state_dict()
         train_x = (torch.rand((TRAIN_STEPS, TRAIN_BATCH, 28, 28, 1),
@@ -2973,151 +3740,29 @@ def main() -> None:
         return
 
     # ----------------------------------------------- kernel vs plain
-    def conv_inputs(b, h, w, cin, cout, dtype):
-        x = torch.randn((b, h, w, cin), generator=gen)
-        k = torch.randn((3, 3, cin, cout), generator=gen) * math.sqrt(
-            2 / 1.04 / (9 * cin))  # the generator's kaiming init
-        return x.to(dev, dtype), k.to(dev, dtype)
-
-    def row_rel_err(got, ref) -> float:
-        """The largest over output pixels of |got - ref| / |ref| in the
-        2-norm of the pixel's channels."""
-        d = (got - ref).reshape(-1, ref.shape[-1]).norm(dim=1)
-        n = ref.reshape(-1, ref.shape[-1]).norm(dim=1)
-        return (d / n.clamp_min(1e-30)).max().item()
-
-    def conv_ok(got, ref, dtype):
-        """(ok, tolerance): f32 abs <= F32_ATOL and row rel <=
-        F32_ROW_RTOL; bf16 within one bf16 ulp of the plain f32 result
-        rounded to bf16, + F32_ATOL."""
-        if dtype == "bfloat16":
-            ref = ref.bfloat16().float()
-            return (bool(((got - ref).abs() <= bf16_ulp(ref) + F32_ATOL)
-                         .all()),
-                    f"1 bf16 ulp of the plain f32 result rounded to bf16, "
-                    f"+ {F32_ATOL}")
-        return ((got - ref).abs().max().item() <= F32_ATOL
-                and row_rel_err(got, ref) <= F32_ROW_RTOL,
-                f"abs <= {F32_ATOL} and each output pixel's channels within "
-                f"{F32_ROW_RTOL} of their 2-norm")
-
-    @contextlib.contextmanager
-    def tf32_matmuls():
-        torch.backends.cuda.matmul.allow_tf32 = True
-        try:
-            yield
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = False
-
     kernel_err = {}
     with Phase("kernel conv3x3"):
         for shape in CONV_SHAPES:
             for dtype in ("float32", "bfloat16"):
-                x, k = conv_inputs(*shape, getattr(torch, dtype))
-                # dx: the cotangent through K read flipped and transposed
-                g, _ = conv_inputs(*shape[:3], shape[4], shape[4],
-                                   getattr(torch, dtype))
-                got = conv3x3_same(x, k).float()
-                got_t = conv3x3_same(g, k, transposed=True).float()
-                ref = conv3x3_same_plain(x.float(), k.float())
-                ref_t = conv3x3_same_plain(
-                    g.float(), k.float().flip(0, 1).transpose(2, 3)
-                    .contiguous())
-                torch.cuda.synchronize()
-                ok, tol = conv_ok(got, ref, dtype)
-                ok_t, _ = conv_ok(got_t, ref_t, dtype)
-                if dtype == "bfloat16":
-                    ref, ref_t = ref.bfloat16().float(), ref_t.bfloat16().float()
-                err = (got - ref).abs().max().item()
-                err_t = (got_t - ref_t).abs().max().item()
-                rel = ((got - ref).abs() / ref.abs().clamp_min(1e-3)).max()
-                report = {"phase": "kernel conv3x3", "shape": shape,
-                          "dtype": dtype, "max_abs_err": err,
-                          "max_rel_err": rel.item(), "dx_max_abs_err": err_t,
-                          "tolerance": tol}
-                if dtype == "float32":
-                    # one tf32 product: the plain version's matmuls, TF32 on
-                    with tf32_matmuls():
-                        tf32 = conv3x3_same_plain(x, k)
-                    report.update(
-                        max_row_rel_err=row_rel_err(got, ref),
-                        dx_max_row_rel_err=row_rel_err(got_t, ref_t),
-                        tf32_matmul_max_row_rel_err=row_rel_err(tf32, ref),
-                        tf32_matmul_max_abs_err=(tf32 - ref).abs().max()
-                        .item())
-                    if (shape == SERVING_SHAPE and
-                            report["tf32_matmul_max_row_rel_err"]
-                            <= F32_ROW_RTOL):
-                        fail("the TF32 matmul meets the f32 row bar: the bar "
-                             "no longer tells 3xTF32 from one tf32 product")
-                report["ok"] = ok and ok_t
-                emit(report)
-                if not (ok and ok_t) or not (torch.isfinite(got).all()
-                                             and torch.isfinite(got_t).all()):
-                    fail(f"conv3x3 kernel disagrees with its plain version "
-                         f"at {shape} {dtype}: max abs err {err}, dx {err_t}")
-                kernel_err[(shape, dtype)] = max(err, err_t)
+                kernel_err[(shape, dtype)] = check_conv(
+                    gen, dev, shape, dtype, "kernel conv3x3",
+                    tf32_witness=shape == SERVING_SHAPE)
 
     dk_err = {}
     with Phase("kernel conv3x3 dK"):
         for shape, dtype in ((s_, d_) for s_ in CONV_SHAPES
                              for d_ in ("float32", "bfloat16")):
-            x, _ = conv_inputs(*shape, getattr(torch, dtype))
-            g, _ = conv_inputs(*shape[:3], shape[4], shape[4],
-                               getattr(torch, dtype))
-            got = conv3x3_same_dkernel(x, g)
-            again = conv3x3_same_dkernel(x, g)
-            ref = conv3x3_same_dkernel_plain(x, g)
-            torch.cuda.synchronize()
-            norm = ref.reshape(9, -1).norm(dim=1)
-            rel = ((got - ref).reshape(9, -1).norm(dim=1)
-                   / norm.clamp_min(1e-30))
-            same_bits = torch.equal(got, again)
-            ok = (bool((rel <= DK_RTOL).all()) and same_bits
-                  and got.dtype == torch.float32
-                  and bool(torch.isfinite(got).all()))
-            err = (got - ref).abs().max().item()
-            emit({"phase": "kernel conv3x3 dK", "shape": shape,
-                  "dtype": dtype, "max_abs_err": err,
-                  "max_tap_rel_err": rel.max().item(),
-                  "two_calls_equal_bits": same_bits,
-                  "tolerance": f"per tap: 2-norm of the error <= {DK_RTOL}"
-                               f" of the plain dK's (float32 sums of up to "
-                               f"B*H*W products in another order)",
-                  "ok": ok})
-            if not ok:
-                fail(f"conv3x3 dK kernel disagrees with its plain version at "
-                     f"{shape} {dtype}: per-tap rel err {rel.max().item()}, "
-                     f"equal bits over two calls {same_bits}")
-            dk_err[shape, dtype] = err
+            dk_err[shape, dtype] = check_dkernel(gen, dev, shape, dtype,
+                                                 "kernel conv3x3 dK")
 
     # ------------------------------------------------------------ serve
     preset = replace(MNIST_COUNTERGAN, conv_impl="pallas")
     g_model, c_model = mnist_models(preset, generator=gen)
-    for bn in g_model.modules():  # non-trivial served BatchNorm statistics
-        if isinstance(bn, BatchNorm):
-            n = bn.running_mean.shape[0]
-            bn.running_mean.copy_(0.1 * torch.randn(n, generator=gen))
-            bn.running_var.copy_(0.5 + torch.rand(n, generator=gen))
-            bn.weight.data.copy_(0.5 + torch.rand(n, generator=gen))
-            bn.bias.data.copy_(0.1 * torch.randn(n, generator=gen))
+    randomize_batch_norms(g_model, gen)
     g_sd, c_sd = g_model.state_dict(), c_model.state_dict()
 
     def engine(dtype: str, plain: bool = False) -> CounterfactualEngine:
-        """The served preset at `dtype`; `plain=True` switches the layers
-        routed to the kernel over to its plain version, and nothing else."""
-        cfg = replace(preset, compute_dtype=dtype)
-        s = build_mnist_serving(cfg, g_sd, c_sd, device=dev)
-        routed = [m for m in s.generator.modules()
-                  if isinstance(m, Conv) and m.impl == "pallas"]
-        if len(routed) != KERNEL_LAYERS_PER_FORWARD:
-            fail(f"{len(routed)} generator layers routed to the kernel, "
-                 f"not {KERNEL_LAYERS_PER_FORWARD}")
-        for m in routed if plain else ():
-            m.impl = "matmul"
-        return CounterfactualEngine(s.cf_fn, s.clf_fn, s.num_classes,
-                                    patch_size=cfg.mask.patch_size,
-                                    device=dev)
+        return served_engine(preset, g_sd, c_sd, dev, dtype, plain)
 
     def images(b):
         return (torch.rand((b, 28, 28, 1), generator=gen) * 2 - 1).numpy()
@@ -3154,29 +3799,13 @@ def main() -> None:
                     fail("the plain-conv engine launched the kernel")
         for dtype in ("bfloat16", "float32"):
             ours, plain = served[dtype, "pallas"], served[dtype, "matmul"]
-            cf_atol = F32_ATOL if dtype == "float32" else BF16_CF_ATOL
             report = {"phase": "serve", "dtype": dtype,
                       "kernel_launches": launches[dtype, "pallas"],
                       "launches_per_forward": KERNEL_LAYERS_PER_FORWARD,
-                      "x_cf_atol": cf_atol,
+                      "x_cf_atol": (F32_ATOL if dtype == "float32"
+                                    else BF16_CF_ATOL),
                       "probs_atol": PROBS_ATOL[dtype]}
-            for name, r in ours.items():
-                p = plain[name]
-                shape_ok = (r.x_cf.shape == p.x_cf.shape
-                            and r.probs.shape == (p.x_cf.shape[0], 10)
-                            and np.isfinite(r.x_cf).all()
-                            and np.isfinite(r.probs).all())
-                cf_err = float(np.abs(r.x_cf - p.x_cf).max())
-                pr_err = float(np.abs(r.probs - p.probs).max())
-                report[name] = {"rows": int(r.x_cf.shape[0]),
-                                "x_cf_max_abs_err": cf_err,
-                                "probs_max_abs_err": pr_err,
-                                "flip_rate": float(r.flipped.mean())}
-                if not shape_ok:
-                    fail(f"{dtype} {name}: bad shape or non-finite values")
-                if cf_err > cf_atol or pr_err > PROBS_ATOL[dtype]:
-                    fail(f"{dtype} {name}: kernel engine differs from the "
-                         f"plain-conv engine (x_cf {cf_err}, probs {pr_err})")
+            compare_served(report, ours, plain, 10, dtype, "serve")
             zero = ours["zero_mask"]
             report["zero_mask_returns_x"] = bool(
                 np.array_equal(zero.x_cf, x128) and not zero.residual.any())
@@ -3185,11 +3814,6 @@ def main() -> None:
                 fail(f"{dtype}: an all-zero mask did not return x exactly")
 
     # ------------------------------------------- epilogue kernels vs plain
-    def misaligned(t):
-        """A contiguous copy of `t` one element into its storage."""
-        view = torch.empty(t.numel() + 1, device=t.device)[1:].view(t.shape)
-        return view.copy_(t)
-
     epi_err = {"fwd": 0.0, "bwd": 0.0}
     epi_err_house = {"fwd": 0.0, "bwd": 0.0}  # at the house step's rows
     epi_err_moons = {"fwd": 0.0, "bwd": 0.0}  # at the moons step's rows
@@ -3199,66 +3823,19 @@ def main() -> None:
         variants = set()
         for b, n, off in EPI_CASES:
             for lo, hi in EPI_BOUNDS:
-                x = torch.rand((b, n), generator=gen) * 2.4 - 1.2
-                raw = torch.randn((b, n), generator=gen) * 0.4
-                mask = (torch.rand((b, n), generator=gen) > 0.5).float()
-                raw[:, ::5] = 0.0  # sign(0) in the backward
-                x[:, 1::5], mask[:, 1::5] = 1.0, 0.0  # u exactly on hi ...
-                x[:, 2::5], raw[:, 2::5] = -1.0, 0.0  # ... and on lo
-                gcf = torch.randn((b, n), generator=gen)
-                cols = [torch.randn((b,), generator=gen) for _ in range(3)]
-                x, raw, mask, gcf, *cols = (t.to(dev) for t in
-                                            (x, raw, mask, gcf, *cols))
-                if off:
-                    x, raw, mask, gcf = map(misaligned, (x, raw, mask, gcf))
-                got = tep.cf_epilogue_fwd(x, raw, mask, lo, hi)
-                ref = tep.cf_epilogue_fwd_plain(x, raw, mask, lo, hi)
-                got_b = tep.cf_epilogue_bwd(x, raw, mask, gcf, *cols, lo, hi)
-                # the variant each wrapper passed to its kernel
-                variant = {k: "16-byte" if f.last_float4 else "4-byte"
-                           for k, f in (("fwd", tep.cf_epilogue_fwd),
-                                        ("bwd", tep.cf_epilogue_bwd))}
-                variants.update(variant.items())
-                ref_b = tep.cf_epilogue_bwd_plain(x, raw, mask, gcf, *cols,
-                                                  lo, hi)
-                torch.cuda.synchronize()
-                cf_err = (got[0] - ref[0]).abs().max().item()
-                sum_err = max(((g - r).abs() / r.abs().clamp_min(1e-30))
-                              .max().item() for g, r in zip(got[1:], ref[1:]))
-                sum_abs = max((g - r).abs().max().item()
-                              for g, r in zip(got[1:], ref[1:]))
-                dx_err, draw_err = ((g - r).abs().max().item()
-                                    for g, r in zip(got_b, ref_b))
-                ok = (max(cf_err, dx_err, draw_err) <= EPI_ATOL
-                      and sum_err <= EPI_SUM_RTOL
-                      and all(torch.isfinite(t).all() for t in (*got, *got_b)))
-                emit({"phase": "kernel cf_epilogue", "shape": (b, n),
-                      "misaligned": off, "variant": variant,
-                      "lo": lo, "hi": hi, "x_cf_max_abs_err": cf_err,
-                      "sums_max_rel_err": sum_err, "sums_max_abs_err": sum_abs,
-                      "dx_max_abs_err": dx_err, "draw_max_abs_err": draw_err,
-                      "tolerance": f"x_cf, dx, draw abs <= {EPI_ATOL}; sums "
-                                   f"rel <= {EPI_SUM_RTOL}", "ok": ok})
-                if not ok:
-                    fail(f"cf_epilogue kernels disagree with their plain "
-                         f"versions at {(b, n)} {variant}, bounds "
-                         f"{(lo, hi)}")
-                epi_err["fwd"] = max(epi_err["fwd"], cf_err, sum_abs)
-                epi_err["bwd"] = max(epi_err["bwd"], dx_err, draw_err)
+                err = check_epilogue(gen, dev, b, n, off, lo, hi,
+                                     "kernel cf_epilogue")
+                variants.update(err["variant"].items())
+                kept = [epi_err]
                 if (b, n) == (TRAIN_BATCH, HOUSE_FEATURES):
-                    epi_err_house["fwd"] = max(epi_err_house["fwd"], cf_err,
-                                               sum_abs)
-                    epi_err_house["bwd"] = max(epi_err_house["bwd"], dx_err,
-                                               draw_err)
+                    kept.append(epi_err_house)
                 if (b, n) == (MOONS_BATCH, 2):
-                    epi_err_moons["fwd"] = max(epi_err_moons["fwd"], cf_err,
-                                               sum_abs)
-                    epi_err_moons["bwd"] = max(epi_err_moons["bwd"], dx_err,
-                                               draw_err)
+                    kept.append(epi_err_moons)
                 if n == 784 and b in epi_err_chunk and not off:
-                    e = epi_err_chunk[b]
-                    e["fwd"] = max(e["fwd"], cf_err, sum_abs)
-                    e["bwd"] = max(e["bwd"], dx_err, draw_err)
+                    kept.append(epi_err_chunk[b])
+                for e in kept:
+                    for key in ("fwd", "bwd"):
+                        e[key] = max(e[key], err[key])
         if variants != {(k, v) for k in ("fwd", "bwd")
                         for v in ("16-byte", "4-byte")}:
             fail(f"the epilogue kernels ran the variants {sorted(variants)}, "
@@ -3271,14 +3848,6 @@ def main() -> None:
                * 2 - 1).to(dev)
     train_y = torch.randint(0, 10, (n_batches, TRAIN_BATCH),
                             generator=gen).to(dev)
-
-    def counts():
-        return (tep.cf_epilogue_fwd.launches, tep.cf_epilogue_bwd.launches,
-                conv3x3_same.launches, conv3x3_same_dkernel.launches)
-
-    def zero_counts():
-        tep.cf_epilogue_fwd.launches = tep.cf_epilogue_bwd.launches = 0
-        conv3x3_same.launches = conv3x3_same_dkernel.launches = 0
 
     @contextlib.contextmanager
     def plain_epilogue():
@@ -3388,27 +3957,10 @@ def main() -> None:
             ours = gan_state_to_flax(bundle.state)
             theirs = gan_state_to_flax(plain_bundle.state)
             for net, lr in (("g", cfg.lr_g), ("d", cfg.lr_d)):
-                rel = {name: float(np.linalg.norm(m - plain_mu[net][name])
-                                   / np.linalg.norm(plain_mu[net][name]))
-                       for name, m in mu[net].items()
-                       if not name.endswith("bias")}
-                worst = max(rel, key=rel.get)
-                p_ours = _flat(ours[net]["params"])
-                p_theirs = _flat(theirs[net]["params"])
-                if p_ours.keys() != p_theirs.keys():
-                    fail(f"{net}: the two runs hold other parameters")
-                diff = np.concatenate([np.abs(p_ours[k] - p_theirs[k]).ravel()
-                                       for k in p_ours])
-                share = float((diff > lr / 10).mean())
-                report[net] = {"first_moment_worst_rel_err": rel[worst],
-                               "worst_leaf": worst,
-                               "first_moment_rtol": PALLAS_MU_RTOL[dtype],
-                               "param_max_abs_diff": float(diff.max()),
-                               "share_over_lr_10": share}
-                ok = ok and rel[worst] <= PALLAS_MU_RTOL[dtype]
-                if dtype == "float32":
-                    report[net]["share_bound"] = PALLAS_F32_OUTLIER_SHARE
-                    ok = ok and share <= PALLAS_F32_OUTLIER_SHARE
+                report[net], net_ok = moment_report(
+                    mu[net], plain_mu[net], _flat(ours[net]["params"]),
+                    _flat(theirs[net]["params"]), lr, dtype)
+                ok = ok and net_ok
             report["ok"] = bool(ok)
             emit(report)
             if not ok:
@@ -3448,6 +4000,13 @@ def main() -> None:
             card, dev, x_dev, y_dev, clf_sd, counts, zero_counts,
             plain_epilogue)
     del x_dev, y_dev
+
+    # ------------------------------ any image shape, class count, schema
+    with Phase("custom shapes"):
+        custom = custom_shapes_phase(card, dev, counts, zero_counts)
+
+    with Phase("examples"):
+        example_launches = examples_phase(card, dev, counts, zero_counts)
 
     # ------------------------------------------ the house CounteRGAN
     with Phase("house data"):
@@ -3503,15 +4062,6 @@ def main() -> None:
         # device time per call (kernel_ms): at batch 1 a launch is shorter
         # than the wrapper's host work, and CUDA events around back-to-back
         # calls would time the host
-        def dev_ms(fn, ops: int, dtype: str, timed_by: dict,
-                   key: str) -> float:
-            # the floor is the dtype's bound on operations (f32: three tf32
-            # products each, the fastest any of the three computes it): a
-            # trace that lost the conv's records read the f32 kernel
-            # under its bound against a bf16-peak floor
-            ms, timed_by[key] = kernel_ms(fn, floor_ms=_bound(0, ops, dtype)[0])
-            return ms
-
         timing = {}
         # the serving shapes in both dtypes; the micro chunks' in bf16,
         # the dtype of the memory options' pallas arms
@@ -3519,64 +4069,11 @@ def main() -> None:
                  for d_ in ("bfloat16", "float32")]
         timed += [(s_, "bfloat16") for s_ in CHUNK_SHAPES]
         for shape, dtype in timed:
-            x, k = conv_inputs(*shape, getattr(torch, dtype))
-            x_nchw = x.permute(0, 3, 1, 2)  # channels-last view, no copy
-            w_oihw = k.permute(3, 2, 0, 1).contiguous()
-            bound_ms, bound_by, nbytes, ops = conv_bound(*shape, dtype)
-            timed_by = {}
-            ms = dev_ms(lambda: conv3x3_same(x, k), ops, dtype, timed_by,
-                        "ms")
-            plain_ms = dev_ms(lambda: conv3x3_same_plain(x, k), ops,
-                              dtype, timed_by, "plain_ms")
-            lib_ms = dev_ms(lambda: F.conv2d(x_nchw, w_oihw, padding=1),
-                            ops, dtype, timed_by, "library_ms")
-            timing[shape, dtype] = dict(
-                ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
-            emit({"phase": "timing", "what": "conv3x3", "card": card,
-                  "shape": shape, "dtype": dtype, "ms": ms,
-                  "plain_ms": plain_ms, "library_ms": lib_ms,
-                  "library": "F.conv2d (cuDNN, TF32 off; its weight "
-                             "re-layout kernel included; in f32 `ms` "
-                             "includes K's split)",
-                  "bound_ms": bound_ms, "bound_by": bound_by,
-                  "bytes": nbytes, "operations": ops,
-                  "share_of_bound": bound_ms / ms,
-                  "tflops": ops / ms / 1e9,
-                  "timed_by": timed_by,
-                  "events_call_ms": cuda_ms(lambda: conv3x3_same(x, k),
-                                            50),
-                  "graph_call_ms": graph_ms(lambda: conv3x3_same(x, k))})
+            timing[shape, dtype] = time_conv(card, gen, dev, shape, dtype,
+                                             "timing")
         for shape, dtype in timed:
-            x, _ = conv_inputs(*shape, getattr(torch, dtype))
-            g, _ = conv_inputs(*shape[:3], shape[4], shape[4],
-                               getattr(torch, dtype))
-            x_nchw, g_nchw = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
-            w_shape = (shape[4], shape[3], 3, 3)
-            bound_ms, bound_by = dkernel_bound(*shape, dtype)
-            ops = conv_flops(shape[0], shape[1:3], shape[3], shape[4])
-            timed_by = {}
-            dk = timing["dk", shape, dtype] = dict(
-                ms=dev_ms(lambda: conv3x3_same_dkernel(x, g), ops, dtype,
-                          timed_by, "ms"),
-                plain_ms=dev_ms(lambda: conv3x3_same_dkernel_plain(x, g),
-                                ops, dtype, timed_by, "plain_ms"),
-                library_ms=dev_ms(lambda: torch.nn.grad.conv2d_weight(
-                    x_nchw, w_shape, g_nchw, padding=1), ops, dtype,
-                    timed_by, "library_ms"),
-                bound_ms=bound_ms, bound_by=bound_by)
-            # the profiler's reading against a clock it does not touch:
-            # CUDA events around replays of a graph of 20 calls (the
-            # kernel and its reduction, with the graph's gaps)
-            graph_call = graph_ms(lambda: conv3x3_same_dkernel(x, g))
-            emit({"phase": "timing", "what": "conv3x3 dK", "card": card,
-                  "shape": shape, "dtype": dtype, **dk,
-                  "library": "torch.nn.grad.conv2d_weight (cuDNN wgrad, "
-                             "channels-last, TF32 off)",
-                  "timed_by": timed_by, "graph_call_ms": graph_call,
-                  "events_call_ms": cuda_ms(
-                      lambda: conv3x3_same_dkernel(x, g), 200),
-                  "share_of_bound": bound_ms / dk["ms"]})
+            timing["dk", shape, dtype] = time_dkernel(card, gen, dev, shape,
+                                                      dtype, "timing")
         e = engine("bfloat16")
         for b, x, t in ((1, x1, 3), (128, x128, t128)):
             lat = host_ms(lambda: e.generate(x, t), 30)
@@ -3673,6 +4170,31 @@ def main() -> None:
               replaces, chunk_launches[b][k], epi_err_chunk[b][key],
               epi_chunk[b][name])
         for b in (64, 32)
+        for k, (name, key, replaces) in enumerate((
+            ("cf_epilogue_fwd", "fwd", "cfgan/ops/epilogue.py:54"),
+            ("cf_epilogue_bwd", "bwd", "cfgan/ops/epilogue.py:67")))] + [
+        # the conv and dK at 20x20 (the custom-shapes steps at batch 128
+        # and 64, bf16 and f32: launches of CUSTOM_STEPS steps)
+        entry(f"{name}_20x20_b{shape[0]}"
+              + ("" if dtype == "bfloat16" else "_f32"), src, replaces,
+              custom["launches"][dtype, shape[0]][i],
+              custom[err][shape, dtype],
+              custom["timing"][(*key, shape, dtype)])
+        for shape in CUSTOM_CONV_SHAPES
+        for dtype in ("bfloat16", "float32")
+        for i, name, src, replaces, err, key in (
+            (2, "conv3x3_same", conv_src, "cfgan/ops/conv.py:71",
+             "conv_err", ()),
+            (3, "conv3x3_same_dkernel", dk_src, "cfgan/ops/conv.py:165",
+             "dk_err", ("dk",)))] + [
+        # the epilogue at the image rows of those steps (bf16), and at the
+        # credit example's (128, 7) rows
+        entry(f"{name}_{b}x{n}", "cfgan_torch/csrc/epilogue.cu", replaces,
+              (custom["launches"]["bfloat16", b] if n == 400 else
+               example_launches["torch_custom_tabular"])[k],
+              custom["epi_err"][b, n][key],
+              custom["timing"]["epi", b, n][name])
+        for b, n in CUSTOM_EPI_ROWS
         for k, (name, key, replaces) in enumerate((
             ("cf_epilogue_fwd", "fwd", "cfgan/ops/epilogue.py:54"),
             ("cf_epilogue_bwd", "bwd", "cfgan/ops/epilogue.py:67")))]})

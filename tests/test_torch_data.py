@@ -6,7 +6,8 @@
   JAX package, redone in numpy in the port), for two seeds and two valid
   fractions;
 - `synthesize` from the committed glyph table against the JAX package's
-  `synthesize` given the same table;
+  `synthesize` given the same table, and its elastic field against the
+  `np.einsum` that the JAX package computes it with;
 - the committed glyph table against `_render_glyphs()` (matplotlib);
 - `epoch_perm` and the stateless stream seeds.
 """
@@ -73,6 +74,21 @@ def test_synthesize_matches_jax_from_the_committed_glyphs(seed):
     glyphs = pm.load_glyphs()
     _assert_same(pm.synthesize(512, seed),
                  jm.synthesize(512, seed, glyphs=glyphs))
+
+
+@pytest.mark.parametrize("coarse,out", [(5, 28), (4, 20), (3, 7)])
+def test_elastic_field_is_the_einsum_bit_for_bit(coarse, out):
+    """The corpus's displacement field, summed term by term, equals numpy's
+    einsum of the JAX package's generator (same float32 products, same
+    order), exact zeros and large values in the grid included."""
+    rng = np.random.RandomState(coarse)
+    grid = (rng.normal(0.0, 1.0, (300, coarse, coarse, 2))
+            * rng.uniform(0.3, 2.0, (300, 1, 1, 1))).astype(np.float32)
+    grid[::7] = 0.0
+    grid[1::11, 0] *= np.float32(1e30)
+    U = pm._upsample_matrix(coarse, out)
+    want = np.einsum("ij,njkc,lk->nilc", U, grid, U)
+    _assert_same(pm._elastic_field(U, grid), want)
 
 
 def test_committed_glyphs_equal_the_rendered_table():

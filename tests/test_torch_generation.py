@@ -59,7 +59,7 @@ def _fields(obj, prefix=""):
 @pytest.mark.parametrize("name", NAMES)
 def test_presets_equal_the_jax_presets(name):
     """Every field of the port's preset equals the JAX preset's; the JAX
-    fields the port has no counterpart for (`sharding`, `schema`) are at
+    fields the port has no counterpart for (`sharding`) are at
     their defaults there, but for `gan.sample_every`, which neither
     package reads and the port leaves out."""
     from cfgan.core.config import ExperimentConfig as JaxExperiment

@@ -29,10 +29,13 @@ pytestmark = pytest.mark.gpu
 # (B, H, W, Cin, Cout): the serving layer at batch 128 and 1 (the
 # tensor-core kernel's 32-wide Cout tiles); several tiles across W; one
 # row; Cin not a multiple of 8 or 16, W odd; Cout over three 64-channel
-# tiles; Cin over three 64-channel slices
+# tiles; Cin over three 64-channel slices; the preset's layers on 20x20
+# images at batch 128 and 64 (a halo window of another width, and pixel
+# counts that are not multiples of the 28x28 ones)
 SHAPES = [(128, 28, 28, 64, 64), (1, 28, 28, 64, 64), (2, 5, 70, 16, 16),
           (3, 1, 9, 16, 24), (2, 13, 11, 20, 40), (4, 13, 11, 20, 130),
-          (9, 7, 5, 32, 64), (2, 6, 6, 130, 70)]
+          (9, 7, 5, 32, 64), (2, 6, 6, 130, 70), (128, 20, 20, 64, 64),
+          (64, 20, 20, 64, 64)]
 
 
 def _card():
@@ -286,9 +289,12 @@ def _misaligned(t):
 # (B, N, misaligned): the step's rows (the 16-byte variant, one quad a
 # thread), more rows than SMs, N % 4 != 0 and N < 4 (the 4-byte variant),
 # a row longer than one block's quads (several trips a thread), and the
-# step's rows as views one element into their storage (4-byte variant)
+# step's rows as views one element into their storage (4-byte variant);
+# the 20x20 image rows at batch 128 and 64 and the credit table's 7
+# features (the 4-byte variant)
 EPILOGUE_CASES = [(128, 784, False), (257, 784, False), (3, 17, False),
-                  (5, 2, False), (64, 4096, False), (128, 784, True)]
+                  (5, 2, False), (64, 4096, False), (128, 784, True),
+                  (128, 400, False), (64, 400, False), (128, 7, False)]
 
 
 @pytest.mark.parametrize("case", EPILOGUE_CASES,
@@ -529,6 +535,51 @@ def _assert_replay_equals_eager(a, b, x, y, perm, draws):
     if a.state.g_ema is not None:
         for k, v in a.state.g_ema.items():
             assert torch.equal(v, b.state.g_ema[k]), k
+
+
+@pytest.mark.parametrize("conv_impl", [None, "pallas"],
+                         ids=["cudnn_conv", "pallas_conv"])
+@pytest.mark.parametrize("legacy_delta", [False, True],
+                         ids=["residual", "legacy"])
+def test_custom_shape_replayed_steps_equal_eager_steps(conv_impl,
+                                                       legacy_delta):
+    """20x20 images of three classes, 5-px patches (8 of 16 modifiable),
+    bf16: an epoch through the runner equals the same steps eager, bit
+    for bit; the conv kernel's route launches 26 conv and 13 dK kernels
+    an eager step."""
+    from cfgan_torch.core.config import MaskConfig
+    from cfgan_torch.models.classifiers import (
+        CNNClassifier,
+        LegacyCNNClassifier,
+    )
+
+    dev = _card()
+    _deterministic()
+    hw, nc = (20, 20), 3
+    cfg = replace(MNIST_COUNTERGAN, hidden_dim=16, conv_impl=conv_impl,
+                  mask=MaskConfig(kind="patch", patch_size=5,
+                                  num_modifiable_patches=8),
+                  fixed_target=2 if legacy_delta else None)
+    clf = (LegacyCNNClassifier if legacy_delta else CNNClassifier)(
+        nc, image_hw=hw, generator=torch.Generator().manual_seed(0))
+    a, b = (build_mnist_countergan(cfg, clf.state_dict(), seed=0, device=dev,
+                                   legacy_delta=legacy_delta,
+                                   num_classes=nc, image_hw=hw)
+            for _ in range(2))
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.rand((192, *hw, 1), device=dev, generator=g) * 2 - 1
+    y = torch.randint(0, nc, (192,), device=dev, generator=g)
+    perm = torch.randperm(192, device=dev, generator=g).reshape(-1, 32)
+    draws = a.draw_fn(g, tuple(perm.shape))
+    _assert_replay_equals_eager(a, b, x, y, perm, draws)
+    c0, d0 = tconv.conv3x3_same.launches, tconv.conv3x3_same_dkernel.launches
+    b.step_from_draws(b.state, x[perm[0]], y[perm[0]],
+                      {k: v[0] for k, v in draws.items()})
+    torch.cuda.synchronize()
+    routed = conv_impl == "pallas" and not legacy_delta
+    assert (tconv.conv3x3_same.launches - c0,
+            tconv.conv3x3_same_dkernel.launches - d0) == (
+        (26, 13) if routed else (0, 0))
 
 
 def test_legacy_replayed_steps_equal_eager_steps():

@@ -1,5 +1,5 @@
-"""The port stands alone: no file of cfgan_torch/ and not chip_smoke.py
-imports JAX, its libraries, the JAX package, or scikit-learn, pandas or
+"""The port stands alone: no file of cfgan_torch/, not chip_smoke.py and
+not the port's examples (examples/torch_*.py) imports JAX, its libraries, the JAX package, or scikit-learn, pandas or
 matplotlib (the card's machine has none of them), no CUDA source includes
 PyTorch's headers, and chip_smoke.py refuses to run without a card or
 without the port beside it."""
@@ -16,7 +16,7 @@ ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "orbax", "cfgan",
              "sklearn", "pandas", "matplotlib"}
 PORT_FILES = sorted((ROOT / "cfgan_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("torch_*.py"))
 
 
 def _imported_roots(path: Path) -> set[str]:
