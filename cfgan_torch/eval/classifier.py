@@ -6,7 +6,8 @@ are computed in numpy with scikit-learn's definitions (`confusion_matrix`,
 `classification_report(..., zero_division=0)`): the labels are those
 present in y or the predictions, sorted; f1 = 2 tp / (true + predicted);
 "accuracy" is the micro average.  The text report has scikit-learn's
-layout.  No confusion-matrix image is drawn.
+layout.  `confusion_matrix.png` is the counts through `Blues` with each
+cell's count in white above half the largest count, black below.
 """
 from __future__ import annotations
 
@@ -16,6 +17,8 @@ from typing import Callable
 
 import numpy as np
 import torch
+
+from cfgan_torch.eval.figure import Figure
 
 HEADERS = ("precision", "recall", "f1-score", "support")
 
@@ -100,10 +103,13 @@ def report_text(report: dict, digits: int = 2) -> str:
 
 def evaluate_classifier(logits_fn: Callable, x, y,
                         out_dir: str | None = None,
-                        device: str | torch.device = "cpu") -> dict:
+                        device: str | torch.device = "cpu",
+                        class_names=None) -> dict:
     """dict(accuracy, report, confusion); with `out_dir`, writes
-    `confusion_matrix.csv` (pandas' layout: an index column) and
-    `classifier_report.txt`, as the JAX package does."""
+    `confusion_matrix.csv` (pandas' layout: an index column),
+    `classifier_report.txt` and `confusion_matrix.png` (ticks
+    `class_names`, default the class indices), as the JAX package
+    does."""
     y = np.asarray(y)
     preds = predict_all(logits_fn, x, device=device)
     acc = float((preds == y).mean())
@@ -122,4 +128,29 @@ def evaluate_classifier(logits_fn: Callable, x, y,
             f.write(f"weighted_f1: {report['weighted avg']['f1-score']:.4f}"
                     "\n\n")
             f.write(report_text(report))
+        plot_confusion(cm, os.path.join(out_dir, "confusion_matrix.png"),
+                       class_names)
     return {"accuracy": acc, "report": report, "confusion": cm}
+
+
+def plot_confusion(cm: np.ndarray, path: str, class_names=None) -> str:
+    """The confusion matrix at `path`: counts through `Blues` over their
+    min and max, each cell's count in white above cm.max() / 2, black
+    below, and a colorbar."""
+    fig = Figure(figsize=(6, 5), dpi=120)
+    ax = fig.subplots()[0, 0]
+    im = ax.imshow(cm, cmap="Blues")
+    n = cm.shape[0]
+    names = class_names or list(range(n))
+    ax.set_xticks(range(n), names)
+    ax.set_yticks(range(n), names)
+    for i in range(n):
+        for j in range(n):
+            ax.text(j, i, str(cm[i, j]), ha="center", va="center",
+                    color="white" if cm[i, j] > cm.max() / 2 else "black",
+                    fontsize=8)
+    ax.set_xlabel("Predicted")
+    ax.set_ylabel("True")
+    ax.set_title("Confusion Matrix")
+    ax.add_colorbar(im)
+    return fig.save(path)

@@ -1,5 +1,5 @@
 """How counterfactual quality depends on what the mask lets change (mirrors
-`cfgan/eval/mask_analysis.py`, its CSVs; the plots are not ported).
+`cfgan/eval/mask_analysis.py`: its CSVs and its two plots).
 
 - `analyze_mask_policies` (tabular): per-target metrics under the
   policies `all_mutable` (every mutable feature, the eval default),
@@ -11,6 +11,12 @@
   actionability against the number of modifiable patches.  The JAX
   package draws its patch masks from its keys, which torch cannot
   reproduce: here they come from a `torch.Generator`, or are given.
+
+`mask_policy_analysis.png` shows each policy's mean flip rate over the
+targets, in the JAX package's order: pandas' `groupby("policy")` (names
+sorted, a Kahan-compensated float64 mean) then `sort_values("flip")`,
+numpy's quicksort of those means (NaN last).  `patch_budget_curve.png`
+draws the flip rate and the mean target probability against the budget.
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from cfgan_torch.eval.figure import Figure
 from cfgan_torch.eval.metrics import write_csv
 from cfgan_torch.eval.tabular import (
     immutable_mask,
@@ -86,7 +93,49 @@ def analyze_mask_policies(cf_fn, clf_fn, g_vars, x, y, schema,
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
         write_csv(os.path.join(out_dir, "mask_policy_analysis.csv"), rows)
+        plot_mask_policies(rows, os.path.join(out_dir,
+                                              "mask_policy_analysis.png"))
     return rows
+
+
+def policy_flip_means(rows) -> tuple[list[str], np.ndarray]:
+    """(policies, mean flip rates) in the bar order of the JAX plot:
+    `df.groupby("policy").agg(flip=("class_flip_rate", "mean"))
+    .sort_values("flip")`.  The group mean skips NaN and sums with
+    pandas' Kahan compensation; the sort is numpy's quicksort of the
+    name-sorted means, NaN last, as pandas' `nargsort` calls it."""
+    names = sorted({r["policy"] for r in rows})
+    means = []
+    for name in names:
+        total = comp = 0.0
+        count = 0
+        for r in rows:
+            v = float(r["class_flip_rate"])
+            if r["policy"] != name or v != v:
+                continue
+            y = v - comp
+            t = total + y
+            comp = t - total - y
+            total = t
+            count += 1
+        means.append(total / count if count else float("nan"))
+    means = np.asarray(means)
+    finite = np.nonzero(~np.isnan(means))[0]
+    order = np.concatenate([finite[means[finite].argsort(kind="quicksort")],
+                            np.nonzero(np.isnan(means))[0]])
+    return [names[i] for i in order], means[order]
+
+
+def plot_mask_policies(rows, path: str) -> str:
+    """Each policy's mean flip rate over the targets as horizontal bars,
+    lowest at the bottom (`policy_flip_means`)."""
+    names, flips = policy_flip_means(rows)
+    fig = Figure(figsize=(7, max(3, 0.3 * len(names))), dpi=120)
+    ax = fig.subplots()[0, 0]
+    ax.barh(names, flips)
+    ax.set_xlabel("mean flip rate across targets")
+    ax.set_title("Counterfactual flip rate by mask policy")
+    return fig.save(path)
 
 
 def patch_budget_curve(cf_fn, clf_fn, g_vars, x, y, num_classes: int,
@@ -131,4 +180,23 @@ def patch_budget_curve(cf_fn, clf_fn, g_vars, x, y, num_classes: int,
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
         write_csv(os.path.join(out_dir, "patch_budget_curve.csv"), rows)
+        plot_patch_budget(rows, patch_size,
+                          os.path.join(out_dir, "patch_budget_curve.png"))
     return rows
+
+
+def plot_patch_budget(rows, patch_size: int, path: str) -> str:
+    """The flip rate (circles) and the mean target probability (squares)
+    against the number of modifiable patches, y from 0 to 1.05."""
+    budgets = [r["n_patches"] for r in rows]
+    fig = Figure(figsize=(6, 4), dpi=120)
+    ax = fig.subplots()[0, 0]
+    ax.plot(budgets, [r["flip_rate"] for r in rows], marker="o",
+            label="flip rate")
+    ax.plot(budgets, [r["mean_target_prob"] for r in rows], marker="s",
+            label="mean target prob")
+    ax.set_xlabel(f"modifiable {patch_size}x{patch_size} patches")
+    ax.set_ylim(0, 1.05)
+    ax.legend()
+    ax.set_title("Counterfactual success vs patch budget")
+    return fig.save(path)

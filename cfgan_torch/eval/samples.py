@@ -1,18 +1,21 @@
-"""Sample grids (mirrors `cfgan/eval/samples.py`: `to_uint8_grid`,
-`save_image_grid`) and the PNG writer they need.
+"""Sample grids, scatter and loss plots and the training GIF (mirrors
+`cfgan/eval/samples.py`), and the PNG writer the port's figures use.
 
 The port writes PNG files itself (`png_bytes`, `write_png`: 8-bit gray,
 RGB or RGBA, zlib-compressed rows behind PNG chunks), without matplotlib
 or PIL.  `save_image_grid` writes `to_uint8_grid`'s raster at its own
 size, one pixel a pixel: the JAX package draws the same raster into a
 6x6 in matplotlib figure at 120 dpi, whose file bytes and size the port
-does not reproduce.  The JAX module's other figure writers (`save_scatter`, `save_loss_plot`,
-`make_gif`) are not ported."""
+does not reproduce.  `save_scatter` and `save_loss_plot` draw with
+`cfgan_torch.eval.figure`; `make_gif` writes its GIF with
+`figure.write_gif`."""
 from __future__ import annotations
 
 import os
 import struct
 import zlib
+
+from typing import Sequence
 
 import numpy as np
 
@@ -80,3 +83,53 @@ def save_image_grid(images, path: str, nrow: int = 8) -> str:
     grid's own size (`cfgan.eval.samples.save_image_grid` draws it in a
     matplotlib figure instead)."""
     return write_png(path, to_uint8_grid(images, nrow))
+
+
+def save_scatter(real, fake, path: str, labels=None) -> str:
+    """Real (C0) against generated points, one colour a class where
+    `labels` are given (`make_moons_gan.py:109-138`)."""
+    from cfgan_torch.eval.figure import Figure
+
+    real, fake = np.asarray(real), np.asarray(fake)
+    fig = Figure(figsize=(6, 5), dpi=120)
+    ax = fig.subplots()[0, 0]
+    ax.scatter(real[:, 0], real[:, 1], s=8, alpha=0.4, label="real")
+    if labels is None:
+        ax.scatter(fake[:, 0], fake[:, 1], s=8, alpha=0.6, label="generated")
+    else:
+        labels = np.asarray(labels)
+        for c in np.unique(labels):
+            sel = labels == c
+            ax.scatter(fake[sel, 0], fake[sel, 1], s=8, alpha=0.6,
+                       label=f"generated c={c}")
+    ax.legend()
+    ax.set_title("Real vs generated")
+    return fig.save(path)
+
+
+def save_loss_plot(history: dict, path: str,
+                   keys: Sequence[str] = ("g_loss", "d_loss")) -> str:
+    """The `keys` of `history` present, one line each, against the
+    epoch."""
+    from cfgan_torch.eval.figure import Figure
+
+    fig = Figure(figsize=(8, 5), dpi=120)
+    ax = fig.subplots()[0, 0]
+    for k in keys:
+        if k in history:
+            ax.plot(history[k], label=k)
+    ax.set_xlabel("Epoch")
+    ax.set_ylabel("Loss")
+    ax.legend()
+    return fig.save(path)
+
+
+def make_gif(frames: Sequence, path: str, fps: int = 5) -> str:
+    """uint8 frames (arrays, or paths of PNGs the port wrote) as a GIF
+    at a fixed `fps` (`figure.write_gif`; the reference derives fps from
+    the last batch size, `mnist_gan.py:155`, a bug)."""
+    from cfgan_torch.eval.figure import read_png, write_gif
+
+    imgs = [read_png(f) if isinstance(f, (str, os.PathLike)) else f
+            for f in frames]
+    return write_gif(path, imgs, fps=fps)

@@ -12,7 +12,10 @@ protocol scores the un-clamped `x + masked` instead
 here each target runs in turn over the whole set.  Results are numpy
 arrays, and the metrics and reports dicts of columns (or row dicts) for
 `write_csv`, in the JAX package's row order and with its float32 columns
-where it has them.  The reports' plots are not ported.
+where it has them.  The reports draw the JAX package's plots:
+`feature_shift_importance.png` (two bar panels, normalized and raw) and
+`class_pair_sensitivity/src{s}.png` (features x targets through
+`viridis`, one a source class).
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from cfgan_torch.eval.figure import Figure
 from cfgan_torch.eval.metrics import write_csv
 from cfgan_torch.masks.feature import immutable_complement_mask
 
@@ -160,6 +164,15 @@ def feature_shift_importance(sweep: dict, x, y, schema, stats,
             "mean_abs_shift_raw": mean_raw[order]}
     if out_dir:
         _write(out_dir, "feature_shift_importance.csv", cols)
+        fig = Figure(figsize=(12, 6), dpi=120)
+        for ax, col, title in zip(
+                fig.subplots(1, 2)[0],
+                ("mean_abs_shift_normalized", "mean_abs_shift_raw"),
+                ("normalized", "raw units")):
+            # the least shifted feature at the bottom
+            ax.barh(cols["feature"][::-1], cols[col][::-1])
+            ax.set_title(f"Mean |shift| ({title})")
+        fig.save(os.path.join(out_dir, "feature_shift_importance.png"))
     return cols
 
 
@@ -181,9 +194,38 @@ def class_pair_sensitivity(sweep: dict, x, y, schema,
                          "mean_abs_shift": float(v)}
                         for f, v in zip(schema.feature_names, d)]
     if out_dir and records:
-        _write(os.path.join(out_dir, "class_pair_sensitivity"),
-               "class_pair_sensitivity.csv", records)
+        pair_dir = os.path.join(out_dir, "class_pair_sensitivity")
+        _write(pair_dir, "class_pair_sensitivity.csv", records)
+        for s in sorted({r["source"] for r in records}):
+            targets, table = pair_table(records, s, schema.feature_names)
+            fig = Figure(figsize=(6, 7), dpi=120)
+            ax = fig.subplots()[0, 0]
+            im = ax.imshow(table, cmap="viridis", aspect="auto")
+            ax.set_yticks(range(len(schema.feature_names)),
+                          schema.feature_names)
+            ax.tick_size = 8.0
+            ax.set_xticks(range(len(targets)), [str(t) for t in targets])
+            ax.set_xlabel("target class")
+            ax.set_title(f"Mean |shift| from source class {s}")
+            ax.add_colorbar(im)
+            fig.save(os.path.join(pair_dir, f"src{s}.png"))
     return records
+
+
+def pair_table(records, source: int, feature_names
+               ) -> tuple[list[int], np.ndarray]:
+    """(targets, (features, targets) float64 table) of one source's mean
+    |shift| records: pandas' `pivot(index="feature", columns="target")`
+    reindexed to the schema's feature order (NaN where none)."""
+    rows = [r for r in records if r["source"] == source]
+    targets = sorted({r["target"] for r in rows})
+    table = np.full((len(feature_names), len(targets)), np.nan)
+    fi = {f: i for i, f in enumerate(feature_names)}
+    ti = {t: j for j, t in enumerate(targets)}
+    for r in rows:
+        if r["feature"] in fi:
+            table[fi[r["feature"]], ti[r["target"]]] = r["mean_abs_shift"]
+    return targets, table
 
 
 def case_study_report(sweep: dict, x, y, schema, stats, out_dir: str,

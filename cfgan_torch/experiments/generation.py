@@ -11,9 +11,11 @@ dcgan_mnist.  A run loads the preset's data (DCGAN's MNIST resized to
 run's line every `max(1, epochs // 10)` epochs, samples the fixed noise
 there (image presets: a uint8 grid a frame), and writes `generator/`, the
 generator's variables in the flax-msgpack layout that the JAX package's
-`cfgan.core.checkpoint` restores.  The JAX run's figures (loss plot,
-sample grids, scatter, GIF) are not written: they need matplotlib and
-imageio.
+`cfgan.core.checkpoint` restores, and the JAX run's figures: `loss.png`,
+and for the image presets `samples.png` (the fixed noise's samples),
+`real_samples.png` (the first 64 training images) and, with more than one
+frame, `training_animation.gif` (5 frames a second); for the moons
+presets `generated.png` (the training points against the samples).
 """
 from __future__ import annotations
 
@@ -31,7 +33,13 @@ from cfgan_torch.core.config import ExperimentConfig
 from cfgan_torch.core.device import resolve_device
 from cfgan_torch.data.pipeline import epoch_perm
 from cfgan_torch.data.registry import load_dataset
-from cfgan_torch.eval.samples import to_uint8_grid
+from cfgan_torch.eval.samples import (
+    make_gif,
+    save_image_grid,
+    save_loss_plot,
+    save_scatter,
+    to_uint8_grid,
+)
 from cfgan_torch.experiments import presets
 from cfgan_torch.nn.layers import one_hot
 from cfgan_torch.train.builders import live_g_variables
@@ -135,6 +143,19 @@ def run(preset: str | ExperimentConfig, epochs: int | None = None,
     ckpt.save(os.path.join(out_dir, "generator"),
               flax_from_state_dict(bundle.g_model, g_vars))
     samples = bundle.sample_fn(g_vars, z_fix, oh_fix).cpu().numpy()
+    save_loss_plot(history, os.path.join(out_dir, "loss.png"))
+    if is_image:
+        save_image_grid(samples, os.path.join(out_dir, "samples.png"),
+                        nrow=bundle.num_classes or 8)
+        if len(frames) > 1:
+            make_gif(frames, os.path.join(out_dir, "training_animation.gif"),
+                     fps=5)
+        save_image_grid(x[:64].cpu().numpy(),
+                        os.path.join(out_dir, "real_samples.png"), nrow=8)
+    else:
+        save_scatter(x.cpu().numpy(), samples,
+                     os.path.join(out_dir, "generated.png"),
+                     labels=None if labels is None else labels.cpu().numpy())
     log(f"[{cfg.name}] done in {history['wall_time_s']:.1f}s -> {out_dir}")
     return {"bundle": bundle, "history": history,
             "fixed_noise": (z_fix, oh_fix, labels), "samples": samples,

@@ -21,8 +21,11 @@ the reference scores), `feature_shift_importance.csv`,
 tree, `mask_policy_analysis.csv` and `run_provenance.json`; its
 checkpoints restore in either package, and the evaluation's Gumbel noise
 comes from the JAX package's keys.  A stage whose checkpoint exists is
-loaded, not trained again, unless `fresh`.  Not ported: the figures (the
-reports' plots, the loss and classifier curves).
+loaded, not trained again, unless `fresh`.  The figures are the JAX run
+dir's: `classifier_training_curves.png` and `loss_curves.png` where their
+stage trains, and on every run `classifier_eval/confusion_matrix.png`
+(classes Q0-Q3), `feature_shift_importance.png`,
+`class_pair_sensitivity/src{s}.png` and `mask_policy_analysis.png`.
 """
 from __future__ import annotations
 
@@ -65,8 +68,12 @@ from cfgan_torch.train.builders import (
     g_serving_variables,
     select_g_serving_variables,
 )
-from cfgan_torch.train.classifier import make_eval_fn, train_classifier
-from cfgan_torch.train.loop import train_countergan_loop
+from cfgan_torch.train.classifier import (
+    make_eval_fn,
+    plot_classifier_curves,
+    train_classifier,
+)
+from cfgan_torch.train.loop import plot_loss_curves, train_countergan_loop
 from cfgan_torch.train.selection import SnapshotSelector, lex_margins
 
 SCORE_SUBSAMPLE = 8192  # training rows added to the validation scoring
@@ -116,18 +123,21 @@ def run(cfg=presets.HOUSE_COUNTERGAN, out_dir: str | None = None,
         log(f"Loaded classifier from {clf_dir}")
     else:
         itr, iva = stratified_split(ytr, VALID_FRACTION, cfg.seed)
-        train_classifier(clf_model, cfg.classifier, (xtr[itr], ytr[itr]),
-                         (xtr[iva], ytr[iva]), seed=cfg.seed,
-                         num_classes=n_classes, log=log, device=dev)
+        _, clf_hist = train_classifier(
+            clf_model, cfg.classifier, (xtr[itr], ytr[itr]),
+            (xtr[iva], ytr[iva]), seed=cfg.seed, num_classes=n_classes,
+            log=log, device=dev)
         ckpt.save(clf_dir, flax_from_state_dict(clf_model,
                                                 clf_model.state_dict()),
                   metadata={"stats": stats.to_metadata(),
                             "bins": [float(b) for b in bins]})
+        plot_classifier_curves(
+            clf_hist, os.path.join(out_dir, "classifier_training_curves.png"))
     seconds["classifier"] = time.perf_counter() - t0
     logits_fn, _ = make_eval_fn(clf_model)
     clf_eval = evaluate_classifier(
         logits_fn, xte, yte, out_dir=os.path.join(out_dir, "classifier_eval"),
-        device=dev)
+        device=dev, class_names=[f"Q{i}" for i in range(n_classes)])
     log(f"Classifier test accuracy: {clf_eval['accuracy']:.4f} | weighted "
         f"F1: {clf_eval['report']['weighted avg']['f1-score']:.4f}")
 
@@ -215,6 +225,7 @@ def run(cfg=presets.HOUSE_COUNTERGAN, out_dir: str | None = None,
         ckpt.save(gen_dir, flax_from_state_dict(g_model, g_vars),
                   metadata={"stats": stats.to_metadata(),
                             "serving_selection": sel_info})
+        plot_loss_curves(history, os.path.join(out_dir, "loss_curves.png"))
     seconds["countergan"] = time.perf_counter() - t0 - selection_s
     seconds["selection"] = selection_s
 

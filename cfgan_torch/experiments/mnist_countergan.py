@@ -22,8 +22,17 @@ variables, with the `serving_selection` record in its metadata),
 `masked_metrics.csv`, `patch_budget_curve.csv` (the flip rate against the
 number of modifiable patches) and `run_provenance.json`; its checkpoints
 restore in either package.  A stage whose checkpoint exists is loaded,
-not trained again, unless `fresh`.  Not ported: the figures (the
-counterfactual grid, the heatmaps, the patch grid, the loss curves).
+not trained again, unless `fresh`.
+
+The figures are the JAX run dir's: `classifier_training_curves.png` and
+`gan_losses.png` where their stage trains; on every run
+`classifier_eval/confusion_matrix.png`, `cf_grid.png` (source x target),
+`eval_visuals/sample_{0..7}.png` and `batch_overview.png` (the first 8
+test images, their random targets, a random patch mask at the training
+budget), `patch_budget_curve.png`, `patch_grid.png` and
+`user_modification_example.png` (`xte[0]` toward 3 through patches
+6-11).  Each figure's counterfactuals are one `cf_fn` call: with
+`conv_impl="pallas"`, through the conv kernel.
 """
 from __future__ import annotations
 
@@ -42,6 +51,12 @@ from cfgan_torch.core.provenance import clear_stale, write_run_provenance
 from cfgan_torch.data.mnist import load_mnist
 from cfgan_torch.data.pipeline import stream_seed
 from cfgan_torch.eval.classifier import evaluate_classifier
+from cfgan_torch.eval.images import (
+    counterfactual_grid,
+    heatmap_panels,
+    patch_grid_overlay,
+    user_modification_example,
+)
 from cfgan_torch.eval.mask_analysis import patch_budget_curve
 from cfgan_torch.eval.metrics import (
     MNIST_PROTOCOL,
@@ -55,17 +70,23 @@ from cfgan_torch.experiments.presets import (
     MNIST_COUNTERGAN,
     MNIST_COUNTERGAN_LEGACY,
 )
-from cfgan_torch.masks.patch import random_patch_mask
+from cfgan_torch.masks.patch import patch_grid_dims, random_patch_mask
 from cfgan_torch.models.classifiers import CNNClassifier, LegacyCNNClassifier
 from cfgan_torch.train.builders import (
     build_mnist_countergan,
     select_g_serving_variables,
 )
-from cfgan_torch.train.classifier import make_eval_fn, train_classifier
-from cfgan_torch.train.loop import train_countergan_loop
+from cfgan_torch.train.classifier import (
+    make_eval_fn,
+    plot_classifier_curves,
+    train_classifier,
+)
+from cfgan_torch.train.loop import plot_loss_curves, train_countergan_loop
 from cfgan_torch.train.selection import SnapshotSelector
 
 SCORE_SUBSAMPLE = 8192  # training images added to the validation scoring
+VISUAL_SAMPLES = 8  # test images of the heatmap panels
+USER_TARGET, USER_PATCHES = 3, range(6, 12)  # the user-modification example
 
 
 def run(cfg=MNIST_COUNTERGAN, out_dir: str | None = None, fresh: bool = False,
@@ -103,11 +124,13 @@ def run(cfg=MNIST_COUNTERGAN, out_dir: str | None = None, fresh: bool = False,
         clf_model.to(dev).eval()
         log(f"Loaded classifier from {clf_dir}")
     else:
-        train_classifier(clf_model, cfg.classifier, (xtr, ytr), (xva, yva),
-                         seed=cfg.seed, num_classes=cfg.num_classes,
-                         log=log, device=dev)
+        _, clf_hist = train_classifier(
+            clf_model, cfg.classifier, (xtr, ytr), (xva, yva),
+            seed=cfg.seed, num_classes=cfg.num_classes, log=log, device=dev)
         ckpt.save(clf_dir, flax_from_state_dict(clf_model,
                                                 clf_model.state_dict()))
+        plot_classifier_curves(
+            clf_hist, os.path.join(out_dir, "classifier_training_curves.png"))
     seconds["classifier"] = time.perf_counter() - t0
     logits_fn, _ = make_eval_fn(clf_model)
     clf_eval = evaluate_classifier(
@@ -188,6 +211,7 @@ def run(cfg=MNIST_COUNTERGAN, out_dir: str | None = None, fresh: bool = False,
         selection_s += time.perf_counter() - t
         ckpt.save(gen_dir, flax_from_state_dict(g_model, g_vars),
                   metadata={"serving_selection": sel_info})
+        plot_loss_curves(history, os.path.join(out_dir, "gan_losses.png"))
     seconds["countergan"] = time.perf_counter() - t0 - selection_s
     seconds["selection"] = selection_s
 
@@ -215,6 +239,9 @@ def run(cfg=MNIST_COUNTERGAN, out_dir: str | None = None, fresh: bool = False,
         num_classes=cfg.num_classes, batch_size=1024)
     write_csv(os.path.join(out_dir, "countergan_metrics_per_class.csv"),
               per_target)
+    counterfactual_grid(bundle.cf_fn, logits_fn, g_vars, xte, yte,
+                        cfg.num_classes, os.path.join(out_dir, "cf_grid.png"),
+                        device=dev)
 
     rows = []
     for policy, shared in (("shared", True), ("per_sample", False)):
@@ -226,10 +253,26 @@ def run(cfg=MNIST_COUNTERGAN, out_dir: str | None = None, fresh: bool = False,
         rows.append({"mask_policy": policy, **masked_metrics(
             logits_fn, xb, x_cf, raw, masked, m, yb, t_rand)})
     write_csv(os.path.join(out_dir, "masked_metrics.csv"), rows)
+    vis_mask = random_patch_mask(
+        VISUAL_SAMPLES, (h, w), ps, cfg.countergan.mask.num_modifiable_patches,
+        generator=torch.Generator(device=dev).manual_seed(
+            stream_seed(cfg.seed, 8)), device=dev)
+    heatmap_panels(bundle.cf_fn, logits_fn, g_vars, xte[:VISUAL_SAMPLES],
+                   yte[:VISUAL_SAMPLES], t_rand[:VISUAL_SAMPLES], vis_mask,
+                   os.path.join(out_dir, "eval_visuals"), device=dev)
     patch_budget_curve(
         bundle.cf_fn, logits_fn, g_vars, xte, yte, cfg.num_classes, ps,
         out_dir=out_dir, generator=torch.Generator(device=dev).manual_seed(
             stream_seed(cfg.seed, 9)), device=dev)
+    patch_grid_overlay(xte[0], ps, os.path.join(out_dir, "patch_grid.png"))
+    # the JAX package drops patch indices outside a smaller grid
+    n_patches = np.prod(patch_grid_dims(h, w, ps))
+    user_modification_example(
+        bundle.cf_fn, logits_fn, g_vars, xte[0], target=USER_TARGET,
+        patch_indices=[p for p in USER_PATCHES if p < n_patches],
+        patch_size=ps,
+        path=os.path.join(out_dir, "user_modification_example.png"),
+        device=dev)
 
     # the provenance record, in the invocation that wrote the CSVs
     clear_stale(out_dir)

@@ -17,8 +17,11 @@ stats in its metadata), `generator/` (the served variables, with the
 `countergan_metrics_per_mask.csv` (the policies both, x_only, y_only and
 none, `mask` the first column) and `run_provenance.json`; its
 checkpoints restore in either package.  A stage whose checkpoint exists
-is loaded, not trained again, unless `fresh`.  Not ported: the loss
-curves and the decision-boundary plots.
+is loaded, not trained again, unless `fresh`.  The figures are the JAX
+run dir's: `loss_curves.png` where the CounteRGAN trains, and on every
+run `classifier_eval/confusion_matrix.png`, `decision_boundaries.png` and
+`boundaries/decision_boundaries_cfs_src{s}_tgt{t}.png` for each pair of
+classes s != t.
 """
 from __future__ import annotations
 
@@ -39,6 +42,10 @@ from cfgan_torch.core.provenance import (
 )
 from cfgan_torch.data.moons import load_moons3
 from cfgan_torch.data.pipeline import stream_seed
+from cfgan_torch.eval.boundaries import (
+    plot_decision_boundaries_and_cfs,
+    plot_decision_boundaries_only,
+)
 from cfgan_torch.eval.classifier import evaluate_classifier
 from cfgan_torch.eval.metrics import (
     TABULAR_PROTOCOL,
@@ -54,7 +61,7 @@ from cfgan_torch.train.builders import (
     g_serving_variables,
 )
 from cfgan_torch.train.classifier import make_eval_fn, train_classifier
-from cfgan_torch.train.loop import train_countergan_loop
+from cfgan_torch.train.loop import plot_loss_curves, train_countergan_loop
 from cfgan_torch.train.selection import SnapshotSelector
 
 # the mask policies of `countergan_metrics_per_mask.csv`: which of (x, y)
@@ -186,6 +193,7 @@ def run(cfg=presets.MOONS_COUNTERGAN, out_dir: str | None = None,
         selection_s += time.perf_counter() - t
         ckpt.save(gen_dir, flax_from_state_dict(g_model, g_vars),
                   metadata={"serving_selection": sel_info})
+        plot_loss_curves(history, os.path.join(out_dir, "loss_curves.png"))
     seconds["countergan"] = time.perf_counter() - t0 - selection_s
     seconds["selection"] = selection_s
 
@@ -208,6 +216,12 @@ def run(cfg=presets.MOONS_COUNTERGAN, out_dir: str | None = None,
         rows += [{"mask": name, **dict(zip(cols, vals))}
                  for vals in zip(*cols.values())]
     write_csv(os.path.join(out_dir, "countergan_metrics_per_mask.csv"), rows)
+    plot_decision_boundaries_only(
+        logits_fn, xte, yte, os.path.join(out_dir, "decision_boundaries.png"),
+        num_classes=n_classes, device=dev)
+    plot_decision_boundaries_and_cfs(
+        logits_fn, bundle.cf_fn, g_vars, xte, yte, n_classes,
+        os.path.join(out_dir, "boundaries"), device=dev)
     clear_stale(out_dir)
     write_run_provenance(
         out_dir, preset=cfg.name, seed=cfg.seed,

@@ -11,6 +11,7 @@ house experiment's), and cross-entropy.  Two regimes:
 Each epoch's permutation and dropout draws come from generators seeded
 statelessly from (seed, epoch).  The steps run eagerly; the small
 classifier's epoch is not captured as a CUDA graph.
+`plot_classifier_curves` draws the history.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from torch import nn
 from cfgan_torch.core.config import ClassifierConfig
 from cfgan_torch.core.device import resolve_device
 from cfgan_torch.data.pipeline import epoch_perm, stream_seed
+from cfgan_torch.eval.figure import Figure
 from cfgan_torch.train.state import NetState
 
 PLATEAU_EPOCHS = 10  # epochs without a better accuracy before lr x 0.1
@@ -161,3 +163,18 @@ def train_classifier(model: nn.Module, cfg: ClassifierConfig, train_set,
         model.load_state_dict(best.state_dict())
     model.eval()
     return ns, history
+
+
+def plot_classifier_curves(history: dict, path: str) -> str:
+    """The train loss and, where the history has them, the validation
+    accuracies at `path` (`house trainer.py:157-176`)."""
+    fig = Figure(figsize=(10, 4), dpi=120)
+    loss_ax, acc_ax = fig.subplots(1, 2)[0]
+    loss_ax.plot(history.get("loss", []))
+    loss_ax.set_title("train loss")
+    loss_ax.set_xlabel("epoch")
+    if history.get("val_acc"):
+        acc_ax.plot(history["val_acc"])
+        acc_ax.set_title("validation accuracy")
+        acc_ax.set_xlabel("epoch")
+    return fig.save(path)

@@ -7,7 +7,8 @@ package's one compiled `lax.scan` per epoch, for a step of any family
 (CounteRGAN or plain generation): on a CUDA card it captures the step as
 a CUDA graph and replays it for every step of every epoch, with the
 dataset, the epoch's permutation and random draws and the metrics in
-device buffers (see `EpochRunner`).
+device buffers (see `EpochRunner`).  `plot_loss_curves` draws the
+history's loss curves (`cfgan/train/loop.py::plot_loss_curves`).
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import torch
 
 from cfgan_torch.core import checkpoint as ckpt
 from cfgan_torch.data.pipeline import epoch_perm, stream_seed
+from cfgan_torch.eval.figure import Figure
 
 
 # eager steps before a capture: they create the optimizer state (a capture
@@ -261,3 +263,25 @@ def train_countergan_loop(bundle, x_train, y_train, *, epochs: int,
             epoch_cb(epoch + 1, state)
     history["wall_time_s"] = time.perf_counter() - t0
     return state, history
+
+
+LOSS_LABELS = {"g_loss": "Generator Loss", "d_loss": "Discriminator Loss",
+               "g_cls": "Classifier Loss (g_cls)"}
+
+
+def plot_loss_curves(history: dict, path: str,
+                     keys=("g_loss", "d_loss", "g_cls")) -> str:
+    """The loss curves of `history` at `path`, an 8x6 in figure at 100
+    dpi (the reference's gan_losses.png, `mnist/trainer.py:149-160`);
+    g_cls dashed."""
+    fig = Figure(figsize=(8, 6), dpi=100)
+    ax = fig.subplots()[0, 0]
+    for k in keys:
+        if k in history and isinstance(history[k], list):
+            ax.plot(history[k], label=LOSS_LABELS.get(k, k),
+                    linestyle="--" if k == "g_cls" else "-")
+    ax.set_xlabel("Epoch")
+    ax.set_ylabel("Loss")
+    ax.legend()
+    ax.set_title("CounterGAN Losses")
+    return fig.save(path)

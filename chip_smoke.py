@@ -62,9 +62,9 @@ masks) and the step's memory options:
 - `legacy experiment`: `python -m cfgan_torch.experiments.
   mnist_countergan2 --target 5` (the preset's hidden 64) on 12,800
   images, one classifier and one GAN epoch: the run dir and its three
-  PNG grids, decoded here with zlib and equal to `to_uint8_grid` of the
-  same arrays; the rerun loads the checkpoints and writes the same
-  bytes;
+  PNG grids, read back (`read_png`, CRCs checked) and equal to
+  `to_uint8_grid` of the same arrays; the rerun loads the checkpoints
+  and writes the same bytes;
 - `memory options`: the shipped MNIST preset (bf16) at batch 128 with
   `remat` off and on x `g_microbatch` 0, 2 and 4, with cuDNN's convs and
   with the conv kernel: an eager step's launches against
@@ -97,6 +97,25 @@ schema:
   their own checks (classifier accuracy over 0.9, mean flip rate over
   0.7, no edit outside the allowed patches; only the allowed features
   changed).
+
+Then the figures, drawn by the port's own raster (`cfgan_torch/eval/
+figure.py`; the card's machine has no matplotlib):
+
+- `figures`: the committed `results/mnist_countergan_seed43/` generator
+  and classifier (the shipped preset: 64 channels, 6 blocks, bf16) with
+  `conv_impl="pallas"` draw the counterfactual grid (one forward at
+  B = 100), the heatmap panels (B = 8), the patch-budget curve (8
+  forwards at B = 512), the patch grid and the user-modification example
+  (B = 1) into `build/smoke_figures/`: 13 conv kernel launches a
+  generator forward, counted per figure; the kernel against its plain
+  version at (100 | 8 | 512, 28, 28, 64, 64), bf16 and f32; the grid's
+  x_cf against a float32 route (no farther than the bf16 cuDNN route's,
+  within API_KERNEL_SLACK) and its flips against cuDNN's route (equal
+  but where a target's logit margin is under 2**-7, counted); every PNG
+  read back with zlib, its size and pixels equal to `render()`; each
+  figure's host ms; the kernel's device ms at B = 100 and 8 beside
+  `F.conv2d` and the bound.  The experiment phases' run dirs must hold
+  the committed JAX run dirs' figure files, no more and no fewer.
 
 Then the King County house CounteRGAN (the shipped `HOUSE_COUNTERGAN`
 preset at full width: 32 wide, 5 FiLM blocks, batch 128, float32):
@@ -196,7 +215,7 @@ cuDNN's convs and with the kernels, f32 with the kernels), and the
 epilogue kernels at the house step's (128, 17) rows, the moons step's
 (64, 2) rows and the micro-batched step's (64, 784) and (32, 784).
 
-    python3 chip_smoke.py --phases "custom shapes,examples"
+    python3 chip_smoke.py --phases "custom shapes,examples,figures"
 
 builds the kernels and runs only the named phases (those that need
 nothing of the others'), for iterating by hand; its last line says which
@@ -345,13 +364,37 @@ PROFILE_TRIES = 3
 EXPERIMENT_LIMIT = 12800
 EXPERIMENT_EPOCHS = 4
 EXPERIMENT_CLF_EPOCHS = 2
+# the figures of each family's run dir: those of the committed JAX run dirs
+# (results/mnist_countergan_seed43/, moons_countergan/, house_countergan/,
+# the generation presets'), by name and folder
+MNIST_FIGURES = (
+    "cf_grid.png", "classifier_eval/confusion_matrix.png",
+    "classifier_training_curves.png",
+    *(f"eval_visuals/sample_{i}.png" for i in range(8)),
+    "eval_visuals/batch_overview.png", "gan_losses.png",
+    "patch_budget_curve.png", "patch_grid.png",
+    "user_modification_example.png")
+MOONS_FIGURES = (
+    *(f"boundaries/decision_boundaries_cfs_src{s}_tgt{t}.png"
+      for s in range(3) for t in range(3) if s != t),
+    "classifier_eval/confusion_matrix.png", "decision_boundaries.png",
+    "loss_curves.png")
+HOUSE_FIGURES = (
+    *(f"class_pair_sensitivity/src{s}.png" for s in range(4)),
+    "classifier_eval/confusion_matrix.png", "classifier_training_curves.png",
+    "feature_shift_importance.png", "loss_curves.png",
+    "mask_policy_analysis.png")
+GENERATION_FIGURES = {
+    "image": ("loss.png", "real_samples.png", "samples.png",
+              "training_animation.gif"),
+    "points": ("generated.png", "loss.png")}
 EXPERIMENT_FILES = (
     "classifier/checkpoint.msgpack", "generator/checkpoint.msgpack",
     "generator/metadata.json", "train_state/checkpoint.msgpack",
     "train_state/metadata.json", "classifier_eval/confusion_matrix.csv",
     "classifier_eval/classifier_report.txt", "countergan_metrics.csv",
     "countergan_metrics_per_class.csv", "masked_metrics.csv",
-    "patch_budget_curve.csv", "run_provenance.json")
+    "patch_budget_curve.csv", "run_provenance.json") + MNIST_FIGURES
 # the experiment's CSVs that its rerun must write again byte for byte
 EXPERIMENT_CSVS = ("countergan_metrics_per_class.csv",
                    "patch_budget_curve.csv")
@@ -402,7 +445,7 @@ HOUSE_FILES = (
     "feature_shift_importance.csv",
     "class_pair_sensitivity/class_pair_sensitivity.csv",
     "case_studies/case_study_aggregate_summary.csv",
-    "mask_policy_analysis.csv", "run_provenance.json")
+    "mask_policy_analysis.csv", "run_provenance.json") + HOUSE_FIGURES
 # the house CSVs that its rerun must write again byte for byte
 HOUSE_CSVS = ("countergan_metrics.csv",
               "countergan_metrics_reference_protocol.csv",
@@ -436,7 +479,7 @@ MOONS_FILES = (
     "classifier_eval/confusion_matrix.csv", "generator/checkpoint.msgpack",
     "generator/metadata.json", "train_state/checkpoint.msgpack",
     "countergan_metrics.csv", "countergan_metrics_per_mask.csv",
-    "run_provenance.json")
+    "run_provenance.json") + MOONS_FIGURES
 MOONS_RUN_DIR = HERE / "results" / "moons_countergan"
 # each replayed step's launches of our kernels in the two MLP families,
 # and the steps of the epochs whose replays the profiler counts and of
@@ -461,6 +504,16 @@ GAN_TIMED_ROWS = 1280
 GENERATION_LIMIT = 12800
 GENERATION_EPOCHS = 2
 GENERATION_CPU_RTOL = 1e-6
+
+# the figures phase: the MNIST figures of the shipped generator and
+# classifier (results/mnist_countergan_seed43/: 64 channels, 6 blocks,
+# bf16) through the conv kernel; the kernel held at the batches they give
+# it (the grid's 10 x 10 cells, the heatmaps' 8 images, the patch-budget
+# curve's 512 rows a budget; the user example's b=1 is in CONV_SHAPES)
+FIGURES_RUN_DIR = HERE / "results" / "mnist_countergan_seed43"
+FIGURE_CONV_SHAPES = ((100, 28, 28, 64, 64), (8, 28, 28, 64, 64))
+FIGURE_BUDGET_SHAPE = (512, 28, 28, 64, 64)
+FIGURE_SAMPLES = 8
 
 # the api phase: the launcher's run dirs (results/mnist_countergan/ holds
 # no classifier checkpoint; the seed-43 run dir holds both)
@@ -1298,6 +1351,8 @@ def experiment_phase(card: str, dev) -> None:
             if i == 0:
                 csvs = {n: (out_dir / n).read_text() for n in EXPERIMENT_CSVS}
         missing = [f for f in EXPERIMENT_FILES if not (out_dir / f).is_file()]
+        missing += [f"unexpected {f}" for f in sorted(
+            figure_set(out_dir) - set(MNIST_FIGURES))]
         provenance = check_run_provenance(str(out_dir))
         with open(out_dir / "countergan_metrics_per_class.csv") as f:
             rows = list(csv.DictReader(f))
@@ -1507,49 +1562,19 @@ def legacy_runner_phase(card: str, dev, x, y, counts, zero_counts) -> None:
              f"{attempts} a replayed step")
 
 
-def _decode_png(path: Path):
-    """The uint8 pixels of an 8-bit gray PNG with unfiltered rows (what
-    the port writes), read with zlib alone."""
-    import struct
-    import zlib
-
-    import numpy as np
-
-    blob = path.read_bytes()
-    if blob[:8] != b"\x89PNG\r\n\x1a\n":
-        fail(f"{path} is not a PNG")
-    pos, header, idat = 8, None, b""
-    while pos < len(blob):
-        (n,) = struct.unpack(">I", blob[pos:pos + 4])
-        tag, data = blob[pos + 4:pos + 8], blob[pos + 8:pos + 8 + n]
-        if zlib.crc32(tag + data) != struct.unpack(
-                ">I", blob[pos + 8 + n:pos + 12 + n])[0]:
-            fail(f"{path}: bad CRC in {tag!r}")
-        if tag == b"IHDR":
-            header = struct.unpack(">IIBBBBB", data)
-        elif tag == b"IDAT":
-            idat += data
-        pos += 12 + n
-    w, h, depth, color = header[:4]
-    if (depth, color) != (8, 0):
-        fail(f"{path}: not 8-bit gray ({header})")
-    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, w + 1)
-    if rows[:, 0].any():
-        fail(f"{path}: filtered rows")
-    return rows[:, 1:]
-
-
 def legacy_experiment_phase(card: str, dev) -> None:
     """`mnist_countergan2 --target 5` at the preset's width (hidden 64) on
     EXPERIMENT_LIMIT corpus images, one classifier and one GAN epoch;
-    the run dir and its three PNG grids, decoded here with zlib against
-    `to_uint8_grid` of the same arrays; then the rerun, which loads the
-    checkpoints and writes the same grids; one line."""
+    the run dir and its three PNG grids, read back (`read_png`: zlib,
+    CRCs checked) against `to_uint8_grid` of the same arrays; then the
+    rerun, which loads the checkpoints and writes the same grids; one
+    line."""
     import numpy as np
     import torch
 
     from cfgan_torch.core.provenance import check_run_provenance
     from cfgan_torch.data.mnist import load_mnist
+    from cfgan_torch.eval.figure import read_png
     from cfgan_torch.eval.samples import to_uint8_grid
     from cfgan_torch.experiments import mnist_countergan2 as exp2
 
@@ -1575,11 +1600,13 @@ def legacy_experiment_phase(card: str, dev) -> None:
         arrays = {"original.png": x, "counterfactual.png": x_cf,
                   "delta.png": delta * 0.5}
         grids_equal = {n: bool(np.array_equal(
-            _decode_png(out_dir / n),
+            read_png(out_dir / n),
             to_uint8_grid(a.cpu().numpy(), nrow=4))) for n, a in
             arrays.items()}
         missing = [f for f in (*EXPERIMENT_FILES, *exp2.GRIDS)
                    if not (out_dir / f).is_file()]
+        missing += [f"unexpected {f}" for f in sorted(
+            figure_set(out_dir) - set(MNIST_FIGURES) - set(exp2.GRIDS))]
         trained_again = any("[CounteRGAN] epoch" in ln or "[Classifier]" in ln
                             for ln in logs[1])
         flips = [float(r["class_flip_rate"]) for r in _csv_rows(
@@ -2173,6 +2200,226 @@ def examples_phase(card: str, dev, counts, zero_counts) -> dict:
     return launches
 
 
+def figures_phase(card: str, dev, counts, zero_counts) -> dict:
+    """The MNIST figures of the shipped generator and classifier
+    (FIGURES_RUN_DIR, bf16) drawn through the conv kernel into
+    `build/smoke_figures/`: the counterfactual grid, the heatmap panels,
+    the patch-budget curve, the patch grid and the user-modification
+    example, each figure's conv launches counted (13 a generator
+    forward); the kernel against its plain version at the figures'
+    batches; the kernel route's grid against cuDNN's route on the same
+    weights (x_cf as close to a float32 route's as cuDNN's, within
+    API_KERNEL_SLACK; flips equal but where the target's logit margin is
+    under BF16_CF_ATOL); every
+    PNG read back equal to its `render()`; each figure's host ms and the
+    kernel's device ms at the figures' batches.  Returns {b: {launches,
+    err, timing}} for the kernels line."""
+    import numpy as np
+    import torch
+
+    from cfgan_torch.core.config import MNIST_COUNTERGAN
+    from cfgan_torch.data.mnist import load_mnist
+    from cfgan_torch.eval import figure as fig_mod
+    from cfgan_torch.eval.images import (
+        counterfactual_grid,
+        heatmap_panels,
+        patch_grid_overlay,
+        pick_one_per_class,
+        user_modification_example,
+    )
+    from cfgan_torch.eval.mask_analysis import patch_budget_curve
+    from cfgan_torch.masks.patch import random_patch_mask
+    from cfgan_torch.serve.launch import restore_state_dict
+    from cfgan_torch.train.builders import build_mnist_serving, mnist_models
+
+    for part in ("classifier", "generator"):
+        if not (FIGURES_RUN_DIR / part).is_dir():
+            fail(f"the figures phase draws the committed run dir; missing "
+                 f"{FIGURES_RUN_DIR / part}")
+    laps = Laps()
+    out_dir = HERE / "build" / "smoke_figures"
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+    def routes(conv_impl, dtype):
+        """(cf_fn in the figures' signature, clf_fn) of the run dir."""
+        cfg = replace(MNIST_COUNTERGAN, conv_impl=conv_impl,
+                      compute_dtype=dtype)
+        g_model, clf_model = mnist_models(cfg)
+        s = build_mnist_serving(
+            cfg, restore_state_dict(g_model, f"{FIGURES_RUN_DIR}/generator"),
+            restore_state_dict(clf_model, f"{FIGURES_RUN_DIR}/classifier"),
+            device=dev)
+        return (lambda g_vars, x, t, m, key=None: s.cf_fn(x, t, m, key),
+                s.clf_fn)
+
+    cf_kernel, clf_fn = routes("pallas", "bfloat16")
+    cf_cudnn, _ = routes(None, "bfloat16")
+    cf_f32, _ = routes(None, "float32")
+    cfg = MNIST_COUNTERGAN
+    ps, n_mod = cfg.mask.patch_size, cfg.mask.num_modifiable_patches
+    _, _, (xte, yte) = load_mnist()
+    laps("setup")
+
+    # every figure the raster saves: its path, figure and save ms
+    saved = []
+    save = fig_mod.Figure.save
+
+    def spy(self, path):
+        t0 = time.perf_counter()
+        out = save(self, path)
+        saved.append((Path(path), self, (time.perf_counter() - t0) * 1e3))
+        return out
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    vis_mask = random_patch_mask(FIGURE_SAMPLES, (28, 28), ps, n_mod,
+                                 generator=gen, device=dev)
+    vis_t = torch.randint(0, 10, (FIGURE_SAMPLES,), generator=gen,
+                          device=dev)
+    figures = {
+        "cf_grid": (1, lambda: counterfactual_grid(
+            cf_kernel, clf_fn, {}, xte, yte, 10,
+            str(out_dir / "cf_grid.png"), device=dev)),
+        "heatmap_panels": (1, lambda: heatmap_panels(
+            cf_kernel, clf_fn, {}, xte[:FIGURE_SAMPLES],
+            yte[:FIGURE_SAMPLES], vis_t, vis_mask,
+            str(out_dir / "eval_visuals"), device=dev)),
+        "patch_budget_curve": (8, lambda: patch_budget_curve(
+            cf_kernel, clf_fn, {}, xte, yte, 10, ps, out_dir=str(out_dir),
+            generator=torch.Generator(device=dev).manual_seed(SEED),
+            device=dev)),
+        "patch_grid": (0, lambda: patch_grid_overlay(
+            xte[0], ps, str(out_dir / "patch_grid.png"))),
+        "user_modification_example": (1, lambda: user_modification_example(
+            cf_kernel, clf_fn, {}, xte[0], target=3,
+            patch_indices=list(range(6, 12)), patch_size=ps,
+            path=str(out_dir / "user_modification_example.png"),
+            device=dev))}
+    drawn, results = {}, {}
+    fig_mod.Figure.save = spy
+    try:
+        for name, (forwards, draw) in figures.items():
+            zero_counts()
+            n_saved = len(saved)
+            t0 = time.perf_counter()
+            results[name] = draw()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            launched = counts()[2]
+            drawn[name] = {
+                "conv3x3_launches": launched,
+                "generator_forwards": forwards,
+                "host_ms": wall_ms,
+                "save_ms": sum(ms for _, _, ms in saved[n_saved:]),
+                "files": len(saved) - n_saved}
+            if launched != KERNEL_LAYERS_PER_FORWARD * forwards:
+                fail(f"the {name} figure launched the conv kernel "
+                     f"{launched} times, not {KERNEL_LAYERS_PER_FORWARD} "
+                     f"x {forwards}")
+    finally:
+        fig_mod.Figure.save = save
+    total = sum(d["conv3x3_launches"] for d in drawn.values())
+    laps("draw")
+
+    # every PNG read back: its IHDR size and pixels against render()
+    readback = {}
+    for path, fig, _ in saved:
+        px = fig_mod.read_png(path)
+        readback[path.relative_to(out_dir).as_posix()] = (
+            px.shape[:2] == (fig.height, fig.width)
+            and bool(np.array_equal(px, fig.render())))
+    written = figure_set(out_dir)
+    want = {f for f in MNIST_FIGURES if not f.startswith((
+        "classifier", "gan_losses"))}
+    laps("readback")
+
+    # the kernel against its plain version at the figures' batches
+    cgen = torch.Generator().manual_seed(SEED)
+    err = {(shape, dtype): check_conv(cgen, dev, shape, dtype, "figures")
+           for shape in FIGURE_CONV_SHAPES + (FIGURE_BUDGET_SHAPE,)
+           for dtype in ("bfloat16", "float32")}
+    laps("kernel vs plain")
+
+    # the kernel route's grid against cuDNN's and the float32 route's
+    sources, _ = pick_one_per_class(xte, yte, 10)
+    xs = torch.as_tensor(np.repeat(sources, 10, axis=0)).to(dev)
+    ts = torch.arange(10, device=dev).repeat(10)
+    ones = torch.ones_like(xs)
+    with torch.no_grad():
+        x_k, x_c, x_f = (f({}, xs, ts, ones)[0]
+                         for f in (cf_kernel, cf_cudnn, cf_f32))
+        logits = {k: clf_fn(v) for k, v in (("kernel", x_k),
+                                             ("cudnn", x_c))}
+    flips_k = results["cf_grid"]
+    flips_c = (logits["cudnn"].argmax(1) == ts).cpu().numpy().reshape(10, 10)
+
+    def margin(lg):
+        other = lg.clone()
+        other[torch.arange(len(ts)), ts] = -torch.inf
+        return (lg.gather(1, ts[:, None])[:, 0] - other.max(1).values)
+
+    near = ((margin(logits["kernel"]).abs() < BF16_CF_ATOL)
+            | (margin(logits["cudnn"]).abs() < BF16_CF_ATOL)).cpu().numpy(
+                ).reshape(10, 10)
+    differ = flips_k != flips_c
+
+    def dist(a, b):
+        return float((a - b).abs().max()), float((a - b).abs().mean())
+
+    grid = {"kernel_vs_cudnn_x_cf_max_mean": dist(x_k, x_c),
+            "kernel_vs_f32_x_cf_max_mean": dist(x_k, x_f),
+            "cudnn_vs_f32_x_cf_max_mean": dist(x_c, x_f),
+            "flips_kernel": int(flips_k.sum()),
+            "flips_cudnn": int(flips_c.sum()),
+            "cells_flip_differs": int(differ.sum()),
+            "cells_margin_under_bar": int(near.sum())}
+    laps("grid vs cuDNN")
+
+    # the kernel's device time at the figures' batches (bf16, the path's)
+    timing = {shape[0]: time_conv(card, cgen, dev, shape, "bfloat16",
+                                  "figures")
+              for shape in FIGURE_CONV_SHAPES}
+    laps("timing")
+    # x_cf: the shipped weights' residuals reach ~5, where a bf16 ulp is
+    # 2**-5 to 2**-6, so the two bf16 routes part by more than the
+    # random-weight bar (reported as `bf16_bar_holds`); each is held
+    # against the float32 route as the api phase holds the served kernel
+    (k_max, k_mean), (c_max, c_mean) = (grid["kernel_vs_f32_x_cf_max_mean"],
+                                        grid["cudnn_vs_f32_x_cf_max_mean"])
+    grid["bf16_bar_holds"] = (grid["kernel_vs_cudnn_x_cf_max_mean"][0]
+                              <= BF16_CF_ATOL)
+    ok = (total > 0 and all(readback.values()) and written == want
+          and k_max <= API_KERNEL_SLACK * c_max
+          and k_mean <= API_KERNEL_SLACK * c_mean
+          and not (differ & ~near).any())
+    emit({"phase": "figures", "card": card, "run_dir": str(
+              FIGURES_RUN_DIR.relative_to(HERE)), "dtype": "bfloat16",
+          "figures": drawn, "conv3x3_launches": total,
+          "pngs_read_back_equal": sum(readback.values()),
+          "pngs": len(readback),
+          "files_missing": sorted(want - written),
+          "files_unexpected": sorted(written - want),
+          "grid": grid,
+          "tolerance": f"against the float32 route, the kernel's x_cf max "
+                       f"and mean abs error <= {API_KERNEL_SLACK} x the "
+                       f"bf16 cuDNN route's; flips equal to cuDNN's where "
+                       f"both routes' target-logit margins are >= "
+                       f"{BF16_CF_ATOL}; bf16_bar_holds: x_cf kernel vs "
+                       f"cuDNN <= {BF16_CF_ATOL}",
+          "user_example": {k: results["user_modification_example"][k]
+                           for k in ("pred", "confidence")},
+          "heatmap_preds": results["heatmap_panels"]["preds"].tolist(),
+          "part_seconds": laps.s, "ok": ok})
+    shutil.rmtree(out_dir, ignore_errors=True)
+    if not ok:
+        fail("the figures missed the conv kernel, a PNG read back other "
+             "than drawn, or the kernel route's grid left cuDNN's")
+    return {shape[0]: {"launches": drawn[name]["conv3x3_launches"],
+                       "err": err[shape, "bfloat16"],
+                       "timing": timing[shape[0]]}
+            for shape, name in zip(FIGURE_CONV_SHAPES,
+                                   ("cf_grid", "heatmap_panels"))}
+
+
 def house_data_phase(card: str) -> tuple:
     """The house table through `load_kc_house` (the synthetic one where no
     CSV is found), its split sizes, class counts and quartile edges; one
@@ -2465,6 +2712,8 @@ def house_experiment_phase(card: str, dev, out_dir: Path) -> None:
         if i == 0:
             csvs = {name: (out_dir / name).read_text() for name in HOUSE_CSVS}
     missing = [f for f in HOUSE_FILES if not (out_dir / f).is_file()]
+    missing += [f"unexpected {f}" for f in sorted(
+        figure_set(out_dir) - set(HOUSE_FIGURES))]
     provenance = check_run_provenance(str(out_dir))
     flips = {}
     for name in names:
@@ -2669,6 +2918,12 @@ MLP_FAMILIES = {
               "steps": MOONS_STEPS, "timed_epochs": MOONS_TIMED_EPOCHS}}
 
 
+def figure_set(run_dir: Path) -> set[str]:
+    """The PNG and GIF files under `run_dir`, relative, '/'-joined."""
+    return {p.relative_to(run_dir).as_posix() for p in run_dir.rglob("*")
+            if p.suffix in (".png", ".gif")}
+
+
 def _csv_rows(path: Path) -> list[dict]:
     import csv
 
@@ -2725,6 +2980,8 @@ def moons_experiment_phase(card: str, dev) -> None:
             if i == 0:
                 csvs = {n: (out_dir / n).read_text() for n in names}
         missing = [f for f in MOONS_FILES if not (out_dir / f).is_file()]
+        missing += [f"unexpected {f}" for f in sorted(
+            figure_set(out_dir) - set(MOONS_FIGURES))]
         flips = [float(r["class_flip_rate"])
                  for r in _csv_rows(out_dir / names[0])]
         ladder = runs[0]["serving_selection"]["ladder"]
@@ -3165,6 +3422,10 @@ def generation_phase(card: str, dev) -> None:
                                            res["samples"]))
             ok = ok and not (torch.backends.cudnn.deterministic
                              or torch.backends.cudnn.benchmark)
+            figures = figure_set(root / preset)
+            want_figures = set(GENERATION_FIGURES["image" if cut
+                                                  else "points"])
+            ok = ok and figures == want_figures
             runner = bundle.epoch_fn
             epochs = len(hist["d_loss"])
             finite = (all(np.isfinite(hist[k]).all() for k in hist)
@@ -3180,6 +3441,9 @@ def generation_phase(card: str, dev) -> None:
                                                        "d_real", "d_fake")},
                 "samples_shape": list(res["samples"].shape),
                 "frames": len(res["frames"]),
+                "figures": sorted(figures),
+                "figures_missing": sorted(want_figures - figures),
+                "figures_unexpected": sorted(figures - want_figures),
                 "restored_samples_equal": restored, "lines": len(lines)}
             ok = ok and finite and restored and epochs == (
                 GENERATION_EPOCHS if cut else PRESETS[preset].gan.epochs)
@@ -3633,7 +3897,8 @@ def api_phase(card: str, dev) -> None:
 
 # the phases `--phases` may name: each needs only the built kernels
 STANDALONE_PHASES = {"custom shapes": custom_shapes_phase,
-                     "examples": examples_phase}
+                     "examples": examples_phase,
+                     "figures": figures_phase}
 
 
 def _selected_phases(argv: list[str]) -> list[str] | None:
@@ -4008,6 +4273,10 @@ def main() -> None:
     with Phase("examples"):
         example_launches = examples_phase(card, dev, counts, zero_counts)
 
+    # --------------------------------------------- the figures, on the card
+    with Phase("figures"):
+        figures = figures_phase(card, dev, counts, zero_counts)
+
     # ------------------------------------------ the house CounteRGAN
     with Phase("house data"):
         house = house_data_phase(card)
@@ -4197,7 +4466,12 @@ def main() -> None:
         for b, n in CUSTOM_EPI_ROWS
         for k, (name, key, replaces) in enumerate((
             ("cf_epilogue_fwd", "fwd", "cfgan/ops/epilogue.py:54"),
-            ("cf_epilogue_bwd", "bwd", "cfgan/ops/epilogue.py:67")))]})
+            ("cf_epilogue_bwd", "bwd", "cfgan/ops/epilogue.py:67")))] + [
+        # the conv at the figures' batches (bf16): the grid's 100 cells and
+        # the heatmaps' 8 images, launches of the figure that runs it
+        entry(f"conv3x3_same_figures_b{b}", conv_src, "cfgan/ops/conv.py:71",
+              f["launches"], f["err"], f["timing"])
+        for b, f in figures.items()]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": count}})

@@ -12,6 +12,7 @@ and the per-target CSV comes out the same.
 """
 import csv
 import json
+import shutil
 from dataclasses import replace
 from pathlib import Path
 
@@ -21,6 +22,8 @@ import torch
 
 import cfgan_torch.experiments.mnist_countergan as exp
 from cfgan_torch.experiments.presets import MNIST_COUNTERGAN
+
+from test_torch_figure import TRAINED_ONLY, figure_set, jax_figure_set
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -155,3 +158,15 @@ def test_presets_equal_the_jax_presets(name):
         else:
             assert value == defaults.get(key), key
     assert getattr(pconfig, name) == getattr(presets, name).countergan
+
+
+def test_run_dir_holds_the_jax_run_dirs_figures(runs, tmp_path):
+    """The committed JAX run dir's figures, by name and folder; a rerun
+    that trains nothing draws all but the training curves again."""
+    out = runs[0]
+    want = jax_figure_set("mnist_countergan_seed43")
+    assert figure_set(out) == want
+    copy = tmp_path / "copy"
+    shutil.copytree(out, copy, ignore=shutil.ignore_patterns("*.png"))
+    exp.run(CFG, out_dir=str(copy), device="cpu", log=lambda s: None)
+    assert figure_set(copy) == want - TRAINED_ONLY["mnist_countergan_seed43"]

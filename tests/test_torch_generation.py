@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from cfgan.core import checkpoint as jck
 from cfgan.core.config import DataConfig as JaxDataConfig
@@ -30,6 +31,8 @@ from cfgan_torch.eval.samples import to_uint8_grid
 from cfgan_torch.experiments import generation as gen
 from cfgan_torch.experiments import presets
 from cfgan_torch.train.gan_builders import build_gan
+
+from test_torch_figure import figure_set, jax_figure_set
 
 ROOT = Path(__file__).resolve().parent.parent
 FIXTURE = str(ROOT / "tests" / "fixtures" / "mnist_idx")
@@ -183,7 +186,7 @@ def test_run_writes_a_generator_jax_restores(small_run):
 def test_run_history_and_lines_are_the_jax_runs(small_run):
     """The history has the JAX run's keys, one mean an epoch; the printed
     line is the JAX run's; image presets keep one uint8 frame a sampled
-    epoch."""
+    epoch; the run dir holds `generator/` and the JAX run's figures."""
     name, pcfg, _, out, result, lines = small_run
     hist = result["history"]
     assert set(hist) == {"d_loss", "g_loss", "d_real", "d_fake",
@@ -205,7 +208,8 @@ def test_run_history_and_lines_are_the_jax_runs(small_run):
         assert len(frames) == EPOCHS
         assert frames[0].dtype == np.uint8
         assert frames[0].shape == (rows * (side + 2) + 2, 8 * (side + 2) + 2)
-    assert sorted(p.name for p in out.iterdir()) == ["generator"]
+    assert sorted(p.name for p in out.iterdir()) == sorted(
+        ["generator", *jax_figure_set(pcfg.name)])
 
 
 @pytest.mark.parametrize("name", ["simple_gan_moons", "cgan_moons"])
@@ -296,3 +300,17 @@ def test_sample_fn_runs_under_deterministic_cudnn(monkeypatch):
         assert (cudnn.deterministic, cudnn.benchmark) == (False, True)
     finally:
         cudnn.deterministic, cudnn.benchmark = saved
+
+
+def test_run_dir_holds_the_jax_run_dirs_figures(small_run):
+    """The committed JAX run dir's figures, by name and folder: the loss
+    plot, and the image presets' sample grids and GIF (two sampled
+    epochs, two frames) or the moons presets' scatter."""
+    _, pcfg, _, out, result, _ = small_run
+    assert figure_set(out) == jax_figure_set(pcfg.name)
+    if len(result["frames"]) > 1:
+        gif = Image.open(out / "training_animation.gif")
+        assert gif.n_frames == len(result["frames"])
+        for i, frame in enumerate(result["frames"]):
+            gif.seek(i)
+            np.testing.assert_array_equal(np.asarray(gif.convert("L")), frame)

@@ -1092,3 +1092,123 @@ def test_cgan_moons_generation_runs_on_the_card(tmp_path):
     on_cpu = cpu.sample_fn({k: v.cpu() for k, v in g_vars.items()},
                            z.cpu(), oh.cpu()).numpy()
     np.testing.assert_allclose(on_cpu, out["samples"], rtol=0, atol=1e-6)
+
+
+# ---------------------------------------------------------- figures
+def _figure_routes(dev, dtype):
+    """A narrow served preset (hidden 32, two residual blocks) on the card
+    twice from one state: its routed convs on the kernel, and switched to
+    the plain version.  Returns (kernel cf_fn, plain cf_fn, clf_fn, the
+    routed layers a forward), the cf_fns in the figures' signature."""
+    cfg = replace(MNIST_COUNTERGAN, hidden_dim=32, num_res_blocks=2,
+                  conv_impl="pallas", compute_dtype=dtype)
+    g, c = mnist_models(cfg, generator=torch.Generator().manual_seed(0))
+    fns = []
+    for plain in (False, True):
+        s = build_mnist_serving(cfg, g.state_dict(), c.state_dict(),
+                                device=dev)
+        routed = [m for m in s.generator.modules()
+                  if isinstance(m, Conv) and m.impl == "pallas"]
+        for m in routed if plain else ():
+            m.impl = "matmul"
+        fns.append(lambda g_vars, x, t, m, key=None, s=s: s.cf_fn(x, t, m,
+                                                                  key))
+    return fns[0], fns[1], s.clf_fn, len(routed)
+
+
+def _figure_data():
+    rng = np.random.default_rng(0)
+    x = rng.uniform(-1, 1, (40, 28, 28, 1)).astype(np.float32)
+    y = np.arange(40) % 10
+    return x, y
+
+
+def _saved_figures(monkeypatch):
+    """Record each figure the raster saves, by file name."""
+    from cfgan_torch.eval import figure
+
+    saved = {}
+    save = figure.Figure.save
+
+    def spy(self, path):
+        saved[path.replace("\\", "/").rsplit("/", 1)[-1]] = self
+        return save(self, path)
+
+    monkeypatch.setattr(figure.Figure, "save", spy)
+    return saved
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_figures_through_the_kernel_equal_the_plain_conv(dtype, tmp_path,
+                                                         monkeypatch):
+    """The counterfactual grid and the heatmap panels through the conv
+    kernel against the same figures through its plain version: every
+    image panel within 1e-4 (f32) or 2**-7 (bf16, one ulp at the clamp);
+    in f32 the flips, predictions and confidences (1e-4) too."""
+    from cfgan_torch.eval.images import counterfactual_grid, heatmap_panels
+
+    dev = _card()
+    kernel, plain, clf, _ = _figure_routes(dev, dtype)
+    x, y = _figure_data()
+    mask = np.ones((8, 28, 28, 1), np.float32)
+    mask[:, :14] = 0.0
+    out = {}
+    for name, cf in (("kernel", kernel), ("plain", plain)):
+        saved = _saved_figures(monkeypatch)
+        flips = counterfactual_grid(cf, clf, {}, x, y, 10,
+                                    str(tmp_path / name / "grid.png"),
+                                    device=dev)
+        panels = heatmap_panels(cf, clf, {}, x[:8], y[:8], (y[:8] + 3) % 10,
+                                mask, str(tmp_path / name), device=dev)
+        out[name] = flips, panels, dict(saved)
+    atol = 1e-4 if dtype == "float32" else 2.0 ** -7
+    (fk, pk, sk), (fp, pp, sp) = out["kernel"], out["plain"]
+    assert sorted(sk) == sorted(sp) and len(sk) == 10
+    for name, fig in sk.items():
+        for ax, ax_p in zip(fig.axes, sp[name].axes):
+            for im, im_p in zip(ax.images, ax_p.images):
+                np.testing.assert_allclose(im["data"], im_p["data"],
+                                           atol=atol, rtol=0)
+    if dtype == "float32":
+        np.testing.assert_array_equal(fk, fp)
+        np.testing.assert_array_equal(pk["preds"], pp["preds"])
+        np.testing.assert_allclose(pk["confidence"], pp["confidence"],
+                                   atol=1e-4, rtol=0)
+
+
+def test_figures_launch_the_kernel_once_a_routed_layer_a_forward(tmp_path):
+    """Each MNIST figure's conv launches on the card: the routed layers
+    once per generator forward (grid 1, heatmaps 1, user example 1,
+    patch-budget curve one a budget); the patch grid none."""
+    from cfgan_torch.eval.images import (
+        counterfactual_grid,
+        heatmap_panels,
+        patch_grid_overlay,
+        user_modification_example,
+    )
+    from cfgan_torch.eval.mask_analysis import patch_budget_curve
+
+    dev = _card()
+    kernel, _, clf, routed = _figure_routes(dev, "bfloat16")
+    x, y = _figure_data()
+    mask = np.ones((8, 28, 28, 1), np.float32)
+    draws = {
+        "grid": (1, lambda: counterfactual_grid(
+            kernel, clf, {}, x, y, 10, str(tmp_path / "g.png"), device=dev)),
+        "heatmaps": (1, lambda: heatmap_panels(
+            kernel, clf, {}, x[:8], y[:8], y[:8], mask, str(tmp_path),
+            device=dev)),
+        "user": (1, lambda: user_modification_example(
+            kernel, clf, {}, x[0], 3, [6, 7], 7,
+            path=str(tmp_path / "u.png"), device=dev)),
+        "budget": (8, lambda: patch_budget_curve(
+            kernel, clf, {}, x, y, 10, 7, out_dir=str(tmp_path),
+            generator=torch.Generator(device=dev).manual_seed(0),
+            device=dev)),
+        "patch_grid": (0, lambda: patch_grid_overlay(
+            x[0], 7, str(tmp_path / "p.png")))}
+    for name, (forwards, draw) in draws.items():
+        before = tconv.conv3x3_same.launches
+        draw()
+        torch.cuda.synchronize()
+        assert tconv.conv3x3_same.launches - before == routed * forwards, name

@@ -61,6 +61,8 @@ from cfgan_torch.train.builders import build_tabular_countergan, house_engine
 from cfgan_torch.train.classifier import make_eval_fn
 from cfgan_torch.train.state import NetState
 
+from test_torch_figure import TRAINED_ONLY, figure_set, jax_figure_set
+
 ROOT = Path(__file__).resolve().parent.parent
 COMMITTED = ROOT / "results" / "house_countergan"
 LIMIT = 600
@@ -445,3 +447,16 @@ def test_select_g_serving_variables_scores_under_the_serving_mask(data):
     want = (port.state.g_ema if best != "live"
             else dict(port.state.g.model.named_parameters()))
     assert all(torch.equal(gv[k], want[k]) for k in want)
+
+
+def test_run_dir_holds_the_jax_run_dirs_figures(runs, tmp_path):
+    """The committed JAX run dir's figures, by name and folder; a rerun
+    that trains nothing draws all but the training curves again."""
+    out = runs[0]
+    want = jax_figure_set("house_countergan")
+    assert figure_set(out) == want
+    copy = tmp_path / "copy"
+    shutil.copytree(out, copy, ignore=shutil.ignore_patterns("*.png"))
+    exp.run(CFG, out_dir=str(copy), limit=LIMIT, device="cpu",
+            log=lambda s: None)
+    assert figure_set(copy) == want - TRAINED_ONLY["house_countergan"]

@@ -1,6 +1,6 @@
 """The port stands alone: no file of cfgan_torch/, not chip_smoke.py and
-not the port's examples (examples/torch_*.py) imports JAX, its libraries, the JAX package, or scikit-learn, pandas or
-matplotlib (the card's machine has none of them), no CUDA source includes
+not the port's examples (examples/torch_*.py) imports JAX, its libraries, the JAX package, or scikit-learn, pandas,
+matplotlib, imageio or PIL (the card's machine has none of them), no CUDA source includes
 PyTorch's headers, and chip_smoke.py refuses to run without a card or
 without the port beside it."""
 import ast
@@ -14,7 +14,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "orbax", "cfgan",
-             "sklearn", "pandas", "matplotlib"}
+             "sklearn", "pandas", "matplotlib", "imageio", "PIL"}
 PORT_FILES = sorted((ROOT / "cfgan_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("torch_*.py"))
 

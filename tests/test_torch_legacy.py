@@ -55,6 +55,7 @@ from cfgan_torch.nn.layers import max_pool2d
 from cfgan_torch.ops.epilogue import cf_epilogue
 from cfgan_torch.train.builders import build_mnist_countergan
 
+from test_torch_figure import figure_set, jax_figure_set
 from test_torch_step import (
     MU_ATOL,
     MU_RTOL,
@@ -607,3 +608,11 @@ def test_countergan2_raises_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         exp2.main(["--target", "3"])
+
+
+def test_legacy_run_dirs_hold_the_jax_figures(legacy_runs, countergan2_run):
+    """The legacy run draws the MNIST run dir's figures; mnist_countergan2
+    adds its three grids."""
+    want = jax_figure_set("mnist_countergan_seed43")
+    assert figure_set(legacy_runs[0]) == want
+    assert figure_set(countergan2_run[0]) == want | set(exp2.GRIDS)

@@ -35,6 +35,8 @@ from cfgan_torch.core import checkpoint as ckpt
 from cfgan_torch.eval.metrics import TABULAR_PROTOCOL
 from cfgan_torch.experiments import presets
 
+from test_torch_figure import TRAINED_ONLY, figure_set, jax_figure_set
+
 ROOT = Path(__file__).resolve().parent.parent
 COMMITTED = ROOT / "results" / "moons_countergan"
 COLUMNS = ("class_flip_rate", "prediction_gain", "avg_actionability")
@@ -219,3 +221,13 @@ def test_restored_variables_keep_the_module_layout(committed_copy):
     assert res["g_vars"].keys() == own.keys()
     for k, v in res["g_vars"].items():
         assert v.is_contiguous() and v.stride() == own[k].stride(), k
+
+
+def test_run_dir_holds_the_jax_run_dirs_figures(cli_run, committed_copy):
+    """The committed JAX run dir's figures, by name and folder; `run()` on
+    a copy of the committed run dir (nothing trained) draws all but the
+    loss curves."""
+    want = jax_figure_set("moons_countergan")
+    assert figure_set(cli_run[0]) == want
+    assert figure_set(committed_copy[0]) == (
+        want - TRAINED_ONLY["moons_countergan"])
