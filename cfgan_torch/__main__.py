@@ -22,6 +22,10 @@ Plain generation (the simple, conditional, DCGAN and WGAN-GP families):
 
 Serving (the HTTP API; cfgan_torch.serve.CFClient speaks to it):
   python -m cfgan_torch.serve.launch --app mnist|house|moons --api [--results DIR] [--port P] [--host H] [--device cpu]
+The promptable gradio apps (need gradio):
+  python -m cfgan_torch.serve.launch --app mnist|house|moons [--results DIR] [--host H] [--share] [--device cpu]
+
+Import the PyTorch reference's checkpoints: cfgan_torch.migrate.import_*
 
 Smoke run on one CUDA card (repo checkout):
   python3 chip_smoke.py

@@ -15,15 +15,19 @@ import os
 import numpy as np
 import torch
 
+from cfgan_torch.core.device import resolve_device
 from cfgan_torch.eval.figure import Figure
 
 DPI = 120
 
 
 def decision_surface(clf_fn, xlim=(0.0, 1.0), ylim=(0.0, 1.0),
-                     res: int = 300, device: str | torch.device = "cpu"):
+                     res: int = 300,
+                     device: str | torch.device | None = None):
     """(xs, ys, classes): the `res` x `res` grid over xlim x ylim (rows
-    along y) and the classifier's argmax at each point."""
+    along y) and the classifier's argmax at each point, computed on
+    `device` (None: the CUDA card)."""
+    device = resolve_device(device)
     xs = np.linspace(*xlim, res)
     ys = np.linspace(*ylim, res)
     gx, gy = np.meshgrid(xs, ys)
@@ -42,11 +46,12 @@ def plot_decision_boundaries_and_cfs(
         clf_fn, cf_fn, g_vars, x, y, num_classes: int, out_dir: str,
         mask_row=None, n_cf_samples: int = 20, key=None,
         save_prefix: str = "decision_boundaries_cfs",
-        device: str | torch.device = "cpu") -> list[str]:
+        device: str | torch.device | None = None) -> list[str]:
     """One PNG per (source, target) pair with source != target in
     `out_dir`: the surface, the data coloured by class, and arrows from up
     to `n_cf_samples` of the source's points to their counterfactuals
     (red x).  Returns the paths written."""
+    device = resolve_device(device)
     os.makedirs(out_dir, exist_ok=True)
     x, y = np.asarray(x), np.asarray(y)
     xs, ys, surface = decision_surface(clf_fn, device=device)
@@ -83,9 +88,11 @@ def plot_decision_boundaries_and_cfs(
 
 def plot_decision_boundaries_only(clf_fn, x, y, out_path: str,
                                   num_classes: int = 3, highlight=None,
-                                  device: str | torch.device = "cpu") -> str:
+                                  device: str | torch.device | None = None
+                                  ) -> str:
     """The surface and the data coloured by class at `out_path`; with
     `highlight`, that point as a red star edged in black."""
+    device = resolve_device(device)
     xs, ys, surface = decision_surface(clf_fn, device=device)
     fig = Figure(figsize=(6, 5), dpi=DPI)
     ax = fig.subplots()[0, 0]

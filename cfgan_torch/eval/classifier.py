@@ -18,15 +18,17 @@ from typing import Callable
 import numpy as np
 import torch
 
+from cfgan_torch.core.device import resolve_device
 from cfgan_torch.eval.figure import Figure
 
 HEADERS = ("precision", "recall", "f1-score", "support")
 
 
 def predict_all(logits_fn: Callable, x, batch: int = 4096,
-                device: str | torch.device = "cpu") -> np.ndarray:
+                device: str | torch.device | None = None) -> np.ndarray:
     """Argmax class of `logits_fn` over `x` (numpy or tensor), by
-    batches on `device`."""
+    batches on `device` (None: the CUDA card)."""
+    device = resolve_device(device)
     preds = []
     with torch.no_grad():
         for lo in range(0, len(x), batch):
@@ -103,13 +105,14 @@ def report_text(report: dict, digits: int = 2) -> str:
 
 def evaluate_classifier(logits_fn: Callable, x, y,
                         out_dir: str | None = None,
-                        device: str | torch.device = "cpu",
+                        device: str | torch.device | None = None,
                         class_names=None) -> dict:
     """dict(accuracy, report, confusion); with `out_dir`, writes
     `confusion_matrix.csv` (pandas' layout: an index column),
     `classifier_report.txt` and `confusion_matrix.png` (ticks
     `class_names`, default the class indices), as the JAX package
     does."""
+    device = resolve_device(device)
     y = np.asarray(y)
     preds = predict_all(logits_fn, x, device=device)
     acc = float((preds == y).mean())

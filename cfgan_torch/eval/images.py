@@ -18,6 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from cfgan_torch.core.device import resolve_device
 from cfgan_torch.eval.figure import Figure
 from cfgan_torch.masks.patch import patch_grid_dims, patch_indices_to_mask
 
@@ -54,11 +55,13 @@ def pick_one_per_class(x, y, num_classes: int, seed: int = 0):
 
 def counterfactual_grid(cf_fn, clf_fn, g_vars, x, y, num_classes: int,
                         path: str, mask=None, key=None, seed: int = 0,
-                        device: str | torch.device = "cpu") -> np.ndarray:
+                        device: str | torch.device | None = None
+                        ) -> np.ndarray:
     """num_classes x num_classes grid at `path`: rows the source class,
     columns the target; a green border where the classifier reads the
     target, red where not.  Returns the (num_classes, num_classes) flip
-    matrix."""
+    matrix.  `device` None is the CUDA card."""
+    device = resolve_device(device)
     sources, _ = pick_one_per_class(_np(x), _np(y), num_classes, seed)
     n = num_classes
     xs = torch.as_tensor(np.repeat(sources, n, axis=0)).to(device)
@@ -92,11 +95,12 @@ def counterfactual_grid(cf_fn, clf_fn, g_vars, x, y, num_classes: int,
 
 def heatmap_panels(cf_fn, clf_fn, g_vars, x, y, targets, mask, out_dir: str,
                    key=None, max_samples: int = 8,
-                   device: str | torch.device = "cpu") -> dict:
+                   device: str | torch.device | None = None) -> dict:
     """`sample_{i}.png` (Original | CF | Residual | Mask, each with a
     colorbar) for the first `max_samples` rows and `batch_overview.png`
     (originals, counterfactuals, residuals) in `out_dir`
     (`mnist/eval_utils.py:346-441`).  Returns {"preds", "confidence"}."""
+    device = resolve_device(device)
     os.makedirs(out_dir, exist_ok=True)
     x = torch.as_tensor(_np(x)[:max_samples]).to(device)
     t = torch.as_tensor(_np(targets)[:max_samples]).to(device, torch.long)
@@ -171,11 +175,13 @@ def patch_grid_overlay(x_sample, patch_size: int, path: str,
 def user_modification_example(cf_fn, clf_fn, g_vars, x_sample, target: int,
                               patch_indices: Sequence[int], patch_size: int,
                               path: str | None = None, key=None,
-                              device: str | torch.device = "cpu") -> dict:
+                              device: str | torch.device | None = None
+                              ) -> dict:
     """One image, one target, the user's patches as its mask: one
     generator and classifier call, and with `path` a 4-panel PNG
     (`mnist/eval_utils.py:498-568`).  Returns {"pred", "confidence",
     "x_cf", "mask", "residual"}."""
+    device = resolve_device(device)
     x = torch.as_tensor(_np(x_sample)[None]).to(device)
     h, w = x.shape[1], x.shape[2]
     mask = patch_indices_to_mask(patch_indices, 1, (h, w), patch_size,

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from cfgan_torch.core.device import resolve_device
 from cfgan_torch.eval.figure import Figure
 from cfgan_torch.eval.metrics import write_csv
 from cfgan_torch.eval.tabular import (
@@ -49,12 +50,14 @@ def analyze_mask_policies(cf_fn, clf_fn, g_vars, x, y, schema,
                           num_classes: int, key, out_dir: str | None = None,
                           top_k: int = 5, max_samples: int = 1024,
                           seed: int = 0,
-                          device: str | torch.device = "cpu") -> list[dict]:
+                          device: str | torch.device | None = None
+                          ) -> list[dict]:
     """Per-target metrics of the first `max_samples` rows under each mask
     policy, all with the Gumbel noise of `key` (a JAX key pair); rows
     `policy, n_modifiable, target_class, class_flip_rate,
     prediction_gain, avg_actionability` in the JAX package's order.  With
     `out_dir`, `mask_policy_analysis.csv` there."""
+    device = resolve_device(device)
     x = np.asarray(x)[:max_samples]
     y = np.asarray(y)[:max_samples]
     b, d = x.shape
@@ -142,7 +145,7 @@ def patch_budget_curve(cf_fn, clf_fn, g_vars, x, y, num_classes: int,
                        patch_size: int, budgets=None, key=None,
                        out_dir: str | None = None, max_samples: int = 512,
                        seed: int = 0, generator: torch.Generator | None = None,
-                       masks=None, device: str | torch.device = "cpu"
+                       masks=None, device: str | torch.device | None = None
                        ) -> list[dict]:
     """Counterfactual success against the patch budget: for each budget
     (default 1, 2, 4, 6, 8, 10, 12 and all patches) a random patch mask
@@ -150,6 +153,7 @@ def patch_budget_curve(cf_fn, clf_fn, g_vars, x, y, num_classes: int,
     from `np.random.RandomState(seed)`, on the first `max_samples` images
     (NHWC).  Rows `n_patches, frac_area, flip_rate, mean_target_prob,
     actionability`; with `out_dir`, `patch_budget_curve.csv` there."""
+    device = resolve_device(device)
     x = np.asarray(x)[:max_samples]
     b, h, w = x.shape[:3]
     ph, pw = patch_grid_dims(h, w, patch_size)

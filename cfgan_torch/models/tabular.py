@@ -20,6 +20,8 @@ from typing import Mapping, Sequence
 import numpy as np
 import torch
 
+from cfgan_torch.core.device import resolve_device
+
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _TINY = {torch.float32: float(np.finfo(np.float32).tiny),
@@ -78,13 +80,14 @@ def _gumbel_from_bits(bits: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 def derive_gumbel_noise(key: Key, batch: int,
                         categorical_info: Mapping[int, Sequence[float]],
                         dtype: torch.dtype = torch.float32,
-                        device: str | torch.device = "cpu"
+                        device: str | torch.device | None = None
                         ) -> dict[int, torch.Tensor]:
     """Feature index -> (batch, n_values) Gumbel noise, JAX's
     `derive_gumbel_noise(key, batch, categorical_info, dtype)`, computed
-    on `device`.  All heads and rows go through threefry at once: the head
-    keys on the host, the row keys and the bits as (batch, sum n)
-    tensors."""
+    on `device` (None: the CUDA card).  All heads and rows go through
+    threefry at once: the head keys on the host, the row keys and the
+    bits as (batch, sum n) tensors."""
+    device = resolve_device(device)
     heads = sorted(categorical_info)
     sizes = [len(categorical_info[i]) for i in heads]
     head_keys = [fold_in(key, i) for i in heads]

@@ -1,6 +1,8 @@
-"""Serve a trained CounteRGAN's run dir over the HTTP API on the card
-(mirrors `cfgan/serve/launch.py`).
+"""Launch a trained CounteRGAN's run dir as a gradio app or over the
+HTTP API on the card (mirrors `cfgan/serve/launch.py`).
 
+    python -m cfgan_torch.serve.launch --app mnist|house|moons
+        [--results DIR] [--host H] [--share] [--device cpu]
     python -m cfgan_torch.serve.launch --app mnist|house|moons --api
         [--results DIR] [--host H] [--port P] [--device cpu]
 
@@ -9,16 +11,22 @@ The default run dir is `results/<app>_countergan`.
 `setup_mnist`, `setup_house` and `setup_moons` restore a run dir's
 `classifier/` and `generator/` checkpoints (the served generator
 variables), written by either package's experiment, into an engine on
-the device (default: the CUDA card).  `main` serves that engine with
-`cfgan_torch.serve.api.serve` until interrupted, after one warm-up
-request; it switches TF32 off, so that the float32 classifier's convs
-and matmuls compute in float32 as the JAX package's do.  Only the HTTP
-API is served (`--api`): the gradio apps and `--shard` are not ported.
+the device (default: the CUDA card).  `launch_mnist`, `launch_house` and
+`launch_moons` serve that engine as the family's gradio app
+(`cfgan_torch.serve.apps`), which needs gradio: without it they raise
+its `ImportError` before loading anything, and `main` exits non-zero
+with that message (it never serves the API in the app's place).  With
+`--api`, `main` serves the engine with `cfgan_torch.serve.api.serve`
+until interrupted, after one warm-up request.  Either way `main`
+switches TF32 off, so that the float32 classifier's convs and matmuls
+compute in float32 as the JAX package's do.  The JAX launcher's
+`--shard` (data-parallel serving over a device mesh) is not ported.
 """
 from __future__ import annotations
 
 import argparse
 import os
+import sys
 from dataclasses import replace
 
 import torch
@@ -113,7 +121,48 @@ def setup_moons(results_dir: str, device: str | torch.device | None = None):
     return engine, engine.clf_fn, xte, yte
 
 
+def launch_mnist(results_dir: str, share: bool = False,
+                 host: str = "127.0.0.1",
+                 device: str | torch.device | None = None,
+                 conv_impl: str | None = None) -> None:
+    """The MNIST chat app of the run dir (`setup_mnist`)."""
+    from cfgan_torch.serve.apps import _require_gradio, build_mnist_app
+
+    _require_gradio()
+    engine, xte, yte, patch_size = setup_mnist(results_dir, device=device,
+                                               conv_impl=conv_impl)
+    app = build_mnist_app(engine, xte, yte, patch_size)
+    app.launch(server_name=host, share=share)
+
+
+def launch_house(results_dir: str, share: bool = False,
+                 host: str = "127.0.0.1",
+                 device: str | torch.device | None = None) -> None:
+    """The house app of the run dir (`setup_house`)."""
+    from cfgan_torch.serve.apps import _require_gradio, build_house_app
+
+    _require_gradio()
+    engine, xte, yte, schema, stats, bins = setup_house(results_dir,
+                                                        device=device)
+    app = build_house_app(engine, xte, yte, schema, stats, bins)
+    app.launch(server_name=host, share=share)
+
+
+def launch_moons(results_dir: str, share: bool = False,
+                 host: str = "127.0.0.1",
+                 device: str | torch.device | None = None) -> None:
+    """The moons app of the run dir (`setup_moons`)."""
+    from cfgan_torch.serve.apps import _require_gradio, build_moons_app
+
+    _require_gradio()
+    engine, clf_fn, xte, yte = setup_moons(results_dir, device=device)
+    app = build_moons_app(engine, clf_fn, xte, yte)
+    app.launch(server_name=host, share=share)
+
+
 SETUPS = {"mnist": setup_mnist, "house": setup_house, "moons": setup_moons}
+LAUNCHERS = {"mnist": launch_mnist, "house": launch_house,
+             "moons": launch_moons}
 
 
 def main(argv=None) -> None:
@@ -126,22 +175,33 @@ def main(argv=None) -> None:
         "--host", default=os.environ.get("CFGAN_SERVE_HOST", "127.0.0.1"),
         help="bind address; loopback by default (serving on every "
         "interface is an explicit opt-in: --host 0.0.0.0)")
+    ap.add_argument("--share", action="store_true",
+                    help="a public gradio link (the app only)")
     ap.add_argument("--api", action="store_true",
-                    help="serve the HTTP API (cfgan_torch.serve.api)")
+                    help="serve the HTTP API (cfgan_torch.serve.api, no "
+                    "gradio needed) instead of the gradio app")
     ap.add_argument("--port", type=int, default=8000,
-                    help="API port (0: a free one, printed on start)")
+                    help="API port (0: a free one, printed on start; only "
+                    "with --api)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
-    if not args.api:
-        ap.error("only the HTTP API is served: pass --api (the gradio apps "
-                 "are not ported)")
-    from cfgan_torch.serve.api import serve
-
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    out = SETUPS[args.app](args.results or DEFAULT_RESULTS[args.app],
-                           device=args.device)
+    results = args.results or DEFAULT_RESULTS[args.app]
+    if not args.api:
+        from cfgan_torch.serve.apps import _require_gradio
+
+        try:
+            _require_gradio()
+        except ImportError as e:
+            sys.exit(f"cfgan_torch.serve.launch: {e}")
+        LAUNCHERS[args.app](results, args.share, args.host,
+                            device=args.device)
+        return
+    from cfgan_torch.serve.api import serve
+
+    out = SETUPS[args.app](results, device=args.device)
     engine = out[0]
     x_test = out[2] if args.app == "moons" else out[1]
     # one request before the first client's: builds and first calls

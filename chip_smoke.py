@@ -113,7 +113,7 @@ figure.py`; the card's machine has no matplotlib):
   within API_KERNEL_SLACK) and its flips against cuDNN's route (equal
   but where a target's logit margin is under 2**-7, counted); every PNG
   read back with zlib, its size and pixels equal to `render()`; each
-  figure's host ms; the kernel's device ms at B = 100 and 8 beside
+  figure's host ms; the kernel's device ms at B = 100, 8 and 512 beside
   `F.conv2d` and the bound.  The experiment phases' run dirs must hold
   the committed JAX run dirs' figure files, no more and no fewer.
 
@@ -209,13 +209,33 @@ against one server, each equal to its serial answer; and the wire's b=1
 latency and bulk rate against the engine's own, in turns.  The launchers
 exit 0 on SIGINT at the end.
 
+Then the promptable front ends, `apps` (`cfgan_torch.serve.apps`; no
+gradio, no LLM provider, no network): the MNIST chat backend on
+`setup_mnist("results/mnist_countergan_seed43", conv_impl="pallas")`
+(show a 3, turn it into an 8 using patches 5, 6, 9, 10, an unparseable
+message, then one reply through a scripted LLM): 13 conv kernel
+launches a transform, the same replies and picks as the same dialogue on
+cuDNN's route, pred and confidence equal within 1e-2 and x_cf within
+0.0234 (the two bf16 routes' gap on these weights at b=128); the house
+backend on
+`results/house_countergan/` (only bedrooms, bathrooms and grade
+allowed, every other feature unmoved but where the clamp moves a value
+outside [0, 1], rows in pandas' order); the moons backend on
+`results/moons_countergan/` under each mask row ("none" returns x,
+"x_only" / "y_only" keep the other coordinate); every PNG read back
+equal to its `render()`; a synthetic reference-layout MNIST generator
+imported by `cfgan_torch.migrate` and served in float32 on the kernel
+route against cuDNN's (13 launches a forward); `python -m
+cfgan_torch.serve.launch --app moons` exiting non-zero with the
+ImportError's message where gradio is missing; the conv at b=1 timed.
+
 Then it times the kernels, their plain versions, cuDNN for the conv and
 its weight gradient, the serving requests and the train step (bf16 with
 cuDNN's convs and with the kernels, f32 with the kernels), and the
 epilogue kernels at the house step's (128, 17) rows, the moons step's
 (64, 2) rows and the micro-batched step's (64, 784) and (32, 784).
 
-    python3 chip_smoke.py --phases "custom shapes,examples,figures"
+    python3 chip_smoke.py --phases "custom shapes,examples,figures,apps"
 
 builds the kernels and runs only the named phases (those that need
 nothing of the others'), for iterating by hand; its last line says which
@@ -514,6 +534,23 @@ FIGURES_RUN_DIR = HERE / "results" / "mnist_countergan_seed43"
 FIGURE_CONV_SHAPES = ((100, 28, 28, 64, 64), (8, 28, 28, 64, 64))
 FIGURE_BUDGET_SHAPE = (512, 28, 28, 64, 64)
 FIGURE_SAMPLES = 8
+
+# the apps phase: the promptable front ends' backends on the committed
+# run dirs (the MNIST chat through the conv kernel, held against the same
+# dialogue on cuDNN's route within the two bf16 routes' gap on these
+# trained weights), and a synthetic reference-layout MNIST generator
+# imported by cfgan_torch.migrate and served in float32 on the kernel
+# route against cuDNN's (F32_ATOL)
+APPS_CHAT = ("show me a 3", "turn it into an 8 using patches 5, 6, 9, 10",
+             "what is the weather")
+APPS_LLM_REPLY = ('Sure. <!-- {"action": "transform_digit", "target": 1, '
+                  '"patches": [4, 5, 6, 7]} -->')
+# the kernel and cuDNN bf16 routes' largest x_cf gap on these weights,
+# served at b=128 on an H100
+APPS_CUDNN_CF_ATOL = 0.0234
+APPS_HOUSE_INSTRUCTION = "only bedrooms, bathrooms and grade"
+APPS_HOUSE_FEATURES = ["bedrooms", "bathrooms", "grade"]
+APPS_SHAPE = (1, 28, 28, 64, 64)  # every app and migrate request is b=1
 
 # the api phase: the launcher's run dirs (results/mnist_countergan/ holds
 # no classifier checkpoint; the seed-43 run dir holds both)
@@ -2377,7 +2414,7 @@ def figures_phase(card: str, dev, counts, zero_counts) -> dict:
     # the kernel's device time at the figures' batches (bf16, the path's)
     timing = {shape[0]: time_conv(card, cgen, dev, shape, "bfloat16",
                                   "figures")
-              for shape in FIGURE_CONV_SHAPES}
+              for shape in FIGURE_CONV_SHAPES + (FIGURE_BUDGET_SHAPE,)}
     laps("timing")
     # x_cf: the shipped weights' residuals reach ~5, where a bf16 ulp is
     # 2**-5 to 2**-6, so the two bf16 routes part by more than the
@@ -2416,8 +2453,9 @@ def figures_phase(card: str, dev, counts, zero_counts) -> dict:
     return {shape[0]: {"launches": drawn[name]["conv3x3_launches"],
                        "err": err[shape, "bfloat16"],
                        "timing": timing[shape[0]]}
-            for shape, name in zip(FIGURE_CONV_SHAPES,
-                                   ("cf_grid", "heatmap_panels"))}
+            for shape, name in zip(
+                FIGURE_CONV_SHAPES + (FIGURE_BUDGET_SHAPE,),
+                ("cf_grid", "heatmap_panels", "patch_budget_curve"))}
 
 
 def house_data_phase(card: str) -> tuple:
@@ -3895,10 +3933,357 @@ def api_phase(card: str, dev) -> None:
           "launcher_exit_codes": codes, "ok": True})
 
 
+def reference_mnist_generator(path: Path, seed: int, ch: int = 64,
+                               blocks: int = 6) -> None:
+    """A state dict in the PyTorch reference's MNIST generator layout
+    (`embed`, `conv_in`, `resblocks.{i}.{conv1,bn1,conv2,bn2}`,
+    `conv_mid`, `conv_out`; OIHW convs, BatchNorm2d buffers), values from
+    a numpy seed at a trained model's scales, saved with `torch.save`."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    sd = {"embed.weight": 0.3 * rng.standard_normal((10, 28 * 28))}
+
+    def conv(name, cin, cout):
+        sd[f"{name}.weight"] = (rng.standard_normal((cout, cin, 3, 3))
+                                / math.sqrt(9 * cin))
+        sd[f"{name}.bias"] = 0.01 * rng.standard_normal(cout)
+
+    def bn(name, c):
+        sd[f"{name}.weight"] = rng.uniform(0.5, 1.5, c)
+        sd[f"{name}.bias"] = 0.1 * rng.standard_normal(c)
+        sd[f"{name}.running_mean"] = 0.1 * rng.standard_normal(c)
+        sd[f"{name}.running_var"] = rng.uniform(0.5, 1.5, c)
+
+    conv("conv_in", 3, ch)
+    for i in range(blocks):
+        for j in (1, 2):
+            conv(f"resblocks.{i}.conv{j}", ch, ch)
+            bn(f"resblocks.{i}.bn{j}", ch)
+    conv("conv_mid", ch, ch)
+    conv("conv_out", ch, 1)
+    out = {k: torch.from_numpy(np.asarray(v, np.float32))
+           for k, v in sd.items()}
+    for i in range(blocks):
+        for j in (1, 2):
+            out[f"resblocks.{i}.bn{j}.num_batches_tracked"] = torch.tensor(1)
+    torch.save(out, path)
+
+
+def apps_phase(card: str, dev, counts, zero_counts) -> dict:
+    """The promptable front ends on the card (`cfgan_torch.serve.apps`,
+    no gradio, no LLM provider, no network):
+
+    - the MNIST chat (`MnistChatBackend(llm=False)`) on
+      `setup_mnist(FIGURES_RUN_DIR, conv_impl="pallas")`: APPS_CHAT, then
+      one reply through a scripted `llm`; 13 conv kernel launches a
+      transform; each transform's pred, confidence and x_cf against the
+      same dialogue on cuDNN's route (APPS_CUDNN_CF_ATOL, PROBS_ATOL) and
+      its distance from a float32 route reported;
+    - the house backend on `results/house_countergan/`: a sample, then
+      APPS_HOUSE_INSTRUCTION: exactly those features allowed, every other
+      feature unmoved but where the clamp to [0, 1] moves a test value
+      outside the training range (as the JAX engine does), rows in
+      pandas' `sort_values(ascending=False)` order;
+    - the moons backend on `results/moons_countergan/`: a sample, then
+      each mask row: "none" returns x, "x_only" and "y_only" keep the
+      other coordinate exactly;
+    - every PNG read back (`read_png`) equal to its `render()`;
+    - migrate: a synthetic reference-layout MNIST generator (full width)
+      imported by `import_mnist_generator` and served in float32 on the
+      kernel route against cuDNN's (F32_ATOL), 13 launches a forward;
+    - the launcher's app mode, `python -m cfgan_torch.serve.launch --app
+      moons`: without gradio it exits non-zero with the ImportError's
+      message (with gradio present that check is skipped, and said);
+    - the conv at these b=1 shapes against its plain version and timed.
+    Returns {"chat" | "migrate": {launches, err, timing}} for the
+    kernels line."""
+    import importlib.util
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from cfgan_torch import migrate
+    from cfgan_torch.core.config import MNIST_COUNTERGAN
+    from cfgan_torch.eval import figure as fig_mod
+    from cfgan_torch.eval import images as img_mod
+    from cfgan_torch.eval.tabular import descending_order
+    from cfgan_torch.serve import apps, intent
+    from cfgan_torch.serve.engine import CounterfactualEngine
+    from cfgan_torch.serve.launch import (
+        restore_state_dict,
+        setup_house,
+        setup_mnist,
+        setup_moons,
+    )
+    from cfgan_torch.train.builders import build_mnist_serving, mnist_models
+
+    for run in (FIGURES_RUN_DIR, HOUSE_RUN_DIR, MOONS_RUN_DIR):
+        for part in ("classifier", "generator"):
+            if not (run / part).is_dir():
+                fail(f"the apps phase serves the committed run dirs; "
+                     f"missing {run / part}")
+    for k in ("GEMINI_API_KEY", "GOOGLE_API_KEY", "OPENAI_API_KEY"):
+        os.environ.pop(k, None)  # the regex path serves, as on any host
+    if intent.llm_client() is not None:
+        fail("an LLM provider is configured with no key")
+    laps = Laps()
+    out_dir = HERE / "build" / "smoke_apps"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    saved, transforms = [], []
+    save, ume = fig_mod.Figure.save, img_mod.user_modification_example
+
+    def save_spy(self, path):
+        saved.append((Path(path), self))
+        return save(self, path)
+
+    def ume_spy(*a, **k):
+        out = ume(*a, **k)
+        transforms.append(out)
+        return out
+
+    tmp_before = tempfile.tempdir
+    tempfile.tempdir = str(out_dir)  # the backends' PNGs
+    fig_mod.Figure.save = save_spy
+    img_mod.user_modification_example = ume_spy
+    try:
+        # ---- MNIST chat: the kernel route, then cuDNN's and float32's
+        eng_k, xte, yte, ps = setup_mnist(str(FIGURES_RUN_DIR), device=dev,
+                                          conv_impl="pallas")
+
+        def engine(conv_impl, dtype):
+            cfg = replace(MNIST_COUNTERGAN, conv_impl=conv_impl,
+                          compute_dtype=dtype)
+            g_model, clf_model = mnist_models(cfg)
+            s = build_mnist_serving(
+                cfg, restore_state_dict(g_model,
+                                        f"{FIGURES_RUN_DIR}/generator"),
+                restore_state_dict(clf_model,
+                                   f"{FIGURES_RUN_DIR}/classifier"),
+                device=dev)
+            return CounterfactualEngine(s.cf_fn, s.clf_fn, s.num_classes,
+                                        patch_size=ps, device=dev)
+
+        def dialogue(eng):
+            """APPS_CHAT on a regex backend, then one scripted-LLM reply:
+            (replies, current_idx after each, the transforms' results)."""
+            first = len(transforms)
+            b = apps.MnistChatBackend(eng, xte, yte, ps, llm=False, seed=SEED)
+            replies, idx = [], []
+            for msg in APPS_CHAT:
+                replies.append(b.reply(msg, [])[0])
+                idx.append(b.current_idx)
+            b.llm = lambda prompt: APPS_LLM_REPLY
+            replies.append(b.reply("now make it a one, middle rows", [])[0])
+            idx.append(b.current_idx)
+            return replies, idx, transforms[first:]
+
+        zero_counts()
+        chat_k = dialogue(eng_k)
+        torch.cuda.synchronize()
+        chat_counts = counts()
+        chat_launches = chat_counts[2]
+        laps("mnist chat")
+        chat_c = dialogue(engine(None, "bfloat16"))
+        cudnn_launches = counts()[2] - chat_launches
+        chat_f = dialogue(engine(None, "float32"))
+        laps("mnist chat, cuDNN and float32 routes")
+        n_tr = len(chat_k[2])
+        cmp = [{"pred": (k["pred"], c["pred"]),
+                "confidence": (k["confidence"], c["confidence"]),
+                "x_cf_vs_cudnn": float(np.abs(k["x_cf"] - c["x_cf"]).max()),
+                "x_cf_vs_f32": float(np.abs(k["x_cf"] - f["x_cf"]).max()),
+                "cudnn_x_cf_vs_f32": float(np.abs(c["x_cf"]
+                                                  - f["x_cf"]).max()),
+                "edit_outside_mask": float(np.abs(
+                    (k["x_cf"] - xte[i]) * (1 - k["mask"])).max())}
+               for k, c, f, i in zip(chat_k[2], chat_c[2], chat_f[2],
+                                     (chat_k[1][1], chat_k[1][3]))]
+        chat_ok = (n_tr == 2 and len(chat_c[2]) == len(chat_f[2]) == 2
+                   and chat_launches == KERNEL_LAYERS_PER_FORWARD * n_tr
+                   and cudnn_launches == 0
+                   and chat_k[0] == chat_c[0] and chat_k[1] == chat_c[1]
+                   and chat_k[1][0] is not None
+                   and int(yte[chat_k[1][0]]) == 3
+                   and all(c["pred"][0] == c["pred"][1]
+                           and abs(c["confidence"][0] - c["confidence"][1])
+                           <= PROBS_ATOL["bfloat16"]
+                           and c["x_cf_vs_cudnn"] <= APPS_CUDNN_CF_ATOL
+                           and c["edit_outside_mask"] == 0.0
+                           for c in cmp)
+                   and "classifier says" in chat_k[0][1]
+                   and chat_k[0][2].startswith("I can "))
+        emit({"phase": "apps", "part": "mnist chat", "card": card,
+              "run_dir": str(FIGURES_RUN_DIR.relative_to(HERE)),
+              "dtype": "bfloat16", "replies": chat_k[0],
+              "current_idx": chat_k[1], "transforms": cmp,
+              "conv3x3_launches": chat_launches,
+              "launches_fwd_bwd_conv_dk": chat_counts,
+              "cudnn_route_conv3x3_launches": cudnn_launches,
+              "tolerance": f"pred equal, confidence within "
+                           f"{PROBS_ATOL['bfloat16']} and x_cf within "
+                           f"{APPS_CUDNN_CF_ATOL} of cuDNN's route; "
+                           f"replies and picks equal; no edit outside the "
+                           f"patches", "ok": chat_ok})
+        if not chat_ok:
+            fail("the MNIST chat on the conv kernel left the cuDNN route's "
+                 "dialogue or missed the kernel")
+
+        # ---- house
+        h_eng, h_x, h_y, schema, stats, bins = setup_house(
+            str(HOUSE_RUN_DIR), device=dev)
+        hb = apps.HouseBackend(h_eng, h_x, h_y, schema, stats, bins)
+        sample, probs = hb.show_sample(0)
+        table, verdict = hb.generate(3, APPS_HOUSE_INSTRUCTION)
+        names = list(schema.feature_names)
+        delta = dict(zip(table.column("feature"), table.column("abs_delta")))
+        v = np.asarray([delta[f] for f in names], np.float32)
+        x0 = h_x[hb.current_idx]
+        clamp_move = np.abs(np.clip(x0, 0, 1) - x0)
+        moved_out = [f for f, d in zip(names, v)
+                     if f not in APPS_HOUSE_FEATURES and d != 0]
+        house_ok = (
+            verdict.endswith("allowed features: "
+                             + ", ".join(APPS_HOUSE_FEATURES))
+            and table.columns == ["feature", "original", "counterfactual",
+                                  "change", "abs_delta"]
+            and table.column("feature").tolist()
+            == [names[i] for i in descending_order(v)]
+            and all(v[names.index(f)] == clamp_move[names.index(f)]
+                    for f in names if f not in APPS_HOUSE_FEATURES)
+            and sample.columns == ["feature", "value"]
+            and int(h_y[hb.current_idx]) == 0)
+        emit({"phase": "apps", "part": "house", "card": card,
+              "current_idx": hb.current_idx, "probs": probs,
+              "verdict": verdict, "rows": table["data"],
+              "moved_outside_the_mask_by_the_clamp": moved_out,
+              "ok": house_ok})
+        if not house_ok:
+            fail("the house backend moved a feature outside its mask, "
+                 "parsed other features, or left pandas' row order")
+        laps("house")
+
+        # ---- moons
+        m_eng, m_clf, m_x, m_y = setup_moons(str(MOONS_RUN_DIR), device=dev)
+        mb = apps.MoonsBackend(m_eng, m_clf, m_x, m_y)
+        mb.show_sample(0)
+        mx = m_x[mb.current_idx]
+        moons = {}
+        for choice in apps.MoonsBackend.MASK_ROWS:
+            _, res, verdict = mb.generate(1, choice)
+            moons[choice] = {"x_cf": res.x_cf[0].tolist(),
+                             "pred": int(res.pred[0]), "verdict": verdict}
+        keep = {"none": (0, 1), "x_only": (1,), "y_only": (0,), "both": ()}
+        moons_ok = all(moons[c]["x_cf"][i] == float(mx[i])
+                       for c, idx in keep.items() for i in idx) and all(
+            math.isfinite(t) for r in moons.values() for t in r["x_cf"])
+        emit({"phase": "apps", "part": "moons", "card": card,
+              "current_idx": mb.current_idx, "x": mx.tolist(),
+              "generate": moons, "ok": moons_ok})
+        if not moons_ok:
+            fail("a moons mask row moved a coordinate it holds fixed")
+        laps("moons")
+    finally:
+        fig_mod.Figure.save = save
+        img_mod.user_modification_example = ume
+        tempfile.tempdir = tmp_before
+
+    readback = [fig_mod.read_png(p).shape[:2] == (f.height, f.width)
+                and bool(np.array_equal(fig_mod.read_png(p), f.render()))
+                for p, f in saved]
+    # three dialogues of a patch grid and two transforms; a boundary plot
+    # and four arrow plots
+    if len(readback) != 3 * 3 + 1 + 4 or not all(readback):
+        fail(f"the apps' PNGs: {sum(readback)} of {len(readback)} read "
+             f"back equal to render()")
+    laps("readback")
+
+    # ---- migrate: the reference's layout, imported and served
+    ref = out_dir / "generator.pt"
+    reference_mnist_generator(ref, SEED)
+    g_sd = migrate.import_mnist_generator(str(ref))
+    c_sd = mnist_models(MNIST_COUNTERGAN, generator=torch.Generator(
+        ).manual_seed(SEED))[1].state_dict()
+    cfg = replace(MNIST_COUNTERGAN, compute_dtype="float32")
+    x1 = xte[:2]
+    mask = eng_k.mask_from_patches([5, 6, 9, 10], 1, (28, 28))
+    served = {}
+    for impl in ("pallas", None):
+        s = build_mnist_serving(replace(cfg, conv_impl=impl), g_sd, c_sd,
+                                device=dev)
+        e = CounterfactualEngine(s.cf_fn, s.clf_fn, s.num_classes,
+                                 patch_size=ps, device=dev)
+        zero_counts()
+        served[impl] = [e.generate(x1[0], 3), e.generate(x1[1], 8, mask)]
+        torch.cuda.synchronize()
+        served[impl, "launches"] = counts()[2]
+    errs = [float(np.abs(a.x_cf - b.x_cf).max())
+            for a, b in zip(served["pallas"], served[None])]
+    p_errs = [float(np.abs(a.probs - b.probs).max())
+              for a, b in zip(served["pallas"], served[None])]
+    mig_launches = served["pallas", "launches"]
+    migrate_ok = (mig_launches == 2 * KERNEL_LAYERS_PER_FORWARD
+                  and served[None, "launches"] == 0
+                  and max(errs) <= F32_ATOL
+                  and max(p_errs) <= PROBS_ATOL["float32"]
+                  and all(np.isfinite(r.x_cf).all() and r.x_cf.shape
+                          == (1, 28, 28, 1) for r in served["pallas"]))
+    emit({"phase": "apps", "part": "migrate", "card": card,
+          "state_dict_keys": len(g_sd), "dtype": "float32",
+          "x_cf_max_abs_err": errs, "probs_max_abs_err": p_errs,
+          "conv3x3_launches": mig_launches,
+          "tolerance": f"x_cf abs <= {F32_ATOL}, probs abs <= "
+                       f"{PROBS_ATOL['float32']} against cuDNN's route",
+          "ok": migrate_ok})
+    if not migrate_ok:
+        fail("the imported generator on the conv kernel differs from "
+             "cuDNN's route or missed the kernel")
+    laps("migrate")
+
+    # ---- the launcher's app mode
+    has_gradio = importlib.util.find_spec("gradio") is not None
+    launcher = {"gradio_present": has_gradio}
+    if has_gradio:
+        launcher["skipped"] = ("gradio is installed: the launcher would "
+                               "serve the app, so its failure is not checked")
+    else:
+        proc = subprocess.run(
+            [sys.executable, "-m", "cfgan_torch.serve.launch", "--app",
+             "moons"], cwd=HERE, capture_output=True, text=True, timeout=120)
+        launcher.update(exit_code=proc.returncode,
+                        stderr=proc.stderr.strip()[-400:])
+        if proc.returncode == 0 or "gradio is not installed" not in \
+                proc.stderr or "listening" in proc.stdout:
+            fail(f"the launcher without gradio: exit {proc.returncode}, "
+                 f"{proc.stderr[-1000:]}")
+    emit({"phase": "apps", "part": "launcher", **launcher, "ok": True})
+    laps("launcher")
+
+    # ---- the conv at the b=1 shape these paths give it
+    cgen = torch.Generator().manual_seed(SEED)
+    err = {d: check_conv(cgen, dev, APPS_SHAPE, d, "apps")
+           for d in ("bfloat16", "float32")}
+    timing = {d: time_conv(card, cgen, dev, APPS_SHAPE, d, "apps")
+              for d in ("bfloat16", "float32")}
+    laps("kernel")
+    emit({"phase": "apps", "card": card, "pngs_read_back_equal":
+          sum(readback), "part_seconds": laps.s, "ok": True})
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return {"chat": {"launches": chat_launches, "err": err["bfloat16"],
+                     "timing": timing["bfloat16"]},
+            "migrate": {"launches": mig_launches, "err": err["float32"],
+                        "timing": timing["float32"]}}
+
+
 # the phases `--phases` may name: each needs only the built kernels
 STANDALONE_PHASES = {"custom shapes": custom_shapes_phase,
                      "examples": examples_phase,
-                     "figures": figures_phase}
+                     "figures": figures_phase,
+                     "apps": apps_phase}
 
 
 def _selected_phases(argv: list[str]) -> list[str] | None:
@@ -4326,6 +4711,10 @@ def main() -> None:
     with Phase("api"):
         api_phase(card, dev)
 
+    # ---------------------------- the promptable front ends and migrate
+    with Phase("apps"):
+        app_paths = apps_phase(card, dev, counts, zero_counts)
+
     # ----------------------------------------------------------- timing
     with Phase("timing"):
         # device time per call (kernel_ms): at batch 1 a launch is shorter
@@ -4467,11 +4856,19 @@ def main() -> None:
         for k, (name, key, replaces) in enumerate((
             ("cf_epilogue_fwd", "fwd", "cfgan/ops/epilogue.py:54"),
             ("cf_epilogue_bwd", "bwd", "cfgan/ops/epilogue.py:67")))] + [
-        # the conv at the figures' batches (bf16): the grid's 100 cells and
-        # the heatmaps' 8 images, launches of the figure that runs it
+        # the conv at the figures' batches (bf16): the grid's 100 cells,
+        # the heatmaps' 8 images and the patch-budget curve's 512 rows,
+        # launches of the figure that runs it
         entry(f"conv3x3_same_figures_b{b}", conv_src, "cfgan/ops/conv.py:71",
               f["launches"], f["err"], f["timing"])
-        for b, f in figures.items()]})
+        for b, f in figures.items()] + [
+        # the conv on the app and migrate paths (b=1: the chat's
+        # transforms, bf16; the imported generator, f32)
+        entry(name, conv_src, "cfgan/ops/conv.py:71", p["launches"],
+              p["err"], p["timing"])
+        for name, p in (("conv3x3_same_apps_chat_b1", app_paths["chat"]),
+                        ("conv3x3_same_f32_migrate_b1",
+                         app_paths["migrate"]))]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": count}})

@@ -230,7 +230,8 @@ def test_evaluate_classifier_matches_sklearn_and_jax_files(tmp_path):
                                               xb[:, 0, 0, 0].numpy()))
         return table[torch.as_tensor(np.argsort(x[:, 0, 0, 0]))[idx]]
 
-    got = evaluate_classifier(port_logits, x, y, out_dir=str(tmp_path / "p"))
+    got = evaluate_classifier(port_logits, x, y, out_dir=str(tmp_path / "p"),
+                              device="cpu")
     preds = logits.argmax(1)
     assert got["accuracy"] == float((preds == y).mean())
     assert np.array_equal(got["confusion"], confusion_matrix(y, preds))

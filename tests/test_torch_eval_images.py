@@ -180,7 +180,7 @@ def test_counterfactual_grid_matches_jax(models, data, tmp_path,
         lambda cf, clf, v, d: jimg.counterfactual_grid(
             cf, clf, v, x, y, NC, str(d / "grid.png")),
         lambda cf, clf, v, d: pimg.counterfactual_grid(
-            cf, clf, v, x, y, NC, str(d / "grid.png")))
+            cf, clf, v, x, y, NC, str(d / "grid.png"), device="cpu"))
     np.testing.assert_array_equal(got, want)
     fig, path = pfigs["grid.png"]
     mfig = jfigs["grid.png"]
@@ -212,7 +212,8 @@ def test_heatmap_panels_match_jax(models, data, tmp_path, monkeypatch):
         lambda cf, clf, v, d: jimg.heatmap_panels(
             cf, clf, v, x[:6], y[:6], t, mask, str(d), max_samples=6),
         lambda cf, clf, v, d: pimg.heatmap_panels(
-            cf, clf, v, x[:6], y[:6], t, mask, str(d), max_samples=6))
+            cf, clf, v, x[:6], y[:6], t, mask, str(d), max_samples=6,
+            device="cpu"))
     np.testing.assert_array_equal(got["preds"], want["preds"])
     np.testing.assert_allclose(got["confidence"], want["confidence"],
                                atol=CONF_ATOL, rtol=0)
@@ -277,7 +278,7 @@ def test_user_modification_example_matches_jax(models, data, tmp_path,
             path=str(d / "um.png")),
         lambda cf, clf, v, d: pimg.user_modification_example(
             cf, clf, v, x[3], target, patches, PATCH,
-            path=str(d / "um.png")))
+            path=str(d / "um.png"), device="cpu"))
     assert got["pred"] == want["pred"]
     assert abs(got["confidence"] - want["confidence"]) <= CONF_ATOL
     for k in ("x_cf", "residual"):
@@ -303,10 +304,11 @@ def test_image_figures_take_tensors_on_the_device(data, tmp_path):
     t = (y[:4] + 1) % NC
     a = pimg.heatmap_panels(cf, clf, {}, x[:4], y[:4], t,
                             np.ones((4, *HW, 1), np.float32),
-                            str(tmp_path / "a"))
+                            str(tmp_path / "a"), device="cpu")
     b = pimg.heatmap_panels(cf, clf, {}, torch.from_numpy(x[:4]),
                             torch.from_numpy(y[:4]), torch.from_numpy(t),
-                            torch.ones((4, *HW, 1)), str(tmp_path / "b"))
+                            torch.ones((4, *HW, 1)), str(tmp_path / "b"),
+                            device="cpu")
     np.testing.assert_array_equal(a["preds"], b["preds"])
     for name in ("sample_0.png", "batch_overview.png"):
         assert ((tmp_path / "a" / name).read_bytes()

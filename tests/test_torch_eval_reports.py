@@ -249,7 +249,8 @@ def test_analyze_mask_policies_matches_jax(house, tmp_path):
     pcf, pclf, pg = house["port"]
     x, y = house["x"], house["y"]
     rows = pma.analyze_mask_policies(pcf, pclf, pg, x, y, KC_SCHEMA, 4,
-                                     jax_key(SEED), out_dir=str(tmp_path / "p"))
+                                     jax_key(SEED), out_dir=str(tmp_path / "p"),
+                                     device="cpu")
     df = jma.analyze_mask_policies(jcf, jclf, jg, x, y, JAX_SCHEMA, 4,
                                    key=jax.random.key(SEED),
                                    out_dir=str(tmp_path / "j"))
@@ -302,7 +303,7 @@ def test_patch_budget_curve_matches_jax_on_its_masks(mnist, tmp_path):
                                        (28, 28), 7, int(n), channels=1))
              for i, n in enumerate(df["n_patches"])]
     rows = pma.patch_budget_curve(*mnist["port"], x, y, 10, 7, masks=masks,
-                                  out_dir=str(tmp_path / "p"))
+                                  out_dir=str(tmp_path / "p"), device="cpu")
     assert len(rows) == 8
     name = "patch_budget_curve.csv"
     assert_frames_match(tmp_path / "p" / name, tmp_path / "j" / name)
@@ -319,7 +320,8 @@ def test_patch_budget_curve_draws_its_own_masks(mnist):
         return mnist["port"][0](g, xx, t, m, k)
 
     rows = pma.patch_budget_curve(cf_fn, *mnist["port"][1:], x, y, 10, 7,
-                                  generator=torch.Generator().manual_seed(3))
+                                  generator=torch.Generator().manual_seed(3),
+                                  device="cpu")
     patches = [int(m[0, ::7, ::7, 0].sum()) for m in seen]
     assert patches == [r["n_patches"] for r in rows] == [1, 2, 4, 6, 8, 10,
                                                          12, 16]

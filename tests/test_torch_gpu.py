@@ -858,7 +858,7 @@ def test_house_noise_is_derived_on_the_card():
     from cfgan_torch.models.tabular import derive_gumbel_noise
 
     info = KC_SCHEMA.categorical_info
-    cpu = derive_gumbel_noise((0, 42), 128, info)
+    cpu = derive_gumbel_noise((0, 42), 128, info, device="cpu")
     card = derive_gumbel_noise((0, 42), 128, info, device=dev)
     for idx in info:
         assert card[idx].device.type == "cuda"

@@ -20,8 +20,8 @@ on the CPU.
   the bound address, serves the in-process engine's answers bit for bit,
   and exits 0 on SIGINT.
 - `main()` without `--device` raises on a host without a card; without
-  `--api` it exits 2 with its message; its defaults are the JAX
-  launcher's.
+  `--api` and without gradio it exits non-zero with the ImportError's
+  message; its defaults are the JAX launcher's.
 """
 import os
 import re
@@ -296,11 +296,17 @@ def test_main_without_device_raises_on_a_host_without_a_card(keep_tf32):
         launch.main(["--app", "moons", "--api", "--port", "0"])
 
 
-def test_main_without_api_exits_with_its_message(capsys):
+def test_main_without_api_exits_with_its_message(monkeypatch, keep_tf32):
+    """Without `--api`, `main` serves the gradio app; with no gradio it
+    exits non-zero with the ImportError's message before loading
+    anything, and never serves the API in its place."""
+    monkeypatch.setitem(sys.modules, "gradio", None)
+    monkeypatch.setitem(launch.SETUPS, "house", lambda *a, **k: pytest.fail(
+        "loaded a run dir"))
+    monkeypatch.setattr(papi, "serve", lambda *a: pytest.fail("served"))
     with pytest.raises(SystemExit) as ei:
         launch.main(["--app", "house"])
-    assert ei.value.code == 2
-    assert "pass --api" in capsys.readouterr().err
+    assert "gradio is not installed" in str(ei.value.code)
 
 
 class _Engine:

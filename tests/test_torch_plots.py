@@ -170,7 +170,8 @@ def test_evaluate_classifier_draws_the_confusion_matrix(tmp_path):
     out = pclf.evaluate_classifier(lambda t: torch.stack([-t[:, 0], t[:, 0]],
                                                          1), x, y,
                                    out_dir=str(tmp_path), class_names=["a",
-                                                                       "b"])
+                                                                       "b"],
+                                   device="cpu")
     assert out["accuracy"] == 1.0
     px = read_png(tmp_path / "confusion_matrix.png")
     assert px.shape == (600, 720, 3)
@@ -256,7 +257,7 @@ def test_patch_budget_plot_matches_jax(monkeypatch, tmp_path):
             10, 7, key=key, out_dir=d),
         lambda d: pma.patch_budget_curve(
             pcf, lambda a: a.reshape(len(a), -1) @ torch.from_numpy(w), {},
-            x, y, 10, 7, masks=masks, out_dir=d),
+            x, y, 10, 7, masks=masks, out_dir=d, device="cpu"),
         "patch_budget_curve.png")
     mp = _check_common(fig, path, mfig, png)
     ax, max_ = fig.axes[0], mp[0]
@@ -365,7 +366,7 @@ def moons(request):
 
 
 def test_decision_surface_matches_jax_but_at_near_ties(moons):
-    xs, ys, got = pb.decision_surface(moons["port_clf"])
+    xs, ys, got = pb.decision_surface(moons["port_clf"], device="cpu")
     jxs, jys, want = jb.decision_surface(moons["jax_clf"])
     np.testing.assert_array_equal(xs, jxs)
     np.testing.assert_array_equal(ys, jys)
@@ -410,7 +411,8 @@ def test_boundaries_only_matches_jax(moons, monkeypatch, tmp_path):
                 os.path.join(d, "b.png"), highlight=hl),
             lambda d: pb.plot_decision_boundaries_only(
                 moons["port_clf"], moons["x"], moons["y"],
-                os.path.join(d, "b.png"), highlight=hl), "b.png")
+                os.path.join(d, "b.png"), highlight=hl, device="cpu"),
+            "b.png")
         ax, max_ = _assert_boundary_figure(fig, path, mfig, png, 0.3)
         assert len(ax.scatters) == (1 if hl is None else 2)
 
@@ -425,7 +427,7 @@ def test_boundaries_and_cfs_match_jax(moons, monkeypatch, tmp_path):
     pfigs = capture_port(monkeypatch)
     got = pb.plot_decision_boundaries_and_cfs(
         moons["port_clf"], moons["port_cf"], {}, moons["x"], moons["y"], 3,
-        str(tmp_path / "port"), n_cf_samples=7)
+        str(tmp_path / "port"), n_cf_samples=7, device="cpu")
     assert [os.path.basename(p) for p in got] == [
         os.path.basename(p) for p in want] == [
         f"decision_boundaries_cfs_src{s}_tgt{t}.png"

@@ -90,7 +90,7 @@ def _t(a):
 @pytest.mark.parametrize("seed", KEYS)
 def test_derived_noise_matches_jax(seed, b):
     want = jtab.derive_gumbel_noise(jax.random.key(seed), b, INFO)
-    got = ptab.derive_gumbel_noise(ptab.jax_key(seed), b, INFO)
+    got = ptab.derive_gumbel_noise(ptab.jax_key(seed), b, INFO, device="cpu")
     assert sorted(got) == sorted(want) == sorted(INFO)
     for idx, w in want.items():
         assert got[idx].dtype == torch.float32
@@ -102,7 +102,7 @@ def test_derived_bf16_noise_equals_jax_bit_for_bit():
     want = jtab.derive_gumbel_noise(jax.random.key(3), 64, INFO,
                                     jnp.bfloat16)
     got = ptab.derive_gumbel_noise(ptab.jax_key(3), 64, INFO,
-                                   torch.bfloat16)
+                                   torch.bfloat16, device="cpu")
     for idx, w in want.items():
         np.testing.assert_array_equal(
             got[idx].float().numpy(), np.asarray(w.astype(jnp.float32)))
@@ -123,7 +123,8 @@ def test_keys_and_fold_in_match_jax(seed):
 def test_hard_samples_on_the_noise_equal_jax(seed):
     rng = np.random.RandomState(seed % 97)
     want = jtab.derive_gumbel_noise(jax.random.key(seed), 128, INFO)
-    got = ptab.derive_gumbel_noise(ptab.jax_key(seed), 128, INFO)
+    got = ptab.derive_gumbel_noise(ptab.jax_key(seed), 128, INFO,
+                                   device="cpu")
     for idx, n in want.items():
         logits = rng.normal(0, 2, n.shape).astype(np.float32)
         y_j = jax_gumbel_softmax(None, jnp.asarray(logits), 0.5, hard=True,
@@ -135,8 +136,8 @@ def test_hard_samples_on_the_noise_equal_jax(seed):
 
 
 def test_a_rows_noise_does_not_depend_on_the_batch():
-    small = ptab.derive_gumbel_noise((0, 11), 5, INFO)
-    large = ptab.derive_gumbel_noise((0, 11), 128, INFO)
+    small = ptab.derive_gumbel_noise((0, 11), 5, INFO, device="cpu")
+    large = ptab.derive_gumbel_noise((0, 11), 128, INFO, device="cpu")
     for idx in INFO:
         assert torch.equal(small[idx], large[idx][:5])
 
@@ -310,7 +311,7 @@ def test_generator_matches_jax_bf16(cat_head_f32):
         train=False, gumbel_noise=jn)
     pn = ptab.derive_gumbel_noise(ptab.jax_key(6), B, INFO,
                                   torch.float32 if cat_head_f32
-                                  else torch.bfloat16)
+                                  else torch.bfloat16, device="cpu")
     pg.to(torch.bfloat16).eval()
     c, _, s = pg(_t(x).bfloat16(), _t(t_oh).bfloat16(),
                  _t(mask).bfloat16(), pn, hard=False)
