@@ -20,8 +20,12 @@ The CounteRGAN step's memory options (CounterGANConfig fields):
 Plain generation (the simple, conditional, DCGAN and WGAN-GP families):
   python -m cfgan_torch.experiments.generation --preset simple_gan_moons|simple_gan_mnist|cgan_moons|wgan_gp_mnist|dcgan_mnist [--epochs N] [--limit N] [--out-dir D] [--seed N] [--device cpu]
 
+Data-parallel training over a torch.distributed world (one process a card):
+  torchrun --nproc-per-node N your_script.py   # multihost_initialize(); train_countergan_loop(..., mesh=create_mesh())
+  cfgan_torch.parallel.spawn_world(fn, N)      # the same on one host without torchrun
+
 Serving (the HTTP API; cfgan_torch.serve.CFClient speaks to it):
-  python -m cfgan_torch.serve.launch --app mnist|house|moons --api [--results DIR] [--port P] [--host H] [--device cpu]
+  python -m cfgan_torch.serve.launch --app mnist|house|moons --api [--results DIR] [--port P] [--host H] [--device cpu] [--shard]
 The promptable gradio apps (need gradio):
   python -m cfgan_torch.serve.launch --app mnist|house|moons [--results DIR] [--host H] [--share] [--device cpu]
 

@@ -15,6 +15,9 @@ encoder takes numpy arrays and scalars and torch tensors.
 CounteRGAN train state in the layout of the JAX package's `GANState`, so
 that either package resumes the other's run; a restore copies into the
 live state in place (a captured CUDA graph keeps its addresses).
+`save_sharded` / `restore_sharded` are the cooperative form for a state
+replicated over a `torch.distributed` world: rank 0 writes, every rank
+restores in place.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ from typing import Any, Mapping
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 FILE = "checkpoint.msgpack"
 META = "metadata.json"
@@ -311,6 +315,18 @@ def load_metadata(path: str) -> dict[str, Any] | None:
         return json.load(f)
 
 
+def train_state_metadata(epoch: int, history: dict | None = None
+                         ) -> dict[str, Any]:
+    """The metadata of a mid-run checkpoint: the loop's position and its
+    history."""
+    meta: dict[str, Any] = {"epoch": int(epoch)}
+    if history is not None:
+        meta["history"] = {
+            k: [float(v) for v in vs] if isinstance(vs, list) else float(vs)
+            for k, vs in history.items()}
+    return meta
+
+
 def save_train_state(path: str, state, epoch: int,
                      history: dict | None = None) -> str:
     """Mid-run checkpoint of a whole train state (both networks'
@@ -319,12 +335,8 @@ def save_train_state(path: str, state, epoch: int,
     it continues as the uninterrupted run does."""
     from cfgan_torch.convert import train_state_to_flax
 
-    meta: dict[str, Any] = {"epoch": int(epoch)}
-    if history is not None:
-        meta["history"] = {
-            k: [float(v) for v in vs] if isinstance(vs, list) else float(vs)
-            for k, vs in history.items()}
-    return save(path, train_state_to_flax(state), metadata=meta)
+    return save(path, train_state_to_flax(state),
+                metadata=train_state_metadata(epoch, history))
 
 
 def restore_train_state(path: str, state) -> tuple[int, dict]:
@@ -336,3 +348,44 @@ def restore_train_state(path: str, state) -> tuple[int, dict]:
     load_train_state(state, tree)
     meta = load_metadata(path) or {}
     return int(meta.get("epoch", -1)) + 1, meta.get("history", {})
+
+
+def _is_train_state(tree) -> bool:
+    from cfgan_torch.train.state import GANState
+
+    return isinstance(tree, GANState)
+
+
+def _barrier() -> None:
+    if dist.is_initialized():
+        dist.barrier()
+
+
+def save_sharded(path: str, tree, metadata: dict[str, Any] | None = None
+                 ) -> str:
+    """The cooperative checkpoint of a replicated state
+    (`cfgan.core.checkpoint.save_sharded`), called by every rank of the
+    world: the replicas are equal, so rank 0 writes `save`'s format (a
+    train state as `save_train_state` lays it out, which the JAX
+    package's `save_sharded` falls back to without orbax) and every rank
+    waits at a barrier until it is written."""
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        if _is_train_state(tree):
+            from cfgan_torch.convert import train_state_to_flax
+
+            tree = train_state_to_flax(tree)
+        save(path, tree, metadata)
+    _barrier()
+    return path
+
+
+def restore_sharded(path: str, target):
+    """`save_sharded`'s checkpoint, on every rank: a train state `target`
+    is restored in place (a captured CUDA graph keeps its addresses) and
+    returned; any other template gets the restored tree, as `restore`."""
+    if not _is_train_state(target):
+        return restore(path, target)
+    from cfgan_torch.convert import load_train_state, train_state_to_flax
+
+    load_train_state(target, restore(path, train_state_to_flax(target)))
+    return target

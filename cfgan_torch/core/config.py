@@ -233,11 +233,34 @@ class TabularSchema:
 
 
 @dataclass(frozen=True)
+class ShardingConfig:
+    """Device-mesh policy (`cfgan.core.config.ShardingConfig`): the data
+    axis's name and the mesh's shape (None: every device of the world,
+    `cfgan_torch.parallel.create_mesh`).
+
+    `donate_state` has no effect in the port: the step and the epoch
+    runner already update the state in place.  `sync_batch_norm=False`
+    raises, as the JAX package has no path for per-replica statistics
+    either: a sharded step always normalizes by the global batch's."""
+
+    data_axis: str = "data"
+    mesh_shape: tuple[int, ...] | None = None
+    donate_state: bool = True
+    sync_batch_norm: bool = True
+
+    def __post_init__(self):
+        if not self.sync_batch_norm:
+            raise ValueError("sync_batch_norm=False has no path: a sharded "
+                             "step normalizes by the global batch's "
+                             "statistics")
+
+
+@dataclass(frozen=True)
 class ExperimentConfig:
-    """One runnable experiment (`cfgan.core.config.ExperimentConfig`,
-    without `sharding`, for which the port has no path).  A CounteRGAN
-    experiment sets `countergan`, a plain-generation one `gan` and
-    `countergan=None`; a tabular one may carry its feature `schema`."""
+    """One runnable experiment (`cfgan.core.config.ExperimentConfig`).  A
+    CounteRGAN experiment sets `countergan`, a plain-generation one `gan`
+    and `countergan=None`; a tabular one may carry its feature `schema`;
+    `sharding` is the mesh policy of a data-parallel run."""
 
     name: str = "moons_countergan"
     seed: int = 42
@@ -247,6 +270,7 @@ class ExperimentConfig:
     countergan: CounterGANConfig | None = field(
         default_factory=CounterGANConfig)
     gan: GANConfig | None = None
+    sharding: ShardingConfig = field(default_factory=ShardingConfig)
     schema: TabularSchema | None = None
     out_dir: str = "results"
 

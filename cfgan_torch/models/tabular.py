@@ -80,13 +80,15 @@ def _gumbel_from_bits(bits: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 def derive_gumbel_noise(key: Key, batch: int,
                         categorical_info: Mapping[int, Sequence[float]],
                         dtype: torch.dtype = torch.float32,
-                        device: str | torch.device | None = None
-                        ) -> dict[int, torch.Tensor]:
+                        device: str | torch.device | None = None,
+                        row0: int = 0) -> dict[int, torch.Tensor]:
     """Feature index -> (batch, n_values) Gumbel noise, JAX's
     `derive_gumbel_noise(key, batch, categorical_info, dtype)`, computed
-    on `device` (None: the CUDA card).  All heads and rows go through
-    threefry at once: the head keys on the host, the row keys and the
-    bits as (batch, sum n) tensors."""
+    on `device` (None: the CUDA card); with `row0`, the noise of rows
+    row0 .. row0 + batch - 1 of a larger batch (a sharded request's
+    shard).  All heads and rows go through threefry at once: the head
+    keys on the host, the row keys and the bits as (batch, sum n)
+    tensors."""
     device = resolve_device(device)
     heads = sorted(categorical_info)
     sizes = [len(categorical_info[i]) for i in heads]
@@ -96,7 +98,8 @@ def derive_gumbel_noise(key: Key, batch: int,
                              device=device) for w in (0, 1))
     col = torch.tensor([j for n in sizes for j in range(n)],
                        dtype=torch.int64, device=device)
-    rows = torch.arange(batch, dtype=torch.int64, device=device)[:, None]
+    rows = torch.arange(row0, row0 + batch, dtype=torch.int64,
+                        device=device)[:, None]
     zero = torch.zeros((), dtype=torch.int64, device=device)
     rk0, rk1 = threefry2x32(hk0, hk1, zero, rows)  # fold_in(head key, row)
     b0, b1 = threefry2x32(rk0, rk1, zero, col)

@@ -22,6 +22,7 @@ from torch.utils.checkpoint import checkpoint
 
 from cfgan_torch.nn import init as cinit
 from cfgan_torch.ops import conv as conv_ops
+from cfgan_torch.parallel.sharding import mesh_mean
 
 
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
@@ -163,9 +164,18 @@ class BatchNorm(nn.Module):
     the running statistics.  `epsilon` defaults to 1e-5 (the simple MNIST
     generator's is 0.8); the scale starts at 1, or at `scale_init((n,),
     generator)`.
+
+    Bound to a mesh (`mesh`, set by `cfgan_torch.parallel.replicate`:
+    the counterpart of the JAX layer's `axis_name`), train mode averages
+    the ranks' E[x] and E[x^2] with a differentiable all-reduce and counts
+    n over every rank, so that each rank normalizes by the global batch's
+    statistics and updates the same running ones; `update_stats=False`
+    synchronises too.  Eval mode never synchronises.  Unbound (None), the
+    layer is the single-process one.
     """
 
     momentum = 0.9
+    mesh = None
 
     def __init__(self, features: int, epsilon: float = 1e-5,
                  scale_init=None, generator: torch.Generator | None = None):
@@ -183,9 +193,12 @@ class BatchNorm(nn.Module):
         if self.training:
             axes = tuple(range(x.dim() - 1))
             n = x.numel() // x.shape[-1]
-            mean = x.mean(axes)
-            var = torch.maximum((x * x).mean(axes) - mean * mean,
-                                x.new_zeros(()))
+            mean, mean_sq = x.mean(axes), (x * x).mean(axes)
+            if self.mesh is not None:
+                mean, mean_sq = mesh_mean(self.mesh, torch.stack(
+                    [mean, mean_sq])).unbind()
+                n *= self.mesh.world_size
+            var = torch.maximum(mean_sq - mean * mean, x.new_zeros(()))
             if update_stats:
                 with torch.no_grad():
                     m = self.momentum

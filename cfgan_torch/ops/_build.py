@@ -73,6 +73,15 @@ def _nvcc() -> str:
     return found
 
 
+def _load(path: Path, seconds: float, log: str) -> KernelLibrary:
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return KernelLibrary(lib, path, seconds, log)
+
+
 def _build() -> KernelLibrary:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = BUILD_DIR / "libcfgan_kernels.so"
@@ -104,19 +113,18 @@ def _build() -> KernelLibrary:
         raise RuntimeError("nvcc failed: " + "; ".join(failed) + "\n" + log)
     # atomic, so concurrent builders never load a torn file
     os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return KernelLibrary(lib, out, seconds, log)
+    return _load(out, seconds, log)
 
 
-def load_library() -> KernelLibrary:
+def load_library(built: Path | None = None) -> KernelLibrary:
     """Build (once per process) and return the kernel library.  Raises if
-    `nvcc` is missing or fails: there is no fallback."""
+    `nvcc` is missing or fails: there is no fallback.  `built` names a
+    library that another process of this checkout has just built from the
+    same sources (its `KernelLibrary.path`), which this process then
+    loads without building: the workers of a sharded run."""
     global _library
     with _lock:
         if _library is None:
-            _library = _build()
+            _library = _build() if built is None else _load(Path(built),
+                                                            0.0, "")
         return _library

@@ -16,6 +16,14 @@ been served, assigning `pad_to_bucket` raises.
 
 A constructed engine may be shared by request threads: `generate` and
 `classify` read only the frozen modules and their arguments.
+
+`shard(mesh)` serves data-parallel over this process's devices of a mesh
+(the JAX engine's `shard`): the batch padding rises to a multiple of the
+shard count, each request and each bulk chunk is cut into equal shards,
+one a device, served by a replica of the generator and classifier there,
+and the results are gathered.  Each shard's `cf_fn` call gets `row0`, the
+index of its first row in the request, so that the tabular generator's
+per-row noise is the unsharded request's.
 """
 from __future__ import annotations
 
@@ -33,6 +41,7 @@ from cfgan_torch.masks.feature import (
 )
 from cfgan_torch.masks.patch import patch_indices_to_mask
 from cfgan_torch.models.tabular import fold_in, jax_key
+from cfgan_torch.parallel.mesh import canonical_device
 
 
 @dataclass
@@ -60,13 +69,16 @@ class CounterfactualEngine:
 
     def __init__(self, cf_fn: Callable, clf_fn: Callable, num_classes: int,
                  patch_size: int | None = None, schema=None,
-                 device: str | torch.device | None = None, stats=None):
+                 device: str | torch.device | None = None, stats=None,
+                 replica_fn: Callable | None = None):
         """`cf_fn(x, target, mask, key)` -> (x_cf, raw, masked) and
         `clf_fn(x)` -> logits run on `device` (None: the CUDA card; raises
         where there is none).  A tabular engine carries its `schema`
         (`TabularSchema`) and may carry the MinMax `stats` (`NormStats`)
         that map its [0, 1] data space back to the features' units; the
-        engine itself does not read them."""
+        engine itself does not read them.  `replica_fn(device) -> (cf_fn,
+        clf_fn)` makes the same model's functions on another device, for
+        `shard` over a mesh of several devices."""
         self.cf_fn = cf_fn
         self.clf_fn = clf_fn
         self.num_classes = num_classes
@@ -74,7 +86,9 @@ class CounterfactualEngine:
         self.schema = schema
         self.stats = stats
         self.device = resolve_device(device)
+        self.replica_fn = replica_fn
         self._pad_to_bucket = True
+        self._shards: list[tuple[torch.device, Callable, Callable]] = []
         self._served = threading.Event()
 
     # ---------------------------------------------------------- config
@@ -90,6 +104,45 @@ class CounterfactualEngine:
                 "requests (configuration is construct-then-serve)")
         self._pad_to_bucket = bool(value)
 
+    def shard(self, mesh, axis: str | None = None
+              ) -> "CounterfactualEngine":
+        """Serve data-parallel over this process's devices of `mesh`
+        (`cfgan_torch.parallel.create_mesh`) along `axis` (the mesh's
+        first); returns self.  A device other than the engine's gets a
+        replica from `replica_fn`; the engine's own device (every entry
+        of `devices=["cpu"] * 8`, say) serves with its own functions.
+        Raises RuntimeError after the first served request, ValueError
+        for a mesh over more than one process (the engine serves the
+        devices of its process) or another axis."""
+        if self._served.is_set():
+            raise RuntimeError(
+                "cannot change sharding: the engine has already served "
+                "requests (configuration is construct-then-serve)")
+        axis = axis or mesh.axis_names[0]
+        if axis != mesh.axis_names[0]:
+            raise ValueError(f"the engine shards over the mesh's first axis "
+                             f"{mesh.axis_names[0]!r}, not {axis!r}")
+        if mesh.world_size > 1:
+            raise ValueError(
+                f"the engine serves this process's devices; a mesh over "
+                f"{mesh.world_size} processes would need every rank to "
+                "serve each request")
+        shards, replicas = [], {}
+        for dev in mesh.devices:
+            dev = canonical_device(dev)
+            if dev == canonical_device(self.device):
+                shards.append((dev, self.cf_fn, self.clf_fn))
+                continue
+            if dev not in replicas:
+                if self.replica_fn is None:
+                    raise ValueError(
+                        f"this engine cannot place a replica on {dev}: "
+                        "construct it with a replica_fn")
+                replicas[dev] = self.replica_fn(dev)
+            shards.append((dev, *replicas[dev]))
+        self._shards = shards
+        return self
+
     @classmethod
     def _bucket(cls, b: int) -> int:
         n = 1
@@ -101,9 +154,21 @@ class CounterfactualEngine:
 
     # ------------------------------------------------------- inference
     def _serve(self, x, t, mask, key):
-        x_cf, _, masked = self.cf_fn(x, t, mask, key)
-        probs = torch.softmax(self.clf_fn(x_cf), dim=1)
-        probs_orig = torch.softmax(self.clf_fn(x), dim=1)
+        if not self._shards:
+            return self._serve_on(self.cf_fn, self.clf_fn, x, t, mask, key)
+        m = x.shape[0] // len(self._shards)
+        outs = [self._serve_on(
+            cf_fn, clf_fn, *(a[i * m:(i + 1) * m].to(dev)
+                             for a in (x, t, mask)), key, row0=i * m)
+            for i, (dev, cf_fn, clf_fn) in enumerate(self._shards)]
+        return tuple(torch.cat([o[k].to(self.device) for o in outs])
+                     for k in range(4))
+
+    @staticmethod
+    def _serve_on(cf_fn, clf_fn, x, t, mask, key, **row0):
+        x_cf, _, masked = cf_fn(x, t, mask, key, **row0)
+        probs = torch.softmax(clf_fn(x_cf), dim=1)
+        probs_orig = torch.softmax(clf_fn(x), dim=1)
         return x_cf, masked, probs, probs_orig
 
     def _targets(self, target) -> torch.Tensor:
@@ -171,6 +236,8 @@ class CounterfactualEngine:
         key = jax_key(0) if key is None else key
         b = x.shape[0]
         nb = self._bucket(b) if self._pad_to_bucket else b
+        k = len(self._shards) or 1  # equal shards
+        nb = -(-nb // k) * k
         outs = self._serve(_pad_rows(x, nb), _pad_rows(t, nb),
                            _pad_rows(mask, nb), key)
         return self._result(*(o[:b] for o in outs), t)
@@ -182,7 +249,11 @@ class CounterfactualEngine:
         and chunk i is one serving call with key `fold_in(key, i)`; results
         stay on the device until the last chunk.  As in the JAX engine,
         the chunk count is padded to a power of two by repeating the last
-        row."""
+        row.  On a sharded engine the chunk must split evenly over the
+        shards (ValueError)."""
+        if chunk % (len(self._shards) or 1):
+            raise ValueError(f"bulk chunk size {chunk} must be a multiple of "
+                             f"the mesh batch-axis size {len(self._shards)}")
         self._served.set()
         x, t, mask = self._inputs(x, target, mask)
         key = jax_key(0) if key is None else key

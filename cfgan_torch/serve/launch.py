@@ -4,7 +4,7 @@ HTTP API on the card (mirrors `cfgan/serve/launch.py`).
     python -m cfgan_torch.serve.launch --app mnist|house|moons
         [--results DIR] [--host H] [--share] [--device cpu]
     python -m cfgan_torch.serve.launch --app mnist|house|moons --api
-        [--results DIR] [--host H] [--port P] [--device cpu]
+        [--results DIR] [--host H] [--port P] [--device cpu] [--shard]
 
 The default run dir is `results/<app>_countergan`.
 
@@ -19,8 +19,9 @@ with that message (it never serves the API in the app's place).  With
 `--api`, `main` serves the engine with `cfgan_torch.serve.api.serve`
 until interrupted, after one warm-up request.  Either way `main`
 switches TF32 off, so that the float32 classifier's convs and matmuls
-compute in float32 as the JAX package's do.  The JAX launcher's
-`--shard` (data-parallel serving over a device mesh) is not ported.
+compute in float32 as the JAX package's do.  `--shard` (with `--api`
+only) serves data-parallel over every local card (`engine.shard(
+create_mesh())`), or over the `--device` named.
 """
 from __future__ import annotations
 
@@ -55,21 +56,28 @@ def setup_mnist(results_dir: str, device: str | torch.device | None = None,
     preset's run dir; `conv_impl` routes the generator's 3x3 convs
     (None: cuDNN; "pallas": the hand-written kernel)."""
     from cfgan_torch.data.mnist import load_mnist
-    from cfgan_torch.train.builders import build_mnist_serving, mnist_models
+    from cfgan_torch.train.builders import (
+        NUM_CLASSES,
+        build_mnist_serving,
+        mnist_models,
+    )
 
     exp = presets.MNIST_COUNTERGAN
     cfg = replace(exp.countergan, conv_impl=conv_impl)
     _, _, (xte, yte) = load_mnist(valid_fraction=exp.data.valid_fraction)
     g_model, clf_model = mnist_models(cfg)
-    s = build_mnist_serving(
-        cfg, restore_state_dict(g_model, os.path.join(results_dir,
-                                                      "generator")),
-        restore_state_dict(clf_model, os.path.join(results_dir,
-                                                   "classifier")),
-        device=device)
-    engine = CounterfactualEngine(s.cf_fn, s.clf_fn, s.num_classes,
+    g_sd = restore_state_dict(g_model, os.path.join(results_dir,
+                                                    "generator"))
+    clf_sd = restore_state_dict(clf_model, os.path.join(results_dir,
+                                                        "classifier"))
+
+    def serving(dev):
+        s = build_mnist_serving(cfg, g_sd, clf_sd, device=dev)
+        return s.cf_fn, s.clf_fn
+
+    engine = CounterfactualEngine(*serving(device), NUM_CLASSES,
                                   patch_size=cfg.mask.patch_size,
-                                  device=device)
+                                  device=device, replica_fn=serving)
     return engine, xte, yte, cfg.mask.patch_size
 
 
@@ -84,21 +92,33 @@ def setup_house(results_dir: str, device: str | torch.device | None = None):
     )
     from cfgan_torch.train.classifier import make_eval_fn
 
-    dev = resolve_device(device)
     _, (xte, yte), stats, bins, schema = load_kc_house()
-    clf = TabularClassifier()
-    clf.load_state_dict(restore_state_dict(
-        clf, os.path.join(results_dir, "classifier")))
-    clf.to(dev).eval().requires_grad_(False)
-    bundle = build_tabular_countergan(presets.HOUSE_COUNTERGAN.countergan,
-                                      clf.state_dict(), schema, stats,
-                                      device=dev)
-    g_vars = restore_state_dict(bundle.state.g.model,
-                                os.path.join(results_dir, "generator"))
-    engine = house_engine(bundle, make_eval_fn(clf)[0],
-                          g_variables={k: v.to(dev)
-                                       for k, v in g_vars.items()},
-                          device=dev)
+    clf_sd = restore_state_dict(TabularClassifier(),
+                                os.path.join(results_dir, "classifier"))
+    g_vars = None
+
+    def on(dev):
+        nonlocal g_vars
+        clf = TabularClassifier()
+        clf.load_state_dict(clf_sd)
+        clf.to(dev).eval().requires_grad_(False)
+        bundle = build_tabular_countergan(
+            presets.HOUSE_COUNTERGAN.countergan, clf.state_dict(), schema,
+            stats, device=dev)
+        if g_vars is None:
+            g_vars = restore_state_dict(
+                bundle.state.g.model, os.path.join(results_dir, "generator"))
+        return house_engine(bundle, make_eval_fn(clf)[0],
+                            g_variables={k: v.to(dev)
+                                         for k, v in g_vars.items()},
+                            device=dev)
+
+    def serving(dev):
+        e = on(dev)
+        return e.cf_fn, e.clf_fn
+
+    engine = on(resolve_device(device))
+    engine.replica_fn = serving
     return engine, xte, yte, schema, stats, bins
 
 
@@ -185,7 +205,12 @@ def main(argv=None) -> None:
                     "with --api)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
+    ap.add_argument("--shard", action="store_true",
+                    help="data-parallel serving over all local cards "
+                    "(engine.shard on a 1-D mesh; only with --api)")
     args = ap.parse_args(argv)
+    if args.shard and not args.api:
+        ap.error("--shard serves the HTTP API: pass --api too")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     results = args.results or DEFAULT_RESULTS[args.app]
@@ -203,6 +228,11 @@ def main(argv=None) -> None:
 
     out = SETUPS[args.app](results, device=args.device)
     engine = out[0]
+    if args.shard:
+        from cfgan_torch.parallel.mesh import create_mesh
+
+        engine.shard(create_mesh(devices=None if args.device is None
+                                 else [args.device]))
     x_test = out[2] if args.app == "moons" else out[1]
     # one request before the first client's: builds and first calls
     # happen here

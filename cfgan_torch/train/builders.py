@@ -151,9 +151,9 @@ def build_mnist_serving(cfg: CounterGANConfig,
         model.load_state_dict(params, strict=True)
         model.to(device=device, dtype=dtype).eval().requires_grad_(False)
 
-    def cf_fn(x, target, mask, key=None):
-        """`key` is accepted for the engine's signature; the MNIST
-        generator draws no noise."""
+    def cf_fn(x, target, mask, key=None, row0=0):
+        """`key` and `row0` are accepted for the engine's signature; the
+        MNIST generator draws no noise."""
         raw, masked = g_model(x.to(cd), target, mask.to(cd))
         raw, masked = raw.float(), masked.float()
         return torch.clamp(x + masked, -1.0, 1.0), raw, masked
@@ -212,9 +212,9 @@ def build_moons_serving(cfg: CounterGANConfig,
         model.load_state_dict(params, strict=True)
         model.to(device=device, dtype=dtype).eval().requires_grad_(False)
 
-    def cf_fn(x, target, mask, key=None):
-        """`key` is accepted for the engine's signature; the moons
-        generator draws no noise."""
+    def cf_fn(x, target, mask, key=None, row0=0):
+        """`key` and `row0` are accepted for the engine's signature; the
+        moons generator draws no noise."""
         raw, masked = g_model(x.to(cd), one_hot(target, num_classes, cd),
                               mask.to(cd))
         raw, masked = raw.float(), masked.float()
@@ -231,10 +231,15 @@ def moons_engine(cfg: CounterGANConfig, g_params: Mapping[str, torch.Tensor],
                  device: str | torch.device | None = None
                  ) -> CounterfactualEngine:
     """A generic `CounterfactualEngine` (no patch size, no schema: the
-    default mask is all-ones) on `build_moons_serving`."""
-    s = build_moons_serving(cfg, g_params, clf_params, device)
-    return CounterfactualEngine(s.cf_fn, s.clf_fn, s.num_classes,
-                                device=device)
+    default mask is all-ones) on `build_moons_serving`, with replicas for
+    `shard`."""
+
+    def serving(dev):
+        s = build_moons_serving(cfg, g_params, clf_params, dev)
+        return s.cf_fn, s.clf_fn
+
+    return CounterfactualEngine(*serving(device), MOONS_CLASSES,
+                                device=device, replica_fn=serving)
 
 
 def _cast_floats(a, dtype: torch.dtype):
@@ -338,12 +343,12 @@ def make_cf_fn(g_model: nn.Module, compute_dtype: str) -> Callable:
     ignores the mask and returns its delta twice) at the compute dtype
     (all floating variables cast, BatchNorm statistics included, as the
     JAX package's `cf_fn` casts them), float32 outputs, the clamp to
-    [-1, 1] in float32.  `key` is accepted for the families' common
-    signature; the MNIST generators draw no noise."""
+    [-1, 1] in float32.  `key` and `row0` are accepted for the families'
+    common signature; the MNIST generators draw no noise."""
     cd = torch_dtype(compute_dtype)
     serve_g = copy.deepcopy(g_model).eval().requires_grad_(False)
 
-    def cf_fn(g_vars, x, target, mask, key=None):
+    def cf_fn(g_vars, x, target, mask, key=None, row0=0):
         gv = {k: v.to(cd) if v.is_floating_point() else v
               for k, v in g_vars.items()}
         with torch.no_grad():
@@ -513,8 +518,8 @@ def _engine(bundle: CounterGANBundle, clf_fn: Callable,
         g_variables = state.g.model.state_dict()
     gv = _copies(g_variables)
 
-    def cf_fn(x, target, mask, key=None):
-        return bundle.cf_fn(gv, x, target, mask, key)
+    def cf_fn(x, target, mask, key=None, row0=0):
+        return bundle.cf_fn(gv, x, target, mask, key, row0=row0)
 
     return CounterfactualEngine(cf_fn, clf_fn, bundle.num_classes,
                                 device=device, **kw)
@@ -673,23 +678,25 @@ def make_tabular_cf_fn(g_model: TabularResidualGenerator,
                        cfg: CounterGANConfig, schema: TabularSchema,
                        assembly: ResidualAssembly, num_classes: int
                        ) -> Callable:
-    """`cf_fn(g_vars, x, target, mask, key, hard=True) -> (x_cf, raw,
-    masked)` (the tabular `cf_fn` of `build_tabular_countergan`):
+    """`cf_fn(g_vars, x, target, mask, key, hard=True, row0=0) -> (x_cf,
+    raw, masked)` (the tabular `cf_fn` of `build_tabular_countergan`):
     `g_vars` through an eval-mode copy of `g_model` at the compute dtype,
     hard Gumbel samples on the noise `derive_gumbel_noise(key, B, ...)`
     derives per row (so a row's counterfactual does not depend on the
-    batch it is served in), the residual assembled in float32, x_cf
-    clamped to [0, 1] data space.  `key` is a JAX key pair."""
+    batch it is served in; x's rows are rows row0.. of the request), the
+    residual assembled in float32, x_cf clamped to [0, 1] data space.
+    `key` is a JAX key pair."""
     cd = torch_dtype(cfg.compute_dtype)
     noise_dtype = torch.float32 if cfg.cat_head_f32 else cd
     serve_g = copy.deepcopy(g_model).eval().requires_grad_(False)
     info = schema.categorical_info
 
-    def cf_fn(g_vars, x, target, mask, key: Key, hard: bool = True):
+    def cf_fn(g_vars, x, target, mask, key: Key, hard: bool = True,
+              row0: int = 0):
         gv = {k: v.to(cd) if v.is_floating_point() else v
               for k, v in g_vars.items()}
         noise = derive_gumbel_noise(key, x.shape[0], info, noise_dtype,
-                                    device=x.device)
+                                    device=x.device, row0=row0)
         t_oh = one_hot(target, num_classes, cd)
         with torch.no_grad():
             cont, _, samples = functional_call(
@@ -814,12 +821,13 @@ def make_moons_cf_fn(g_model: MoonsResidualGenerator, compute_dtype: str,
     (the `cf_fn` of `build_moons_countergan`): `g_vars` through an
     eval-mode copy of `g_model` at the compute dtype, the target one-hot at
     the compute dtype, float32 outputs and `x + masked` unclamped (the
-    moons presets have `clamp_cf=None`).  `key` is accepted for the
-    families' common signature; the moons generator draws no noise."""
+    moons presets have `clamp_cf=None`).  `key` and `row0` are accepted
+    for the families' common signature; the moons generator draws no
+    noise."""
     cd = torch_dtype(compute_dtype)
     serve_g = copy.deepcopy(g_model).eval().requires_grad_(False)
 
-    def cf_fn(g_vars, x, target, mask, key=None):
+    def cf_fn(g_vars, x, target, mask, key=None, row0=0):
         gv = {k: v.to(cd) if v.is_floating_point() else v
               for k, v in g_vars.items()}
         with torch.no_grad():

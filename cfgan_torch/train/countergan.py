@@ -35,6 +35,14 @@ statistics); `g_microbatch` = K >= 2 gives the D phase its own forward
 and epilogue without a graph, then runs the generator update in K
 chunks, each with its forward, its epilogue and its backward: K + 1
 epilogue forwards and K backwards a step.
+
+A state replicated on a mesh (`cfgan_torch.parallel.replicate`) trains
+data-parallel, as the JAX step does under a sharded batch: the step takes
+the global batch and its draws (the same on every rank), trains on this
+rank's rows (`shard_rows`; under `g_microbatch` = K, its share of each
+global chunk), with the BatchNorms synchronised, averages the gradients
+over the ranks before each optimizer step and returns the metrics'
+means over the ranks.  The replicas stay equal bit for bit.
 """
 from __future__ import annotations
 
@@ -47,6 +55,11 @@ from cfgan_torch.core.config import CounterGANConfig
 from cfgan_torch.losses import countergan as cg_losses
 from cfgan_torch.losses import gan as gan_losses
 from cfgan_torch.ops.epilogue import cf_epilogue, epilogue_terms
+from cfgan_torch.parallel.sharding import (
+    all_reduce_grads,
+    mean_metrics,
+    shard_rows,
+)
 from cfgan_torch.train.state import GANState
 
 ADV_LOSSES = ("wasserstein", "bce", "clipped_log")
@@ -178,6 +191,14 @@ def make_countergan_step(*, cfg: CounterGANConfig, num_classes: int,
 
     def step_with_draws(state: GANState, x, y, t, mask, noise=None,
                         chunk_noise=None) -> dict:
+        mesh = state.mesh
+        if mesh is not None:  # this rank's rows of the global batch
+            x, y, t, mask = (shard_rows(mesh, a, k_micro if micro else 1)
+                             for a in (x, y, t, mask))
+            if noise is not None:
+                noise = shard_rows(mesh, noise, k_micro if micro else 1)
+            if chunk_noise is not None:
+                chunk_noise = shard_rows(mesh, chunk_noise, dim=1)
         if micro and x.shape[0] % k_micro:
             raise ValueError(f"g_microbatch={k_micro} must divide the batch "
                              f"size {x.shape[0]}")
@@ -205,6 +226,7 @@ def make_countergan_step(*, cfg: CounterGANConfig, num_classes: int,
         d_loss = d_loss_of(d_real, d_fake)
         d.opt.zero_grad(set_to_none=True)
         d_loss.backward()
+        all_reduce_grads(mesh, d.model.parameters())
         d.opt.step()
 
         # ---- generator update through the updated discriminator ----
@@ -217,6 +239,7 @@ def make_countergan_step(*, cfg: CounterGANConfig, num_classes: int,
             total, (adv, cls, l1, l2, pen), cf_logits = g_terms(
                 cf, sums, raw, x, t, mask)
             total.backward()
+        all_reduce_grads(mesh, g.model.parameters())
         g.opt.step()
 
         if state.g_ema is not None:
@@ -245,7 +268,7 @@ def make_countergan_step(*, cfg: CounterGANConfig, num_classes: int,
                     flip_rate=(cf_logits.argmax(1) == t).float().mean(),
                     pred_gain=(probs_cf.gather(1, col)
                                - probs_x.gather(1, col)).mean())
-        return metrics
+        return mean_metrics(mesh, metrics)
 
     def step_from_draws(state: GANState, x, y,
                         draws: Mapping[str, torch.Tensor]) -> dict:

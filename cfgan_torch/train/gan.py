@@ -33,6 +33,11 @@ and `z2` (B, latent) (WGAN-GP).  The step returns its metrics as device
 tensors and reads nothing back to the host: the WGAN-GP branch is decided
 by the host's step count, so the epoch runner captures one graph for each
 kind of step (`schedule`).
+
+A state replicated on a mesh (`cfgan_torch.parallel.replicate`) trains
+data-parallel: the step takes the global batch and draws, trains on this
+rank's rows with the BatchNorms synchronised, averages each update's
+gradients over the ranks and returns the metrics' means over them.
 """
 from __future__ import annotations
 
@@ -42,6 +47,11 @@ import torch
 
 from cfgan_torch.losses import gan as losses
 from cfgan_torch.nn.layers import one_hot
+from cfgan_torch.parallel.sharding import (
+    all_reduce_grads,
+    mean_metrics,
+    shard_rows,
+)
 from cfgan_torch.train.state import GANState
 
 LOSSES = ("nonsaturating", "wgan_gp")
@@ -99,9 +109,10 @@ def make_gan_step(*, g_forward: Callable, d_forward: Callable,
         return (losses.d_loss_nonsaturating(real_out, fake_out), real_out,
                 fake_out)
 
-    def update(ns, loss_value):
+    def update(ns, loss_value, mesh):
         ns.opt.zero_grad(set_to_none=True)
         loss_value.backward()
+        all_reduce_grads(mesh, ns.model.parameters())
         ns.opt.step()
 
     def g_phase(state: GANState, fake, t_oh):
@@ -109,11 +120,16 @@ def make_gan_step(*, g_forward: Callable, d_forward: Callable,
         as it stands, on the graph of `fake`."""
         out = d_forward(fake, t_oh, update_stats=False, detach=True)
         gl = losses.g_loss_nonsaturating(out)
-        update(state.g, gl)
+        update(state.g, gl, state.mesh)
         return gl
 
     def step_with_draws(state: GANState, x, y, z, t=None, gp_eps=None,
                         z2=None) -> dict:
+        mesh = state.mesh
+        if mesh is not None:  # this rank's rows of the global batch
+            x, y, z, t, gp_eps, z2 = (
+                None if a is None else shard_rows(mesh, a)
+                for a in (x, y, z, t, gp_eps, z2))
         g_turn = state.step % n_critic == 0
         if conditional:
             t_oh = one_hot(t, num_classes, x.dtype)
@@ -137,7 +153,7 @@ def make_gan_step(*, g_forward: Callable, d_forward: Callable,
                 lambda xh: d_forward(xh, fake_cond, update_stats=False),
                 x, fake_sg, gp_eps)
             d_loss = d_loss + gp_lambda * gp
-        update(state.d, d_loss)
+        update(state.d, d_loss, mesh)
 
         if not g_before_d:
             if not g_turn:
@@ -146,13 +162,14 @@ def make_gan_step(*, g_forward: Callable, d_forward: Callable,
                 fake2 = g_forward(z2, t_oh)
                 g_loss = losses.g_loss_wasserstein(
                     d_forward(fake2, t_oh, update_stats=False, detach=True))
-                update(state.g, g_loss)
+                update(state.g, g_loss, mesh)
             else:
                 g_loss = g_phase(state, fake, t_oh)
         state.step += 1
-        return {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(),
-                "d_real": real_out.detach().mean(),
-                "d_fake": fake_out.detach().mean()}
+        return mean_metrics(mesh, {
+            "d_loss": d_loss.detach(), "g_loss": g_loss.detach(),
+            "d_real": real_out.detach().mean(),
+            "d_fake": fake_out.detach().mean()})
 
     def draw_fn(generator: torch.Generator, shape: tuple[int, ...]) -> dict:
         dev = generator.device

@@ -16,6 +16,7 @@ import time
 from typing import Any, Callable, Mapping
 
 import torch
+import torch.distributed as dist
 
 from cfgan_torch.core import checkpoint as ckpt
 from cfgan_torch.data.pipeline import epoch_perm, stream_seed
@@ -63,6 +64,13 @@ class EpochRunner:
     one of that kind has (the optimizer state a kind alone updates, such
     as the generator's Adam on WGAN-GP's G steps, is made then).
 
+    A state replicated on a mesh (`cfgan_torch.parallel.replicate`) runs
+    the same epoch on every rank, each step on the rank's rows of the
+    global batch; on the card its group must be NCCL, whose collectives
+    the graphs capture with the step (a gloo group raises RuntimeError).
+    Every rank makes the same capture decisions: they depend only on the
+    step count, the shapes and the schedule.
+
     Restoring a checkpoint into `state` must copy in place
     (`cfgan_torch.core.checkpoint.restore_train_state` does): the graphs
     hold the addresses of the parameters, buffers and optimizer state.
@@ -108,6 +116,14 @@ class EpochRunner:
         return self._run_cuda(state, data_x, data_y, perm, draws)
 
     def _run_cuda(self, state, data_x, data_y, perm, draws) -> dict:
+        mesh = getattr(state, "mesh", None)
+        if mesh is not None and mesh.group is not None and (
+                dist.get_backend(mesh.group) != "nccl"):
+            raise RuntimeError(
+                f"the epoch runner captures the step as a CUDA graph, and "
+                f"the collectives of a {dist.get_backend(mesh.group)} "
+                "process group cannot be captured: replicate a CUDA state "
+                "on an NCCL group (there is no eager fallback on the card)")
         dev = data_x.device
         steps = perm.shape[0]
         key = (id(state), data_x.data_ptr(), data_y.data_ptr(),
@@ -213,6 +229,7 @@ def epoch_generators(seed: int, epoch: int, device: torch.device
 def train_countergan_loop(bundle, x_train, y_train, *, epochs: int,
                           batch_size: int, seed: int = 42,
                           log: Callable[[str], None] = print,
+                          mesh=None,
                           checkpoint_dir: str | None = None,
                           checkpoint_every: int = 0, resume: bool = True,
                           epoch_cb: Callable[[int, Any], None] | None = None):
@@ -228,16 +245,30 @@ def train_countergan_loop(bundle, x_train, y_train, *, epochs: int,
     (seed, epoch), so the continuation equals the uninterrupted run.
     `epoch_cb(epoch_1based, state)` runs after every epoch (the snapshot
     selection hook); the runner updates the state in place, so the
-    callback copies what it keeps."""
+    callback copies what it keeps.
+
+    With a `mesh` (`cfgan_torch.parallel.create_mesh`, one device a
+    process) every rank of the mesh's world calls the loop with the same
+    arguments and trains data-parallel: the state is replicated from rank
+    0 (`replicate`), every rank keeps the whole dataset and draws the
+    same global permutation and draws, and each step trains on the rank's
+    rows of its batch.  Every rank's history holds the global means; rank
+    0 alone logs and writes the checkpoints (`save_sharded`)."""
     state = bundle.state
     start_epoch = 0
     history: dict = {}
+    if mesh is not None and mesh.rank != 0:
+        log = _silent
     if resume and checkpoint_dir and ckpt.exists(checkpoint_dir):
         start_epoch, saved = ckpt.restore_train_state(checkpoint_dir, state)
         for k, vs in saved.items():
             history.setdefault(k, vs)
         log(f"[CounteRGAN] resuming from {checkpoint_dir} at epoch "
             f"{start_epoch + 1}/{epochs}")
+    if mesh is not None:
+        from cfgan_torch.parallel.sharding import replicate
+
+        replicate(mesh, state)
     dev = next(state.g.model.parameters()).device
     x = torch.as_tensor(x_train).to(dev)
     y = torch.as_tensor(y_train).to(dev, torch.long)
@@ -257,12 +288,20 @@ def train_countergan_loop(bundle, x_train, y_train, *, epochs: int,
         log(f"[CounteRGAN] epoch {epoch+1}/{epochs} :: {line}")
         if (checkpoint_dir and checkpoint_every
                 and (epoch + 1) % checkpoint_every == 0):
-            ckpt.save_train_state(checkpoint_dir, state, epoch,
-                                  history=history)
+            if mesh is None:
+                ckpt.save_train_state(checkpoint_dir, state, epoch,
+                                      history=history)
+            else:
+                ckpt.save_sharded(checkpoint_dir, state,
+                                  ckpt.train_state_metadata(epoch, history))
         if epoch_cb is not None:
             epoch_cb(epoch + 1, state)
     history["wall_time_s"] = time.perf_counter() - t0
     return state, history
+
+
+def _silent(line: str) -> None:
+    """The log of a rank other than 0."""
 
 
 LOSS_LABELS = {"g_loss": "Generator Loss", "d_loss": "Discriminator Loss",

@@ -9,6 +9,7 @@ place.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Any
 
 import torch
 from torch import nn
@@ -61,3 +62,7 @@ class GANState:
     # per-step EMA of the generator parameters by name (ema_decay > 0),
     # starting at the initial parameters; None when EMA is off
     g_ema: dict[str, torch.Tensor] | None = None
+    # the mesh the state is replicated on (`cfgan_torch.parallel.
+    # replicate`): its step then trains on this rank's rows of each
+    # global batch and averages gradients and metrics over the ranks
+    mesh: Any = None

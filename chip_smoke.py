@@ -229,13 +229,24 @@ route against cuDNN's (13 launches a forward); `python -m
 cfgan_torch.serve.launch --app moons` exiting non-zero with the
 ImportError's message where gradio is missing; the conv at b=1 timed.
 
+Then the mesh and sharding layer, `sharded` (`cfgan_torch.parallel`):
+the shipped preset with the conv kernel trained through
+`train_countergan_loop(mesh=create_mesh())` on an NCCL world of one, its
+step captured with the all-reduces inside and replayed, equal bit for
+bit to the loop without a mesh; a world of two processes on the card
+(gloo over CUDA tensors; with several cards one NCCL rank a card), each
+rank three steps on its 64 rows of the global batch of 128, in f32 and
+bf16, against the single-process steps and bit for bit against each
+other; the f32 kernel engine sharded over the card twice against the
+engine unsharded (a bulk chunk that does not split refused).
+
 Then it times the kernels, their plain versions, cuDNN for the conv and
 its weight gradient, the serving requests and the train step (bf16 with
 cuDNN's convs and with the kernels, f32 with the kernels), and the
 epilogue kernels at the house step's (128, 17) rows, the moons step's
 (64, 2) rows and the micro-batched step's (64, 784) and (32, 784).
 
-    python3 chip_smoke.py --phases "custom shapes,examples,figures,apps"
+    python3 chip_smoke.py --phases "custom shapes,examples,figures,apps,sharded"
 
 builds the kernels and runs only the named phases (those that need
 nothing of the others'), for iterating by hand; its last line says which
@@ -569,6 +580,28 @@ API_THREADS, API_PER_THREAD = 8, 25
 # factor of the bf16 cuDNN route's own error (trained weights: residuals
 # up to ~5, where a bf16 ulp is 2**-5 to 2**-6)
 API_KERNEL_SLACK = 1.25
+
+# the sharded phase: (a) the preset through `train_countergan_loop(mesh=)`
+# on a world of one (NCCL), SHARDED_EPOCHS epochs of SHARDED_ROWS rows at
+# batch 128, bit for bit against the loop without a mesh; (b) SHARDED_STEPS
+# steps of a world of 2 (4 with four cards) on the global batch of 128,
+# f32 metrics at the JAX package's sharded bar (tests/test_sharding.py:
+# 63-67), bf16 ones at TRAIN_ATOL (the flip rate, a count of rows whose
+# resolution 1 / 128 is coarser than that, within one row: a row at the
+# classifier's boundary may flip on a bf16 rounding of other sums), the
+# gradients and parameters at the
+# `train pallas` bars (moment_report: the same functions summed in
+# another order, and Adam's first steps move a parameter whose gradient
+# is near zero by up to lr whatever its sign); (c) the f32 kernel engine
+# sharded over the card twice (or the cards) against the engine unsharded
+SHARDED_ROWS = 1280
+SHARDED_EPOCHS = 2
+SHARDED_STEPS = 3
+SHARDED_RTOL, SHARDED_ATOL = 2e-4, 1e-5
+SHARDED_SERVE_ATOL = 1e-6  # tests/test_sharding.py:193-209
+SHARDED_SIZES = (1, 5, 100)
+SHARDED_CHUNK, SHARDED_BAD_CHUNK = 16, 15
+SHARDED_TIMEOUT = 300  # seconds the ranks of (b) may take
 
 
 def fail(msg: str) -> None:
@@ -1904,8 +1937,15 @@ def served_engine(cfg, g_sd: dict, c_sd: dict, dev, dtype: str,
              f"{KERNEL_LAYERS_PER_FORWARD}")
     for m in routed if plain else ():
         m.impl = "matmul"
+
+    def replica(d):
+        r = build_mnist_serving(replace(cfg, compute_dtype=dtype), g_sd,
+                                c_sd, device=d, **shape)
+        return r.cf_fn, r.clf_fn
+
     return CounterfactualEngine(s.cf_fn, s.clf_fn, s.num_classes,
-                                patch_size=cfg.mask.patch_size, device=dev)
+                                patch_size=cfg.mask.patch_size, device=dev,
+                                replica_fn=None if plain else replica)
 
 
 def compare_served(report: dict, ours: dict, plain: dict, num_classes: int,
@@ -4279,11 +4319,342 @@ def apps_phase(card: str, dev, counts, zero_counts) -> dict:
                         "timing": timing["float32"]}}
 
 
+def sharded_steps(dev, dtype: str, mesh=None, counts=None):
+    """SHARDED_STEPS steps of the shipped preset with the conv kernel at
+    `dtype` on the global batch of TRAIN_BATCH rows, from initial weights
+    and data made from SEED (the same on every rank), on a state
+    replicated on `mesh` (None: one process).  Builds the bundle and its
+    batches, then returns `run()`, which takes the steps and returns the
+    metrics by step, Adam's first moments after the first step and the
+    parameters after the last (flax paths, numpy), the mean ms of a step
+    after the first, the kernel launches (with `counts`), and whether
+    every rank holds the same state."""
+    import numpy as np
+    import torch
+
+    from cfgan_torch.convert import adam_moments_to_flax, gan_state_to_flax
+    from cfgan_torch.core.config import MNIST_COUNTERGAN
+    from cfgan_torch.parallel import replicate
+    from cfgan_torch.parallel.sharding import state_tensors, states_equal
+    from cfgan_torch.train.builders import build_mnist_countergan, mnist_models
+
+    cfg = replace(MNIST_COUNTERGAN, conv_impl="pallas", compute_dtype=dtype)
+    gen = torch.Generator().manual_seed(SEED + 30)
+    clf_sd = mnist_models(cfg, generator=gen)[1].state_dict()
+    b = TRAIN_BATCH
+    x = (torch.rand((SHARDED_STEPS, b, 28, 28, 1), generator=gen) * 2
+         - 1).to(dev)
+    y = torch.randint(0, 10, (SHARDED_STEPS, b), generator=gen).to(dev)
+    bundle = build_mnist_countergan(cfg, clf_sd, seed=SEED, device=dev)
+    draws = {k: v.to(dev) for k, v in bundle.draw_fn(
+        torch.Generator().manual_seed(SEED + 31), (SHARDED_STEPS, b)).items()}
+    if mesh is not None:
+        replicate(mesh, bundle.state)
+
+    def run() -> dict:
+        metrics, times = [], []
+        before = counts() if counts is not None else None
+        for i in range(SHARDED_STEPS):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            m = bundle.step_from_draws(bundle.state, x[i], y[i],
+                                       {k: v[i] for k, v in draws.items()})
+            torch.cuda.synchronize(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+            metrics.append({k: float(v) for k, v in m.items()})
+            if i == 0:
+                mu = {net: _flat(tree) for net, tree in
+                      adam_moments_to_flax(bundle.state).items()}
+        tree = gan_state_to_flax(bundle.state)
+        params = {net: {k: np.asarray(v, np.float32)
+                        for k, v in _flat(tree[net]["params"]).items()}
+                  for net in ("g", "d")}
+        launched = (None if counts is None else
+                    tuple(a - c for a, c in zip(counts(), before)))
+        equal = (True if mesh is None else
+                 states_equal(mesh, state_tensors(bundle.state)))
+        return {"metrics": metrics, "mu": mu, "params": params,
+                "step_ms": statistics.mean(times[1:]), "launches": launched,
+                "equal": equal, "lr": (cfg.lr_g, cfg.lr_d)}
+
+    return run
+
+
+def sharded_rank(rank: int, library: str, single_card: bool, go) -> dict:
+    """One rank of the sharded phase's world (b), in a process of its own:
+    the prebuilt kernel library, this rank's card (card 0 for every rank
+    of a gloo world on one card), the replicated states of
+    `sharded_steps` in f32 and bf16, then, once the parent sets `go`,
+    their steps."""
+    import torch
+
+    from cfgan_torch.ops import _build
+    from cfgan_torch.ops import epilogue as tep
+    from cfgan_torch.ops.conv import conv3x3_same, conv3x3_same_dkernel
+    from cfgan_torch.parallel import create_mesh
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    _build.load_library(library)
+    dev = torch.device("cuda", 0 if single_card else rank)
+    torch.cuda.set_device(dev)
+    mesh = create_mesh(devices=[dev])
+
+    def counts():
+        return (tep.cf_epilogue_fwd.launches, tep.cf_epilogue_bwd.launches,
+                conv3x3_same.launches, conv3x3_same_dkernel.launches)
+
+    runs = {dtype: sharded_steps(dev, dtype, mesh, counts)
+            for dtype in ("float32", "bfloat16")}
+    if not go.wait(SHARDED_TIMEOUT):
+        raise TimeoutError("the parent never started the steps")
+    return {dtype: run() for dtype, run in runs.items()}
+
+
+def sharded_phase(card: str, dev, counts, zero_counts) -> dict:
+    """The mesh and sharding layer on the card, at the shipped preset's
+    width (64 channels, 6 blocks, batch 128, `conv_impl="pallas"`):
+
+    (a) a world of one on this card with NCCL: SHARDED_EPOCHS epochs of
+        SHARDED_ROWS rows through `train_countergan_loop(mesh=create_mesh
+        ())`, whose epoch runner captures the step, the all-reduces of the
+        BatchNorm statistics, the gradients and the metrics inside, as
+        CUDA graphs (captures and replays printed); its history and its
+        whole state equal the same loop's without a mesh bit for bit (a
+        sum over one rank and a division by 1 change no bit); the
+        epilogue, conv and dK kernels launched;
+    (b) a world of 2 processes on this card joined by gloo over CUDA
+        tensors (NCCL refuses two ranks on one device; with two or more
+        cards, one NCCL rank a card, up to 4), each rank SHARDED_STEPS
+        steps of the global batch on its rows, in f32 and bf16, from one
+        initial state and the same draws, against the single-process
+        steps on this card: metrics at SHARDED_RTOL / SHARDED_ATOL (f32)
+        and TRAIN_ATOL (bf16), gradients and parameters by
+        `moment_report`; the ranks' states equal bit for bit; the ranks
+        start (and load the kernels) while the parent runs (a) and (c),
+        and take their steps alone on the card;
+    (c) the f32 kernel engine sharded over [card, card] (or the cards)
+        against the engine unsharded: `generate` at SHARDED_SIZES and
+        `generate_bulk` at chunk SHARDED_CHUNK within SHARDED_SERVE_ATOL,
+        a chunk of SHARDED_BAD_CHUNK rejected with ValueError.
+
+    Returns the launches by kernel of a rank's bf16 steps in (b) and its
+    rows, for the `kernels` line."""
+    import multiprocessing as mp
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from cfgan_torch.core.config import MNIST_COUNTERGAN
+    from cfgan_torch.ops import _build
+    from cfgan_torch.ops.conv import conv3x3_same
+    from cfgan_torch.parallel import create_mesh, spawn_world
+    from cfgan_torch.parallel.mesh import free_port
+    from cfgan_torch.parallel.sharding import state_tensors
+    from cfgan_torch.train.builders import build_mnist_countergan, mnist_models
+    from cfgan_torch.train.loop import train_countergan_loop
+
+    laps = Laps()
+    n_cards = torch.cuda.device_count()
+    world = 4 if n_cards >= 4 else 2
+    backend = "nccl" if n_cards >= 2 else "gloo"
+    go = mp.get_context("spawn").Event()
+    pool = ThreadPoolExecutor(1)
+    ranks = pool.submit(spawn_world, sharded_rank, world,
+                        (str(_build.load_library().path), n_cards < 2, go),
+                        backend=backend, timeout=SHARDED_TIMEOUT, threads=None)
+    try:
+        cudnn = (torch.backends.cudnn.deterministic,
+                 torch.backends.cudnn.benchmark)
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+
+        # (a) a world of one with NCCL, the loop's runner capturing it
+        cfg = replace(MNIST_COUNTERGAN, conv_impl="pallas")
+        gen = torch.Generator().manual_seed(SEED + 32)
+        clf_sd = mnist_models(cfg, generator=gen)[1].state_dict()
+        x = (torch.rand((SHARDED_ROWS, 28, 28, 1), generator=gen) * 2 - 1)
+        y = torch.randint(0, 10, (SHARDED_ROWS,), generator=gen)
+        dist.init_process_group(
+            "nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+            world_size=1, rank=0,
+            device_id=torch.device("cuda", torch.cuda.current_device()))
+        try:
+            runs, ends = {}, {}
+            for name in ("mesh", "plain"):
+                mesh = create_mesh() if name == "mesh" else None
+                bundle = build_mnist_countergan(cfg, clf_sd, seed=SEED,
+                                                device=dev)
+                zero_counts()
+                ends[name] = [time.perf_counter()]
+                _, hist = train_countergan_loop(
+                    bundle, x, y, epochs=SHARDED_EPOCHS,
+                    batch_size=TRAIN_BATCH, seed=SEED, mesh=mesh,
+                    log=lambda line: None,
+                    epoch_cb=lambda e, st, t=ends[name]: t.append(
+                        time.perf_counter()))
+                torch.cuda.synchronize()
+                runs[name] = (bundle, hist, counts())
+        finally:
+            dist.destroy_process_group()
+        (mb, mh, launched), (pb, ph, _) = runs["mesh"], runs["plain"]
+        runner = mb.epoch_fn
+        for h in (mh, ph):
+            h.pop("wall_time_s")
+        # the last epoch replays every step: its wall over its steps
+        steps = SHARDED_ROWS // TRAIN_BATCH
+        replayed_ms = {k: (t[-1] - t[-2]) / steps * 1e3
+                       for k, t in ends.items()}
+        first_epoch_s = {k: t[1] - t[0] for k, t in ends.items()}
+        same_state = all(torch.equal(a, b) for a, b in zip(
+            state_tensors(mb.state), state_tensors(pb.state)))
+        ok = (mh == ph and same_state and mb.state.mesh is not None
+              and runner.captures >= 1 and runner.replays > 0
+              and all(launched))
+        emit({"phase": "sharded", "part": "world of one", "card": card,
+              "backend": "nccl", "epochs": SHARDED_EPOCHS,
+              "rows": SHARDED_ROWS, "batch": TRAIN_BATCH,
+              "captures": runner.captures, "replays": runner.replays,
+              "launches": dict(zip(("epilogue_fwd", "epilogue_bwd", "conv",
+                                    "conv_dk"), launched)),
+              "history_equal": mh == ph, "state_equal": same_state,
+              "replayed_step_ms": replayed_ms,
+              "first_epoch_s": first_epoch_s, "ok": ok})
+        if not ok:
+            fail("the world of one's loop is not the plain loop bit for "
+                 "bit, or was not captured, or skipped a kernel")
+        laps("world of one")
+
+        # (b)'s single-process steps on this card
+        plain = {dtype: sharded_steps(dev, dtype)()
+                 for dtype in ("float32", "bfloat16")}
+        laps("single-process steps")
+
+        # (c) the engine sharded over the card twice (or the cards)
+        preset = replace(MNIST_COUNTERGAN, conv_impl="pallas")
+        g_model, c_model = mnist_models(preset, generator=gen)
+        randomize_batch_norms(g_model, gen)
+        g_sd, c_sd = g_model.state_dict(), c_model.state_dict()
+        devices = ([torch.device("cuda", i) for i in range(n_cards)]
+                   if n_cards >= 2 else [dev, dev])
+        mesh = create_mesh(devices=devices)
+        single = served_engine(preset, g_sd, c_sd, dev, "float32")
+        sharded = served_engine(preset, g_sd, c_sd, dev, "float32").shard(
+            mesh)
+        xs = (torch.rand((max(SHARDED_SIZES), 28, 28, 1), generator=gen)
+              * 2 - 1).numpy()
+        ts = torch.randint(0, 10, (max(SHARDED_SIZES),), generator=gen
+                           ).numpy()
+        errs, launches = {}, {}
+        for b in SHARDED_SIZES:
+            conv3x3_same.launches = 0
+            got = sharded.generate(xs[:b], ts[:b])
+            torch.cuda.synchronize()
+            launches[f"b={b}"] = conv3x3_same.launches
+            want = single.generate(xs[:b], ts[:b])
+            errs[f"b={b}"] = max(float(np.abs(getattr(got, k)
+                                              - getattr(want, k)).max())
+                                 for k in ("x_cf", "residual", "probs"))
+            errs[f"b={b} pred_equal"] = bool(np.array_equal(got.pred,
+                                                            want.pred))
+        got = sharded.generate_bulk(xs, ts, chunk=SHARDED_CHUNK)
+        want = single.generate_bulk(xs, ts, chunk=SHARDED_CHUNK)
+        errs["bulk"] = max(float(np.abs(getattr(got, k)
+                                        - getattr(want, k)).max())
+                           for k in ("x_cf", "residual", "probs"))
+        errs["bulk pred_equal"] = bool(np.array_equal(got.pred, want.pred))
+        try:
+            sharded.generate_bulk(xs, ts, chunk=SHARDED_BAD_CHUNK)
+            rejected = False
+        except ValueError:
+            rejected = True
+        served_ok = rejected and all(
+            v is True or (v is not False and v <= SHARDED_SERVE_ATOL)
+            for v in errs.values())
+        ms = {}
+        for name, e in (("sharded", sharded), ("single", single)):
+            ms[name] = statistics.median(host_ms(
+                lambda e=e: e.generate(xs, ts), 10))
+        emit({"phase": "sharded", "part": "engine", "card": card,
+              "devices": [str(d) for d in devices], "dtype": "float32",
+              "max_abs_err": errs, "atol": SHARDED_SERVE_ATOL,
+              "conv_launches": launches,
+              "chunk_rejected": rejected,
+              "generate_b100_median_ms": ms, "ok": served_ok})
+        if not served_ok:
+            fail(f"the sharded engine differs from the unsharded one: "
+                 f"{errs}, chunk {SHARDED_BAD_CHUNK} rejected: {rejected}")
+        laps("engine")
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = cudnn
+
+        # (b) the ranks take their steps alone on the card
+        go.set()
+        outs = ranks.result()
+    finally:
+        go.set()
+        pool.shutdown(wait=True)
+    laps("ranks")
+    report = {"phase": "sharded", "part": "ranks", "card": card,
+              "world": world, "backend": backend,
+              "rows_per_rank": TRAIN_BATCH // world, "steps": SHARDED_STEPS}
+    ok = all(o[d]["equal"] for o in outs for d in o)
+    for dtype in ("float32", "bfloat16"):
+        got, want = outs[0][dtype], plain[dtype]
+        flips = [abs(g["flip_rate"] - w["flip_rate"])
+                 for g, w in zip(got["metrics"], want["metrics"])]
+        if dtype == "float32":
+            errs = [max(abs(g[k] - w[k]) - SHARDED_RTOL * abs(w[k])
+                        for k in w)
+                    for g, w in zip(got["metrics"], want["metrics"])]
+            m_ok = max(errs) <= SHARDED_ATOL
+            bar = f"abs <= {SHARDED_ATOL} + {SHARDED_RTOL} |single|"
+        else:
+            errs = [max(abs(g[k] - w[k]) for k in w if k != "flip_rate")
+                    for g, w in zip(got["metrics"], want["metrics"])]
+            m_ok = (max(errs) <= TRAIN_ATOL[dtype]
+                    and max(flips) <= 1 / TRAIN_BATCH)
+            bar = (f"abs <= {TRAIN_ATOL[dtype]}, flip_rate <= "
+                   f"1/{TRAIN_BATCH}")
+        same = all(o[dtype]["metrics"] == got["metrics"] for o in outs)
+        nets = {}
+        for net, lr in zip(("g", "d"), want["lr"]):
+            nets[net], net_ok = moment_report(
+                got["mu"][net], want["mu"][net], got["params"][net],
+                want["params"][net], lr, dtype)
+            m_ok = m_ok and net_ok
+        report[dtype] = {
+            "metric_excess_per_step" if dtype == "float32" else
+            "metric_max_abs_err_per_step": errs, "metric_bar": bar,
+            "flip_rate_err_per_step": flips,
+            "ranks_report_the_same_metrics": same, **nets,
+            "sharded_step_ms": got["step_ms"],
+            "single_process_step_ms": want["step_ms"],
+            "rank0_launches": dict(zip(("epilogue_fwd", "epilogue_bwd",
+                                        "conv", "conv_dk"),
+                                       got["launches"]))}
+        ok = ok and m_ok and same
+    report["replicas_equal"] = all(o[d]["equal"] for o in outs for d in o)
+    report["part_seconds"] = laps.s
+    report["ok"] = bool(ok)
+    emit(report)
+    if not ok:
+        fail("the sharded ranks differ from the single-process steps or "
+             "from each other")
+    return {"rows": TRAIN_BATCH // world,
+            "launches": outs[0]["bfloat16"]["launches"]}
+
+
 # the phases `--phases` may name: each needs only the built kernels
 STANDALONE_PHASES = {"custom shapes": custom_shapes_phase,
                      "examples": examples_phase,
                      "figures": figures_phase,
-                     "apps": apps_phase}
+                     "apps": apps_phase,
+                     "sharded": sharded_phase}
 
 
 def _selected_phases(argv: list[str]) -> list[str] | None:
@@ -4715,6 +5086,10 @@ def main() -> None:
     with Phase("apps"):
         app_paths = apps_phase(card, dev, counts, zero_counts)
 
+    # ------------------------------------- the mesh and sharding layer
+    with Phase("sharded"):
+        sharded = sharded_phase(card, dev, counts, zero_counts)
+
     # ----------------------------------------------------------- timing
     with Phase("timing"):
         # device time per call (kernel_ms): at batch 1 a launch is shorter
@@ -4868,7 +5243,26 @@ def main() -> None:
               p["err"], p["timing"])
         for name, p in (("conv3x3_same_apps_chat_b1", app_paths["chat"]),
                         ("conv3x3_same_f32_migrate_b1",
-                         app_paths["migrate"]))]})
+                         app_paths["migrate"]))] + [
+        # a rank's kernels in the sharded phase's world (b): the bf16
+        # steps on its rows of the global batch of 128 (64 at world 2)
+        entry(f"{name}_sharded_{sharded['rows']}" + suffix, src, replaces,
+              sharded["launches"][i], err, t)
+        for i, name, src, replaces, suffix, err, t in (
+            (0, "cf_epilogue_fwd", "cfgan_torch/csrc/epilogue.cu",
+             "cfgan/ops/epilogue.py:54", "x784",
+             epi_err_chunk[sharded["rows"]]["fwd"],
+             epi_chunk[sharded["rows"]]["cf_epilogue_fwd"]),
+            (1, "cf_epilogue_bwd", "cfgan_torch/csrc/epilogue.cu",
+             "cfgan/ops/epilogue.py:67", "x784",
+             epi_err_chunk[sharded["rows"]]["bwd"],
+             epi_chunk[sharded["rows"]]["cf_epilogue_bwd"]),
+            (2, "conv3x3_same", conv_src, "cfgan/ops/conv.py:71", "",
+             kernel_err[(sharded["rows"], 28, 28, 64, 64), "bfloat16"],
+             timing[(sharded["rows"], 28, 28, 64, 64), "bfloat16"]),
+            (3, "conv3x3_same_dkernel", dk_src, "cfgan/ops/conv.py:165", "",
+             dk_err[(sharded["rows"], 28, 28, 64, 64), "bfloat16"],
+             timing["dk", (sharded["rows"], 28, 28, 64, 64), "bfloat16"]))]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": count}})

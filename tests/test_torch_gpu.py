@@ -1212,3 +1212,64 @@ def test_figures_launch_the_kernel_once_a_routed_layer_a_forward(tmp_path):
         draw()
         torch.cuda.synchronize()
         assert tconv.conv3x3_same.launches - before == routed * forwards, name
+
+
+# ------------------------------------------------------------ sharding
+@pytest.fixture
+def world_of_one():
+    """A torch.distributed world of this one process on the card (NCCL),
+    destroyed after the test."""
+    import torch.distributed as dist
+
+    from cfgan_torch.parallel.mesh import free_port
+
+    dev = _card()
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
+        rank=0, device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        yield dev
+    finally:
+        dist.destroy_process_group()
+
+
+def test_world_of_one_captures_the_collectives(world_of_one):
+    """The moons epoch on a state replicated on an NCCL world of one: the
+    runner captures the step with its all-reduces (BatchNorm statistics,
+    gradients, metrics) and replays it under sync debug mode "error"; the
+    metrics and the whole state equal the same epoch without a mesh bit
+    for bit."""
+    from cfgan_torch.parallel import create_mesh, replicate
+    from cfgan_torch.parallel.sharding import state_tensors
+
+    dev = world_of_one
+    a, b, x, y, perm, draws = _moons_pair(dev)
+    replicate(create_mesh(), a.state)
+    got = a.epoch_fn(a.state, x, y, perm, draws)
+    want = b.epoch_fn(b.state, x, y, perm, draws)
+    assert got == want
+    assert a.epoch_fn.captures == 1 and a.epoch_fn.replays == len(perm) - 3
+    for p, q in zip(state_tensors(a.state), state_tensors(b.state)):
+        assert torch.equal(p, q)
+
+
+def test_runner_refuses_a_gloo_group_on_the_card():
+    """A CUDA state on a gloo group cannot be captured: the runner raises
+    and names the cause; it does not run eager steps instead."""
+    import torch.distributed as dist
+
+    from cfgan_torch.parallel import create_mesh, replicate
+    from cfgan_torch.parallel.mesh import free_port
+
+    dev = _card()
+    dist.init_process_group("gloo",
+                            init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        a, _, x, y, perm, draws = _moons_pair(dev)
+        replicate(create_mesh(devices=[dev]), a.state)
+        with pytest.raises(RuntimeError, match="gloo"):
+            a.epoch_fn(a.state, x, y, perm, draws)
+        assert a.state.step == 0
+    finally:
+        dist.destroy_process_group()

@@ -83,3 +83,14 @@ def test_chip_smoke_fails_alone_in_a_directory(tmp_path):
     proc = _run_smoke(tmp_path)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_parallel_imports_only_torch_and_the_port():
+    """`cfgan_torch.parallel` is torch.distributed and the port: no other
+    package beside the standard library."""
+    files = sorted((ROOT / "cfgan_torch" / "parallel").glob("*.py"))
+    assert [f.name for f in files] == ["__init__.py", "mesh.py",
+                                       "sharding.py"]
+    for path in files:
+        third = _imported_roots(path) - set(sys.stdlib_module_names)
+        assert third <= {"torch", "cfgan_torch"}, (path.name, third)

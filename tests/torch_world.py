@@ -1,0 +1,223 @@
+"""The ranks' side of the port's sharded tests (tests/test_torch_parallel.py,
+test_torch_sharded_train.py, test_torch_sharded_serving.py).
+
+`cfgan_torch.parallel.spawn_world` runs these functions in fresh processes
+joined by gloo on the loopback, one CPU device a rank.  They import
+torch and the port only, never JAX: the test computes the JAX side first
+and hands the arrays over in an .npz (`save_npz` / `load_npz`, nested
+dicts flattened to "a/b" keys), with configs in the spawn arguments.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from cfgan_torch.parallel import create_mesh, replicate, shard_batch
+from cfgan_torch.parallel.sharding import state_tensors, states_equal
+
+
+def save_npz(path, tree: dict) -> None:
+    flat = {}
+
+    def walk(t, prefix):
+        for k, v in t.items():
+            key = f"{prefix}{k}"
+            if isinstance(v, dict):
+                walk(v, key + "/")
+            else:
+                flat[key] = np.asarray(v.detach().cpu() if torch.is_tensor(v)
+                                       else v)
+
+    walk(tree, "")
+    np.savez(path, **flat)
+
+
+def load_npz(path) -> dict:
+    tree: dict = {}
+    with np.load(path) as f:
+        for key in f.files:
+            *parents, leaf = key.split("/")
+            node = tree
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = f[key]
+    return tree
+
+
+def tensors(tree: dict) -> dict:
+    return {k: tensors(v) if isinstance(v, dict) else torch.from_numpy(v)
+            for k, v in tree.items()}
+
+
+def cpu_mesh():
+    return create_mesh(devices=["cpu"])
+
+
+# ------------------------------------------------------------- the mesh
+def rows_and_replicas(rank: int, x: np.ndarray, bn_cases=()) -> dict:
+    """This rank's rows of x, and a tree and a small train state made
+    different on each rank, after `replicate`; then `batch_norm` of each
+    case (name -> .npz) under "bn"."""
+    from cfgan_torch.core import config as C
+    from cfgan_torch.models.classifiers import MLPClassifier
+    from cfgan_torch.nn.layers import BatchNorm
+    from cfgan_torch.train.builders import build_moons_countergan
+
+    mesh = cpu_mesh()
+    rows = shard_batch(mesh, {"x": x})["x"].numpy()
+    tree = replicate(mesh, {"a": torch.full((3,), float(rank + 1)),
+                            "b": [torch.arange(4) * (rank + 1)]})
+    bundle = build_moons_countergan(C.MOONS_COUNTERGAN,
+                                    MLPClassifier().state_dict(),
+                                    seed=rank, device="cpu")
+    replicate(mesh, bundle.state)
+    bound = [m.mesh is mesh for net in (bundle.state.g, bundle.state.d)
+             for m in net.model.modules() if isinstance(m, BatchNorm)]
+    return {"rank": mesh.rank, "world": mesh.world_size, "size": mesh.size,
+            "rows": rows, "a": tree["a"].numpy(), "b": tree["b"][0].numpy(),
+            "state": [t.detach().clone() for t in state_tensors(
+                bundle.state)],
+            "bound": bound, "state_mesh": bundle.state.mesh is mesh,
+            "equal": states_equal(mesh, state_tensors(bundle.state)),
+            "bn": {name: batch_norm(rank, npz) for name, npz in bn_cases}}
+
+
+def batch_norm(rank: int, npz: str) -> dict:
+    """A bound BatchNorm in train mode on this rank's rows: the output,
+    the input's gradient and the parameters' (summed over the ranks) of
+    sum(y * w), and the running statistics after the update."""
+    import torch.distributed as dist
+
+    from cfgan_torch.nn.layers import BatchNorm
+
+    d = load_npz(npz)
+    mesh = cpu_mesh()
+    bn = BatchNorm(d["scale"].shape[0])
+    with torch.no_grad():
+        bn.weight.copy_(torch.from_numpy(d["scale"]))
+        bn.bias.copy_(torch.from_numpy(d["bias"]))
+    replicate(mesh, bn)
+    x = shard_batch(mesh, torch.from_numpy(d["x"])).requires_grad_(True)
+    w = shard_batch(mesh, torch.from_numpy(d["w"]))
+    y = bn(x, update_stats=bool(d["update_stats"]))
+    (y * w).sum().backward()
+    grads = torch.stack([bn.weight.grad, bn.bias.grad])
+    dist.all_reduce(grads)
+    return {"y": y.detach().numpy(), "dx": x.grad.numpy(),
+            "dscale": grads[0].numpy(), "dbias": grads[1].numpy(),
+            "mean": bn.running_mean.numpy(), "var": bn.running_var.numpy()}
+
+
+# ------------------------------------------------------------ training
+def build(family: str, cfg, d: dict):
+    """The port's bundle of `family` on the CPU with the test's initial
+    state (`d["g"]`, `d["d"]`, `d["g_ema"]`) and frozen classifier
+    (`d["clf"]`)."""
+    from cfgan_torch.train import builders
+
+    clf = tensors(d.get("clf", {}))
+    if family == "moons":
+        b = builders.build_moons_countergan(cfg, clf, device="cpu")
+    elif family == "tabular":
+        from cfgan_torch.data.kc_house import KC_SCHEMA, load_kc_house
+
+        b = builders.build_tabular_countergan(
+            cfg, clf, KC_SCHEMA, load_kc_house()[2], num_classes=4,
+            device="cpu")
+    elif family == "mnist":
+        b = builders.build_mnist_countergan(cfg, clf, device="cpu")
+    else:
+        from cfgan_torch.train.gan_builders import build_gan
+
+        b = build_gan(cfg, num_classes=10, device="cpu")
+    b.state.g.model.load_state_dict(tensors(d["g"]))
+    b.state.d.model.load_state_dict(tensors(d["d"]))
+    if "g_ema" in d:
+        with torch.no_grad():
+            for k, v in tensors(d["g_ema"]).items():
+                b.state.g_ema[k].copy_(v)
+    return b
+
+
+def _floats(metrics: dict) -> dict:
+    return {k: np.asarray(v, np.float64) if isinstance(v, np.ndarray)
+            else float(v) for k, v in metrics.items()}
+
+
+def _epoch(b, d, reduce=False):
+    from cfgan_torch.train.loop import make_epoch_runner
+
+    runner = make_epoch_runner(b.step_from_draws, reduce=reduce,
+                               schedule=getattr(b, "schedule", None))
+    return _floats(runner(b.state, torch.from_numpy(d["x"]),
+                          torch.from_numpy(d["y"]).long(),
+                          torch.from_numpy(d["perm"]),
+                          {k: torch.from_numpy(v)
+                           for k, v in d["draws"].items()}))
+
+
+def _steps(b, d):
+    """`step_with_draws` on each global batch of d["steps"] in turn; the
+    metrics by step, and Adam's first moments after the first step (0.1 x
+    its gradients)."""
+    from cfgan_torch.convert import adam_moments_to_flax
+
+    out, moments = [], None
+    for i in range(len(d["steps"])):
+        s = tensors(d["steps"][str(i)])
+        out.append(_floats(b.step_with_draws(
+            b.state, s["x"], s["y"].long(), s["t"].long(), s["mask"])))
+        if i == 0:
+            moments = adam_moments_to_flax(b.state)
+    return out, moments
+
+
+def train(rank: int, jobs: list[dict]) -> dict:
+    """Each job (name, family, cfg, npz, kind) on a state replicated over
+    the world: "epoch" (the runner's per-step traces), "steps" (the
+    step-level API), "loop" (`train_countergan_loop(mesh=)`), "save" (an
+    epoch, `save_sharded` to job["dir"], another epoch) or "restore" (a
+    fresh state, `restore_sharded` from job["dir"], that second epoch).
+    Returns, by job, the metrics and whether every rank holds the same
+    state bit for bit."""
+    from cfgan_torch.convert import gan_state_to_flax
+    from cfgan_torch.core import checkpoint as ckpt
+    from cfgan_torch.train.loop import train_countergan_loop
+
+    mesh = cpu_mesh()
+    out = {}
+    for job in jobs:
+        d = load_npz(job["npz"])
+        b = build(job["family"], job["cfg"], d)
+        res: dict = {}
+        if job["kind"] == "loop":
+            lines = []
+            _, hist = train_countergan_loop(
+                b, d["x"], d["y"], epochs=2, batch_size=job["batch"],
+                seed=0, mesh=mesh, log=lines.append)
+            hist.pop("wall_time_s")
+            res.update(history=hist, lines=lines,
+                       d_params=gan_state_to_flax(b.state)["d"]["params"])
+        else:
+            replicate(mesh, b.state)
+            if job["kind"] == "epoch":
+                res["metrics"] = _epoch(b, d)
+                res["d_params"] = gan_state_to_flax(b.state)["d"]["params"]
+            elif job["kind"] == "steps":
+                res["metrics"], res["moments"] = _steps(b, d)
+            elif job["kind"] == "save":
+                res["first"] = _epoch(b, d, reduce=True)
+                ckpt.save_sharded(job["dir"], b.state, {"epoch": 0})
+                res["saved"] = [t.detach().clone()
+                                for t in state_tensors(b.state)]
+            else:
+                ckpt.restore_sharded(job["dir"], b.state)
+                res["saved"] = [t.detach().clone()
+                                for t in state_tensors(b.state)]
+            if job["kind"] in ("save", "restore"):
+                d2 = {**d, "perm": d["perm2"], "draws": d["draws2"]}
+                res["post"] = _epoch(b, d2, reduce=True)
+        res["equal"] = states_equal(mesh, state_tensors(b.state))
+        res["step"] = b.state.step
+        out[job["name"]] = res
+    return out
