@@ -26,7 +26,12 @@ weights and compare them leaf by leaf after N steps;
 layout, to compare gradients.  `train_state_to_flax` / `load_train_state`
 carry everything a mid-run checkpoint holds, Adam's count and both
 moments included, in the layout of the JAX package's `GANState` state
-dict (`cfgan_torch.core.checkpoint.save_train_state`).
+dict (`cfgan_torch.core.checkpoint.save_train_state`).  A net
+channel-sharded over a mesh (`cfgan_torch.parallel.shard_leaves`) gives
+and takes whole leaves: its moments' slices are gathered over the mesh on
+the way out (a collective, which every rank of the mesh calls) and each
+rank's slices are cut on the way in.  `flax_axes` reads the layouts above
+as a map from the flax leaf's dimensions to the port tensor's.
 """
 from __future__ import annotations
 
@@ -166,6 +171,20 @@ def _to_flax(sub: nn.Module, name: str, t: np.ndarray
     return None
 
 
+def flax_axes(module: nn.Module, name: str, ndim: int) -> tuple[int, ...]:
+    """For each dimension of the flax leaf of `module`'s state dict entry
+    `name` (a tensor of `ndim` dimensions), the dimension of the port's
+    tensor it is laid out from: the transposes of `_to_flax`, read off a
+    probe array whose dimensions have distinct lengths."""
+    prefix, _, leaf = name.rpartition(".")
+    sub = dict(module.named_modules()).get(prefix)
+    probe = np.empty(tuple(range(2, ndim + 2)), np.float32)
+    got = None if sub is None else _to_flax(sub, leaf, probe)
+    if got is None:
+        raise KeyError(f"{name}: no flax counterpart")
+    return tuple(n - 2 for n in got[2].shape)
+
+
 def flax_from_state_dict(module: nn.Module,
                          state_dict: Mapping[str, torch.Tensor]) -> dict:
     """Nested numpy dicts in the flax layout, `{"params": ...,
@@ -199,6 +218,9 @@ def load_gan_state(state: GANState, variables: Mapping) -> None:
     g, d = state.g.model, state.d.model
     g.load_state_dict(state_dict_from_flax(g, variables["g"]), strict=True)
     d.load_state_dict(state_dict_from_flax(d, variables["d"]), strict=True)
+    for ns in (state.g, state.d):
+        if ns.layout is not None:
+            ns.layout.cut()
     if (variables.get("g_ema") is None) != (state.g_ema is None):
         raise ValueError("one state carries a generator EMA, the other not")
     if state.g_ema is not None:
@@ -219,24 +241,29 @@ def gan_state_to_flax(state: GANState) -> dict:
                       flax_from_state_dict(g, state.g_ema)["params"])}
 
 
+def _adam_leaf(opt: torch.optim.Optimizer, p: torch.Tensor, key: str):
+    state = opt.state.get(p, {})
+    return state[key] if key in state else torch.zeros_like(p)
+
+
+def _adam_leaves(ns: NetState, key: str) -> dict[str, torch.Tensor]:
+    """Adam's tensor `key` of each parameter, by name, whole (a
+    channel-sharded net's slices gathered: every rank of its mesh calls
+    this)."""
+    leaves = {name: _adam_leaf(ns.opt, p, key)
+              for name, p in ns.opt_params().items()}
+    return leaves if ns.layout is None else ns.layout.gather_leaves(leaves)
+
+
 def adam_moments_to_flax(state: GANState) -> dict:
     """Adam's first moments (`exp_avg`) of both networks as flax params
     trees of numpy arrays, `{"g": ..., "d": ...}`, the layout of optax's
     `mu`.  A parameter that has taken no step has none yet; its entry is
     zero, as optax's is."""
-    out = {}
-    for net in ("g", "d"):
-        ns = getattr(state, net)
-        mu = {name: ns.opt.state.get(p, {}).get("exp_avg",
-                                                torch.zeros_like(p))
-              for name, p in ns.model.named_parameters()}
-        out[net] = flax_from_state_dict(ns.model, mu)["params"]
-    return out
-
-
-def _adam_leaf(opt: torch.optim.Optimizer, p: torch.Tensor, key: str):
-    state = opt.state.get(p, {})
-    return state[key] if key in state else torch.zeros_like(p)
+    return {net: flax_from_state_dict(
+        getattr(state, net).model,
+        _adam_leaves(getattr(state, net), "exp_avg"))["params"]
+        for net in ("g", "d")}
 
 
 def adam_state_to_flax(ns: NetState) -> dict:
@@ -244,15 +271,14 @@ def adam_state_to_flax(ns: NetState) -> dict:
     `{"0": {"count", "mu", "nu"}, "1": {}}`: torch's per-parameter step
     is optax's one count (int32), `exp_avg` / `exp_avg_sq` its moments.
     A parameter that has taken no step has zero moments, as optax's."""
-    params = dict(ns.model.named_parameters())
+    params = ns.opt_params()
     steps = {int(ns.opt.state[p]["step"]) for p in params.values()
              if "step" in ns.opt.state.get(p, {})}
     if len(steps) > 1:
         raise ValueError(f"parameters took different step counts {steps}")
-    moments = {}
-    for name, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
-        leaves = {n: _adam_leaf(ns.opt, p, key) for n, p in params.items()}
-        moments[name] = flax_from_state_dict(ns.model, leaves)["params"]
+    moments = {name: flax_from_state_dict(
+        ns.model, _adam_leaves(ns, key))["params"]
+        for name, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq"))}
     count = np.array(steps.pop() if steps else 0, np.int32)
     return {"0": {"count": count, **moments}, "1": {}}
 
@@ -261,14 +287,19 @@ def load_adam_state(ns: NetState, tree: Mapping) -> None:
     """Copy an optax.adam state dict (`adam_state_to_flax`'s layout) into
     `ns.opt` in place: existing step and moment tensors are overwritten,
     missing ones are made (on the device for a capturable optimizer, as
-    torch makes them)."""
+    torch makes them); a channel-sharded net takes this rank's slices of
+    the moments."""
     count = float(np.asarray(tree["0"]["count"]))
     moments = {key: state_dict_from_flax(ns.model, {"params": tree["0"][name]},
                                          params_only=True)
                for name, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq"))}
+    if ns.layout is not None:
+        for values in moments.values():
+            for name in ns.layout.shards:
+                values[name] = ns.layout.slice_of(name, values[name])
     capturable = ns.opt.defaults.get("capturable", False)
     with torch.no_grad():
-        for name, p in ns.model.named_parameters():
+        for name, p in ns.opt_params().items():
             state = ns.opt.state[p]
             if "step" not in state:
                 state["step"] = torch.zeros(
@@ -293,7 +324,8 @@ def _net_tree(net: nn.Module, state_dict) -> dict:
 def train_state_to_flax(state: GANState) -> dict:
     """The whole train state as the JAX package's `GANState` state dict:
     `{"g": {"params", "stats", "opt_state"}, "d": {...}, "step": int32,
-    "g_ema": params or None}`, numpy leaves."""
+    "g_ema": params or None}`, numpy leaves (whole leaves of a
+    channel-sharded net: every rank of its mesh calls this)."""
     out = {}
     for net in ("g", "d"):
         ns = getattr(state, net)

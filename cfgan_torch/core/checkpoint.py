@@ -365,15 +365,16 @@ def save_sharded(path: str, tree, metadata: dict[str, Any] | None = None
                  ) -> str:
     """The cooperative checkpoint of a replicated state
     (`cfgan.core.checkpoint.save_sharded`), called by every rank of the
-    world: the replicas are equal, so rank 0 writes `save`'s format (a
-    train state as `save_train_state` lays it out, which the JAX
-    package's `save_sharded` falls back to without orbax) and every rank
-    waits at a barrier until it is written."""
-    if not dist.is_initialized() or dist.get_rank() == 0:
-        if _is_train_state(tree):
-            from cfgan_torch.convert import train_state_to_flax
+    world: a train state is laid out as `save_train_state` lays it out
+    (which the JAX package's `save_sharded` falls back to without orbax)
+    on every rank, a channel-sharded net's slices gathered whole, so that
+    the file is the replicated state's; rank 0 writes `save`'s format and
+    every rank waits at a barrier until it is written."""
+    if _is_train_state(tree):
+        from cfgan_torch.convert import train_state_to_flax
 
-            tree = train_state_to_flax(tree)
+        tree = train_state_to_flax(tree)
+    if not dist.is_initialized() or dist.get_rank() == 0:
         save(path, tree, metadata)
     _barrier()
     return path
@@ -381,7 +382,8 @@ def save_sharded(path: str, tree, metadata: dict[str, Any] | None = None
 
 def restore_sharded(path: str, target):
     """`save_sharded`'s checkpoint, on every rank: a train state `target`
-    is restored in place (a captured CUDA graph keeps its addresses) and
+    is restored in place (a captured CUDA graph keeps its addresses; a
+    channel-sharded net cuts its slices from the whole leaves) and
     returned; any other template gets the restored tree, as `restore`."""
     if not _is_train_state(target):
         return restore(path, target)

@@ -236,7 +236,8 @@ class TabularSchema:
 class ShardingConfig:
     """Device-mesh policy (`cfgan.core.config.ShardingConfig`): the data
     axis's name and the mesh's shape (None: every device of the world,
-    `cfgan_torch.parallel.create_mesh`).
+    `cfgan_torch.parallel.create_mesh`), 1-D or, as in the JAX package,
+    ("data", "model") (D, M).
 
     `donate_state` has no effect in the port: the step and the epoch
     runner already update the state in place.  `sync_batch_norm=False`

@@ -60,11 +60,12 @@ def fold_in(key: Key, data: int) -> Key:
     return threefry2x32(key[0], key[1], 0, data & _M32)
 
 
-def _gumbel_from_bits(bits: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """JAX's `gumbel` of 32-bit words `bits` (int64): the mantissa bits
-    under exponent 0 give u - 1 in [0, 1); u = max(tiny, u) then
-    -log(-log(u)).  bfloat16 has 7 mantissa bits, and JAX draws them from
-    the low 8 bits of each word."""
+def _uniform_from_bits(bits: torch.Tensor, dtype: torch.dtype
+                       ) -> torch.Tensor:
+    """JAX's uniform draw behind `gumbel` from 32-bit words `bits`
+    (int64): the mantissa bits under exponent 0 give u - 1 in [0, 1);
+    then u = max(tiny, u).  bfloat16 has 7 mantissa bits, and JAX draws
+    them from the low 8 bits of each word."""
     if dtype == torch.float32:
         f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
     elif dtype == torch.bfloat16:
@@ -73,22 +74,20 @@ def _gumbel_from_bits(bits: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     else:
         raise ValueError(f"no Gumbel noise in {dtype}")
     tiny = _TINY[dtype]
-    u = torch.clamp_min((f - 1.0) + tiny, tiny)
-    return -torch.log(-torch.log(u))
+    return torch.clamp_min((f - 1.0) + tiny, tiny)
 
 
-def derive_gumbel_noise(key: Key, batch: int,
-                        categorical_info: Mapping[int, Sequence[float]],
-                        dtype: torch.dtype = torch.float32,
-                        device: str | torch.device | None = None,
-                        row0: int = 0) -> dict[int, torch.Tensor]:
-    """Feature index -> (batch, n_values) Gumbel noise, JAX's
-    `derive_gumbel_noise(key, batch, categorical_info, dtype)`, computed
-    on `device` (None: the CUDA card); with `row0`, the noise of rows
-    row0 .. row0 + batch - 1 of a larger batch (a sharded request's
-    shard).  All heads and rows go through threefry at once: the head
-    keys on the host, the row keys and the bits as (batch, sum n)
-    tensors."""
+def _gumbel_from_bits(bits: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """JAX's `gumbel` of 32-bit words `bits`: -log(-log(u))."""
+    return -torch.log(-torch.log(_uniform_from_bits(bits, dtype)))
+
+
+def gumbel_bits(key: Key, batch: int,
+                categorical_info: Mapping[int, Sequence[float]],
+                device: str | torch.device | None = None, row0: int = 0
+                ) -> tuple[list[int], list[int], torch.Tensor]:
+    """(heads, their sizes, the (batch, sum of sizes) 32-bit words as
+    int64) that `derive_gumbel_noise` turns into noise."""
     device = resolve_device(device)
     heads = sorted(categorical_info)
     sizes = [len(categorical_info[i]) for i in heads]
@@ -103,7 +102,24 @@ def derive_gumbel_noise(key: Key, batch: int,
     zero = torch.zeros((), dtype=torch.int64, device=device)
     rk0, rk1 = threefry2x32(hk0, hk1, zero, rows)  # fold_in(head key, row)
     b0, b1 = threefry2x32(rk0, rk1, zero, col)
-    noise = _gumbel_from_bits(b0 ^ b1, dtype)
+    return heads, sizes, b0 ^ b1
+
+
+def derive_gumbel_noise(key: Key, batch: int,
+                        categorical_info: Mapping[int, Sequence[float]],
+                        dtype: torch.dtype = torch.float32,
+                        device: str | torch.device | None = None,
+                        row0: int = 0) -> dict[int, torch.Tensor]:
+    """Feature index -> (batch, n_values) Gumbel noise, JAX's
+    `derive_gumbel_noise(key, batch, categorical_info, dtype)`, computed
+    on `device` (None: the CUDA card); with `row0`, the noise of rows
+    row0 .. row0 + batch - 1 of a larger batch (a sharded request's
+    shard).  All heads and rows go through threefry at once: the head
+    keys on the host, the row keys and the bits as (batch, sum n)
+    tensors (`gumbel_bits`)."""
+    heads, sizes, bits = gumbel_bits(key, batch, categorical_info, device,
+                                     row0)
+    noise = _gumbel_from_bits(bits, dtype)
     return dict(zip(heads, noise.split(sizes, dim=1)))
 
 

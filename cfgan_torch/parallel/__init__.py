@@ -1,6 +1,7 @@
 """Data parallelism over a device mesh (mirrors `cfgan/parallel`): one
-process per device in a `torch.distributed` world (`mesh`), and the rows,
-replication and collectives of the sharded step (`sharding`)."""
+process per device in a `torch.distributed` world (`mesh`, 1-D or
+("data", "model")), and the rows, replication, channel-sharded layout and
+collectives of the sharded step (`sharding`)."""
 from cfgan_torch.parallel.mesh import (
     Mesh,
     create_mesh,
@@ -10,9 +11,11 @@ from cfgan_torch.parallel.mesh import (
 )
 from cfgan_torch.parallel.sharding import (
     batch_sharding,
+    channel_sharding_spec,
     replicate,
     replicate_sharding,
     shard_batch,
+    shard_leaves,
 )
 
 __all__ = [
@@ -25,4 +28,6 @@ __all__ = [
     "replicate_sharding",
     "shard_batch",
     "replicate",
+    "channel_sharding_spec",
+    "shard_leaves",
 ]

@@ -19,6 +19,7 @@ A train state is replicated onto a mesh of one device per process.
 """
 from __future__ import annotations
 
+import itertools
 import math
 import multiprocessing as mp
 import os
@@ -42,15 +43,21 @@ DATA_AXIS = "data"
 @dataclass(frozen=True, eq=False)
 class Mesh:
     """One process's view of a device mesh: `axis_names` (the data axis
-    first), `shape` (entries per axis; the data axis has world size x
-    `len(devices)`), this process's `devices` along the data axis, and the
-    process `group` (None without an initialised `torch.distributed`
-    world: then no collective is issued)."""
+    first), `shape` (entries per axis, world size x `len(devices)` in
+    all), this process's `devices` (row-major over the mesh from its
+    first entry), the world's process `group` (None without an
+    initialised `torch.distributed` world: then no collective is issued),
+    `coords`, the mesh coordinates of this process's first device, and
+    `axis_groups`, per axis the process group of the ranks that share
+    every other coordinate (None where the axis spans no other process;
+    the world's group where it spans every one)."""
 
     axis_names: tuple[str, ...]
     shape: tuple[int, ...]
     devices: tuple[torch.device, ...]
     group: Any = None
+    coords: tuple[int, ...] | None = None
+    axis_groups: tuple[Any, ...] | None = None
 
     @property
     def world_size(self) -> int:
@@ -64,13 +71,57 @@ class Mesh:
 
     @property
     def size(self) -> int:
-        """Entries of the data axis: world size x local devices."""
-        return self.shape[0]
+        """Entries of the mesh: world size x local devices."""
+        return math.prod(self.shape)
+
+    def _axis(self, axis: str) -> int:
+        if axis not in self.axis_names:
+            raise ValueError(f"the mesh has no axis {axis!r}: its axes are "
+                             f"{self.axis_names}")
+        return self.axis_names.index(axis)
+
+    def axis_size(self, axis: str) -> int:
+        """Entries along `axis`."""
+        return self.shape[self._axis(axis)]
+
+    def axis_index(self, axis: str) -> int:
+        """This process's (first device's) index along `axis`."""
+        return 0 if self.coords is None else self.coords[self._axis(axis)]
+
+    def axis_group(self, axis: str):
+        """The process group of the ranks that differ from this one only
+        along `axis` (None where no other process does)."""
+        return (None if self.axis_groups is None
+                else self.axis_groups[self._axis(axis)])
+
+    def device_coords(self, j: int) -> tuple[int, ...]:
+        """The mesh coordinates of this process's j-th device."""
+        first = 0 if self.coords is None else ravel(self.coords, self.shape)
+        return unravel(first + j, self.shape)
 
     def __deepcopy__(self, memo) -> "Mesh":
         # a module bound to a mesh is copied with the mesh, not a second
         # process group
         return self
+
+
+def unravel(index: int, shape: Sequence[int]) -> tuple[int, ...]:
+    """The row-major coordinates of entry `index` of a mesh of `shape`
+    (numpy's `unravel_index`)."""
+    coords = []
+    for size in reversed(shape):
+        index, c = divmod(index, size)
+        coords.append(c)
+    return tuple(reversed(coords))
+
+
+def ravel(coords: Sequence[int], shape: Sequence[int]) -> int:
+    """The row-major index of `coords` in a mesh of `shape` (numpy's
+    `ravel_multi_index`)."""
+    index = 0
+    for c, size in zip(coords, shape):
+        index = index * size + c
+    return index
 
 
 def local_device_count() -> int:
@@ -101,9 +152,13 @@ def create_mesh(mesh_shape: tuple[int, ...] | None = None,
     otherwise every local card; raises where there is none).
 
     `mesh_shape` (default: the data axis over every device, the other axes
-    of size 1) must hold world size x local devices entries, and every axis
-    but the first must have size 1: the port has no weight-sharded
-    ("model") layout yet."""
+    of size 1) must hold world size x local devices entries, laid out
+    row-major (the module docstring).  A mesh with more than one axis
+    larger than 1 over several processes takes one device a process.  In
+    a world of several processes every rank must call `create_mesh` with
+    the same shape: it builds the axes' process groups
+    (`torch.distributed.new_group`, which every rank calls for every
+    group, in one order), and a group that cannot be built raises."""
     group = dist.group.WORLD if dist.is_initialized() else None
     if devices is None:
         if group is not None:
@@ -117,6 +172,7 @@ def create_mesh(mesh_shape: tuple[int, ...] | None = None,
     if not devices:
         raise ValueError("a mesh needs at least one device")
     world = 1 if group is None else dist.get_world_size(group)
+    rank = 0 if group is None else dist.get_rank(group)
     n = world * len(devices)
     if mesh_shape is None:
         mesh_shape = (n,) + (1,) * (len(axis_names) - 1)
@@ -124,15 +180,48 @@ def create_mesh(mesh_shape: tuple[int, ...] | None = None,
     if len(mesh_shape) != len(axis_names):
         raise ValueError(f"mesh_shape {mesh_shape} does not name the axes "
                          f"{axis_names}")
+    if len(set(axis_names)) != len(axis_names):
+        raise ValueError(f"the mesh's axis names {axis_names} repeat")
     if math.prod(mesh_shape) != n:
         raise ValueError(f"mesh_shape {mesh_shape} holds "
                          f"{math.prod(mesh_shape)} devices, not the {n} of "
                          f"{world} process(es) x {len(devices)} device(s)")
-    if any(s != 1 for s in mesh_shape[1:]):
-        raise ValueError(f"mesh_shape {mesh_shape}: only the first axis "
-                         f"({axis_names[0]!r}) may be larger than 1; the "
-                         "port has no weight-sharded layout")
-    return Mesh(tuple(axis_names), mesh_shape, devices, group)
+    wide = sum(s > 1 for s in mesh_shape)
+    if world > 1 and len(devices) > 1 and wide > 1:
+        raise ValueError(f"mesh_shape {mesh_shape} over {world} processes "
+                         f"of {len(devices)} devices each: a mesh with more "
+                         "than one axis larger than 1 takes one device a "
+                         "process")
+    coords = unravel(rank * len(devices), mesh_shape)
+    return Mesh(tuple(axis_names), mesh_shape, devices, group, coords,
+                _axis_groups(mesh_shape, world, rank, len(devices)))
+
+
+def _axis_groups(shape: tuple[int, ...], world: int, rank: int,
+                 local: int) -> tuple[Any, ...]:
+    """Per axis, the process group of the ranks that share every other
+    coordinate with `rank`: None for an axis that spans one process, the
+    world's group for one that spans them all, else a new group.  Every
+    rank builds every group, in the same order."""
+    if world == 1:
+        return (None,) * len(shape)
+    if local > 1:  # one axis larger than 1 spans every process
+        return tuple(dist.group.WORLD if s > 1 else None for s in shape)
+    groups = []
+    for i, size in enumerate(shape):
+        if size == 1 or size == world:
+            groups.append(None if size == 1 else dist.group.WORLD)
+            continue
+        mine = None
+        rest = [range(s) for j, s in enumerate(shape) if j != i]
+        for other in itertools.product(*rest):
+            ranks = [ravel(other[:i] + (k,) + other[i:], shape)
+                     for k in range(size)]
+            made = dist.new_group(ranks)
+            if rank in ranks:
+                mine = made
+        groups.append(mine)
+    return tuple(groups)
 
 
 def multihost_initialize(coordinator_address: str | None = None,

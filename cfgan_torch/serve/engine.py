@@ -17,11 +17,13 @@ been served, assigning `pad_to_bucket` raises.
 A constructed engine may be shared by request threads: `generate` and
 `classify` read only the frozen modules and their arguments.
 
-`shard(mesh)` serves data-parallel over this process's devices of a mesh
-(the JAX engine's `shard`): the batch padding rises to a multiple of the
-shard count, each request and each bulk chunk is cut into equal shards,
-one a device, served by a replica of the generator and classifier there,
-and the results are gathered.  Each shard's `cf_fn` call gets `row0`, the
+`shard(mesh, axis)` serves data-parallel over this process's devices of a
+mesh along one of its axes (the JAX engine's `shard`): the batch padding
+rises to a multiple of the shard count, each request and each bulk chunk
+is cut into equal shards, one an entry of the axis, each served by a
+replica of the generator and classifier on the first device of its row
+(the device at that index of the axis and 0 on every other), and the
+results are gathered.  Each shard's `cf_fn` call gets `row0`, the
 index of its first row in the request, so that the tabular generator's
 per-row noise is the unsharded request's.
 """
@@ -41,7 +43,7 @@ from cfgan_torch.masks.feature import (
 )
 from cfgan_torch.masks.patch import patch_indices_to_mask
 from cfgan_torch.models.tabular import fold_in, jax_key
-from cfgan_torch.parallel.mesh import canonical_device
+from cfgan_torch.parallel.mesh import canonical_device, ravel
 
 
 @dataclass
@@ -108,28 +110,33 @@ class CounterfactualEngine:
               ) -> "CounterfactualEngine":
         """Serve data-parallel over this process's devices of `mesh`
         (`cfgan_torch.parallel.create_mesh`) along `axis` (the mesh's
-        first); returns self.  A device other than the engine's gets a
-        replica from `replica_fn`; the engine's own device (every entry
-        of `devices=["cpu"] * 8`, say) serves with its own functions.
+        first by default): `mesh.axis_size(axis)` shards, shard i on the
+        device at index i of `axis` and 0 on every other axis; returns
+        self.  A device other than the engine's gets a replica from
+        `replica_fn`; the engine's own device (every entry of
+        `devices=["cpu"] * 8`, say) serves with its own functions.
         Raises RuntimeError after the first served request, ValueError
         for a mesh over more than one process (the engine serves the
-        devices of its process) or another axis."""
+        devices of its process) or an axis the mesh does not have."""
         if self._served.is_set():
             raise RuntimeError(
                 "cannot change sharding: the engine has already served "
                 "requests (configuration is construct-then-serve)")
         axis = axis or mesh.axis_names[0]
-        if axis != mesh.axis_names[0]:
-            raise ValueError(f"the engine shards over the mesh's first axis "
-                             f"{mesh.axis_names[0]!r}, not {axis!r}")
+        if axis not in mesh.axis_names:
+            raise ValueError(f"the mesh has no axis {axis!r}: its axes are "
+                             f"{mesh.axis_names}")
         if mesh.world_size > 1:
             raise ValueError(
                 f"the engine serves this process's devices; a mesh over "
                 f"{mesh.world_size} processes would need every rank to "
                 "serve each request")
+        dim = mesh.axis_names.index(axis)
+        first = [0] * len(mesh.shape)
         shards, replicas = [], {}
-        for dev in mesh.devices:
-            dev = canonical_device(dev)
+        for i in range(mesh.shape[dim]):
+            first[dim] = i
+            dev = canonical_device(mesh.devices[ravel(first, mesh.shape)])
             if dev == canonical_device(self.device):
                 shards.append((dev, self.cf_fn, self.clf_fn))
                 continue

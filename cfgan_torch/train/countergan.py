@@ -42,7 +42,14 @@ the global batch and its draws (the same on every rank), trains on this
 rank's rows (`shard_rows`; under `g_microbatch` = K, its share of each
 global chunk), with the BatchNorms synchronised, averages the gradients
 over the ranks before each optimizer step and returns the metrics'
-means over the ranks.  The replicas stay equal bit for bit.
+means over the ranks.  The replicas stay equal bit for bit.  On a
+("data", "model") mesh the rows are still split over the whole world
+(rank (d, m) trains on block d * M + m), and a generator channel-sharded
+over "model" (`cfgan_torch.parallel.shard_leaves`) takes its gradients'
+slices, steps them and gathers its working copies
+(`cfgan_torch.parallel.sharding.optimizer_step`), under `g_microbatch`
+once, after the chunks' gradients are summed and divided by K; the EMA
+then follows the gathered parameters.
 """
 from __future__ import annotations
 
@@ -56,8 +63,8 @@ from cfgan_torch.losses import countergan as cg_losses
 from cfgan_torch.losses import gan as gan_losses
 from cfgan_torch.ops.epilogue import cf_epilogue, epilogue_terms
 from cfgan_torch.parallel.sharding import (
-    all_reduce_grads,
     mean_metrics,
+    optimizer_step,
     shard_rows,
 )
 from cfgan_torch.train.state import GANState
@@ -226,8 +233,7 @@ def make_countergan_step(*, cfg: CounterGANConfig, num_classes: int,
         d_loss = d_loss_of(d_real, d_fake)
         d.opt.zero_grad(set_to_none=True)
         d_loss.backward()
-        all_reduce_grads(mesh, d.model.parameters())
-        d.opt.step()
+        optimizer_step(mesh, d)
 
         # ---- generator update through the updated discriminator ----
         g.opt.zero_grad(set_to_none=True)
@@ -239,8 +245,7 @@ def make_countergan_step(*, cfg: CounterGANConfig, num_classes: int,
             total, (adv, cls, l1, l2, pen), cf_logits = g_terms(
                 cf, sums, raw, x, t, mask)
             total.backward()
-        all_reduce_grads(mesh, g.model.parameters())
-        g.opt.step()
+        optimizer_step(mesh, g)
 
         if state.g_ema is not None:
             dec = cfg.ema_decay

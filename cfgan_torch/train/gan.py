@@ -37,7 +37,11 @@ kind of step (`schedule`).
 A state replicated on a mesh (`cfgan_torch.parallel.replicate`) trains
 data-parallel: the step takes the global batch and draws, trains on this
 rank's rows with the BatchNorms synchronised, averages each update's
-gradients over the ranks and returns the metrics' means over them.
+gradients over the ranks and returns the metrics' means over them; a
+generator channel-sharded over a mesh axis (`cfgan_torch.parallel.
+shard_leaves`) steps its slices and gathers its working copies in the
+steps that update it, and WGAN-GP's critic-only steps issue none of its
+collectives.
 """
 from __future__ import annotations
 
@@ -48,8 +52,8 @@ import torch
 from cfgan_torch.losses import gan as losses
 from cfgan_torch.nn.layers import one_hot
 from cfgan_torch.parallel.sharding import (
-    all_reduce_grads,
     mean_metrics,
+    optimizer_step,
     shard_rows,
 )
 from cfgan_torch.train.state import GANState
@@ -112,8 +116,7 @@ def make_gan_step(*, g_forward: Callable, d_forward: Callable,
     def update(ns, loss_value, mesh):
         ns.opt.zero_grad(set_to_none=True)
         loss_value.backward()
-        all_reduce_grads(mesh, ns.model.parameters())
-        ns.opt.step()
+        optimizer_step(mesh, ns)
 
     def g_phase(state: GANState, fake, t_oh):
         """The non-saturating generator update through the discriminator

@@ -67,7 +67,10 @@ class EpochRunner:
     A state replicated on a mesh (`cfgan_torch.parallel.replicate`) runs
     the same epoch on every rank, each step on the rank's rows of the
     global batch; on the card its group must be NCCL, whose collectives
-    the graphs capture with the step (a gloo group raises RuntimeError).
+    the graphs capture with the step (a gloo group raises RuntimeError),
+    those of a ("data", "model") mesh's subgroups and a channel-sharded
+    generator's included: the eager warm-up steps issue each subgroup's
+    first collective, which creates its communicator, before a capture.
     Every rank makes the same capture decisions: they depend only on the
     step count, the shapes and the schedule.
 
@@ -248,11 +251,13 @@ def train_countergan_loop(bundle, x_train, y_train, *, epochs: int,
     callback copies what it keeps.
 
     With a `mesh` (`cfgan_torch.parallel.create_mesh`, one device a
-    process) every rank of the mesh's world calls the loop with the same
-    arguments and trains data-parallel: the state is replicated from rank
-    0 (`replicate`), every rank keeps the whole dataset and draws the
-    same global permutation and draws, and each step trains on the rank's
-    rows of its batch.  Every rank's history holds the global means; rank
+    process, 1-D or ("data", "model")) every rank of the mesh's world
+    calls the loop with the same arguments and trains data-parallel: the
+    state is replicated from rank 0 over the whole mesh (`replicate`; a
+    generator channel-sharded beforehand, `shard_leaves`, keeps its
+    layout), every rank keeps the whole dataset and draws the same global
+    permutation and draws, and each step trains on the rank's rows of its
+    batch.  Every rank's history holds the global means; rank
     0 alone logs and writes the checkpoints (`save_sharded`)."""
     state = bundle.state
     start_epoch = 0

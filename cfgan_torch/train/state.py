@@ -40,10 +40,22 @@ def adam_like_torch(params, lr: float, betas=(0.9, 0.999),
 @dataclass
 class NetState:
     """One network: the module (float32 parameters and buffers) and its
-    optimizer."""
+    optimizer; `layout`, where the net is channel-sharded over a mesh
+    axis (`cfgan_torch.parallel.shard_leaves`), holds this rank's slices
+    of the sharded parameters, which the optimizer steps, while the module
+    computes on whole copies gathered after each step."""
 
     model: nn.Module
     opt: torch.optim.Optimizer
+    layout: Any = None
+
+    def opt_params(self) -> dict[str, torch.Tensor]:
+        """The optimizer's tensor of each of the module's parameters, by
+        name: the parameter itself, or this rank's slice of a sharded
+        one."""
+        shards = {} if self.layout is None else self.layout.shards
+        return {name: shards.get(name, p)
+                for name, p in self.model.named_parameters()}
 
     @classmethod
     def create(cls, model: nn.Module, lr: float, weight_decay: float = 0.0,

@@ -238,7 +238,13 @@ bit to the loop without a mesh; a world of two processes on the card
 rank three steps on its 64 rows of the global batch of 128, in f32 and
 bf16, against the single-process steps and bit for bit against each
 other; the f32 kernel engine sharded over the card twice against the
-engine unsharded (a bulk chunk that does not split refused).
+engine unsharded (a bulk chunk that does not split refused), and on a
+("data", "model") mesh along each axis; the same two ranks on a (1, 2)
+("data", "model") mesh with the generator's weights and Adam moments
+channel-sharded over "model", three steps in f32 and bf16 against their
+1-D steps, their launches, state bytes and eager step times in turns;
+with four cards, a (2, 2) NCCL world's loop captured and replayed, bit
+for bit against its eager steps, timed against the 1-D world of 4.
 
 Then it times the kernels, their plain versions, cuDNN for the conv and
 its weight gradient, the serving requests and the train step (bf16 with
@@ -593,7 +599,10 @@ API_KERNEL_SLACK = 1.25
 # `train pallas` bars (moment_report: the same functions summed in
 # another order, and Adam's first steps move a parameter whose gradient
 # is near zero by up to lr whatever its sign); (c) the f32 kernel engine
-# sharded over the card twice (or the cards) against the engine unsharded
+# sharded over the card twice (or the cards) against the engine unsharded,
+# and on a ("data", "model") mesh along each axis; (d) (b)'s ranks on their
+# ("data", "model") mesh, the generator channel-sharded, against their 1-D
+# steps at (b)'s bars
 SHARDED_ROWS = 1280
 SHARDED_EPOCHS = 2
 SHARDED_STEPS = 3
@@ -602,6 +611,8 @@ SHARDED_SERVE_ATOL = 1e-6  # tests/test_sharding.py:193-209
 SHARDED_SIZES = (1, 5, 100)
 SHARDED_CHUNK, SHARDED_BAD_CHUNK = 16, 15
 SHARDED_TIMEOUT = 300  # seconds the ranks of (b) may take
+SHARDED_WAIT = 1200  # seconds the ranks of (b) may wait for the phase
+SHARDED_TURNS = 4  # eager steps of each layout timed in turns
 
 
 def fail(msg: str) -> None:
@@ -4319,23 +4330,36 @@ def apps_phase(card: str, dev, counts, zero_counts) -> dict:
                         "timing": timing["float32"]}}
 
 
-def sharded_steps(dev, dtype: str, mesh=None, counts=None):
+def sharded_steps(dev, dtype: str, mesh=None, counts=None,
+                  channel: bool = False):
     """SHARDED_STEPS steps of the shipped preset with the conv kernel at
     `dtype` on the global batch of TRAIN_BATCH rows, from initial weights
     and data made from SEED (the same on every rank), on a state
-    replicated on `mesh` (None: one process).  Builds the bundle and its
-    batches, then returns `run()`, which takes the steps and returns the
-    metrics by step, Adam's first moments after the first step and the
-    parameters after the last (flax paths, numpy), the mean ms of a step
-    after the first, the kernel launches (with `counts`), and whether
-    every rank holds the same state."""
+    replicated on `mesh` (None: one process), with `channel` its
+    generator channel-sharded over the mesh's "model" axis.  Builds the
+    bundle and its batches, then returns (`run`, `step`): `run()` takes
+    the steps and returns the metrics by step, Adam's first moments after
+    the first step and the parameters after the last (flax paths, numpy,
+    gathered whole), the mean ms of a step after the first, the kernel
+    launches (with `counts`), whether every rank holds the same state,
+    the bytes of this rank's state and of its generator's optimizer
+    state; `step()` takes one more step on the first batch and returns
+    its wall ms."""
     import numpy as np
     import torch
 
     from cfgan_torch.convert import adam_moments_to_flax, gan_state_to_flax
     from cfgan_torch.core.config import MNIST_COUNTERGAN
-    from cfgan_torch.parallel import replicate
-    from cfgan_torch.parallel.sharding import state_tensors, states_equal
+    from cfgan_torch.parallel import (
+        channel_sharding_spec,
+        replicate,
+        shard_leaves,
+    )
+    from cfgan_torch.parallel.sharding import (
+        _optimizer_tensors,
+        replicas_equal,
+        state_tensors,
+    )
     from cfgan_torch.train.builders import build_mnist_countergan, mnist_models
 
     cfg = replace(MNIST_COUNTERGAN, conv_impl="pallas", compute_dtype=dtype)
@@ -4350,42 +4374,144 @@ def sharded_steps(dev, dtype: str, mesh=None, counts=None):
         torch.Generator().manual_seed(SEED + 31), (SHARDED_STEPS, b)).items()}
     if mesh is not None:
         replicate(mesh, bundle.state)
+    if channel:
+        shard_leaves(bundle.state.g, channel_sharding_spec(
+            mesh, bundle.state.g, axis="model"))
+
+    def nbytes(tensors) -> int:
+        return sum(t.numel() * t.element_size() for t in tensors)
+
+    def step(i: int) -> float:
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        m = bundle.step_from_draws(bundle.state, x[i], y[i],
+                                   {k: v[i] for k, v in draws.items()})
+        torch.cuda.synchronize(dev)
+        return m, (time.perf_counter() - t0) * 1e3
 
     def run() -> dict:
         metrics, times = [], []
         before = counts() if counts is not None else None
         for i in range(SHARDED_STEPS):
-            torch.cuda.synchronize(dev)
-            t0 = time.perf_counter()
-            m = bundle.step_from_draws(bundle.state, x[i], y[i],
-                                       {k: v[i] for k, v in draws.items()})
-            torch.cuda.synchronize(dev)
-            times.append((time.perf_counter() - t0) * 1e3)
+            m, ms = step(i)
+            times.append(ms)
             metrics.append({k: float(v) for k, v in m.items()})
             if i == 0:
                 mu = {net: _flat(tree) for net, tree in
                       adam_moments_to_flax(bundle.state).items()}
+        launched = (None if counts is None else
+                    tuple(a - c for a, c in zip(counts(), before)))
         tree = gan_state_to_flax(bundle.state)
         params = {net: {k: np.asarray(v, np.float32)
                         for k, v in _flat(tree[net]["params"]).items()}
                   for net in ("g", "d")}
-        launched = (None if counts is None else
-                    tuple(a - c for a, c in zip(counts(), before)))
-        equal = (True if mesh is None else
-                 states_equal(mesh, state_tensors(bundle.state)))
         return {"metrics": metrics, "mu": mu, "params": params,
                 "step_ms": statistics.mean(times[1:]), "launches": launched,
-                "equal": equal, "lr": (cfg.lr_g, cfg.lr_d)}
+                "equal": replicas_equal(bundle.state),
+                "state_bytes": nbytes(state_tensors(bundle.state)),
+                "g_opt_bytes": nbytes(_optimizer_tensors(bundle.state.g.opt)),
+                "lr": (cfg.lr_g, cfg.lr_d)}
 
-    return run
+    return run, lambda: step(0)[1]
+
+
+def sharded_loop(dev, mesh, mesh2) -> dict:
+    """On a world of four NCCL ranks, one a card: SHARDED_EPOCHS epochs of
+    SHARDED_ROWS rows of the shipped preset with the conv kernel through
+    `train_countergan_loop` on the ("data", "model") mesh `mesh2` with the
+    generator channel-sharded over "model", and on the 1-D `mesh`; the
+    same epochs eager, step by step, on a second channel-sharded state;
+    then one more epoch of each loop's bundle replayed, timed in turns.
+    Returns the 2-D runner's captures and replays, whether its history
+    and this rank's state equal the eager run's bit for bit and the
+    ranks hold one state, and each layout's replayed step ms by turn."""
+    import torch
+
+    from cfgan_torch.core.config import MNIST_COUNTERGAN
+    from cfgan_torch.data.pipeline import epoch_perm
+    from cfgan_torch.parallel import (
+        channel_sharding_spec,
+        replicate,
+        shard_leaves,
+    )
+    from cfgan_torch.parallel.sharding import replicas_equal, state_tensors
+    from cfgan_torch.train.builders import build_mnist_countergan, mnist_models
+    from cfgan_torch.train.loop import epoch_generators, train_countergan_loop
+
+    cfg = replace(MNIST_COUNTERGAN, conv_impl="pallas")
+    gen = torch.Generator().manual_seed(SEED + 32)
+    clf_sd = mnist_models(cfg, generator=gen)[1].state_dict()
+    x = (torch.rand((SHARDED_ROWS, 28, 28, 1), generator=gen) * 2 - 1)
+    y = torch.randint(0, 10, (SHARDED_ROWS,), generator=gen)
+
+    def bundle_on(m, channel: bool):
+        b = build_mnist_countergan(cfg, clf_sd, seed=SEED, device=dev)
+        replicate(m, b.state)
+        if channel:
+            shard_leaves(b.state.g, channel_sharding_spec(m, b.state.g))
+        return b
+
+    def epoch_inputs(b, epoch: int):
+        g_perm, g_draws = epoch_generators(SEED, epoch, dev)
+        perm = epoch_perm(g_perm, len(y), TRAIN_BATCH)
+        return perm, b.draw_fn(g_draws, tuple(perm.shape))
+
+    loops = {}
+    for name, m in (("2d", mesh2), ("1d", mesh)):
+        b = bundle_on(m, name == "2d")
+        _, hist = train_countergan_loop(b, x, y, epochs=SHARDED_EPOCHS,
+                                        batch_size=TRAIN_BATCH, seed=SEED,
+                                        mesh=m, log=lambda line: None)
+        hist.pop("wall_time_s")
+        loops[name] = (b, hist)
+    b2, hist2 = loops["2d"]
+    captures, replays = b2.epoch_fn.captures, b2.epoch_fn.replays
+
+    # the same epochs eager, as the runner reduces them
+    e = bundle_on(mesh2, True)
+    xd, yd = x.to(dev), y.to(dev, torch.long)
+    eager: dict = {}
+    for epoch in range(SHARDED_EPOCHS):
+        perm, draws = epoch_inputs(e, epoch)
+        rows = []
+        for i in range(perm.shape[0]):
+            m = e.step_from_draws(e.state, xd.index_select(0, perm[i]),
+                                  yd.index_select(0, perm[i]),
+                                  {k: v[i] for k, v in draws.items()})
+            rows.append(torch.stack([v.float() for v in m.values()]))
+        for k, v in zip(m, torch.stack(rows).mean(0).cpu().tolist()):
+            eager.setdefault(k, []).append(v)
+    same_state = all(torch.equal(a, c) for a, c in zip(
+        state_tensors(b2.state), state_tensors(e.state)))
+
+    # one more epoch of each, replayed whole, in turns (the first call on
+    # these tensors captures)
+    perm, draws = epoch_inputs(b2, SHARDED_EPOCHS)
+    for b, _ in loops.values():
+        b.epoch_fn(b.state, xd, yd, perm, draws)
+    replayed = {name: [] for name in loops}
+    for _ in range(2):
+        for name, (b, _) in loops.items():
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            b.epoch_fn(b.state, xd, yd, perm, draws)
+            torch.cuda.synchronize(dev)
+            replayed[name].append((time.perf_counter() - t0) * 1e3
+                                  / perm.shape[0])
+    return {"captures": captures, "replays": replays,
+            "history_equal": eager == hist2, "state_equal": same_state,
+            "replicas_equal": replicas_equal(b2.state),
+            "replayed_step_ms": replayed}
 
 
 def sharded_rank(rank: int, library: str, single_card: bool, go) -> dict:
     """One rank of the sharded phase's world (b), in a process of its own:
     the prebuilt kernel library, this rank's card (card 0 for every rank
-    of a gloo world on one card), the replicated states of
-    `sharded_steps` in f32 and bf16, then, once the parent sets `go`,
-    their steps."""
+    of a gloo world on one card), the states of `sharded_steps` in f32 and
+    bf16 replicated on the world's 1-D mesh and on its ("data", "model")
+    mesh (world / 2, 2) with the generator channel-sharded, then, once the
+    parent sets `go`, their steps, SHARDED_TURNS more eager steps of each
+    in turns and, on a world of four cards, `sharded_loop`."""
     import torch
 
     from cfgan_torch.ops import _build
@@ -4401,19 +4527,76 @@ def sharded_rank(rank: int, library: str, single_card: bool, go) -> dict:
     dev = torch.device("cuda", 0 if single_card else rank)
     torch.cuda.set_device(dev)
     mesh = create_mesh(devices=[dev])
+    mesh2 = create_mesh((mesh.world_size // 2, 2), ("data", "model"),
+                        devices=[dev])
 
     def counts():
         return (tep.cf_epilogue_fwd.launches, tep.cf_epilogue_bwd.launches,
                 conv3x3_same.launches, conv3x3_same_dkernel.launches)
 
-    runs = {dtype: sharded_steps(dev, dtype, mesh, counts)
+    runs = {(layout, dtype): sharded_steps(dev, dtype, m, counts,
+                                           channel=layout == "2d")
+            for layout, m in (("1d", mesh), ("2d", mesh2))
             for dtype in ("float32", "bfloat16")}
-    if not go.wait(SHARDED_TIMEOUT):
+    if not go.wait(SHARDED_WAIT):
         raise TimeoutError("the parent never started the steps")
-    return {dtype: run() for dtype, run in runs.items()}
+    out = {key: run() for key, (run, _) in runs.items()}
+    turns = {key: [] for key in runs}
+    for _ in range(SHARDED_TURNS):
+        for key, (_, step) in runs.items():
+            turns[key].append(step())
+    loop = (sharded_loop(dev, mesh, mesh2)
+            if mesh.world_size == 4 and not single_card else None)
+    return {"steps": out, "turn_ms": turns, "loop": loop}
 
 
-def sharded_phase(card: str, dev, counts, zero_counts) -> dict:
+class ShardedRanks:
+    """The sharded phase's world (b), started ahead of the phase (the
+    full smoke starts it after the build, so that the ranks' start, the
+    kernel library's load and their states overlap the other phases):
+    a daemon thread runs `spawn_world(sharded_rank, ...)`, whose ranks
+    wait on `go` (SHARDED_WAIT seconds at most) before their steps.
+    `result()` sets `go` and returns the ranks' results.  A smoke that
+    fails first exits without waiting: the ranks are daemonic processes,
+    ended with it."""
+
+    def __init__(self):
+        import multiprocessing as mp
+        import threading
+
+        import torch
+
+        from cfgan_torch.ops import _build
+        from cfgan_torch.parallel import spawn_world
+
+        n_cards = torch.cuda.device_count()
+        self.world = 4 if n_cards >= 4 else 2
+        self.backend = "nccl" if n_cards >= 2 else "gloo"
+        self.go = mp.get_context("spawn").Event()
+        self._out: dict = {}
+        args = (str(_build.load_library().path), n_cards < 2, self.go)
+
+        def run():
+            try:
+                self._out["value"] = spawn_world(
+                    sharded_rank, self.world, args, backend=self.backend,
+                    timeout=SHARDED_WAIT + SHARDED_TIMEOUT, threads=None)
+            except BaseException as e:  # raised again by result()
+                self._out["error"] = e
+
+        self.thread = threading.Thread(target=run, daemon=True)
+        self.thread.start()
+
+    def result(self) -> list:
+        self.go.set()
+        self.thread.join()
+        if "error" in self._out:
+            raise self._out["error"]
+        return self._out["value"]
+
+
+def sharded_phase(card: str, dev, counts, zero_counts,
+                  ranks: ShardedRanks | None = None) -> dict:
     """The mesh and sharding layer on the card, at the shipped preset's
     width (64 channels, 6 blocks, batch 128, `conv_impl="pallas"`):
 
@@ -4433,26 +4616,34 @@ def sharded_phase(card: str, dev, counts, zero_counts) -> dict:
         steps on this card: metrics at SHARDED_RTOL / SHARDED_ATOL (f32)
         and TRAIN_ATOL (bf16), gradients and parameters by
         `moment_report`; the ranks' states equal bit for bit; the ranks
-        start (and load the kernels) while the parent runs (a) and (c),
-        and take their steps alone on the card;
+        start (and load the kernels) before the phase (`ShardedRanks`;
+        the full smoke starts them after the build) or while the parent
+        runs (a) and (c), and take their steps alone on the card;
     (c) the f32 kernel engine sharded over [card, card] (or the cards)
         against the engine unsharded: `generate` at SHARDED_SIZES and
         `generate_bulk` at chunk SHARDED_CHUNK within SHARDED_SERVE_ATOL,
-        a chunk of SHARDED_BAD_CHUNK rejected with ValueError.
+        a chunk of SHARDED_BAD_CHUNK rejected with ValueError; and sharded
+        on a ("data", "model") mesh, (2, 1) over [card, card] (or (2, 2)
+        over four cards), along each axis at SHARDED_SIZES;
+    (d) the ranks of (b) on their ("data", "model") mesh (world / 2, 2),
+        the generator's weights and Adam moments channel-sharded over
+        "model": SHARDED_STEPS steps in f32 and bf16 against the same
+        ranks' 1-D steps at (b)'s bars, their launches, each rank's state
+        bytes against the 1-D state's, and the eager step of both layouts
+        timed in turns; with four cards, `sharded_loop`: the (2, 2) NCCL
+        world's loop captured and replayed, bit for bit against its eager
+        steps, its replayed step timed in turns against the 1-D world of
+        4's.
 
-    Returns the launches by kernel of a rank's bf16 steps in (b) and its
-    rows, for the `kernels` line."""
-    import multiprocessing as mp
-    from concurrent.futures import ThreadPoolExecutor
-
+    Returns the launches by kernel of a rank's bf16 steps in (b) and in
+    (d), and its rows, for the `kernels` line."""
     import numpy as np
     import torch
     import torch.distributed as dist
 
     from cfgan_torch.core.config import MNIST_COUNTERGAN
-    from cfgan_torch.ops import _build
     from cfgan_torch.ops.conv import conv3x3_same
-    from cfgan_torch.parallel import create_mesh, spawn_world
+    from cfgan_torch.parallel import create_mesh
     from cfgan_torch.parallel.mesh import free_port
     from cfgan_torch.parallel.sharding import state_tensors
     from cfgan_torch.train.builders import build_mnist_countergan, mnist_models
@@ -4460,13 +4651,8 @@ def sharded_phase(card: str, dev, counts, zero_counts) -> dict:
 
     laps = Laps()
     n_cards = torch.cuda.device_count()
-    world = 4 if n_cards >= 4 else 2
-    backend = "nccl" if n_cards >= 2 else "gloo"
-    go = mp.get_context("spawn").Event()
-    pool = ThreadPoolExecutor(1)
-    ranks = pool.submit(spawn_world, sharded_rank, world,
-                        (str(_build.load_library().path), n_cards < 2, go),
-                        backend=backend, timeout=SHARDED_TIMEOUT, threads=None)
+    ranks = ranks or ShardedRanks()
+    world, backend = ranks.world, ranks.backend
     try:
         cudnn = (torch.backends.cudnn.deterministic,
                  torch.backends.cudnn.benchmark)
@@ -4530,7 +4716,7 @@ def sharded_phase(card: str, dev, counts, zero_counts) -> dict:
         laps("world of one")
 
         # (b)'s single-process steps on this card
-        plain = {dtype: sharded_steps(dev, dtype)()
+        plain = {dtype: sharded_steps(dev, dtype)[0]()
                  for dtype in ("float32", "bfloat16")}
         laps("single-process steps")
 
@@ -4589,22 +4775,51 @@ def sharded_phase(card: str, dev, counts, zero_counts) -> dict:
             fail(f"the sharded engine differs from the unsharded one: "
                  f"{errs}, chunk {SHARDED_BAD_CHUNK} rejected: {rejected}")
         laps("engine")
+
+        # (c) on a ("data", "model") mesh, along each axis
+        devices2 = devices[:4] if n_cards >= 4 else [dev, dev]
+        mesh2 = create_mesh((2, len(devices2) // 2), ("data", "model"),
+                            devices=devices2)
+        errs2, shards2 = {}, {}
+        for axis in ("data", "model"):
+            eng = served_engine(preset, g_sd, c_sd, dev, "float32").shard(
+                mesh2, axis)
+            shards2[axis] = len(eng._shards)
+            for b in SHARDED_SIZES:
+                got, want = (e.generate(xs[:b], ts[:b])
+                             for e in (eng, single))
+                errs2[f"{axis} b={b}"] = max(
+                    float(np.abs(getattr(got, k) - getattr(want, k)).max())
+                    for k in ("x_cf", "residual", "probs"))
+                errs2[f"{axis} b={b} pred_equal"] = bool(np.array_equal(
+                    got.pred, want.pred))
+        served2_ok = shards2 == {"data": 2, "model": mesh2.shape[1]} and all(
+            v is True or (v is not False and v <= SHARDED_SERVE_ATOL)
+            for v in errs2.values())
+        emit({"phase": "sharded", "part": "engine 2-D", "card": card,
+              "mesh": list(mesh2.shape), "axes": list(mesh2.axis_names),
+              "devices": [str(d) for d in devices2], "dtype": "float32",
+              "shards": shards2, "max_abs_err": errs2,
+              "atol": SHARDED_SERVE_ATOL, "ok": served2_ok})
+        if not served2_ok:
+            fail(f"the engine on the 2-D mesh differs from the unsharded "
+                 f"one: {errs2}, shards {shards2}")
+        laps("engine 2-D")
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
             = cudnn
 
         # (b) the ranks take their steps alone on the card
-        go.set()
         outs = ranks.result()
     finally:
-        go.set()
-        pool.shutdown(wait=True)
+        ranks.go.set()
     laps("ranks")
     report = {"phase": "sharded", "part": "ranks", "card": card,
               "world": world, "backend": backend,
               "rows_per_rank": TRAIN_BATCH // world, "steps": SHARDED_STEPS}
-    ok = all(o[d]["equal"] for o in outs for d in o)
-    for dtype in ("float32", "bfloat16"):
-        got, want = outs[0][dtype], plain[dtype]
+    steps = [o["steps"] for o in outs]
+
+    def compare(got, want, dtype):
+        """(report, ok) of `got`'s steps against `want`'s at (b)'s bars."""
         flips = [abs(g["flip_rate"] - w["flip_rate"])
                  for g, w in zip(got["metrics"], want["metrics"])]
         if dtype == "float32":
@@ -4620,33 +4835,99 @@ def sharded_phase(card: str, dev, counts, zero_counts) -> dict:
                     and max(flips) <= 1 / TRAIN_BATCH)
             bar = (f"abs <= {TRAIN_ATOL[dtype]}, flip_rate <= "
                    f"1/{TRAIN_BATCH}")
-        same = all(o[dtype]["metrics"] == got["metrics"] for o in outs)
         nets = {}
         for net, lr in zip(("g", "d"), want["lr"]):
             nets[net], net_ok = moment_report(
                 got["mu"][net], want["mu"][net], got["params"][net],
                 want["params"][net], lr, dtype)
             m_ok = m_ok and net_ok
-        report[dtype] = {
-            "metric_excess_per_step" if dtype == "float32" else
-            "metric_max_abs_err_per_step": errs, "metric_bar": bar,
-            "flip_rate_err_per_step": flips,
-            "ranks_report_the_same_metrics": same, **nets,
+        return {"metric_excess_per_step" if dtype == "float32" else
+                "metric_max_abs_err_per_step": errs, "metric_bar": bar,
+                "flip_rate_err_per_step": flips, **nets}, m_ok
+
+    def launches_of(got):
+        return dict(zip(("epilogue_fwd", "epilogue_bwd", "conv", "conv_dk"),
+                        got["launches"]))
+
+    ok = all(st[k]["equal"] for st in steps for k in st)
+    for dtype in ("float32", "bfloat16"):
+        got, want = steps[0]["1d", dtype], plain[dtype]
+        report[dtype], m_ok = compare(got, want, dtype)
+        same = all(st["1d", dtype]["metrics"] == got["metrics"]
+                   for st in steps)
+        report[dtype].update({
+            "ranks_report_the_same_metrics": same,
             "sharded_step_ms": got["step_ms"],
             "single_process_step_ms": want["step_ms"],
-            "rank0_launches": dict(zip(("epilogue_fwd", "epilogue_bwd",
-                                        "conv", "conv_dk"),
-                                       got["launches"]))}
+            "rank0_launches": launches_of(got)})
         ok = ok and m_ok and same
-    report["replicas_equal"] = all(o[d]["equal"] for o in outs for d in o)
+    report["replicas_equal"] = all(st["1d", d]["equal"] for st in steps
+                                   for d in ("float32", "bfloat16"))
     report["part_seconds"] = laps.s
     report["ok"] = bool(ok)
     emit(report)
     if not ok:
         fail("the sharded ranks differ from the single-process steps or "
              "from each other")
+
+    # (d) the same ranks on their ("data", "model") mesh
+    report2 = {"phase": "sharded", "part": "ranks 2-D", "card": card,
+               "world": world, "backend": backend,
+               "mesh": [world // 2, 2], "axes": ["data", "model"],
+               "rows_per_rank": TRAIN_BATCH // world,
+               "steps": SHARDED_STEPS}
+    ok2 = all(st["2d", d]["equal"] for st in steps
+              for d in ("float32", "bfloat16"))
+    for dtype in ("float32", "bfloat16"):
+        got, want = steps[0]["2d", dtype], steps[0]["1d", dtype]
+        report2[dtype], m_ok = compare(got, want, dtype)
+        same = all(st["2d", dtype]["metrics"] == got["metrics"]
+                   for st in steps)
+        launched = launches_of(got)
+        per_step = {"epilogue_fwd": 1, "epilogue_bwd": 1,
+                    "conv": 2 * KERNEL_LAYERS_PER_FORWARD,
+                    "conv_dk": KERNEL_LAYERS_PER_FORWARD}
+        l_ok = launched == {k: v * SHARDED_STEPS for k, v in per_step.items()}
+        turn = {layout: outs[0]["turn_ms"][layout, dtype]
+                for layout in ("1d", "2d")}
+        report2[dtype].update({
+            "ranks_report_the_same_metrics": same,
+            "rank0_launches": launched, "launches_ok": l_ok,
+            "state_bytes_by_rank": {
+                layout: [st[layout, dtype]["state_bytes"] for st in steps]
+                for layout in ("1d", "2d")},
+            "g_adam_bytes_by_rank": {
+                layout: [st[layout, dtype]["g_opt_bytes"] for st in steps]
+                for layout in ("1d", "2d")},
+            "eager_step_ms_in_turns": turn,
+            "eager_step_median_ms": {k: statistics.median(v)
+                                     for k, v in turn.items()}})
+        ok2 = ok2 and m_ok and same and l_ok
+    report2["replicas_equal"] = all(st["2d", d]["equal"] for st in steps
+                                    for d in ("float32", "bfloat16"))
+    loops = [o["loop"] for o in outs]
+    if loops[0] is not None:
+        loop_ok = all(lp["history_equal"] and lp["state_equal"]
+                      and lp["replicas_equal"] and lp["captures"] >= 1
+                      and lp["replays"] > 0 for lp in loops)
+        report2["loop"] = {
+            "backend": "nccl", "epochs": SHARDED_EPOCHS,
+            "rows": SHARDED_ROWS, "batch": TRAIN_BATCH,
+            "captures": loops[0]["captures"], "replays": loops[0]["replays"],
+            "eager_equal_by_rank": [lp["history_equal"] and lp["state_equal"]
+                                    for lp in loops],
+            "replayed_step_ms_in_turns": loops[0]["replayed_step_ms"],
+            "ok": loop_ok}
+        ok2 = ok2 and loop_ok
+    report2["ok"] = bool(ok2)
+    emit(report2)
+    if not ok2:
+        fail("the ranks' steps on the 2-D mesh differ from their 1-D steps "
+             "or from each other, launched other kernels, or the 2-D loop "
+             "was not its eager steps bit for bit")
     return {"rows": TRAIN_BATCH // world,
-            "launches": outs[0]["bfloat16"]["launches"]}
+            "launches": steps[0]["1d", "bfloat16"]["launches"],
+            "launches_2d": steps[0]["2d", "bfloat16"]["launches"]}
 
 
 # the phases `--phases` may name: each needs only the built kernels
@@ -4759,6 +5040,9 @@ def main() -> None:
         emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                      "count": count}})
         return
+
+    # the sharded phase's ranks start now and wait for it
+    sharded_ranks = ShardedRanks()
 
     # ----------------------------------------------- kernel vs plain
     kernel_err = {}
@@ -5088,7 +5372,8 @@ def main() -> None:
 
     # ------------------------------------- the mesh and sharding layer
     with Phase("sharded"):
-        sharded = sharded_phase(card, dev, counts, zero_counts)
+        sharded = sharded_phase(card, dev, counts, zero_counts,
+                                sharded_ranks)
 
     # ----------------------------------------------------------- timing
     with Phase("timing"):
@@ -5244,10 +5529,13 @@ def main() -> None:
         for name, p in (("conv3x3_same_apps_chat_b1", app_paths["chat"]),
                         ("conv3x3_same_f32_migrate_b1",
                          app_paths["migrate"]))] + [
-        # a rank's kernels in the sharded phase's world (b): the bf16
-        # steps on its rows of the global batch of 128 (64 at world 2)
-        entry(f"{name}_sharded_{sharded['rows']}" + suffix, src, replaces,
-              sharded["launches"][i], err, t)
+        # a rank's kernels in the sharded phase's world (b) and on its
+        # 2-D mesh (d): the bf16 steps on its rows of the global batch of
+        # 128 (64 at world 2)
+        entry(f"{name}_{tag}_{sharded['rows']}" + suffix, src, replaces,
+              sharded[layout][i], err, t)
+        for layout, tag in (("launches", "sharded"),
+                            ("launches_2d", "sharded2d"))
         for i, name, src, replaces, suffix, err, t in (
             (0, "cf_epilogue_fwd", "cfgan_torch/csrc/epilogue.cu",
              "cfgan/ops/epilogue.py:54", "x784",

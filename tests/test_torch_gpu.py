@@ -851,18 +851,33 @@ def test_house_replayed_steps_equal_eager_steps():
 
 
 def test_house_noise_is_derived_on_the_card():
-    """The serving path's threefry noise computed on the card equals the
-    CPU's (integer ops, then two logs)."""
+    """The serving path's threefry noise computed on the card: its integer
+    words, and the uniform draws they give, equal the CPU's bit for bit;
+    the two logs after them within 2 float32 ulps of the CPU's value (a
+    noise of magnitude 8 or more has an ulp of 9.5e-7 already, so one
+    ulp between two `log` implementations may exceed a fixed 1e-6), and
+    never held tighter than 1e-6."""
     dev = _card()
     from cfgan_torch.data.kc_house import KC_SCHEMA
-    from cfgan_torch.models.tabular import derive_gumbel_noise
+    from cfgan_torch.models.tabular import (
+        _uniform_from_bits,
+        derive_gumbel_noise,
+        gumbel_bits,
+    )
 
     info = KC_SCHEMA.categorical_info
+    _, _, bits_cpu = gumbel_bits((0, 42), 128, info, device="cpu")
+    _, _, bits_card = gumbel_bits((0, 42), 128, info, device=dev)
+    assert torch.equal(bits_card.cpu(), bits_cpu)
+    assert torch.equal(_uniform_from_bits(bits_card, torch.float32).cpu(),
+                       _uniform_from_bits(bits_cpu, torch.float32))
     cpu = derive_gumbel_noise((0, 42), 128, info, device="cpu")
     card = derive_gumbel_noise((0, 42), 128, info, device=dev)
+    eps = torch.finfo(torch.float32).eps
     for idx in info:
         assert card[idx].device.type == "cuda"
-        assert (card[idx].cpu() - cpu[idx]).abs().max().item() <= 1e-6
+        bar = torch.clamp_min(2 * eps * cpu[idx].abs(), 1e-6)
+        assert bool(((card[idx].cpu() - cpu[idx]).abs() <= bar).all())
 
 
 # ------------------------------------------------- the serving front door
@@ -1251,6 +1266,67 @@ def test_world_of_one_captures_the_collectives(world_of_one):
     assert a.epoch_fn.captures == 1 and a.epoch_fn.replays == len(perm) - 3
     for p, q in zip(state_tensors(a.state), state_tensors(b.state)):
         assert torch.equal(p, q)
+
+
+def test_world_of_one_captures_a_channel_sharded_step(world_of_one):
+    """The moons epoch on a (1, 1) ("data", "model") mesh of an NCCL world
+    of one, the generator channel-sharded over "model": the runner
+    captures the step with the layout's slice copies and replays it; the
+    metrics and the whole state (the generator's slices against its
+    parameters) equal the same epoch without a mesh bit for bit."""
+    from cfgan_torch.parallel import (
+        channel_sharding_spec,
+        create_mesh,
+        replicate,
+        shard_leaves,
+    )
+
+    dev = world_of_one
+    a, b, x, y, perm, draws = _moons_pair(dev)
+    mesh = create_mesh((1, 1), ("data", "model"))
+    replicate(mesh, a.state)
+    shard_leaves(a.state.g, channel_sharding_spec(mesh, a.state.g))
+    assert a.state.g.layout is not None
+    got = a.epoch_fn(a.state, x, y, perm, draws)
+    want = b.epoch_fn(b.state, x, y, perm, draws)
+    assert got == want
+    assert a.epoch_fn.captures == 1 and a.epoch_fn.replays == len(perm) - 3
+    for net in ("g", "d"):
+        sa, sb = getattr(a.state, net), getattr(b.state, net)
+        for (name, p), q in zip(sa.opt_params().items(),
+                                sb.model.parameters()):
+            assert torch.equal(p, q), name
+            for key in ("exp_avg", "exp_avg_sq", "step"):
+                assert torch.equal(sa.opt.state[p][key],
+                                   sb.opt.state[q][key]), (name, key)
+        for p, q in zip(sa.model.parameters(), sb.model.parameters()):
+            assert torch.equal(p, q)
+
+
+def test_engine_on_a_2d_mesh_of_the_card_equals_the_unsharded_one():
+    """The moons engine sharded on a (2, 1) ("data", "model") mesh over
+    the card twice: 2 shards along "data", 1 along "model", each equal to
+    the unsharded engine within the sharded serving bar 1e-6."""
+    from pathlib import Path
+
+    from cfgan_torch.parallel import create_mesh
+    from cfgan_torch.serve import launch
+
+    dev = _card()
+    run_dir = str(Path(__file__).resolve().parent.parent / "results"
+                  / "moons_countergan")
+    plain, _, xte, _ = launch.setup_moons(run_dir, device=dev)
+    mesh = create_mesh((2, 1), ("data", "model"), devices=[dev, dev])
+    for axis, n in (("data", 2), ("model", 1)):
+        eng = launch.setup_moons(run_dir, device=dev)[0].shard(mesh, axis)
+        assert len(eng._shards) == n
+        for b in (1, 5, 100):
+            got, want = eng.generate(xte[:b], 1), plain.generate(xte[:b], 1)
+            for name in ("x_cf", "residual", "probs", "probs_orig"):
+                np.testing.assert_allclose(getattr(got, name),
+                                           getattr(want, name), rtol=0,
+                                           atol=1e-6, err_msg=(axis, name))
+            np.testing.assert_array_equal(got.pred, want.pred)
 
 
 def test_runner_refuses_a_gloo_group_on_the_card():

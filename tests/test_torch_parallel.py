@@ -55,10 +55,21 @@ def test_mesh_has_8_devices():
                                          ((4, 2), ("data", "model")),
                                          ((8,), ("data", "model"))])
 def test_mesh_shape_must_fit(shape, names):
-    """A shape that does not hold the devices, or a "model" axis the port
-    has no layout for, raises."""
-    with pytest.raises(ValueError):
-        create_mesh(shape, names, devices=["cpu"] * 8)
+    """A shape that does not hold the devices, or does not name its axes,
+    raises; the ("data", "model") shape (4, 2) that holds them is JAX's
+    mesh: its shape, axis names and each device's coordinates."""
+    if len(shape) != len(names) or np.prod(shape) != 8:
+        with pytest.raises(ValueError):
+            create_mesh(shape, names, devices=["cpu"] * 8)
+        return
+    mesh = create_mesh(shape, names, devices=["cpu"] * 8)
+    jmesh = jax_create_mesh(shape, names)
+    assert mesh.shape == tuple(jmesh.devices.shape) == shape
+    assert mesh.axis_names == jmesh.axis_names == names
+    ids = [d.id for d in jax.devices()]
+    for j in range(8):
+        where = np.argwhere(jmesh.device_ids == ids[j])[0]
+        assert mesh.device_coords(j) == tuple(int(c) for c in where)
 
 
 def test_sharding_config_is_the_jax_one():

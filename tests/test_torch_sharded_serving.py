@@ -121,19 +121,30 @@ def test_shard_after_the_first_request_raises():
         jeng.shard(jax_create_mesh())
 
 
-def test_a_mesh_over_processes_or_another_axis_is_rejected():
-    """The engine serves its own process's devices."""
-    engine = launch.setup_moons(str(RESULTS / "moons_countergan"),
-                                device="cpu")[0]
+def test_a_mesh_over_processes_or_another_axis_is_rejected(moons):
+    """The engine serves its own process's devices: a mesh over two
+    processes is refused.  Along the "model" axis of a (4, 2) mesh it
+    serves 2 shards, as JAX's engine sharded along that axis does, and
+    within the bar of it; an axis the mesh does not have is refused."""
+    run_dir = str(RESULTS / "moons_countergan")
+    engine = launch.setup_moons(run_dir, device="cpu")[0]
 
     class TwoProcesses(Mesh):
         world_size = 2
 
     with pytest.raises(ValueError, match="processes"):
         engine.shard(TwoProcesses(("data",), (2,), (torch.device("cpu"),)))
-    with pytest.raises(ValueError, match="first axis"):
-        engine.shard(create_mesh((4, 1), ("data", "model"),
-                                 devices=["cpu"] * 4), axis="model")
+    mesh = create_mesh((4, 2), ("data", "model"), devices=["cpu"] * 8)
+    with pytest.raises(ValueError, match="no axis"):
+        engine.shard(mesh, axis="pipe")
+    engine.shard(mesh, axis="model")
+    assert len(engine._shards) == 2
+    jeng = jlaunch.setup_moons(run_dir)[0].shard(
+        jax_create_mesh((4, 2), ("data", "model")), "model")
+    _, plain, _, xte = moons
+    got = engine.generate(xte[:37], 2)
+    _assert_close(got, plain.generate(xte[:37], 2))
+    _assert_close(got, jeng.generate(xte[:37], target=2))
 
 
 def test_replicas_on_other_devices():

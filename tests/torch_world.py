@@ -1,5 +1,6 @@
 """The ranks' side of the port's sharded tests (tests/test_torch_parallel.py,
-test_torch_sharded_train.py, test_torch_sharded_serving.py).
+test_torch_sharded_train.py, test_torch_sharded_serving.py,
+test_torch_mesh2d.py, test_torch_sharded2d_steps.py).
 
 `cfgan_torch.parallel.spawn_world` runs these functions in fresh processes
 joined by gloo on the loopback, one CPU device a rank.  They import
@@ -220,4 +221,133 @@ def train(rank: int, jobs: list[dict]) -> dict:
         res["equal"] = states_equal(mesh, state_tensors(b.state))
         res["step"] = b.state.step
         out[job["name"]] = res
+    return out
+
+
+# ------------------------------------------------- the ("data", "model") mesh
+def mesh_of(shape):
+    """The world's ("data", "model") mesh of `shape` on the CPU, or its
+    1-D mesh where `shape` is None."""
+    if shape is None:
+        return cpu_mesh()
+    return create_mesh(tuple(shape), ("data", "model"), devices=["cpu"])
+
+
+def mesh2d_facts(rank: int, shape, x: np.ndarray) -> dict:
+    """This rank's coordinates on a ("data", "model") mesh of `shape`, the
+    ranks of each axis's group, and its blocks of `x` along each axis."""
+    import torch.distributed as dist
+
+    mesh = mesh_of(shape)
+    groups = {}
+    for axis in mesh.axis_names:
+        g = mesh.axis_group(axis)
+        groups[axis] = None if g is None else dist.get_process_group_ranks(g)
+    return {"rank": mesh.rank, "world": mesh.world_size,
+            "shape": mesh.shape, "names": mesh.axis_names,
+            "coords": tuple(mesh.axis_index(a) for a in mesh.axis_names),
+            "groups": groups,
+            "blocks": {a: shard_batch(mesh, {"x": x}, axis=a)["x"].numpy()
+                       for a in mesh.axis_names}}
+
+
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    t = torch.from_numpy(np.asarray(a))
+    return t.long() if not t.is_floating_point() else t
+
+
+def _step2d(b, s: dict) -> dict:
+    """One step on the global batch `s`: `step_from_draws` where it holds
+    the draws, else `step_with_draws` on its targets and mask."""
+    x, y = _tensor(s["x"]), _tensor(s["y"])
+    if "draws" in s:
+        return b.step_from_draws(b.state, x, y, {k: _tensor(v) for k, v
+                                                 in s["draws"].items()})
+    return b.step_with_draws(b.state, x, y, _tensor(s["t"]),
+                             _tensor(s["mask"]))
+
+
+def _layout_facts(ns) -> dict:
+    """Per generator parameter: its whole shape, and the shapes this rank
+    holds of it and of its Adam moments, and whether it is split."""
+    spec = {} if ns.layout is None else ns.layout.spec
+    out = {}
+    for name, p in ns.opt_params().items():
+        st = ns.opt.state.get(p, {})
+        out[name] = {
+            "whole": tuple(dict(ns.model.named_parameters())[name].shape),
+            "held": tuple(p.shape),
+            "moments": tuple(tuple(st[k].shape) for k in ("exp_avg",
+                                                          "exp_avg_sq")),
+            "step": tuple(st["step"].shape),
+            "split": name in spec and not spec[name].is_fully_replicated}
+    return out
+
+
+def train2d(rank: int, jobs: list[dict]) -> dict:
+    """Each job (name, family, cfg, npz, mesh) on a state replicated over
+    the world: on a ("data", "model") mesh of job["mesh"] with the
+    generator channel-sharded over "model" (`channel_sharding_spec`,
+    `shard_leaves`), or on the 1-D mesh (mesh None); each global batch of
+    the npz's "steps" in turn (`_step2d`).  With job["save"], the state is
+    written by `save_sharded` there after the first step, and a fresh
+    replicated state restored from it writes its own file beside it
+    ("<save>-replicated"); with job["restore"], the state is restored from
+    that directory and takes the steps after the first.  Returns, by job,
+    the metrics by step, Adam's first moments after the first step, the
+    whole train state after the last (flax layout), whether the ranks hold
+    one state, the bytes of this rank's state and of its generator's
+    optimizer state, and the generator's layout (`_layout_facts`)."""
+    from cfgan_torch.convert import adam_moments_to_flax, train_state_to_flax
+    from cfgan_torch.core import checkpoint as ckpt
+    from cfgan_torch.parallel import channel_sharding_spec, shard_leaves
+    from cfgan_torch.parallel.sharding import (
+        _optimizer_tensors,
+        replicas_equal,
+    )
+
+    meshes, out = {}, {}
+    for job in jobs:
+        shape = job.get("mesh")
+        key = None if shape is None else tuple(shape)
+        if key not in meshes:  # every rank makes the meshes in one order
+            meshes[key] = mesh_of(shape)
+        mesh = meshes[key]
+        d = load_npz(job["npz"])
+
+        def fresh():
+            b = build(job["family"], job["cfg"], d)
+            replicate(mesh, b.state)
+            if shape is not None:
+                shard_leaves(b.state.g, channel_sharding_spec(mesh,
+                                                              b.state.g))
+            return b
+
+        b = fresh()
+        steps = [d["steps"][str(i)] for i in range(len(d["steps"]))]
+        first = 0
+        if job.get("restore"):
+            ckpt.restore_sharded(job["restore"], b.state)
+            first = 1
+        metrics, moments = [], None
+        for i in range(first, len(steps)):
+            metrics.append(_floats(_step2d(b, steps[i])))
+            if i == 0:
+                moments = adam_moments_to_flax(b.state)
+            if i == 0 and job.get("save"):
+                ckpt.save_sharded(job["save"], b.state, {"epoch": 0})
+                plain = build(job["family"], job["cfg"], d)
+                replicate(mesh, plain.state)
+                ckpt.restore_sharded(job["save"], plain.state)
+                ckpt.save_sharded(job["save"] + "-replicated", plain.state,
+                                  {"epoch": 0})
+        out[job["name"]] = {
+            "metrics": metrics, "moments": moments,
+            "state": train_state_to_flax(b.state),
+            "equal": replicas_equal(b.state), "step": b.state.step,
+            "state_bytes": sum(t.numel() * t.element_size()
+                               for t in state_tensors(b.state)),
+            "g_opt_bytes": sum(t.numel() * t.element_size()
+                               for t in _optimizer_tensors(b.state.g.opt)),
+            "layout": _layout_facts(b.state.g)}
     return out
