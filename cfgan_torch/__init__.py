@@ -7,3 +7,5 @@ Entry points run on the CUDA card unless the caller passes
 `device="cpu"`; on the CPU every hand-written kernel is replaced by its
 plain PyTorch version.
 """
+
+__version__ = "0.1.0"

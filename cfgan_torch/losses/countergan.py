@@ -44,3 +44,40 @@ def proximity_l2(masked_residual):
 def classifier_ce(logits, target):
     """Mean softmax cross entropy with integer labels."""
     return F.cross_entropy(logits, target)
+
+
+def countergan_g_terms(
+    adv_loss,
+    clf_logits,
+    target,
+    masked_residual,
+    raw_residual,
+    mask,
+    *,
+    lambda_adv: float = 1.0,
+    lambda_cls: float = 2.0,
+    lambda_reg_l1: float = 1.0,
+    lambda_reg_l2: float = 0.0,
+    lambda_mask: float = 1.0,
+    reg_reduction: str = "per_sample_norm",
+) -> CounterGANTerms:
+    """The generator objective's terms and their weighted total, from the
+    adversarial loss, the classifier's logits of the counterfactuals and
+    the residuals (`cfgan.losses.countergan.countergan_g_terms`); `reg_l2`
+    is a 0-d zero where `lambda_reg_l2` is 0.  Differentiable by autograd.
+
+    The train step composes the same total from the epilogue's sums
+    (`cfgan_torch.ops.epilogue.epilogue_terms`) instead."""
+    cls = classifier_ce(clf_logits, target)
+    l1 = proximity_l1(masked_residual, reg_reduction)
+    l2 = (proximity_l2(masked_residual) if lambda_reg_l2 else
+          torch.zeros((), device=masked_residual.device))
+    pen = mask_penalty(raw_residual, mask)
+    total = (
+        lambda_adv * adv_loss
+        + lambda_cls * cls
+        + lambda_reg_l1 * l1
+        + lambda_reg_l2 * l2
+        + lambda_mask * pen
+    )
+    return CounterGANTerms(adv_loss, cls, l1, l2, pen, total)

@@ -448,6 +448,18 @@ def _net_tensors(ns) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
             _optimizer_tensors(ns.opt, shards))
 
 
+def check_one_device_a_process(mesh: Mesh) -> None:
+    """Raise ValueError unless `mesh` has one device in this process: the
+    port trains one process a device, as `torchrun` and
+    `DistributedDataParallel` do, since its synchronised BatchNorm
+    all-reduces inside the forward.  JAX's one-process data parallelism
+    over every local device is `spawn_world(fn, N)` here."""
+    if len(mesh.devices) != 1:
+        raise ValueError(f"a train state takes a mesh of one device a "
+                         f"process, not {len(mesh.devices)}: start one "
+                         "process per device (spawn_world, torchrun)")
+
+
 def replicate(mesh: Mesh, tree):
     """Rank 0's values in every rank's copy of `tree`, in place; returns
     `tree`.
@@ -476,10 +488,7 @@ def replicate(mesh: Mesh, tree):
         _tree_map(tensors.append, tree)
         _broadcast(mesh.group, [t for t in tensors if torch.is_tensor(t)])
         return tree
-    if len(mesh.devices) != 1:
-        raise ValueError(f"a train state takes a mesh of one device a "
-                         f"process, not {len(mesh.devices)}: start one "
-                         "process per device (spawn_world, torchrun)")
+    check_one_device_a_process(mesh)
     for module in modules:
         dev = next(module.parameters()).device
         if dev != mesh.devices[0]:

@@ -69,7 +69,7 @@ from cfgan_torch.nn.layers import one_hot
 from cfgan_torch.serve.engine import CounterfactualEngine
 from cfgan_torch.train.countergan import make_countergan_step
 from cfgan_torch.train.loop import make_epoch_runner
-from cfgan_torch.train.state import GANState, NetState
+from cfgan_torch.train.state import GANState, NetState, g_eval_variables
 
 
 # the shipped datasets' shapes, the builders' defaults (as the JAX
@@ -443,7 +443,7 @@ def g_serving_variables(bundle: CounterGANBundle, state: GANState, x,
     EMA; with one, the EMA parameters and BatchNorm statistics
     recalibrated under them (`recal_fn`)."""
     if state.g_ema is None:
-        return live_g_variables(state)
+        return g_eval_variables(state)
     stats = bundle.recal_fn(state.g_ema, _stats(state), x, generator)
     return {**_copies(state.g_ema), **stats}
 

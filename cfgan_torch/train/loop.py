@@ -258,7 +258,16 @@ def train_countergan_loop(bundle, x_train, y_train, *, epochs: int,
     layout), every rank keeps the whole dataset and draws the same global
     permutation and draws, and each step trains on the rank's rows of its
     batch.  Every rank's history holds the global means; rank
-    0 alone logs and writes the checkpoints (`save_sharded`)."""
+    0 alone logs and writes the checkpoints (`save_sharded`).  A mesh of
+    several devices in one process raises ValueError before anything
+    runs: start one process a device (`spawn_world`, `torchrun`)."""
+    if mesh is not None:
+        from cfgan_torch.parallel.sharding import (
+            check_one_device_a_process,
+            replicate,
+        )
+
+        check_one_device_a_process(mesh)
     state = bundle.state
     start_epoch = 0
     history: dict = {}
@@ -271,8 +280,6 @@ def train_countergan_loop(bundle, x_train, y_train, *, epochs: int,
         log(f"[CounteRGAN] resuming from {checkpoint_dir} at epoch "
             f"{start_epoch + 1}/{epochs}")
     if mesh is not None:
-        from cfgan_torch.parallel.sharding import replicate
-
         replicate(mesh, state)
     dev = next(state.g.model.parameters()).device
     x = torch.as_tensor(x_train).to(dev)

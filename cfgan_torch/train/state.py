@@ -9,7 +9,7 @@ place.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Iterator, Mapping
 
 import torch
 from torch import nn
@@ -78,3 +78,48 @@ class GANState:
     # replicate`): its step then trains on this rank's rows of each
     # global batch and averages gradients and metrics over the ranks
     mesh: Any = None
+
+
+def g_eval_variables(state: GANState) -> dict[str, torch.Tensor]:
+    """Copies of the generator's variables for eval and serving, by state
+    dict name (`cfgan.train.state.g_eval_variables`): the EMA parameters
+    where the state carries them (`ema_decay > 0`), the live ones
+    otherwise, beside the live BatchNorm and spectral statistics.  It
+    reads the module, so a channel-sharded generator gives whole tensors.
+
+    For BatchNorm-carrying generators with EMA on, prefer
+    `cfgan_torch.train.builders.g_serving_variables`, which recalibrates
+    the running statistics under the EMA parameters: pairing EMA
+    parameters with the live parameters' statistics mis-normalizes
+    BatchNorm and can collapse eval quality (`make_bn_recalibrator`)."""
+    variables = state.g.model.state_dict()
+    if state.g_ema is not None:
+        variables.update(state.g_ema)
+    return {k: v.detach().clone() for k, v in variables.items()}
+
+
+def _leaves(tree) -> Iterator[torch.Tensor]:
+    if tree is None:
+        return
+    if isinstance(tree, Mapping):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield torch.as_tensor(tree)
+
+
+def global_grad_norm(grads) -> torch.Tensor:
+    """sqrt of the sum of squares over every leaf of `grads`, dicts, lists
+    and tuples of tensors nested at will (None leaves are skipped, as in a
+    pytree), as a 0-d tensor in the leaves' dtype
+    (`cfgan.train.state.global_grad_norm`).  On a channel-sharded net
+    (`cfgan_torch.parallel.shard_leaves`) a rank's gradient slices give
+    that rank's own norm, as JAX's gives the norm of the leaves it is
+    passed: nothing is summed over the mesh."""
+    squares = [torch.sum(g ** 2) for g in _leaves(grads)]
+    if not squares:
+        return torch.zeros(())
+    return torch.sqrt(sum(squares))

@@ -25,7 +25,14 @@ random weights made from a seed:
   and (three steps) in f32; three steps with `conv_impl="pallas"` launch
   the conv kernel 13 times forward and 13 times for dx per step, and the
   dK kernel 13 times per step, and take the gradients (Adam's first
-  moments after the first step) of the same steps with the plain conv.
+  moments after the first step) of the same steps with the plain conv;
+  its `exports` part imports the twelve subpackages and resolves every
+  exported name, then on the bf16 bundle: one generator forward and one
+  epilogue forward, `countergan_g_terms` against the kernel's
+  `epilogue_terms`, the backward (one epilogue backward, 13 dx and 13 dK
+  launches), `global_grad_norm` against `vector_norm`, and engines
+  served from `g_eval_variables` with and without the EMA, bit for bit
+  those served from the same variables assembled by hand.
 
 Then it trains end to end:
 
@@ -1911,6 +1918,212 @@ def memory_phase(card: str, dev, x, y, clf_sd: dict, counts, zero_counts,
             del bundle
     torch.cuda.empty_cache()
     return chunk_launches, chunk_conv_launches
+
+
+EXPORT_SUBPACKAGES = ("core", "data", "eval", "experiments", "losses",
+                      "masks", "models", "nn", "ops", "parallel", "serve",
+                      "train")
+GRAD_NORM_RTOL = 1e-6
+TERMS_RTOL = 1e-5  # f32: the kernel's row sums run in another order
+
+
+def _exported(mod) -> dict:
+    """A package's exported names: its `__all__`, else the public
+    attributes it binds that are not modules."""
+    import types
+
+    names = getattr(mod, "__all__", None)
+    if names is None:
+        names = [n for n, v in vars(mod).items()
+                 if not n.startswith("_")
+                 and not isinstance(v, types.ModuleType)]
+    return {n: getattr(mod, n) for n in names}
+
+
+def _defined_in_port(pkg, name: str, obj) -> bool:
+    home = getattr(obj, "__module__", None)
+    if home is None:  # data, such as the presets' dict
+        home = next((m for m, mod in sys.modules.items()
+                     if m.startswith("cfgan_torch.") and mod is not pkg
+                     and getattr(mod, name, None) is obj), "")
+    return home.startswith("cfgan_torch.")
+
+
+def exports_part(dev, bundle, clf_sd: dict, x, y, counts,
+                 zero_counts) -> dict:
+    """The port's import surface and the helpers of its last slice on the
+    card, on `bundle` (the bf16 preset at full width, conv_impl="pallas"):
+
+    (a) every exported name of the twelve subpackages resolves to an
+        object defined in the port;
+    (b) one generator forward (13 conv launches) on the batch `x` with
+        targets and masks drawn by `bundle.draw_fn`, the raw residual in
+        float32 through `cf_epilogue` (one forward launch), the
+        classifier and the discriminator on its x_cf, and
+        `countergan_g_terms`, whose reg_l1, reg_l2 and mask_penalty are
+        held against `epilogue_terms` of the kernel's row sums for both
+        reductions, at relative TERMS_RTOL;
+    (c) the backward of the preset's total through the generator (one
+        epilogue backward, 13 dx and 13 dK launches), and
+        `global_grad_norm` of the generator's gradients against
+        `vector_norm` of their concatenation in float64, at relative
+        GRAD_NORM_RTOL (the float32 `vector_norm`'s distance is reported);
+    (d) engines served from `g_eval_variables(state)` with the EMA and
+        without it (the same state with `g_ema=None`), each at b=128 bit
+        for bit the engine of the same variables assembled by hand from
+        the module's buffers and parameters or EMA, 13 conv launches a
+        forward.
+
+    Returns the part's line; fails on any check."""
+    import dataclasses
+    import importlib
+
+    import torch
+
+    from cfgan_torch.losses import countergan_g_terms
+    from cfgan_torch.losses import gan as gan_losses
+    from cfgan_torch.masks import random_patch_mask
+    from cfgan_torch.ops import cf_epilogue, epilogue_terms
+    from cfgan_torch.train import global_grad_norm
+    from cfgan_torch.train.builders import (
+        clf_forward_fn,
+        make_mixed_precision,
+        mnist_models,
+    )
+    from cfgan_torch.train.countergan import sample_targets
+    from cfgan_torch.train.state import g_eval_variables
+
+    t0 = time.perf_counter()
+    cfg, state = bundle.cfg, bundle.state
+    report = {"phase": "train pallas", "part": "exports",
+              "dtype": cfg.compute_dtype, "batch": x.shape[0]}
+
+    # (a) the import surface
+    unresolved, n_names = [], 0
+    for sub in EXPORT_SUBPACKAGES:
+        pkg = importlib.import_module(f"cfgan_torch.{sub}")
+        for name, obj in _exported(pkg).items():
+            n_names += 1
+            if not _defined_in_port(pkg, name, obj):
+                unresolved.append(f"{sub}.{name}")
+    report["exported_names"] = n_names
+    if unresolved:
+        fail(f"exported names not defined in the port: {unresolved}")
+
+    # (b) the terms against the epilogue kernel's sums
+    g_forward = make_mixed_precision(state.g.model, cfg.compute_dtype)
+    d_forward = make_mixed_precision(state.d.model, cfg.compute_dtype)
+    clf_model = mnist_models(cfg)[1]
+    clf_model.load_state_dict(clf_sd)
+    clf_forward = clf_forward_fn(clf_model.to(dev), cfg.compute_dtype)
+    g_adv = {"bce": gan_losses.g_loss_bce,
+             "wasserstein": gan_losses.g_loss_wasserstein}[cfg.adv_loss]
+    draws = bundle.draw_fn(torch.Generator(device=dev).manual_seed(SEED),
+                           (x.shape[0],))
+    t = sample_targets(y, bundle.num_classes, cfg.resample_target,
+                       draws=draws["targets"])
+    m = cfg.mask
+    mask = random_patch_mask(x.shape[0], x.shape[1:3], m.patch_size,
+                             m.num_modifiable_patches, channels=x.shape[-1],
+                             draws=draws.get("mask"), device=dev)
+    lo, hi = cfg.clamp_cf if cfg.clamp_cf is not None else (-1e30, 1e30)
+    lambdas = dict(lambda_adv=cfg.lambda_adv, lambda_cls=cfg.lambda_cls,
+                   lambda_reg_l1=cfg.lambda_reg_l1,
+                   lambda_reg_l2=cfg.lambda_reg_l2,
+                   lambda_mask=cfg.lambda_mask)
+    state.g.model.zero_grad(set_to_none=True)
+    zero_counts()
+    raw, _ = g_forward(x, t, mask, update_stats=False)
+    raw, xf = raw.float(), x.float()
+    x_cf, *sums = cf_epilogue(xf, raw, mask, lo, hi)
+    clf_logits = clf_forward(x_cf)
+    adv = g_adv(d_forward(x_cf, t, detach=True, train=False))
+    n_features = x[0].numel()
+    terms_err = {}
+    for reduction in ("per_sample_norm", "mean_abs"):
+        # a nonzero lambda_reg_l2 computes reg_l2, which the preset skips
+        got = countergan_g_terms(adv, clf_logits, t, raw * mask, raw, mask,
+                                 **{**lambdas, "lambda_reg_l2": 1.0},
+                                 reg_reduction=reduction)
+        want = epilogue_terms(*(v.detach() for v in sums), n_features,
+                              reduction)
+        for name, a, b in zip(("reg_l1", "reg_l2", "mask_penalty"),
+                              (got.reg_l1, got.reg_l2, got.mask_penalty),
+                              want):
+            terms_err[f"{reduction}/{name}"] = abs(
+                a.item() - b.item()) / abs(b.item())
+    terms = countergan_g_terms(adv, clf_logits, t, raw * mask, raw, mask,
+                               **lambdas, reg_reduction=cfg.reg_reduction)
+    if cfg.lambda_reg_l2 == 0 and not (terms.reg_l2.shape == ()
+                                       and terms.reg_l2.device == x.device
+                                       and terms.reg_l2.item() == 0.0):
+        fail(f"reg_l2 is not a 0-d zero on the card: {terms.reg_l2}")
+
+    # (c) the backward and the gradients' norm
+    terms.total.backward()
+    torch.cuda.synchronize()
+    launched = counts()
+    want_launches = (1, 1, 2 * KERNEL_LAYERS_PER_FORWARD,
+                     KERNEL_LAYERS_PER_FORWARD)
+    grads = {n: p.grad for n, p in state.g.model.named_parameters()
+             if p.grad is not None}
+    flat = torch.cat([g.reshape(-1) for g in grads.values()])
+    norm = global_grad_norm(grads).item()
+    exact = torch.linalg.vector_norm(flat, dtype=torch.float64).item()
+    f32 = torch.linalg.vector_norm(flat).item()
+    state.g.model.zero_grad(set_to_none=True)
+    report.update({
+        "total": terms.total.item(),
+        "terms_rel_err": terms_err, "terms_tolerance": f"rel <= {TERMS_RTOL}",
+        "launches_fwd_bwd_conv_dk": list(launched),
+        "grad_leaves": len(grads), "grad_elements": flat.numel(),
+        "global_grad_norm": norm, "vector_norm_f64": exact,
+        "grad_norm_rel_err": abs(norm - exact) / exact,
+        "vector_norm_f32_rel_err": abs(f32 - exact) / exact,
+        "grad_norm_tolerance": f"rel <= {GRAD_NORM_RTOL}"})
+    if launched != want_launches:
+        fail(f"the exports part launched (fwd, bwd, conv, dK) = {launched}, "
+             f"not {want_launches}")
+    if max(terms_err.values()) > TERMS_RTOL:
+        fail(f"countergan_g_terms part from the epilogue kernel's terms: "
+             f"{terms_err}")
+    if report["grad_norm_rel_err"] > GRAD_NORM_RTOL:
+        fail(f"global_grad_norm {norm} is not the gradients' norm {exact}")
+
+    # (d) engines from g_eval_variables, with and without the EMA
+    model = state.g.model
+    buffers = dict(model.named_buffers())
+    xs, ts = x.cpu().numpy(), t.cpu().numpy()
+    served = {}
+    for arm, st, by_hand in (
+            ("ema", state, {**buffers, **state.g_ema}),
+            ("live", dataclasses.replace(state, g_ema=None),
+             {**buffers, **dict(model.named_parameters())})):
+        ours = g_eval_variables(st)
+        if ours.keys() != by_hand.keys():
+            fail(f"g_eval_variables' names ({arm}) are not the module's")
+        results, conv = [], []
+        for g_vars in (ours, by_hand):
+            e = served_engine(cfg, g_vars, clf_sd, dev, cfg.compute_dtype)
+            zero_counts()
+            results.append(e.generate(xs, ts))
+            torch.cuda.synchronize()
+            conv.append(counts()[2])
+        served[arm] = ours
+        same = _same_result(*results)
+        report[f"served_{arm}"] = {"bit_for_bit": same,
+                                   "conv3x3_launches": conv}
+        if not same or conv != [KERNEL_LAYERS_PER_FORWARD] * 2:
+            fail(f"the engine from g_eval_variables ({arm}) served "
+                 f"{'other' if not same else 'the same'} results with "
+                 f"{conv} conv launches")
+    report["ema_differs_from_live"] = any(
+        not torch.equal(served["ema"][k], served["live"][k])
+        for k in state.g_ema)
+    if not report["ema_differs_from_live"]:
+        fail("the EMA parameters equal the live ones: (d) shows nothing")
+    report["part_seconds"] = round(time.perf_counter() - t0, 3)
+    return report
 
 
 def randomize_batch_norms(model, gen) -> None:
@@ -5226,7 +5439,7 @@ def main() -> None:
                      f"from the plain epilogue or is not finite: {errs}")
 
     with Phase("train pallas"):
-        pallas_train_launches = {}
+        pallas_train_launches, pallas_bundles = {}, {}
         for dtype in ("bfloat16", "float32"):
             # one epilogue forward and backward a step, 13 forward and 13
             # dx launches of the conv kernel, and 13 of the dK kernel
@@ -5238,6 +5451,7 @@ def main() -> None:
             zero_counts()
             bundle, losses, mu = train(cfg, SHORT_STEPS)
             pallas_launches = counts()
+            pallas_bundles[dtype] = bundle
             if pallas_launches != want:
                 fail(f"{dtype} conv_impl='pallas' training launched (fwd, "
                      f"bwd, conv, dK) = {pallas_launches}, not {want}")
@@ -5271,6 +5485,9 @@ def main() -> None:
             if not ok:
                 fail(f"{dtype} conv_impl='pallas' training differs from the "
                      f"plain conv")
+        emit(exports_part(dev, pallas_bundles["bfloat16"], clf_sd,
+                          train_x[0], train_y[0], counts, zero_counts))
+        del pallas_bundles
         torch.backends.cudnn.deterministic = False
 
     # ------------------------------------------- training end to end

@@ -332,6 +332,38 @@ def test_epilogue_kernels_match_plain(case, bounds):
         assert (g - w).abs().max().item() <= 1e-6
 
 
+
+def test_countergan_g_terms_match_the_epilogue_kernels_terms():
+    """`countergan_g_terms` on (128, 784) float32 residuals and a patch
+    mask: its reg_l1, reg_l2 and mask_penalty against `epilogue_terms` of
+    the forward kernel's row sums, for both reductions, relative 1e-5
+    (the sums run in another order)."""
+    from cfgan_torch.losses import countergan_g_terms
+
+    dev = _card()
+    g = torch.Generator().manual_seed(5)
+    x = (torch.rand((128, 28, 28, 1), generator=g) * 2 - 1).to(dev)
+    raw = (0.5 * torch.randn((128, 28, 28, 1), generator=g)).to(dev)
+    patches = (torch.rand((128, 4, 4), generator=g) < 0.5).float()
+    mask = patches.repeat_interleave(7, 1).repeat_interleave(7, 2)[
+        ..., None].to(dev)
+    logits = torch.randn((128, 10), generator=g).to(dev)
+    t = torch.randint(0, 10, (128,), generator=g).to(dev)
+    before = tep.cf_epilogue_fwd.launches
+    _, *sums = tep.cf_epilogue(x, raw, mask, -1.0, 1.0)
+    torch.cuda.synchronize()
+    assert tep.cf_epilogue_fwd.launches == before + 1
+    for reduction in ("per_sample_norm", "mean_abs"):
+        want = tep.epilogue_terms(*sums, 28 * 28, reduction)
+        terms = countergan_g_terms(torch.zeros((), device=dev), logits, t,
+                                   raw * mask, raw, mask, lambda_reg_l2=0.5,
+                                   reg_reduction=reduction)
+        got = (terms.reg_l1, terms.reg_l2, terms.mask_penalty)
+        for name, a, b in zip(("reg_l1", "reg_l2", "mask_penalty"), got,
+                              want):
+            assert abs(a.item() - b.item()) <= 1e-5 * abs(b.item()), (
+                reduction, name, a.item(), b.item())
+
 def test_epilogue_wrapper_rejects_what_the_kernels_do_not_take():
     dev = _card()
     x, raw, mask, gcf, gl1, gl2, gpen = _epilogue_inputs(4, 9, dev)

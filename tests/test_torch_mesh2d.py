@@ -291,6 +291,22 @@ def test_2d_world_blocks_are_jax_device_shards(world):
             np.testing.assert_array_equal(out["blocks"][axis], want[dev.id])
 
 
+def test_2d_mesh_over_processes_of_several_devices_is_refused(world):
+    """Over 4 processes of two devices each, a mesh with two axes larger
+    than 1 raises on every rank, kept on purpose: such a mesh takes one
+    device a process.  The 1-D mesh of those 8 devices, and (8, 1), are
+    made."""
+    _, outs = world
+    for out in outs:
+        got = out["refusals"]
+        for shape in ("(4, 2)", "(2, 4)"):
+            assert got[shape] == (
+                f"mesh_shape {shape} over 4 processes of 2 devices each: a "
+                "mesh with more than one axis larger than 1 takes one "
+                "device a process")
+        assert got["(8,)"] is None and got["(8, 1)"] is None
+
+
 # --------------------------------------------------------------- serving
 @pytest.fixture(scope="module")
 def engines():

@@ -236,3 +236,54 @@ def test_sync_batch_norm_matches_jax_shard_map(world, layout, update_stats):
         else:
             np.testing.assert_array_equal(g["mean"], np.zeros(5, np.float32))
             np.testing.assert_array_equal(g["var"], np.ones(5, np.float32))
+
+
+# ------------------------------------ one process a device, kept on purpose
+def _moons_bundle(seed: int):
+    from cfgan_torch.core.config import MOONS_COUNTERGAN
+    from cfgan_torch.models.classifiers import MLPClassifier
+    from cfgan_torch.train.builders import build_moons_countergan
+
+    clf = MLPClassifier(generator=torch.Generator().manual_seed(0))
+    return build_moons_countergan(MOONS_COUNTERGAN, clf.state_dict(),
+                                  seed=seed, device="cpu")
+
+
+def _state_tensors(state) -> list:
+    return [t.detach().clone() for net in (state.g, state.d)
+            for t in net.model.state_dict().values()]
+
+
+def test_loop_refuses_a_one_process_mesh_of_several_devices(tmp_path):
+    """JAX trains over every local device from one process
+    (`train_countergan_loop(mesh=create_mesh())`); the port trains one
+    process a device (`spawn_world`, `torchrun`).  The loop given a mesh of
+    two CPU devices in this process raises ValueError before any step and
+    before it restores the checkpoint it was pointed at: the state is as
+    it was, unbound to the mesh."""
+    from cfgan_torch.core.checkpoint import save_train_state
+    from cfgan_torch.train.loop import train_countergan_loop
+
+    save_train_state(str(tmp_path / "ck"), _moons_bundle(1).state, epoch=0)
+    bundle = _moons_bundle(2)
+    before = _state_tensors(bundle.state)
+    x = np.zeros((64, 2), np.float32)
+    y = np.arange(64) % 3
+    mesh = create_mesh(devices=["cpu"] * 2)
+    with pytest.raises(ValueError, match="spawn_world") as err:
+        train_countergan_loop(bundle, x, y, epochs=1, batch_size=32,
+                              mesh=mesh, log=lambda s: None,
+                              checkpoint_dir=str(tmp_path / "ck"))
+    assert "torchrun" in str(err.value)
+    assert "one device a process, not 2" in str(err.value)
+    assert bundle.state.step == 0 and bundle.state.mesh is None
+    for got, want in zip(_state_tensors(bundle.state), before):
+        assert torch.equal(got, want)
+
+
+def test_replicate_refuses_a_one_process_mesh_of_several_devices():
+    from cfgan_torch.parallel import replicate
+
+    bundle = _moons_bundle(2)
+    with pytest.raises(ValueError, match="spawn_world, torchrun"):
+        replicate(create_mesh(devices=["cpu"] * 2), bundle.state)

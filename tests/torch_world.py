@@ -233,11 +233,27 @@ def mesh_of(shape):
     return create_mesh(tuple(shape), ("data", "model"), devices=["cpu"])
 
 
+def _refusal(shape, names, devices: int) -> str | None:
+    """The message of the ValueError `create_mesh` raises for `shape` over
+    the world's processes of `devices` CPU devices each, or None."""
+    try:
+        create_mesh(tuple(shape), tuple(names), devices=["cpu"] * devices)
+    except ValueError as e:
+        return str(e)
+    return None
+
+
 def mesh2d_facts(rank: int, shape, x: np.ndarray) -> dict:
     """This rank's coordinates on a ("data", "model") mesh of `shape`, the
-    ranks of each axis's group, and its blocks of `x` along each axis."""
+    ranks of each axis's group, and its blocks of `x` along each axis;
+    and what `create_mesh` says to meshes over processes of two devices
+    each ("refusals": None where it made the mesh)."""
     import torch.distributed as dist
 
+    world = dist.get_world_size()
+    refusals = {str(s): _refusal(s, n, 2) for s, n in (
+        ((world, 2), ("data", "model")), ((2, world), ("data", "model")),
+        ((2 * world,), ("data",)), ((2 * world, 1), ("data", "model")))}
     mesh = mesh_of(shape)
     groups = {}
     for axis in mesh.axis_names:
@@ -248,7 +264,8 @@ def mesh2d_facts(rank: int, shape, x: np.ndarray) -> dict:
             "coords": tuple(mesh.axis_index(a) for a in mesh.axis_names),
             "groups": groups,
             "blocks": {a: shard_batch(mesh, {"x": x}, axis=a)["x"].numpy()
-                       for a in mesh.axis_names}}
+                       for a in mesh.axis_names},
+            "refusals": refusals}
 
 
 def _tensor(a: np.ndarray) -> torch.Tensor:
