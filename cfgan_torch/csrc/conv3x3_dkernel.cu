@@ -4,7 +4,7 @@
 //   dK[dy,dx,c,o] = sum_{n,h,w} x[n,h+dy-1,w+dx-1,c] * g[n,h,w,o]
 //
 // with zeros outside the image, accumulated in float32.  It is the dK of
-// make_conv3x3_same_pallas's VJP (cfgan/ops/conv.py:165-176: nine tap
+// make_conv3x3_same_pallas's VJP (cfgan/ops/conv.py:165-177: nine tap
 // products with preferred_element_type=float32), which the JAX package
 // computes outside its Pallas kernel; here it replaces the port's stacked-tap
 // product, which copied the nine taps of x (a 9x copy) into device memory and
@@ -23,42 +23,70 @@
 // bf16 (conv3x3_dkernel_wgmma_kernel).
 // Design.  The product is M = Cin (64 a block), N = Cout (a 64- or 32-wide
 // tile) over a depth of B*H*W pixels, for nine taps.
-// - The taps are read where x lies.  A block walks over stages of 128
+// - The taps are read where x lies.  A block walks over stages of up to 128
 //   pixels; each stage's input halo (the pixels p - W - 1 ... p + 128 + W,
 //   or three windows of 130 where W > 130) and cotangent tile are staged in
-//   shared memory, double-buffered: by TMA (2-D boxes, 128-byte swizzle,
-//   one mbarrier a buffer) where the rows are 16-byte multiples, the halo
-//   is one window and the tile 64 wide, else by cp.async.  A = x_tap^T
-//   (rows c, depth pixels) is loaded from the halo with ldmatrix.trans,
-//   whose row addresses are free: a tap is a shift of the row address, and
-//   a pixel outside the image points at 16 zero bytes.  B = the cotangent
-//   tile (pixels x o), which wgmma reads from shared memory, N-major.
+//   shared memory.  A = x_tap^T (rows c, depth pixels) is loaded from the
+//   halo with ldmatrix.trans, whose row addresses are free: a tap is a shift
+//   of the row address, and a pixel outside the image points at 16 zero
+//   bytes.  B = the cotangent tile (pixels x o), which wgmma reads from
+//   shared memory, N-major.
 // - Three warpgroups, one per dy, each holds the f32 accumulators of its
 //   three taps (3 x 64 x 64 over 128 threads: 96 registers a thread).
-// - Filling the card: the pixels are split into one contiguous range per
-//   block, so that the blocks of all (Cin slice, Cout tile) pairs fill the
-//   SMs once.  Each block writes its f32 partial dK, staged in shared
-//   memory and stored 16 bytes a thread (4-byte stores straight from the
-//   accumulators were far slower); a second kernel sums the partials in
-//   block order.  No atomics: two calls give the same bits.
+// - Loads (the TMA path: the rows are 16-byte multiples, the halo one
+//   window, the tile 64 wide): a ring of up to kRing = 4 stages, each slot
+//   with a full and an empty mbarrier.  Thread 0 issues a stage's TMA boxes
+//   (64 pixels, the 128-byte swizzle; only the boxes the stage's pixels
+//   reach) once every warp has released the slot; a warp releases it by
+//   one arrival once its wgmma have read it.  Up to three stages are in
+//   flight while one is multiplied, and no __syncthreads fences a stage.
+//   Other shapes take cp.async into two buffers (stage()), fenced by
+//   __syncthreads.
+// - Filling the card: the pixels are split into equal ranges of 16-pixel
+//   steps, one range a block; a stage past a range's end runs only the
+//   steps it holds.
+// - Split-K partials, reduced in thread block clusters: the ranges' blocks
+//   are launched in clusters of 2, 4 or 8 along the pixel axis
+//   (cudaLaunchKernelEx), as many as cudaOccupancyMaxActiveClusters says
+//   the card holds at once, the size and the range chosen by a cost model
+//   (cluster_fill).  After its pixel loop a block stages its 9 x 64 x BN
+//   float32 tile in its own shared memory (the ring is free by then);
+//   after a cluster barrier each block sums 1/cluster of the tile's entries
+//   over the cluster's blocks, in rank order, through distributed shared
+//   memory (mapa + ld.shared::cluster), and writes that share of the
+//   cluster's partial with 16-byte stores.  A second kernel sums the
+//   clusters' partials in a fixed order.  No atomics: two calls give the
+//   same bits.
 // - The halo holds 64 channels a pixel (128 bytes); chunk j of halo pixel s
 //   is stored at chunk j ^ (s % 8) (TMA's 128-byte swizzle), so the 8 rows
 //   of an ldmatrix fall on distinct bank groups.  Channels past Cin are
 //   zeros, and so are the rows of A past the block's range, so ragged Cin,
 //   Cout, W and B need no padded copy.
-// ptxas (sm_90a, CUDA 12.9): 153 registers (BN 64) and 103 (BN 32), no
-// spills; 384 threads, one block an SM.
+// - 384 threads, one block an SM, within the 168 registers a thread that
+//   allows and no spills (the smoke's build line prints ptxas's counts).
+// Measured on an NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py): at
+// B=128, 28x28, 64->64 the kernel and its reduction take 0.0257 ms against
+// the bound's 0.0077 (30%) and cuDNN's wgrad 0.0278, in 66 clusters of 2:
+// 66 partials, 9.7 MB.  What holds it back (PERF.md): a block's loop of
+// 16-pixel steps takes ~470 cycles a step where the tensor cores need
+// 288, bound by issue and latency, not by its loads (a loop that loads
+// nothing after its first stages runs as fast); and every block sends its
+// 147 KB float32 partial off its SM, through the cluster and to device
+// memory, at ~17 bytes a cycle whatever the cluster size (~4.9 us of the
+// ~23 us kernel).
 //
-// float32: the same plan (three warpgroups, one per dy; a pixel range per
-// block; per-block partials summed in block order by the same reduction
-// kernel, so two calls give the same bits) with 3xTF32 products, as the
-// conv's float32 kernel (conv3x3.cu) makes them, and 32-wide Cout tiles;
-// how its operands reach wgmma is told at the kernel.
+// float32 (f32::conv3x3_dkernel_tf32_kernel): three warpgroups, one per
+// dy; a pixel range of whole stages per block, double-buffered by
+// cp.async; each block writes its own partial, which the same reduction
+// kernel sums in a fixed order, so two calls give the same bits; 3xTF32
+// products, as the conv's float32 kernel (conv3x3.cu) makes them, and
+// 32-wide Cout tiles; how its operands reach wgmma is told at the kernel.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "sm90.cuh"
 
@@ -67,24 +95,29 @@ namespace {
 using bf16 = __nv_bfloat16;
 constexpr int kWarpgroups = 3;  // one per dy
 constexpr int kThreads = 128 * kWarpgroups;
+constexpr int kWarps = kThreads / 32;
 constexpr int kTP = 128;        // pixels per stage
-constexpr int kSteps = kTP / 16;
+constexpr int kStep = 16;       // pixels per k16 step; ranges are multiples
+constexpr int kSteps = kTP / kStep;
 constexpr int kSlice = 64;      // input channels per block: wgmma M
 constexpr int kChunks = kSlice / 8;
 constexpr int kSmemLimit = 232448;
+constexpr int kBox = 64;                   // pixels a TMA box
+constexpr int kBoxBytes = kBox * kSlice * 2;  // 64 pixels x 64 bf16
+constexpr int kRing = 4;        // TMA stages (fewer where a stage is wide)
+constexpr int kMaxCluster = 8;  // blocks a cluster: the portable maximum
 
 struct Params {
   const bf16* x;
   const bf16* g;
-  float* part;  // (blocks, 9, Cin, Cout) partial sums
-  long long P;  // B * H * W
+  float* part;     // (partials, 9, Cin, Cout): one a cluster
+  long long P;     // B * H * W
+  long long span;  // pixels a block: a multiple of kStep
   int H, W, CI, CO;
   int vec_x, vec_g;  // rows start 16-byte aligned: stage with cp.async
   int S;             // halo offset between the dy windows: min(W, kTP + 2)
   int nslots;        // halo pixels: 2 * S + kTP + 2
-  int stages;        // stages of kTP pixels per block
   int halo_bytes, g_bytes, nbuf;
-  int tma;           // halo and cotangent tile by TMA (xmap, gmap)
 };
 
 __device__ __forceinline__ uint32_t swz(uint32_t c) { return c ^ ((c >> 3) & 7); }
@@ -147,7 +180,151 @@ __device__ __forceinline__ void stage(const Params& p, unsigned char* hbuf,
   }
 }
 
+// The products of one stage (pixels [pa, min(pa + kTP, pb))) into acc:
+// only the k16 steps that hold a pixel of the range run.  Returns with
+// every wgmma of the stage done (its buffer may be released).
+//
+// A lane's ldmatrix row for tap dx at step s is halo pixel dy * S + kl +
+// dx + 16 s, whose swizzled chunk (jc ^ (pixel % 8)) does not depend on s:
+// its address is one base a tap, advanced by 2048 bytes a step.
+template <int BN, bool TMA>
+__device__ __forceinline__ void multiply(const Params& p,
+                                         float (&acc)[3][BN / 2],
+                                         uint32_t hbase, uint32_t gbase,
+                                         long long pa, long long pb, int dy,
+                                         int kl, int jc, uint32_t zaddr) {
+  const int rem = (int)(pb - pa < kTP ? pb - pa : kTP);
+  uint32_t base[3];
+#pragma unroll
+  for (int dx = 0; dx < 3; ++dx) {
+    const uint32_t pix = (uint32_t)(dy * p.S + kl + dx);
+    base[dx] = hbase + pix * 128 + ((jc ^ (pix & 7)) << 4);
+  }
+  // (h, w) of this lane's pixel at step 0, advanced by 16 pixels a step
+  int w = (int)((pa + kl) % p.W);
+  int h = (int)(((pa + kl) / p.W) % p.H);
+  const bool wide = p.W >= kStep;  // a step crosses at most one row end
+  uint32_t a[2][3][4];
+#pragma unroll
+  for (int s = 0; s < kSteps; ++s) {
+    if (kStep * s >= rem) break;
+    const bool row =
+        kStep * s + kl < rem && (unsigned)(h + dy - 1) < (unsigned)p.H;
+    if (s >= 2) sm90::wgmma_wait<1>();  // step s-2 has read a[s & 1]
+    sm90::ldmatrix_x4_trans(a[s & 1][0], row && w > 0 ? base[0] : zaddr);
+    sm90::ldmatrix_x4_trans(a[s & 1][1], row ? base[1] : zaddr);
+    sm90::ldmatrix_x4_trans(a[s & 1][2], row && w + 1 < p.W ? base[2] : zaddr);
+    sm90::wgmma_fence();
+    // TMA: rows of 128 swizzled bytes, 16 pixels a step
+    const uint64_t desc = TMA ? sm90::make_desc_sw128(gbase + s * 2048)
+                              : sm90::make_desc(gbase + s * BN * 32, BN * 16,
+                                                128);
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx)
+      sm90::Wgmma<BN, 1>::run(acc[dx], a[s & 1][dx], desc);
+    sm90::wgmma_commit();
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx) base[dx] += kStep * 128;
+    w += kStep;
+    if (wide) {
+      if (w >= p.W) {
+        w -= p.W;
+        h = h + 1 == p.H ? 0 : h + 1;
+      }
+    } else {
+      while (w >= p.W) {
+        w -= p.W;
+        if (++h == p.H) h = 0;
+      }
+    }
+  }
+  sm90::wgmma_wait<0>();
+}
+
+// floats a row of a block's staged partial: a warp's float2 stores of 8
+// rows take 2 wavefronts
 template <int BN>
+constexpr int kTileRow = BN + 8;
+
+// This block's share of its cluster's partial dK: entries [rank, rank + 1)
+// * 1/C of the 9 x 64 x BN staged tile, each the sum over the cluster's C
+// tiles in rank order, read through distributed shared memory and written
+// with 16-byte stores.  A thread keeps 16 loads in flight (16 / C entries a
+// round), those of its own tile plain shared-memory loads.  After its last
+// round's loads it arrives on the cluster's barrier (it reads no other
+// tile from there on) and stores its sums while the others finish; it
+// waits on the barrier last, so that no block leaves while another still
+// reads its tile.
+template <int BN, int C>
+__device__ __forceinline__ void reduce_share(const Params& p,
+                                             const float* tile, int c0,
+                                             int n0) {
+  constexpr int kShare = 9 * 64 * (BN / 4) / C;
+  constexpr int kAtOnce = 16 / C;
+  constexpr int kRounds = (kShare + kThreads * kAtOnce - 1) /
+                          (kThreads * kAtOnce);
+  const uint32_t rank = sm90::cluster_rank();
+  const int lo = (int)rank * kShare;
+  const uint32_t tbase = sm90::smem_u32(tile);
+  const size_t plane = (size_t)p.CI * p.CO;
+  float* out = p.part + (size_t)(blockIdx.x / C) * 9 * plane;
+  const bool vec = p.CO % 4 == 0 && n0 + BN <= p.CO;
+  // entry i of the share: tap t9, channel row r, output quad o4
+  auto where = [&](int i, int& t9, int& r, int& o4) {
+    t9 = (lo + i) / (64 * (BN / 4));
+    r = ((lo + i) / (BN / 4)) % 64;
+    o4 = 4 * ((lo + i) % (BN / 4));
+  };
+#pragma unroll 1
+  for (int round = 0; round < kRounds; ++round) {
+    const int first = round * kThreads * kAtOnce + (int)threadIdx.x;
+    float4 v[kAtOnce][C];
+    uint32_t live = 0;  // bit e: entry e lies in the share, Cin and Cout
+#pragma unroll
+    for (int e = 0; e < kAtOnce; ++e) {
+      int t9, r, o4;
+      where(first + e * kThreads, t9, r, o4);
+      if (first + e * kThreads >= kShare || c0 + r >= p.CI ||
+          n0 + o4 >= p.CO)
+        continue;
+      live |= 1u << e;
+      const uint32_t off =
+          (uint32_t)(((t9 * 64 + r) * kTileRow<BN> + o4) * 4);
+#pragma unroll
+      for (int q = 0; q < C; ++q)  // this block's own tile: a plain load
+        v[e][q] = q == (int)rank
+                      ? *reinterpret_cast<const float4*>(
+                            reinterpret_cast<const char*>(tile) + off)
+                      : sm90::ld_cluster_f4(sm90::cluster_map(tbase + off, q));
+    }
+    if (round == kRounds - 1) sm90::cluster_arrive();
+#pragma unroll
+    for (int e = 0; e < kAtOnce; ++e) {
+      if (!(live >> e & 1)) continue;
+      float4 sum = v[e][0];
+#pragma unroll
+      for (int q = 1; q < C; ++q) {
+        sum.x += v[e][q].x;
+        sum.y += v[e][q].y;
+        sum.z += v[e][q].z;
+        sum.w += v[e][q].w;
+      }
+      int t9, r, o4;
+      where(first + e * kThreads, t9, r, o4);
+      const int o = n0 + o4;
+      float* dst = out + t9 * plane + (size_t)(c0 + r) * p.CO + o;
+      if (vec) {
+        *reinterpret_cast<float4*>(dst) = sum;
+      } else {
+        const float f[4] = {sum.x, sum.y, sum.z, sum.w};
+        for (int m = 0; m < 4 && o + m < p.CO; ++m) dst[m] = f[m];
+      }
+    }
+  }
+  sm90::cluster_wait();  // every block is done reading this one's tile
+}
+
+template <int BN, bool TMA>
 __global__ void __launch_bounds__(kThreads, 1)
 conv3x3_dkernel_wgmma_kernel(const Params p,
                              const __grid_constant__ CUtensorMap xmap,
@@ -156,45 +333,33 @@ conv3x3_dkernel_wgmma_kernel(const Params p,
   // TMA's 128-byte swizzle wants 1024-byte aligned tiles
   unsigned char* smem =
       smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
-  unsigned char* zero16 = smem;  // + 2 mbarriers at 64 and 72
+  unsigned char* zero16 = smem;  // + the ring's mbarriers from byte 64
   unsigned char* bufs = smem + 1024;
   const int tid = threadIdx.x;
   const int dy = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
   if (tid < 4) reinterpret_cast<uint32_t*>(zero16)[tid] = 0u;
-  const uint32_t bar = sm90::smem_u32(zero16 + 64);  // one per buffer
-  if (tid == 0) {
-    sm90::mbar_init(bar, 1);
-    sm90::mbar_init(bar + 8, 1);
+  // TMA: full[i] (the stage's bytes are in) and empty[i] (every warp has
+  // read it) of slot i
+  const uint32_t full = sm90::smem_u32(zero16 + 64);
+  const uint32_t empty = full + 8 * kRing;
+  if (TMA && tid == 0) {
+    sm90::prefetch_tensormap(&xmap);
+    sm90::prefetch_tensormap(&gmap);
+    for (int i = 0; i < p.nbuf; ++i) {
+      sm90::mbar_init(full + 8 * i, 1);
+      sm90::mbar_init(empty + 8 * i, kWarps);
+    }
     sm90::fence_mbar_init();
   }
   __syncthreads();
 
   const int c0 = blockIdx.y * kSlice, n0 = blockIdx.z * BN;
-  const long long first = (long long)blockIdx.x * p.stages * kTP;
-  long long pb = first + (long long)p.stages * kTP;
+  const long long first = (long long)blockIdx.x * p.span;
+  long long pb = first + p.span;
   if (pb > p.P) pb = p.P;
-  const int nst = (int)((pb - first + kTP - 1) / kTP);
+  // blocks past the pixels (a cluster's padding) add zeros
+  const int nst = pb > first ? (int)((pb - first + kTP - 1) / kTP) : 0;
   const int buf_bytes = p.halo_bytes + p.g_bytes;
-  auto issue = [&](int j) {
-    if (j >= nst) return;
-    unsigned char* b = bufs + (j % p.nbuf) * buf_bytes;
-    const long long pa = first + (long long)j * kTP;
-    if (p.tma) {  // one thread: the halo in boxes of 64 pixels, g's tile
-      if (tid == 0) {
-        sm90::fence_proxy_async();  // the buffer's last reads came first
-        const uint32_t full = bar + 8 * (j % p.nbuf);
-        const int boxes = p.halo_bytes / (64 * kSlice * 2);
-        sm90::mbar_expect_tx(full, p.halo_bytes + p.g_bytes);
-        for (int q = 0; q < boxes; ++q)
-          sm90::tma_load_2d(sm90::smem_u32(b) + q * 64 * kSlice * 2, &xmap,
-                            c0, (int)(pa - p.W - 1) + 64 * q, full);
-        sm90::tma_load_2d(sm90::smem_u32(b) + p.halo_bytes, &gmap, n0,
-                          (int)pa, full);
-      }
-    } else {
-      stage<BN>(p, b, b + p.halo_bytes, pa, pb, c0, n0);
-    }
-  };
 
   // this lane's ldmatrix row: pixel kl of a 16-pixel step, channel chunk jc
   const int kl = (lane & 7) + 8 * (lane >> 4);
@@ -207,99 +372,98 @@ conv3x3_dkernel_wgmma_kernel(const Params p,
 #pragma unroll
     for (int r = 0; r < BN / 2; ++r) acc[d][r] = 0.f;
 
-  if (p.nbuf == 2) {
-    issue(0);
-    sm90::cp_async_commit();
-  }
-  for (int j = 0; j < nst; ++j) {
-    issue(p.nbuf == 2 ? j + 1 : j);
-    sm90::cp_async_commit();
-    if (p.tma) {
-      sm90::mbar_wait(bar + 8 * (j % p.nbuf), (j / p.nbuf) & 1);
-    } else {
+  if constexpr (TMA) {
+    // stage j into slot j % nbuf: the halo's boxes of 64 pixels and g's
+    // that the stage's pixels reach (thread 0)
+    auto issue = [&](int j) {
+      const uint32_t b = sm90::smem_u32(bufs + (j % p.nbuf) * buf_bytes);
+      const long long pa = first + (long long)j * kTP;
+      const int len = (int)(pb - pa < kTP ? pb - pa : kTP);
+      const int hboxes = (len + 2 * p.S + 2 + kBox - 1) / kBox;
+      const int gboxes = (len + kBox - 1) / kBox;
+      const uint32_t bar = full + 8 * (j % p.nbuf);
+      sm90::mbar_expect_tx(bar, (hboxes + gboxes) * kBoxBytes);
+      for (int q = 0; q < hboxes; ++q)
+        sm90::tma_load_2d(b + q * kBoxBytes, &xmap, c0,
+                          (int)(pa - p.W - 1) + kBox * q, bar);
+      for (int q = 0; q < gboxes; ++q)
+        sm90::tma_load_2d(b + p.halo_bytes + q * kBoxBytes, &gmap, n0,
+                          (int)pa + kBox * q, bar);
+    };
+    if (tid == 0)
+      for (int j = 0; j < p.nbuf && j < nst; ++j) issue(j);
+    for (int j = 0; j < nst; ++j) {
+      // refill the slot of stage j - 1 once every warp has released it
+      if (tid == 0 && j >= 1 && j - 1 + p.nbuf < nst) {
+        const int r = j - 1;
+        sm90::mbar_wait(empty + 8 * (r % p.nbuf), (r / p.nbuf) & 1);
+        sm90::fence_proxy_async();  // the slot's last reads came first
+        issue(r + p.nbuf);
+      }
+      sm90::mbar_wait(full + 8 * (j % p.nbuf), (j / p.nbuf) & 1);
+      const uint32_t hbase = sm90::smem_u32(bufs + (j % p.nbuf) * buf_bytes);
+      multiply<BN, true>(p, acc, hbase, hbase + p.halo_bytes,
+                         first + (long long)j * kTP, pb, dy, kl, jc, zaddr);
+      __syncwarp();
+      if (lane == 0) sm90::mbar_arrive(empty + 8 * (j % p.nbuf));
+    }
+  } else {
+    auto issue = [&](int j) {
+      if (j >= nst) return;
+      unsigned char* b = bufs + (j % p.nbuf) * buf_bytes;
+      stage<BN>(p, b, b + p.halo_bytes, first + (long long)j * kTP, pb, c0,
+                n0);
+    };
+    if (p.nbuf == 2) {
+      issue(0);
+      sm90::cp_async_commit();
+    }
+    for (int j = 0; j < nst; ++j) {
+      issue(p.nbuf == 2 ? j + 1 : j);
+      sm90::cp_async_commit();
       if (p.nbuf == 2)
         sm90::cp_async_wait<1>();
       else
         sm90::cp_async_wait<0>();
       sm90::fence_proxy_async();  // g's tile, by cp.async, read by wgmma
+      __syncthreads();
+      const uint32_t hbase = sm90::smem_u32(bufs + (j % p.nbuf) * buf_bytes);
+      multiply<BN, false>(p, acc, hbase, hbase + p.halo_bytes,
+                          first + (long long)j * kTP, pb, dy, kl, jc, zaddr);
+      __syncthreads();  // the buffer is free again
     }
-    __syncthreads();
-
-    unsigned char* b = bufs + (j % p.nbuf) * buf_bytes;
-    const uint32_t hbase = sm90::smem_u32(b);
-    const uint32_t gbase = hbase + p.halo_bytes;
-    const long long pa = first + (long long)j * kTP;
-    // (h, w) of this lane's pixel at step 0, advanced by 16 pixels a step
-    int w = (int)((pa + kl) % p.W);
-    int h = (int)(((pa + kl) / p.W) % p.H);
-    uint32_t a[2][3][4];
-#pragma unroll
-    for (int s = 0; s < kSteps; ++s) {
-      const int kk = 16 * s + kl;
-      const bool live = pa + kk < pb;
-      if (s >= 2) sm90::wgmma_wait<1>();  // step s-2 has read a[s & 1]
-#pragma unroll
-      for (int dx = 0; dx < 3; ++dx) {
-        const bool ok = live && (unsigned)(h + dy - 1) < (unsigned)p.H &&
-                        (unsigned)(w + dx - 1) < (unsigned)p.W;
-        const uint32_t c = (uint32_t)(dy * p.S + kk + dx) * kChunks + jc;
-        sm90::ldmatrix_x4_trans(a[s & 1][dx], ok ? hbase + swz(c) * 16 : zaddr);
-      }
-      sm90::wgmma_fence();
-      // TMA: rows of 128 swizzled bytes, 16 pixels a step
-      const uint64_t desc =
-          p.tma ? sm90::make_desc_sw128(gbase + s * 2048)
-                : sm90::make_desc(gbase + s * BN * 32, BN * 16, 128);
-#pragma unroll
-      for (int dx = 0; dx < 3; ++dx)
-        sm90::Wgmma<BN, 1>::run(acc[dx], a[s & 1][dx], desc);
-      sm90::wgmma_commit();
-      w += 16;
-      h = (h + w / p.W) % p.H;
-      w %= p.W;
-    }
-    sm90::wgmma_wait<0>();
-    __syncthreads();  // the buffer is free again
+    sm90::cp_async_wait<0>();
   }
-  sm90::cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring
 
-  // this block's partial dK, one column dx of taps at a time: each
-  // warpgroup's 64 x BN tile of tap (dy, dx) through shared memory, then
-  // out in 16-byte stores
-  constexpr int kRow = BN + 4;  // floats a row: spreads a warp's banks
+  // this block's 9 taps x 64 x BN partial, staged in its shared memory
   float* tile = reinterpret_cast<float*>(bufs);
-  const int gq = lane / 4, tq = lane % 4;
-  const size_t plane = (size_t)p.CI * p.CO;
-  const bool vec = p.CO % 4 == 0 && n0 + BN <= p.CO;
+  {
+    const int gq = lane / 4, tq = lane % 4;
 #pragma unroll
-  for (int dx = 0; dx < 3; ++dx) {
-    float* mine = tile + dy * 64 * kRow;
+    for (int dx = 0; dx < 3; ++dx)
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = warp * 16 + gq + 8 * half;
+      for (int half = 0; half < 2; ++half) {
+        const int r = (dy * 3 + dx) * 64 + warp * 16 + gq + 8 * half;
 #pragma unroll
-      for (int jn = 0; jn < BN / 8; ++jn)
-        *reinterpret_cast<float2*>(mine + r * kRow + 8 * jn + 2 * tq) =
-            make_float2(acc[dx][4 * jn + 2 * half],
-                        acc[dx][4 * jn + 2 * half + 1]);
-    }
-    __syncthreads();
-    for (int i = tid; i < 3 * 64 * (BN / 4); i += kThreads) {
-      const int t3 = i / (64 * (BN / 4)), r = (i / (BN / 4)) % 64;
-      const int o4 = 4 * (i % (BN / 4));
-      const int c = c0 + r, o = n0 + o4;
-      if (c >= p.CI || o >= p.CO) continue;
-      const float* src = tile + (t3 * 64 + r) * kRow + o4;
-      float* out = p.part + ((size_t)blockIdx.x * 9 + t3 * 3 + dx) * plane +
-                   (size_t)c * p.CO + o;
-      if (vec) {
-        *reinterpret_cast<float4*>(out) =
-            *reinterpret_cast<const float4*>(src);
-      } else {
-        for (int m = 0; m < 4 && o + m < p.CO; ++m) out[m] = src[m];
+        for (int jn = 0; jn < BN / 8; ++jn)
+          *reinterpret_cast<float2*>(tile + r * kTileRow<BN> + 8 * jn + 2 * tq) =
+              make_float2(acc[dx][4 * jn + 2 * half],
+                          acc[dx][4 * jn + 2 * half + 1]);
       }
-    }
-    __syncthreads();
+  }
+  sm90::cluster_sync();  // every block of the cluster has staged its tile
+
+  // this block's share of the cluster's partial
+  switch (sm90::cluster_size()) {
+    case 8:
+      reduce_share<BN, 8>(p, tile, c0, n0);
+      break;
+    case 4:
+      reduce_share<BN, 4>(p, tile, c0, n0);
+      break;
+    default:
+      reduce_share<BN, 2>(p, tile, c0, n0);
   }
 }
 
@@ -555,25 +719,53 @@ conv3x3_dkernel_tf32_kernel(const Params p) {
 
 }  // namespace f32
 
-// dK = the sum of the blocks' partials, in block order
-__global__ void dkernel_reduce_kernel(const float* __restrict__ part,
-                                      float* __restrict__ dk, int blocks,
-                                      long long n) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int b = 0; b < blocks; ++b) s += part[b * n + i];
-    dk[i] = s;
+// dK = the sum of the partials (one a cluster in bf16, one a block in
+// float32) in a fixed order: a block takes 32 entries (16 bytes each where
+// the entry count allows); warp k sums partials k, k + 8, k + 16, ... of
+// them, then the eight warps' sums are added in warp order
+constexpr int kReduceGroups = 8;
+__device__ __forceinline__ void add_to(float& a, float b) { a += b; }
+__device__ __forceinline__ void add_to(float4& a, const float4& b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+}
+template <int V>
+__global__ void __launch_bounds__(32 * kReduceGroups)
+dkernel_reduce_kernel(const float* __restrict__ part, float* __restrict__ dk,
+                      int slabs, long long n) {
+  using Vec = typename std::conditional<V == 4, float4, float>::type;
+  __shared__ Vec sums[kReduceGroups][32];
+  const long long m = n / V;
+  const Vec* src = reinterpret_cast<const Vec*>(part);
+  const int e = threadIdx.x % 32, k = threadIdx.x / 32;
+  const long long i = blockIdx.x * 32LL + e;
+  Vec s{};
+  if (i < m) {
+#pragma unroll 4
+    for (int b = k; b < slabs; b += kReduceGroups) add_to(s, src[b * m + i]);
   }
+  sums[k][e] = s;
+  __syncthreads();
+  if (k != 0 || i >= m) return;
+  Vec t = sums[0][e];
+  for (int g = 1; g < kReduceGroups; ++g) add_to(t, sums[g][e]);
+  reinterpret_cast<Vec*>(dk)[i] = t;
 }
 
 struct Plan {
-  Params p;      // bf16
-  f32::Params q; // float32
-  int f32, bn, blocks, smem, slices, tiles;
+  Params p;       // bf16
+  f32::Params q;  // float32
+  int f32, bn, smem, slices, tiles;
+  int blocks;     // along the pixels (the grid's x)
+  int cluster;    // blocks a cluster (bf16; 1 in float32)
+  int partials;   // partial dKs: clusters along x (bf16), blocks (float32)
+  int tma;        // bf16: the shape takes the TMA ring (aligned pointers)
 };
 
-// one wave: the pixel ranges of every (slice, tile) pair fill the SMs
+// float32: one wave; the pixel ranges of every (slice, tile) pair fill
+// the SMs, in whole stages
 cudaError_t fill(Plan& pl, const void* fn, int threads, long long P,
                  int& stages) {
   int sms = 0, per_sm = 0;
@@ -586,7 +778,82 @@ cudaError_t fill(Plan& pl, const void* fn, int threads, long long P,
   if (want < 1) want = 1;
   stages = (int)((total + want - 1) / want);
   pl.blocks = (int)((total + stages - 1) / stages);
+  pl.cluster = 1;
+  pl.partials = pl.blocks;
   return cudaSuccess;
+}
+
+// bf16: the plan that costs least.  For each cluster size (8, 4, 2), the
+// clusters the card holds at once bound the blocks of one wave and so the
+// shortest range (in 16-pixel steps) a block can take; longer ranges, in
+// fewer blocks, are tried too.  The cost is counted in steps of a block's
+// range (a step, 16 pixels x 9 taps x 64 x 64 products, takes about
+// 0.27 us on an H100):
+//
+//   span + blocks / 8 + partials / 32 + (cluster - 1) / 8
+//
+// every block sends its 9 x 64 x BN float32 partial out of its SM, through
+// the cluster and to device memory, on links the blocks share (~0.03 us a
+// block); the reduction reads each cluster's partial (~0.01 us); and each
+// further block of a cluster adds distributed-shared-memory loads and a
+// wait at the cluster's barriers (~0.03 us) -- constants fitted to the dK's
+// times on an H100 over cluster sizes 2-8 and batches 1-256 (PERF.md).
+// No cluster of one block: each block would write a whole partial to
+// device memory, which measured 20-30% slower at every batch.
+cudaError_t cluster_fill(Plan& pl, const void* fn) {
+  Params& p = pl.p;
+  const long long steps = (p.P + kStep - 1) / kStep;
+  const long long pairs = (long long)pl.slices * pl.tiles;
+  long long best = -1;
+  for (int c = kMaxCluster; c >= 2; c /= 2) {
+    int clusters = 0;
+    cudaError_t err =
+        sm90::max_clusters(fn, kThreads, pl.smem, kSmemLimit, c, clusters);
+    if (err != cudaSuccess) return err;
+    if (clusters < 1) continue;
+    long long per_pair = clusters / pairs;
+    if (per_pair < 1) per_pair = 1;
+    const long long shortest = (steps + per_pair * c - 1) / (per_pair * c);
+    long long longest = 2;  // past the optimum, about sqrt(steps / 8)
+    while (longest * longest < steps / 3) ++longest;
+    longest += 2;
+    if (longest < shortest) longest = shortest;
+    for (long long span = shortest; span <= longest && span <= steps;
+         ++span) {
+      const long long used = (steps + span - 1) / span;
+      const long long blocks = (used + c - 1) / c * c;
+      const long long cost =
+          96 * span + 12 * blocks + 3 * (blocks / c) + 12 * (c - 1);
+      if (best >= 0 && cost >= best) continue;
+      if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+      best = cost;
+      p.span = span * kStep;
+      pl.blocks = (int)blocks;
+      pl.cluster = c;
+      pl.partials = (int)(blocks / c);
+    }
+  }
+  return best < 0 ? cudaErrorInvalidConfiguration : cudaSuccess;
+}
+
+// the ring's depth and the shared memory of the TMA or the cp.async body
+void layout(Plan& pl, bool tma) {
+  Params& p = pl.p;
+  const int buf = p.halo_bytes + p.g_bytes;
+  // the partial's staging tile
+  const int tile = 9 * 64 * (pl.bn == 32 ? kTileRow<32> : kTileRow<64>) * 4;
+  if (tma) {
+    p.nbuf = (kSmemLimit - 2048) / buf;
+    if (p.nbuf > kRing) p.nbuf = kRing;
+  } else {
+    p.nbuf = 2048 + 2 * buf <= kSmemLimit ? 2 : 1;
+  }
+  pl.smem = 2048 + (p.nbuf * buf > tile ? p.nbuf * buf : tile);
+}
+
+template <int BN, bool TMA>
+const void* bf16_kernel() {
+  return reinterpret_cast<const void*>(conv3x3_dkernel_wgmma_kernel<BN, TMA>);
 }
 
 template <int BN>
@@ -595,19 +862,19 @@ cudaError_t plan_for(Plan& pl) {
   p.S = p.W < kTP + 2 ? p.W : kTP + 2;
   p.nslots = 2 * p.S + kTP + 2;
   // whole TMA boxes of 64 pixels, whichever way the halo comes
-  p.halo_bytes = (p.nslots + 63) / 64 * 64 * kSlice * 2;
+  p.halo_bytes = (p.nslots + kBox - 1) / kBox * kBoxBytes;
   p.g_bytes = kTP * BN * 2;
-  const int buf = p.halo_bytes + p.g_bytes;
-  const int tile = 3 * 64 * (BN + 4) * 4;  // the partials' staging tile
-  p.nbuf = 2048 + 2 * buf <= kSmemLimit ? 2 : 1;
-  pl.smem = 2048 + (p.nbuf * buf > tile ? p.nbuf * buf : tile);
   pl.bn = BN;
   pl.slices = (p.CI + kSlice - 1) / kSlice;
   pl.tiles = (p.CO + BN - 1) / BN;
   if (pl.slices > 65535 || pl.tiles > 65535) return cudaErrorInvalidValue;
-  return fill(pl,
-              reinterpret_cast<const void*>(conv3x3_dkernel_wgmma_kernel<BN>),
-              kThreads, p.P, p.stages);
+  // TMA where the halo is one window of pixels and the tile 64 wide (and,
+  // at the launch, the pointers 16-byte aligned)
+  pl.tma = BN == 64 && p.CI % 8 == 0 && p.CO % 8 == 0 && p.S == p.W &&
+           p.P + kTP + 2LL * p.W < 0x7fffffffLL;
+  layout(pl, pl.tma);
+  return cluster_fill(pl, pl.tma ? bf16_kernel<64, true>()
+                                 : bf16_kernel<BN, false>());
 }
 
 cudaError_t plan_f32(Plan& pl) {
@@ -651,25 +918,31 @@ cudaError_t make_plan(Plan& pl, int B, int H, int W, int CI, int CO,
   return CO <= 32 ? plan_for<32>(pl) : plan_for<64>(pl);
 }
 
-// dK = the sum of the partials, in block order
-cudaError_t reduce(const float* part, float* dk, int blocks, int CI, int CO,
+// dK = the sum of the partials, in their order
+cudaError_t reduce(const float* part, float* dk, int slabs, int CI, int CO,
                    cudaStream_t st) {
   const long long n = 9LL * CI * CO;
-  long long rb = (n + 255) / 256;
-  if (rb > 4096) rb = 4096;
-  dkernel_reduce_kernel<<<(unsigned)rb, 256, 0, st>>>(part, dk, blocks, n);
+  const bool v4 = n % 4 == 0 && reinterpret_cast<uintptr_t>(part) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(dk) % 16 == 0;
+  const long long rb = (n / (v4 ? 4 : 1) + 31) / 32;
+  if (rb > 0x7fffffffLL) return cudaErrorInvalidValue;
+  if (v4)
+    dkernel_reduce_kernel<4><<<(unsigned)rb, 32 * kReduceGroups, 0, st>>>(
+        part, dk, slabs, n);
+  else
+    dkernel_reduce_kernel<1><<<(unsigned)rb, 32 * kReduceGroups, 0, st>>>(
+        part, dk, slabs, n);
   return cudaGetLastError();
 }
 
-// a (P, C) bf16 matrix for TMA: boxes of 64 channels x `rows` pixels,
-// 128-byte swizzle, zeros outside
-bool tensor_map(CUtensorMap& map, const bf16* a, long long P, int C,
-                int rows) {
+// a (P, C) bf16 matrix for TMA: boxes of 64 channels x 64 pixels, 128-byte
+// swizzle, zeros outside
+bool tensor_map(CUtensorMap& map, const bf16* a, long long P, int C) {
   const sm90::EncodeTiled encode = sm90::encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)C, (cuuint64_t)P};
   const cuuint64_t strides[1] = {(cuuint64_t)C * 2};
-  const cuuint32_t box[2] = {64, (cuuint32_t)rows}, step[2] = {1, 1};
+  const cuuint32_t box[2] = {64, (cuuint32_t)kBox}, step[2] = {1, 1};
   return encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
                 const_cast<bf16*>(a), dims, strides, box, step,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
@@ -677,52 +950,94 @@ bool tensor_map(CUtensorMap& map, const bf16* a, long long P, int C,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+template <int BN, bool TMA>
+cudaError_t launch_bf16(const Plan& pl, cudaStream_t st,
+                        const CUtensorMap& xmap, const CUtensorMap& gmap) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(pl.blocks, pl.slices, pl.tiles);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = pl.smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = pl.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, conv3x3_dkernel_wgmma_kernel<BN, TMA>, pl.p,
+                            xmap, gmap);
+}
+
 }  // namespace
 
 extern "C" {
 
-// The number of partial-sum blocks a call at this shape uses (f32 = 1: the
-// float32 kernel, 0: bf16): the caller allocates blocks * 9 * Cin * Cout
-// floats of workspace.  Negative: a cudaError_t.
+// The number of partial dKs a call at this shape sums (f32 = 1: the
+// float32 kernel, one a block; 0: bf16, one a cluster of blocks): the
+// caller allocates partials * 9 * Cin * Cout floats of workspace.
+// Negative: a cudaError_t.
 int cfgan_conv3x3_dkernel_blocks(int B, int H, int W, int Cin, int Cout,
                                  int f32) {
   Plan pl;
   cudaError_t err = make_plan(pl, B, H, W, Cin, Cout, f32);
-  return err == cudaSuccess ? pl.blocks : -(int)err;
+  return err == cudaSuccess ? pl.partials : -(int)err;
+}
+
+// The launch plan at this shape, into out[0..5]: blocks along the pixels,
+// blocks a cluster, partial dKs, pixels a block (float32: whole stages),
+// stages in the ring, and 1 where the bf16 shape takes the TMA ring.
+// Returns a cudaError_t.
+int cfgan_conv3x3_dkernel_plan(int B, int H, int W, int Cin, int Cout,
+                               int f32, int* out) {
+  Plan pl;
+  cudaError_t err = make_plan(pl, B, H, W, Cin, Cout, f32);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = pl.blocks;
+  out[1] = pl.cluster;
+  out[2] = pl.partials;
+  out[3] = f32 ? pl.q.stages * kTP : (int)pl.p.span;
+  out[4] = f32 ? pl.q.nbuf : pl.p.nbuf;
+  out[5] = f32 ? 0 : pl.tma;
+  return 0;
 }
 
 // dk (3, 3, Cin, Cout) float32 from x (B, H, W, Cin) and g (B, H, W, Cout)
-// bf16; part holds blocks * 9 * Cin * Cout floats
+// bf16; part holds partials * 9 * Cin * Cout floats
 int cfgan_conv3x3_dkernel_bf16(const void* x, const void* g, void* part,
                                void* dk, int B, int H, int W, int Cin,
-                               int Cout, int blocks, void* stream) {
+                               int Cout, int partials, void* stream) {
   Plan pl;
   cudaError_t err = make_plan(pl, B, H, W, Cin, Cout, 0);
   if (err != cudaSuccess) return (int)err;
-  if (blocks != pl.blocks) return (int)cudaErrorInvalidValue;
+  if (partials != pl.partials) return (int)cudaErrorInvalidValue;
   Params& p = pl.p;
   p.x = static_cast<const bf16*>(x);
   p.g = static_cast<const bf16*>(g);
   p.part = static_cast<float*>(part);
   p.vec_x = Cin % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   p.vec_g = Cout % 8 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0;
-  // TMA where the halo is one window of pixels and the tile 64 wide
   CUtensorMap xmap{}, gmap{};
-  p.tma = pl.bn == 64 && p.vec_x && p.vec_g && p.S == W &&
-          p.P + kTP + 2LL * W < 0x7fffffffLL &&
-          tensor_map(xmap, p.x, p.P, Cin, 64) &&
-          tensor_map(gmap, p.g, p.P, Cout, kTP);
+  const bool tma = pl.tma && p.vec_x && p.vec_g &&
+                   tensor_map(xmap, p.x, p.P, Cin) &&
+                   tensor_map(gmap, p.g, p.P, Cout);
+  // misaligned pointers take the cp.async body on the same grid
+  if (pl.tma && !tma) {
+    layout(pl, false);
+    int clusters = 0;  // sets the kernel's shared-memory cap, once
+    err = sm90::max_clusters(bf16_kernel<64, false>(), kThreads, pl.smem,
+                             kSmemLimit, pl.cluster, clusters);
+    if (err != cudaSuccess) return (int)err;
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(pl.blocks, pl.slices, pl.tiles);
-  if (pl.bn == 32)
-    conv3x3_dkernel_wgmma_kernel<32><<<grid, kThreads, pl.smem, st>>>(
-        p, xmap, gmap);
+  if (tma)
+    err = launch_bf16<64, true>(pl, st, xmap, gmap);
+  else if (pl.bn == 32)
+    err = launch_bf16<32, false>(pl, st, xmap, gmap);
   else
-    conv3x3_dkernel_wgmma_kernel<64><<<grid, kThreads, pl.smem, st>>>(
-        p, xmap, gmap);
-  err = cudaGetLastError();
+    err = launch_bf16<64, false>(pl, st, xmap, gmap);
   if (err != cudaSuccess) return (int)err;
-  return (int)reduce(p.part, static_cast<float*>(dk), pl.blocks, Cin, Cout,
+  return (int)reduce(p.part, static_cast<float*>(dk), pl.partials, Cin, Cout,
                      st);
 }
 
@@ -733,7 +1048,7 @@ int cfgan_conv3x3_dkernel_f32(const void* x, const void* g, void* part,
   Plan pl;
   cudaError_t err = make_plan(pl, B, H, W, Cin, Cout, 1);
   if (err != cudaSuccess) return (int)err;
-  if (blocks != pl.blocks) return (int)cudaErrorInvalidValue;
+  if (blocks != pl.partials) return (int)cudaErrorInvalidValue;
   f32::Params& q = pl.q;
   q.x = static_cast<const float*>(x);
   q.g = static_cast<const float*>(g);

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels, as
 // inline PTX: cp.async with zero fill, ldmatrix, mbarriers, TMA and bulk
-// loads, and wgmma (bf16, and tf32 for the float32 kernels' 3xTF32
-// products) with the A operand in registers and B read from shared memory
-// through a matrix descriptor.
+// loads, thread block clusters and their distributed shared memory, and
+// wgmma (bf16, and tf32 for the float32 kernels' 3xTF32 products) with
+// the A operand in registers and B read from shared memory through a
+// matrix descriptor.
 //
 // B's shared-memory layout is either the canonical one without swizzle:
 // "core matrices" of 8 rows x 16 bytes, each 128 contiguous bytes, where the
@@ -114,6 +115,10 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
       "r"(bytes)
       : "memory");
 }
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
 // wait until the barrier's phase `parity` has completed
 __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
   asm volatile(
@@ -122,6 +127,13 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
       "@P1 bra DONE;\nbra WAIT;\nDONE:\n}\n" ::"r"(bar),
       "r"(parity)
       : "memory");
+}
+// fetch a TMA descriptor (a __grid_constant__ parameter) ahead of its
+// first use
+__device__ __forceinline__ void prefetch_tensormap(const void* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
 }
 __device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map,
                                             int x, int y, uint32_t bar) {
@@ -139,6 +151,49 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map,
       "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(z), "r"(bar)
       : "memory");
+}
+
+// thread block clusters: this block's rank and the cluster's size, a
+// barrier over the cluster's threads (arrive releases, wait acquires:
+// shared-memory accesses before a block's arrival are seen by every block
+// of the cluster after its wait), and loads from another block's shared
+// memory (distributed shared memory)
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+// the address in block `rank` of the cluster of this block's shared
+// address `addr`
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -360,6 +415,52 @@ inline cudaError_t occupancy(const void* fn, int threads, int smem,
   if (err != cudaSuccess) return err;
   if (per_sm < 1) per_sm = 1;
   if (n < 64) entries[n++] = Entry{dev, fn, threads, smem, per_sm};
+  return cudaSuccess;
+}
+
+// How many clusters of `cluster` blocks (along x) of kernel `fn`, each of
+// `threads` threads and `smem` bytes of dynamic shared memory, the card
+// holds at once (cudaOccupancyMaxActiveClusters: clusters are placed
+// within a GPC, so blocks of one an SM may not fill every SM); 0 where
+// none fits.  Cached per (device, kernel, shared memory, cluster size).
+inline cudaError_t max_clusters(const void* fn, int threads, int smem,
+                                int smem_cap, int cluster, int& clusters) {
+  struct Entry {
+    int dev;
+    const void* fn;
+    int threads, smem, cluster, clusters;
+  };
+  static std::mutex mutex;
+  static Entry entries[64];
+  static int n = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mutex);
+  for (int i = 0; i < n; ++i)
+    if (entries[i].dev == dev && entries[i].fn == fn &&
+        entries[i].threads == threads && entries[i].smem == smem &&
+        entries[i].cluster == cluster) {
+      clusters = entries[i].clusters;
+      return cudaSuccess;
+    }
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_cap);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg);
+  if (err != cudaSuccess) return err;
+  if (n < 64) entries[n++] = Entry{dev, fn, threads, smem, cluster, clusters};
   return cudaSuccess;
 }
 

@@ -37,9 +37,12 @@ SIGNATURES = {
     "cfgan_conv3x3_f32": [_P] * 4 + [_I] * 7 + [_P],
     # (x, kernel, out, B, H, W, Cin, Cout, flip, stream)
     "cfgan_conv3x3_bf16": [_P] * 3 + [_I] * 6 + [_P],
-    # (B, H, W, Cin, Cout, f32) -> partial-sum blocks, or -cudaError_t
+    # (B, H, W, Cin, Cout, f32) -> partial dKs (bf16: one a cluster of
+    # blocks; float32: one a block), or -cudaError_t
     "cfgan_conv3x3_dkernel_blocks": [_I] * 6,
-    # (x, g, partials, dk, B, H, W, Cin, Cout, blocks, stream)
+    # (B, H, W, Cin, Cout, f32, int[6] out): the launch plan
+    "cfgan_conv3x3_dkernel_plan": [_I] * 6 + [_P],
+    # (x, g, partials, dk, B, H, W, Cin, Cout, partial count, stream)
     "cfgan_conv3x3_dkernel_bf16": [_P] * 4 + [_I] * 6 + [_P],
     "cfgan_conv3x3_dkernel_f32": [_P] * 4 + [_I] * 6 + [_P],
     # (x, raw, mask, cf, sums, B, N, lo, hi, vec, stream)

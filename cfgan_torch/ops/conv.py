@@ -9,8 +9,10 @@ version, nine shifted-tap matmuls mirroring `conv3x3_same_matmul`: the CPU
 path, and the yardstick the kernels are held against on the card.
 `conv3x3_same_dkernel` is the wrapper of the weight-gradient kernels
 (`cfgan_torch/csrc/conv3x3_dkernel.cu`, bf16 and 3xTF32 float32 on the
-tensor cores, reading the taps in place); `conv3x3_same_dkernel_plain` is
-its plain version, one product over the nine stacked taps.
+tensor cores, reading the taps in place; the bf16 one sums its split-K
+partials within thread block clusters first, `dkernel_plan`);
+`conv3x3_same_dkernel_plain` is its plain version, one product over the
+nine stacked taps.
 `conv3x3_same_pallas` is the differentiable conv, an `autograd.Function`
 mirroring `make_conv3x3_same_pallas`: its backward runs dx through
 `conv3x3_same` with the kernel read flipped and transposed, and dK through
@@ -152,9 +154,17 @@ def conv3x3_same_dkernel(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
     A CPU tensor takes the plain version.  A CUDA bfloat16 or float32 pair
     launches the hand-written kernel (tensor cores, float32 as 3xTF32; f32
-    accumulation, the taps read in place, per-block partials summed in a
-    fixed order) or raises: there is no fallback.  Each launch adds one to
-    `conv3x3_same_dkernel.launches`."""
+    accumulation, the taps read in place) and its reduction, or raises:
+    there is no fallback.  The kernel splits the pixels over blocks; in
+    bf16 the blocks of a cluster (2, 4 or 8) sum their partials through
+    distributed shared memory, one partial a cluster, in float32 each
+    block writes its own; the reduction sums those in a fixed order, so
+    two calls give the same bits.  The workspace holds the partials,
+    `dkernel_plan(...)["partials"] * 9 * Cin * Cout` floats: at the
+    preset's B=128, 28x28, 64 -> 64 in bf16 on an H100, 66 clusters of 2
+    (9.7 MB), where one partial a block took 131 (19.3 MB);
+    `conv3x3_same_dkernel.last_workspace_floats` is the last launch's.
+    Each launch adds one to `conv3x3_same_dkernel.launches`."""
     if x.device.type == "cpu":
         return conv3x3_same_dkernel_plain(x, g)
     lib = _build.load_library().lib
@@ -169,26 +179,51 @@ def conv3x3_same_dkernel(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         return dk.zero_()
     f32 = x.dtype == torch.float32
     with torch.cuda.device(x.device):
-        blocks = lib.cfgan_conv3x3_dkernel_blocks(b, h, w, cin, cout,
-                                                  int(f32))
-        if blocks <= 0:
+        partials = lib.cfgan_conv3x3_dkernel_blocks(b, h, w, cin, cout,
+                                                    int(f32))
+        if partials <= 0:
             raise RuntimeError(f"conv3x3 dK: no launch plan: cudaError "
-                               f"{-blocks}")
-        part = torch.empty((blocks, 9 * cin * cout), dtype=torch.float32,
+                               f"{-partials}")
+        part = torch.empty((partials, 9 * cin * cout), dtype=torch.float32,
                            device=x.device)
         launch = (lib.cfgan_conv3x3_dkernel_f32 if f32
                   else lib.cfgan_conv3x3_dkernel_bf16)
         err = launch(x.data_ptr(), g.data_ptr(), part.data_ptr(),
-                     dk.data_ptr(), b, h, w, cin, cout, blocks,
+                     dk.data_ptr(), b, h, w, cin, cout, partials,
                      torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"conv3x3 dK kernel launch failed: cudaError "
                            f"{err}")
     conv3x3_same_dkernel.launches += 1
+    conv3x3_same_dkernel.last_workspace_floats = part.numel()
     return dk
 
 
 conv3x3_same_dkernel.launches = 0
+conv3x3_same_dkernel.last_workspace_floats = 0
+
+_PLAN_KEYS = ("blocks", "cluster", "partials", "pixels_per_block", "ring",
+              "tma")
+
+
+def dkernel_plan(b: int, h: int, w: int, cin: int, cout: int,
+                 dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The dK kernel's launch plan at (B, H, W, Cin, Cout) on the current
+    CUDA device: `blocks` along the pixels (the grid's x), `cluster`
+    blocks a cluster (1 in float32), `partials` partial dKs the
+    reduction sums (`blocks / cluster`), `pixels_per_block`, `ring`
+    stages of loads in shared memory, and `tma` (1 where the bf16 shape
+    takes the TMA ring).  Builds the kernels where they are not built;
+    raises where the plan fails."""
+    import ctypes
+
+    lib = _build.load_library().lib
+    out = (ctypes.c_int * len(_PLAN_KEYS))()
+    err = lib.cfgan_conv3x3_dkernel_plan(b, h, w, cin, cout,
+                                         int(dtype == torch.float32), out)
+    if err != 0:
+        raise RuntimeError(f"conv3x3 dK: no launch plan: cudaError {err}")
+    return dict(zip(_PLAN_KEYS, out))
 
 
 class _Conv3x3SamePallas(torch.autograd.Function):

@@ -330,6 +330,12 @@ SERVING_SHAPE = (128, 28, 28, 64, 64)
 CHUNK_SHAPES = ((64, 28, 28, 64, 64), (32, 28, 28, 64, 64))
 CONV_SHAPES = (SERVING_SHAPE, (1, 28, 28, 64, 64), (2, 13, 11, 20, 40),
                (3, 28, 28, 16, 24), (9, 7, 5, 32, 64)) + CHUNK_SHAPES
+# the dK kernel's cluster plan at its edges (held against its plain version
+# beside CONV_SHAPES): a block count that is not a multiple of the cluster
+# size, a grid of one cluster, a cluster with fewer pixel ranges than
+# blocks, twice the preset's batch
+DK_EDGE_SHAPES = ((5, 28, 28, 64, 64), (1, 5, 5, 64, 64), (1, 3, 5, 64, 64),
+                  (256, 28, 28, 64, 64))
 # dK kernel vs plain, both float32 before the cast: each tap's (Cin, Cout)
 # block within DK_RTOL of its 2-norm.  The two sum up to B*H*W = 100,352
 # products per entry in other orders (the kernel per block of pixels, then
@@ -712,24 +718,29 @@ def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
     return start.elapsed_time(end) / (iters * replays)
 
 
-def kernel_ms(fn, iters: int = 20, floor_ms: float = 0.0
+def kernel_ms(fn, iters: int = 20, floor_ms: float = 0.0,
+              parts: dict | None = None, split: tuple = ()
               ) -> tuple[float, str]:
     """(ms per call, how it was timed): profiler device time, which counts
     kernel time only.  A trace can lose kernel records and then reads
     short, so a reading is kept only where two traces hold the same whole
     number of kernel records a call and both read at least `floor_ms`
     (the call's operations at the card's peak for its dtype, which no
-    cache beats); the later one's time is kept.  Up to PROFILE_TRIES + 1
-    traces; where none agree, the replays of a CUDA graph of the calls."""
+    cache beats); the later one's time is kept, and `parts` takes its
+    (ms, launches) a call of the kernels whose names hold a string of
+    `split`.  Up to PROFILE_TRIES + 1 traces; where none agree, the
+    replays of a CUDA graph of the calls (and `parts` stays empty)."""
     seen = {}  # kernel records a call -> ms
     for _ in range(PROFILE_TRIES + 1):
-        ms, _, every = device_time(fn, iters, match=("",))
+        ms, _, every = device_time(fn, iters, match=("",) + split)
         if ms is None:
             break
         records = every[""][1]
         if ms < floor_ms or records != int(records):
             continue
         if records in seen:
+            if parts is not None:
+                parts.update({k: every[k] for k in split})
             return ms, f"profiler ({int(records)} kernels a call, two traces)"
         seen[records] = ms
     return graph_ms(fn, iters), "cuda graph"
@@ -820,6 +831,36 @@ def dkernel_bound(b, h, w, cin, cout, dtype: str):
     elt = 2 if dtype == "bfloat16" else 4
     nbytes = b * h * w * (cin + cout) * elt + 9 * cin * cout * 4
     return _bound(nbytes, conv_flops(b, (h, w), cin, cout), dtype)
+
+
+def dkernel_ptxas(log: str) -> list[dict]:
+    """The dK kernels' entries of an `nvcc -Xptxas -v` report: each
+    entry's name with its template arguments, its registers and its spill
+    stores and loads in bytes."""
+    out, entry = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '[^']*?"
+                      r"(conv3x3_dkernel_[a-z0-9]+_kernel|dkernel_reduce_kernel)"
+                      r"(?:I(.*?)EE)?", ln)
+        if m:  # the name and its template arguments, from the mangling
+            args = re.findall(r"L[ib](\d+)", m.group(2) or "")
+            entry = m.group(1) + (f"<{', '.join(args)}>" if args else "")
+            continue
+        if "Compiling entry" in ln:
+            entry = None
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            out.append({"entry": entry, "spill_stores": int(m.group(1)),
+                        "spill_loads": int(m.group(2))})
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and out and out[-1]["entry"] == entry:
+            out[-1]["registers"] = int(m.group(1))
+            entry = None
+    return out
 
 
 def _flat(tree: dict, path: str = "") -> dict:
@@ -1092,12 +1133,14 @@ def check_epilogue(gen, dev, b: int, n: int, misaligned: bool, lo: float,
 
 # --------------------------------------- device time of a kernel and of
 # its plain and library counterparts (`timing`, `custom shapes`)
-def _dev_ms(fn, ops: int, dtype: str, timed_by: dict, key: str) -> float:
-    """`kernel_ms` with the dtype's bound on operations for a floor (f32:
-    three tf32 products each, the fastest any of the three computes it):
-    a trace that lost the conv's records read the f32 kernel under its
-    bound against a bf16-peak floor."""
-    ms, timed_by[key] = kernel_ms(fn, floor_ms=_bound(0, ops, dtype)[0])
+def _dev_ms(fn, ops: int, dtype: str, timed_by: dict, key: str,
+            **kw) -> float:
+    """`kernel_ms` (its `parts` and `split` in `kw`) with the dtype's bound
+    on operations for a floor (f32: three tf32 products each, the fastest
+    any of the three computes it): a trace that lost the conv's records
+    read the f32 kernel under its bound against a bf16-peak floor."""
+    ms, timed_by[key] = kernel_ms(fn, floor_ms=_bound(0, ops, dtype)[0],
+                                  **kw)
     return ms
 
 
@@ -1135,16 +1178,18 @@ def time_conv(card: str, gen, dev, shape, dtype: str, phase: str) -> dict:
 
 
 def time_dkernel(card: str, gen, dev, shape, dtype: str, phase: str) -> dict:
-    """Device ms per call of the dK kernel, its plain version and cuDNN's
-    wgrad at `shape` and `dtype`, with the bound, and a CUDA graph's
-    reading beside the profiler's; one line.  Returns {ms, plain_ms,
-    library_ms, bound_ms, bound_by}."""
+    """Device ms per call of the dK kernel (with its reduction), its plain
+    version and cuDNN's wgrad at `shape` and `dtype`, with the bound, the
+    reduction's share of the kernel's time, the launch plan, and a CUDA
+    graph's reading beside the profiler's; one line.  Returns {ms,
+    plain_ms, library_ms, bound_ms, bound_by}."""
     import torch
 
     from cfgan_torch.ops.conv import (
         conv3x3_same_dkernel,
         conv3x3_same_dkernel_plain,
         conv_flops,
+        dkernel_plan,
     )
 
     x, _ = make_conv_inputs(gen, dev, *shape, getattr(torch, dtype))
@@ -1155,9 +1200,11 @@ def time_dkernel(card: str, gen, dev, shape, dtype: str, phase: str) -> dict:
     bound_ms, bound_by = dkernel_bound(*shape, dtype)
     ops = conv_flops(shape[0], shape[1:3], shape[3], shape[4])
     timed_by = {}
+    split = ("conv3x3_dkernel", "dkernel_reduce")
+    parts = {}  # the kernel and its reduction apart, from the kept trace
     dk = dict(
         ms=_dev_ms(lambda: conv3x3_same_dkernel(x, g), ops, dtype, timed_by,
-                   "ms"),
+                   "ms", parts=parts, split=split),
         plain_ms=_dev_ms(lambda: conv3x3_same_dkernel_plain(x, g), ops,
                          dtype, timed_by, "plain_ms"),
         library_ms=_dev_ms(lambda: torch.nn.grad.conv2d_weight(
@@ -1168,12 +1215,26 @@ def time_dkernel(card: str, gen, dev, shape, dtype: str, phase: str) -> dict:
     # events around replays of a graph of 20 calls (the kernel and its
     # reduction, with the graph's gaps)
     graph_call = graph_ms(lambda: conv3x3_same_dkernel(x, g))
+    if not parts:  # timed by the graph: one more trace for the split, each
+        # kernel's mean a launch (a trace that drops records keeps it)
+        _, _, parts = device_time(lambda: conv3x3_same_dkernel(x, g), 20,
+                                  match=split)
+    per_launch = {k: ms / n if n else None for k, (ms, n) in parts.items()}
+    launch_ms, reduce_ms = (per_launch.get("conv3x3_dkernel"),
+                            per_launch.get("dkernel_reduce"))
+    plan = dkernel_plan(*shape, getattr(torch, dtype))
     emit({"phase": phase, "what": "conv3x3 dK", "card": card,
           "shape": shape, "dtype": dtype, **dk,
           "library": "torch.nn.grad.conv2d_weight (cuDNN wgrad, "
                      "channels-last, TF32 off)",
           "timed_by": timed_by, "graph_call_ms": graph_call,
           "events_call_ms": cuda_ms(lambda: conv3x3_same_dkernel(x, g), 200),
+          "kernel_ms": launch_ms, "reduce_ms": reduce_ms,
+          "reduce_share": (None if None in (launch_ms, reduce_ms)
+                           else reduce_ms / (launch_ms + reduce_ms)),
+          "plan": plan,
+          "workspace_bytes": plan["partials"] * 9 * shape[3] * shape[4] * 4,
+          "faster_than_library": dk["ms"] < dk["library_ms"],
           "share_of_bound": bound_ms / dk["ms"]})
     return dk
 
@@ -5219,7 +5280,7 @@ def main() -> None:
             int(n) for n in re.findall(r"(\d+) bytes spill", ln))]
         emit({"phase": "build", "seconds": round(lib.seconds, 3),
               "library": str(lib.path.relative_to(HERE)), "ptxas": ptxas,
-              "spills": spills})
+              "spills": spills, "dkernel": dkernel_ptxas(lib.ptxas_log)})
         if spills:
             fail(f"a kernel spills registers: {spills}")
 
@@ -5268,7 +5329,7 @@ def main() -> None:
 
     dk_err = {}
     with Phase("kernel conv3x3 dK"):
-        for shape, dtype in ((s_, d_) for s_ in CONV_SHAPES
+        for shape, dtype in ((s_, d_) for s_ in CONV_SHAPES + DK_EDGE_SHAPES
                              for d_ in ("float32", "bfloat16")):
             dk_err[shape, dtype] = check_dkernel(gen, dev, shape, dtype,
                                                  "kernel conv3x3 dK")

@@ -5,6 +5,8 @@ f32 tolerance: abs <= 1e-5.  The three compute the same nine-tap sum in
 float32 in different orders; at these sizes the reordering moves the
 result by a few float32 ulps of values of order 1.
 """
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -133,6 +135,61 @@ def test_build_binds_the_dkernel_entry_points():
     assert "wgmma" in src and "atomicAdd" not in src
 
 
+def test_build_binds_the_dkernel_plan_and_its_clusters():
+    """The plan's entry point takes the shape, the dtype flag and a
+    pointer to its six ints; the bf16 kernel is launched in clusters
+    (the cluster attribute, the card's cluster occupancy) and sums a
+    cluster's partials through distributed shared memory, in a fixed
+    order: no float atomics."""
+    import ctypes
+
+    p, i = ctypes.c_void_p, ctypes.c_int
+    assert _build.SIGNATURES["cfgan_conv3x3_dkernel_plan"] == [i] * 6 + [p]
+    src = _build.SOURCES[2].read_text()
+    assert ("int cfgan_conv3x3_dkernel_plan(int B, int H, int W, int Cin, "
+            "int Cout,\n                               int f32, int* out)"
+            ) in src
+    assert "cudaLaunchAttributeClusterDimension" in src
+    helpers = (_build.SOURCES[0].parent / "sm90.cuh").read_text()
+    assert "cudaOccupancyMaxActiveClusters" in helpers
+    assert "mapa.shared::cluster" in helpers
+    assert "ld.shared::cluster" in helpers
+    for text in (src, helpers):
+        assert "atomicAdd" not in text
+        assert not re.search(r"\b(red|atom)\.", text)
+
+
+def test_dkernel_plan_asks_the_kernel_library(monkeypatch):
+    """The launch plan comes from the built library's plan entry point,
+    read into its six named ints; with the loader failing it raises the
+    loader's error."""
+    import ctypes
+
+    class Lib:
+        @staticmethod
+        def cfgan_conv3x3_dkernel_plan(b, h, w, cin, cout, f32, out):
+            assert (b, h, w, cin, cout, f32) == (128, 28, 28, 64, 64, 0)
+            for k, v in enumerate((132, 2, 66, 768, 4, 1)):
+                ctypes.cast(out, ctypes.POINTER(ctypes.c_int))[k] = v
+            return 0
+
+    monkeypatch.setattr(_build, "load_library",
+                        lambda: type("Built", (), {"lib": Lib})())
+    assert tconv.dkernel_plan(128, 28, 28, 64, 64) == {
+        "blocks": 132, "cluster": 2, "partials": 66,
+        "pixels_per_block": 768, "ring": 4, "tma": 1}
+
+    class BuildFailed(RuntimeError):
+        pass
+
+    def fail():
+        raise BuildFailed("nvcc failed")
+
+    monkeypatch.setattr(_build, "load_library", fail)
+    with pytest.raises(BuildFailed):
+        tconv.dkernel_plan(128, 28, 28, 64, 64)
+
+
 def test_build_binds_the_f32_entry_points():
     """The float32 conv takes the tap-order flag (dx reads K flipped, no
     copy) and a workspace for K's tf32 parts, sized by its own entry
@@ -226,8 +283,8 @@ def test_plain_dkernel_f32_matches_jax_pallas_vjp(shape):
                                atol=1e-5 * np.abs(want).max(), rtol=0)
 
 
-@pytest.mark.parametrize("shape", [(3, 9, 11, 16, 24), (2, 7, 5, 20, 40)],
-                         ids=str)
+@pytest.mark.parametrize("shape", [(3, 9, 11, 16, 24), (2, 7, 5, 20, 40),
+                                   (1, 5, 5, 64, 64)], ids=str)
 def test_plain_dkernel_bf16_matches_jax_pallas_vjp(shape):
     """bf16 x and cotangent: the plain dK (float32 products over the
     stacked taps) rounded to bf16 against `jax.vjp` of

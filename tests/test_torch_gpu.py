@@ -31,11 +31,15 @@ pytestmark = pytest.mark.gpu
 # row; Cin not a multiple of 8 or 16, W odd; Cout over three 64-channel
 # tiles; Cin over three 64-channel slices; the preset's layers on 20x20
 # images at batch 128 and 64 (a halo window of another width, and pixel
-# counts that are not multiples of the 28x28 ones)
+# counts that are not multiples of the 28x28 ones); the dK's cluster plan
+# at its edges: a block count that is not a multiple of the cluster size,
+# a grid of one cluster, a cluster with fewer pixel ranges than blocks,
+# and twice the preset's batch
 SHAPES = [(128, 28, 28, 64, 64), (1, 28, 28, 64, 64), (2, 5, 70, 16, 16),
           (3, 1, 9, 16, 24), (2, 13, 11, 20, 40), (4, 13, 11, 20, 130),
           (9, 7, 5, 32, 64), (2, 6, 6, 130, 70), (128, 20, 20, 64, 64),
-          (64, 20, 20, 64, 64)]
+          (64, 20, 20, 64, 64), (5, 28, 28, 64, 64), (1, 5, 5, 64, 64),
+          (1, 3, 5, 64, 64), (256, 28, 28, 64, 64)]
 
 
 def _card():
@@ -132,6 +136,31 @@ def test_dkernel_matches_plain_with_equal_bits(shape):
     ref = tconv.conv3x3_same_dkernel_plain(x, g)
     err = (got - ref).reshape(9, -1).norm(dim=1)
     assert bool((err <= 1e-5 * ref.reshape(9, -1).norm(dim=1) + 1e-6).all())
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dkernel_workspace_is_the_plans_partials(shape, dtype):
+    """The wrapper's workspace is the plan's partial count x 9 x Cin x
+    Cout floats: in bf16 one partial a cluster of blocks (the grid's
+    blocks along the pixels, a multiple of the cluster size, over the
+    cluster size), in float32 one a block."""
+    dev = _card()
+    dt = getattr(torch, dtype)
+    b, h, w, cin, cout = shape
+    x, _ = _inputs(shape, dt, dev, seed=3)
+    g, _ = _inputs((b, h, w, cout, cout), dt, dev, seed=4)
+    plan = tconv.dkernel_plan(b, h, w, cin, cout, dt)
+    tconv.conv3x3_same_dkernel(x, g)
+    torch.cuda.synchronize()
+    assert plan["blocks"] % plan["cluster"] == 0
+    assert plan["partials"] == plan["blocks"] // plan["cluster"]
+    assert tconv.conv3x3_same_dkernel.last_workspace_floats == (
+        plan["partials"] * 9 * cin * cout)
+    if dt == torch.float32:
+        assert plan["cluster"] == 1
+    elif shape == (128, 28, 28, 64, 64):  # the preset's layer: clusters
+        assert plan["cluster"] > 1 and plan["tma"] == 1
 
 
 def _row_rel_err(got, ref):
