@@ -24,44 +24,97 @@
 //         3 x 7.40 GFLOP at 494.7 TFLOP/s = 0.0449 ms: operations (on the
 //         CUDA cores, 67 TFLOP/s, it was 0.110 ms)
 //
-// bf16: an implicit GEMM on the tensor cores (conv3x3_wgmma_kernel).
-//   M = B*H*W output pixels, N = Cout, depth 9*Cin.  A block of 1-4
-//   warpgroups owns a tile of 64 pixels per warpgroup (consecutive in the
-//   flattened (n, h, w) order) and a 64- or 32-wide slice of Cout, and is
-//   persistent: one block an SM walks over tiles, so K is loaded into
-//   shared memory once per block (9 x 64 x 64 bf16 = 72 KB), not per tile.
-//   - The taps.  wgmma reads a shared-memory operand only in its canonical
-//     layout, and a shifted window of pixels is not such a tile.  So A (the
-//     pixels) comes from registers: the tile's input halo is staged once in
-//     shared memory (cp.async, 16 bytes a thread), and each tap's A
-//     fragments are loaded from it with ldmatrix, whose 32 row addresses are
-//     free: a tap is a shift of the row address, and a row outside the image
-//     points at 16 zero bytes.  B (K) is read by wgmma from shared memory.
-//   - The halo of a tile of TM pixels starting at p0 holds, for each dy, the
-//     pixels p0 + (dy-1)*W - 1 ... + TM + 1: one window of TM + 2W + 2
-//     pixels where W <= TM + 2, else three windows of TM + 2, so its size
-//     never depends on W.  Pixels are 128 bytes (64 channels; a slice of
-//     Cin past its end is zero); the 16-byte chunk j of halo pixel s is
-//     stored at chunk j ^ (s % 8), so the 8 rows of an ldmatrix hit 8
-//     distinct bank groups.
-//   - K by TMA (64 x 64 tiles of one tap, 128-byte swizzle, zeros past Cin
-//     and Cout) where its rows are 16-byte multiples, else by cp.async.
-//     Every SM reads all of K at the same moment, which the L2 serves
-//     slowly: with cp.async the wait for K was the largest part of a
-//     launch's first tile, TMA cut it to a fraction.  K comes in three
-//     rows of taps on three mbarriers, and each block starts its products
-//     on its own row (blockIdx % 3) while the other two are in flight.
-//   - Double-buffered: the next tile's halo is in flight (cp.async) while
-//     the current one runs its 36 products m64nNk16 (A from registers).
-//   - dx: the same kernel with a flag that reads K as K[2-dy, 2-dx, o, c]
-//     while staging it, so the backward needs no flipped copy of K.
-//   - Cin > 64 is walked in 64-channel slices (K restaged per slice);
-//     Cout in 64-wide tiles; at small batch, 32-wide tiles and one
-//     warpgroup per block, so B=1 at 28x28, 64->64 launches 26 blocks.
-//   - Epilogue: the f32 accumulators are rounded once (__float2bfloat16_rn)
-//     into a per-warp tile in shared memory, then stored 16 bytes a thread.
-//   ptxas (sm_90a, CUDA 12.9): 128 registers (the cap of 512 threads),
-//   0 spills, for all four instantiations (BN 64/32, flip 0/1).
+// bf16, the TMA body (conv3x3_wgmma_ws_kernel; Cin and Cout multiples of
+// 8, W <= 126, 16-byte aligned tensors): a warp-specialised, persistent
+// implicit GEMM, turned around so that the pixels are wgmma's N.
+//   - What bounds it.  A product of M = 64 pixels by N = Cout = 64, A from
+//     registers (the design before, kept below as the cp.async body)
+//     issues m64n64k16 wgmma, which ran at ~80 cycles where the tensor
+//     cores need 32, with one, two or four warpgroups an SM alike
+//     (clock64 and %globaltimer probes on an H100: a 64x64x576 unit took
+//     ~1.6 us an SM at B=128 whatever the number of warpgroups), so that
+//     a faster schedule around it could not pass the old kernel.  Turned
+//     around, A = K's tap (64 output channels x 16 input channels) and B
+//     = 128 pixel positions x 16 input channels, both read from shared
+//     memory: m64n128k16, ~70 cycles a product against 64 (two consumer
+//     warpgroups issuing at once, probes), so the products are near the
+//     tensor cores' rate and the kernel is bound by what surrounds them.
+//   - Tiles and halos.  A tile is R rows of one image (R (W + 2) <= 128:
+//     4 rows at 28x28, 5 at 20x20), W + 2 positions a row, a zero column
+//     each side.  Its halo, the rows h0 - 1 ... h0 + R with their zero
+//     columns, is one TMA box of a 4-D view of x: TMA fills zeros past
+//     the image's edges and past Cin, so a tap (dy, dx) is a shift of B's
+//     start address by dy (W + 2) + dx - 1 positions, with no mask.  The
+//     zero columns are computed too (2/30 at 28x28) and dropped.  Positions
+//     are 128-byte rows, 128-byte swizzled by TMA; wgmma's descriptor
+//     finds a shifted tile's swizzle from the address bits (base offset
+//     0: setting it to the row's place in the pattern read wrong rows).
+//   - Warp specialisation.  A producer warpgroup (one thread issues every
+//     copy, 56 registers a thread by setmaxnreg) and two consumer
+//     warpgroups (224 registers).  The producer keeps up to four halo
+//     stages in flight on full/empty mbarriers; a round is two tiles, one
+//     a consumer, whose 36 products each issue at once: one consumer's
+//     chain alone ran at about half the tensor cores' rate (probes), two
+//     at ~90%.  A consumer then waits for its products, frees its halo
+//     stage and stores its tile while the other consumer's products run.
+//     Tried and dropped (probes, H100): consumers taking turns on the
+//     tensor cores through named barriers (41 us at B=128 against 28.7
+//     without, in the m64n64 design); two accumulators a consumer, a
+//     round's products issued before the last round's tile is stored
+//     (slower at every batch, and it spilled).
+//   - K once a cluster.  Blocks come in clusters (cudaLaunchKernelEx) of 4
+//     where the card places enough of them (no block gets more tiles),
+//     else of 2; each block asks TMA for its share of K's nine 64 x 64
+//     taps (t % cluster == rank) with .multicast::cluster, so one L2 read
+//     feeds the cluster.  A tap a mbarrier, in the order the consumers
+//     take them.  Cin > 64: K's slices are reloaded every round, once
+//     every consumer warp of the cluster has arrived on each block's
+//     empty mbarrier.  K's first tap still takes ~2-3.5 us to come at the
+//     step's batch (probes), the largest cost outside the products.
+//   - The epilogue rounds the f32 sums once to bf16 and writes them
+//     transposed (stmatrix .trans) into a 128-byte swizzled tile of R x W
+//     pixels; one thread stores it by TMA, and waits for the store to
+//     have read the tile before it is written again.  The store's box
+//     starts inside y and may overhang its end: TMA writes nothing past H
+//     (the last tile where R does not divide H) or past Cout (a last
+//     Cout tile under 64 wide), held on an H100 at 13x11 and Cout 40, 72
+//     and 96 (tests/test_torch_gpu.py::SHAPES).
+//   - Balanced work.  A block owns an equal, contiguous share of the tiles
+//     (no block more than ceil(tiles / blocks)); as many blocks as the
+//     card holds at once (one an SM), Cout tiles along blockIdx.y.  Where
+//     tiles of 128 positions would not give every SM one, but tiles of 64
+//     give at least half the SMs one and no block two (B = 5-9 at 28x28),
+//     a block's one tile has its nine taps split over its two consumers
+//     (five and four), which add their sums through shared memory: the
+//     chain of products a call waits for is halved.  Smaller problems
+//     take the cp.async body, whose start-up is shorter.
+//   - No atomics; each output is one block's fixed sequence of products:
+//     two calls give the same bits.
+//   ptxas (sm_90a): 168 registers at launch, no spill.
+//
+// bf16, the cp.async body (conv3x3_wgmma_kernel; the shapes and pointers the
+// TMA body does not take): an implicit GEMM over M = B*H*W output pixels,
+//   N = Cout, depth 9*Cin.  A block of 1-4 warpgroups owns a tile of 64
+//   pixels per warpgroup and a 64- or 32-wide slice of Cout, and is
+//   persistent: one block an SM walks over tiles, K loaded once per block.
+//   - The taps.  A (the pixels) comes from registers: the tile's input halo
+//     is staged once in shared memory (cp.async, 16 bytes a thread), and
+//     each tap's A fragments are loaded from it with ldmatrix, whose 32 row
+//     addresses are free: a tap is a shift of the row address, and a row
+//     outside the image points at 16 zero bytes.  B (K) is read by wgmma
+//     from shared memory.  The halo of a tile of TM pixels starting at p0
+//     holds, for each dy, the pixels p0 + (dy-1)*W - 1 ... + TM + 1; its
+//     16-byte chunk j of pixel s is stored at chunk j ^ (s % 8).
+//   - K by TMA (64 x 64 tiles) where its rows are 16-byte multiples, else
+//     by cp.async; three rows of taps on three mbarriers.  The next tile's
+//     halo is in flight while the current one runs its products.
+//   - Cin > 64 in 64-channel slices; Cout in 64-wide tiles, at small batch
+//     32-wide tiles and one warpgroup per block.
+//   - Epilogue: rounded once into a per-warp tile, stored 16 bytes a
+//     thread.  ptxas: 128 registers, 0 spills.
+//
+// Both bf16 bodies, dx: the same kernel with a flag that reads K as
+// K[2-dy, 2-dx, o, c], so the backward needs no flipped copy of K.
 //
 // float32: 3xTF32 on the tensor cores (f32::conv3x3_tf32_kernel).  One
 // tf32 product keeps about 3 decimal digits, which the port's float32 bars
@@ -113,6 +166,7 @@
 #include <cuda_bf16.h>
 
 #include <cstdint>
+#include <mutex>
 
 #include "sm90.cuh"
 
@@ -742,6 +796,349 @@ conv3x3_wgmma_kernel(const Params p,
   sm90::cp_async_wait<0>();
 }
 
+// ------------------------------------ the TMA body: warp-specialised
+constexpr int kConsumers = 2;  // consumer warpgroups, a tile each a round
+constexpr int kWsThreads = kWarpgroup * (kConsumers + 1);
+constexpr int kCoutTile = 64;  // wgmma M: output channels a tile
+constexpr int kMaxRing = 4;    // halo stages
+constexpr int kTapBytes = 64 * kPixelBytes;          // a tap's 64 x 64 of K
+// launched with 168 registers a thread (384 threads, one block an SM)
+constexpr int kProducerRegs = 56, kConsumerRegs = 224;
+
+struct WsParams {
+  int H, W;
+  int R;             // image rows a tile: R * (W + 2) <= TN
+  int rblocks;       // tiles an image: ceil(H / R)
+  int tiles;         // B * rblocks
+  int nslices;       // 64-channel slices of Cin
+  int halo_bytes;    // a stage's buffer, a multiple of 1024
+  int box_bytes;     // what its TMA box brings
+  int ring;          // halo stages in flight
+  int rounds;        // rounds every block walks where K changes (Cin > 64)
+};
+
+// The TMA body.  The product is turned around: A = K's tap (64 output
+// channels x 16 input channels) and B = TN padded pixel positions x 16
+// input channels, both read by wgmma from shared memory (m64nTNk16).
+// A tile is R image rows of one image, W + 2 positions a row (a zero
+// column each side); its halo, rows h0 - 1 ... h0 + R with their zero
+// columns, is one TMA box of a 4-D view of x (zeros outside the image
+// and past Cin), 128 bytes a position, 128-byte swizzled.  Tap (dy, dx)
+// of output position q reads halo position q + dy (W + 2) + dx - 1: a
+// shift of B's start address, no mask.  The zero columns and positions
+// past R (W + 2) are computed and dropped by the epilogue.
+//
+// Blocks of two consumer warpgroups and a producer warpgroup, launched in
+// clusters along the tiles; blockIdx.y is the Cout tile.  A block owns a
+// contiguous range of tiles (an equal split over gridDim.x) and walks it
+// in rounds of two tiles, one a consumer; with Cin > 64 each slice of a
+// tile is a round of its own.  TN = 64 (small batch): one tile a block,
+// its taps split over the two consumers.
+//
+// Shared memory: K's nine taps (one slice), an output tile a consumer,
+// the ring of halo stages (two a round), the mbarriers, a scratch line.
+template <int FLIP, int TN>
+__global__ void __launch_bounds__(kWsThreads, 1)
+conv3x3_wgmma_ws_kernel(const WsParams p,
+                        const __grid_constant__ CUtensorMap xmap,
+                        const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap ymap) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // TMA's swizzled tiles want 1024-byte alignment
+  unsigned char* smem =
+      smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  constexpr int kOut = TN * kPixelBytes;  // an output tile
+  // tiles of 64 positions come one a block, their taps split over the
+  // two consumers (small batch); tiles of 128, two a round
+  constexpr bool kSplit = TN == 64;
+  unsigned char* ks = smem;
+  unsigned char* outs = ks + 9 * kTapBytes;
+  unsigned char* halo = outs + kConsumers * kOut;
+  unsigned char* misc = halo + p.ring * p.halo_bytes;
+  const uint32_t kfull = sm90::smem_u32(misc);  // a tap of K each
+  const uint32_t kempty = kfull + 72;           // every consumer warp of
+                                                // the cluster has read K
+  const uint32_t hfull = kempty + 8;            // a halo stage each
+  const uint32_t hempty = hfull + 8 * kMaxRing;
+  const int tid = threadIdx.x, wg = tid / kWarpgroup;
+  const uint32_t csize = sm90::cluster_size();
+  if (tid == 0) {
+    for (int t = 0; t < 9; ++t) sm90::mbar_init(kfull + 8 * t, 1);
+    sm90::mbar_init(kempty, 4 * kConsumers * csize);
+    for (int i = 0; i < p.ring; ++i) {
+      sm90::mbar_init(hfull + 8 * i, 1);
+      sm90::mbar_init(hempty + 8 * i, 4);
+    }
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();
+  // the peers' mbarriers are ready before a multicast or an arrival
+  sm90::cluster_sync();
+
+  const int n0 = blockIdx.y * kCoutTile;
+  const int lo = (int)((long long)p.tiles * blockIdx.x / gridDim.x);
+  const int hi = (int)((long long)p.tiles * (blockIdx.x + 1) / gridDim.x);
+  // a round: two tiles (one a consumer) at one slice of Cin
+  const int my_rounds = (hi - lo + 1) / 2 * p.nslices;
+  // K is loaded once; with Cin > 64 once a round, every block of the
+  // cluster walking the same p.rounds rounds
+  const int kloads = p.nslices > 1 ? p.rounds : 1;
+  const int walk = kSplit ? 1 : p.nslices > 1 ? p.rounds : my_rounds;
+  // the first row of taps, the same within a cluster
+  const int dy0 = (int)((blockIdx.x / csize + blockIdx.y) % 3);
+
+  if (wg == kConsumers) {
+    // ------------------------------------------------------- producer
+    sm90::setmaxnreg_dec<kProducerRegs>();
+    if (tid == kConsumers * kWarpgroup) {
+      sm90::prefetch_tensormap(&xmap);
+      sm90::prefetch_tensormap(&kmap);
+      sm90::prefetch_tensormap(&ymap);
+      const uint32_t rank = sm90::cluster_rank();
+      const uint16_t mask = (uint16_t)((1u << csize) - 1);
+      const uint32_t kbase = sm90::smem_u32(ks), hbase = sm90::smem_u32(halo);
+      for (int k = 0; k < (walk > kloads ? walk : kloads); ++k) {
+        const int s = k % p.nslices;
+        if (k < kloads) {
+          // K's slice s, a tap on each mbarrier, in the consumers' order:
+          // each block of the cluster asks for its share of the taps
+          // (t % cluster == rank), written into every block
+          if (k > 0) sm90::mbar_wait(kempty, (k - 1) & 1);
+          for (int j = 0; j < 9; ++j) {
+            const int t = (dy0 + j / 3) % 3 * 3 + j % 3;
+            sm90::mbar_expect_tx(kfull + 8 * t, kTapBytes);
+            if (t % (int)csize == (int)rank)
+              sm90::tma_load_3d_multicast(
+                  kbase + t * kTapBytes, &kmap, FLIP ? s * kSlice : n0,
+                  FLIP ? n0 : s * kSlice, FLIP ? 8 - t : t, kfull + 8 * t,
+                  mask);
+          }
+        }
+        if (k >= walk) continue;
+        if constexpr (kSplit) {  // the block's one tile, for both consumers
+          if (lo < hi) {
+            sm90::mbar_expect_tx(hfull, p.box_bytes);
+            sm90::tma_load_4d(hbase, &xmap, 0, -1, (lo % p.rblocks) * p.R - 1,
+                              lo / p.rblocks, hfull);
+          }
+          continue;
+        }
+        for (int c = 0; c < kConsumers; ++c) {
+          // stage 2k + c: the halo of consumer c's tile this round (or,
+          // past the block's tiles, an arrival alone)
+          const int st = 2 * k + c, slot = st % p.ring;
+          const int tile = lo + 2 * (k / p.nslices) + c;
+          sm90::mbar_wait(hempty + 8 * slot, ((st / p.ring) & 1) ^ 1);
+          const uint32_t bar = hfull + 8 * slot;
+          if (tile < hi) {
+            sm90::fence_proxy_async();  // the slot's last reads came first
+            sm90::mbar_expect_tx(bar, p.box_bytes);
+            sm90::tma_load_4d(hbase + slot * p.halo_bytes, &xmap, s * kSlice,
+                              -1, (tile % p.rblocks) * p.R - 1,
+                              tile / p.rblocks, bar);
+          } else {
+            sm90::mbar_arrive(bar);
+          }
+        }
+      }
+      // every multicast into this block has landed before it leaves
+      for (int t = 0; t < 9; ++t)
+        sm90::mbar_wait(kfull + 8 * t, (kloads - 1) & 1);
+    }
+    __syncwarp();
+    sm90::cluster_arrive();
+    sm90::cluster_wait();
+  } else {
+    // ------------------------------------------------------- consumers
+    sm90::setmaxnreg_inc<kConsumerRegs>();
+    const int c = wg, ctid = tid % kWarpgroup;
+    const int warp = ctid / 32, lane = tid % 32;
+    const uint32_t kbase = sm90::smem_u32(ks), hbase0 = sm90::smem_u32(halo);
+    const uint32_t out = sm90::smem_u32(outs + c * kOut);
+    const uint32_t scratch = kfull + 256;  // 128 bytes nobody reads
+    const int row = p.W + 2;  // positions a padded row
+    // this lane's first stmatrix row: position 8 (lane / 16) + lane % 8,
+    // at padded row r0, column col0 of the tile
+    const int r0 = (8 * (lane / 16) + lane % 8) / row;
+    const int col0 = 8 * (lane / 16) + lane % 8 - r0 * row;
+    const int chunk = 2 * warp + (lane / 8) % 2;  // its 8 channels
+
+    // the products of round k (stage slot) into acc: taps [j0, j1) of the
+    // nine, four k16 steps each, one commit group
+    auto products = [&](float(&acc)[TN / 2], int k, int slot, bool first,
+                        int j0, int j1) {
+      const uint32_t hb = hbase0 + slot * p.halo_bytes;
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 9; ++j) {
+        if (j < j0 || j >= j1) continue;
+        const int dy = (dy0 + j / 3) % 3, dx = j % 3, t = dy * 3 + dx;
+        if (k < kloads) sm90::mbar_wait(kfull + 8 * t, k & 1);
+        // B: the tile's positions shifted by the tap, 128 swizzled bytes
+        // each; the first product of a tile drops acc's old value
+        const uint32_t b0 = hb + (uint32_t)(dy * row + dx - 1) * kPixelBytes;
+#pragma unroll
+        for (int kc = 0; kc < kDepthSteps; ++kc) {
+          // A: the tap's tile of K, rows of 128 swizzled bytes (output
+          // channels contiguous unflipped, input channels flipped)
+          const uint64_t da = sm90::make_desc_sw128(
+              kbase + t * kTapBytes + kc * (FLIP ? 32 : 2048));
+          const uint64_t db = sm90::make_desc_sw128(b0 + kc * 32);
+          const int keep = !first || j > j0 || kc > 0;
+          if constexpr (TN == 128)
+            sm90::wgmma_ss_n128<FLIP ? 0 : 1, 0>(acc, da, db, keep);
+          else
+            sm90::wgmma_ss_n64<FLIP ? 0 : 1, 0>(acc, da, db, keep);
+        }
+      }
+      sm90::wgmma_commit();
+    };
+    // a round without a tile: where K changes, its phase is waited for
+    // all the same, so that this warp's arrival counts for this round
+    auto idle = [&](int k) {
+      if (k < kloads && p.nslices > 1)
+        for (int t = 0; t < 9; ++t) sm90::mbar_wait(kfull + 8 * t, k & 1);
+    };
+    // release round k's halo stage (each warp once) and, where K changes
+    // between rounds, K in every block of the cluster
+    auto release = [&](int k) {
+      __syncwarp();
+      if (lane == 0) {
+        sm90::mbar_arrive(hempty + 8 * ((2 * k + c) % p.ring));
+        if (p.nslices > 1)
+          for (uint32_t r = 0; r < csize; ++r)
+            sm90::mbar_arrive_cluster(kempty, r);
+      }
+    };
+    // the tile's sums rounded once to bf16 and stored transposed
+    // (stmatrix) into the output tile, a pixel's 64 channels a 128-byte
+    // row, R rows of W pixels, swizzled as the store's TMA box reads it
+    // (zero columns and positions past the tile's rows go to a scratch
+    // line); the store writes nothing past H or Cout.  The tile is
+    // written again once that store has read it.
+    auto epilogue = [&](float(&acc)[TN / 2], int tile) {
+      if (ctid == 0) sm90::bulk_wait_read<0>();
+      sm90::named_sync(1 + c, kWarpgroup);
+      int r = r0, col = col0;
+#pragma unroll
+      for (int j = 0; j < TN / 8; j += 2) {
+        // matrix m of the four: positions 8 (j + m / 2) ..., channels
+        // 16 warp + 8 (m % 2) ...; this lane gives matrix lane / 8's row
+        // lane % 8, position 8 (j + lane / 16) + lane % 8
+        uint32_t v[4];
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const int e = 4 * (j + m / 2) + 2 * (m % 2);
+          __nv_bfloat162 h2;
+          h2.x = __float2bfloat16_rn(acc[e]);
+          h2.y = __float2bfloat16_rn(acc[e + 1]);
+          v[m] = *reinterpret_cast<uint32_t*>(&h2);
+        }
+        const int o = r * p.W + col - 1;
+        const bool real = r < p.R && col >= 1 && col <= p.W;
+        sm90::stmatrix_x4_trans(
+            real ? out + o * kPixelBytes + ((chunk ^ (o & 7)) << 4)
+                 : scratch + (chunk << 4),
+            v[0], v[1], v[2], v[3]);
+        col += 16;  // the next pair of n-blocks
+        while (col >= row) {
+          col -= row;
+          ++r;
+        }
+      }
+      sm90::fence_proxy_async();  // the tile, read by TMA
+      sm90::named_sync(1 + c, kWarpgroup);
+      if (ctid == 0) {
+        sm90::tma_store_4d(&ymap, out, n0, 0, (tile % p.rblocks) * p.R,
+                           tile / p.rblocks);
+        sm90::bulk_commit();
+      }
+    };
+
+    if constexpr (kSplit) {
+      // one tile a block (small batch): both consumers multiply it, the
+      // first five taps and the last four; the second hands its sums to
+      // the first through shared memory (the ring's second stage, in the
+      // accumulators' own layout) and the first stores the tile
+      float acc[TN / 2];
+      if (lo < hi) {
+        sm90::mbar_wait(hfull, 0);
+        products(acc, 0, 0, true, c == 0 ? 0 : 5, c == 0 ? 5 : 9);
+        sm90::wgmma_wait<0>();
+        float4* part = reinterpret_cast<float4*>(halo + p.halo_bytes) +
+                       ctid * (TN / 8);
+        if (c == 1) {
+#pragma unroll
+          for (int r = 0; r < TN / 8; ++r)
+            part[r] = make_float4(acc[4 * r], acc[4 * r + 1],
+                                  acc[4 * r + 2], acc[4 * r + 3]);
+          sm90::named_arrive(3, 2 * kWarpgroup);
+        } else {
+          sm90::named_sync(3, 2 * kWarpgroup);
+#pragma unroll
+          for (int r = 0; r < TN / 8; ++r) {
+            const float4 v = part[r];
+            acc[4 * r] += v.x;
+            acc[4 * r + 1] += v.y;
+            acc[4 * r + 2] += v.z;
+            acc[4 * r + 3] += v.w;
+          }
+          epilogue(acc, lo);
+        }
+      }
+    } else {
+      // round k: the products of the consumer's tile (with Cin > 64, of a
+      // slice of it; a tile's slices accumulate in acc) while the other
+      // consumer's run; every round ends with its products done, its
+      // halo stage free (and K, which may then change) and, at a tile's
+      // last slice, the tile stored
+      float acc[TN / 2];
+      for (int k = 0; k < walk; ++k) {
+        const int s = k % p.nslices, st = 2 * k + c;
+        const int tile = lo + 2 * (k / p.nslices) + c;
+        sm90::mbar_wait(hfull + 8 * (st % p.ring), (st / p.ring) & 1);
+        if (tile < hi) {
+          products(acc, k, st % p.ring, s == 0, 0, 9);
+          sm90::wgmma_wait<0>();
+        } else {
+          idle(k);
+        }
+        release(k);
+        if (tile < hi && s == p.nslices - 1) epilogue(acc, tile);
+      }
+    }
+    if (ctid == 0) sm90::bulk_wait<0>();
+    __syncwarp();
+    sm90::cluster_arrive();  // no block leaves while a peer may arrive on
+    sm90::cluster_wait();    // its mbarriers
+  }
+}
+
+// the TMA body's three tensor maps at this shape (false where
+// cuTensorMapEncodeTiled refuses one)
+bool ws_maps(CUtensorMap& xmap, CUtensorMap& kmap, CUtensorMap& ymap,
+             const bf16* x, const bf16* k, const bf16* y, int B, int H,
+             int W, int CI, int CO, int flip, int R);
+
+// x (B, H, W, C) or y as a 4-D tensor for TMA, boxes of 64 channels x
+// `cols` pixels x `rows` rows of one image, 128-byte swizzle; zeros outside
+// (loads), nothing written outside (stores)
+bool image_map(CUtensorMap& map, const bf16* a, int B, int H, int W, int C,
+               int cols, int rows, CUtensorMapL2promotion promotion) {
+  const sm90::EncodeTiled encode = sm90::encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2,
+                                 (cuuint64_t)H * W * C * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)cols, (cuuint32_t)rows, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<bf16*>(a), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                promotion, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // K as a 3-D tensor for TMA, 64 x 64 boxes of one tap, 128-byte swizzle:
 // (Cout, Cin, 9), or flipped (Cin, Cout, 9) with the layout (3, 3, Cout, Cin)
 bool k_tensor_map(CUtensorMap& map, const bf16* k, int CI, int CO, int flip) {
@@ -758,8 +1155,94 @@ bool k_tensor_map(CUtensorMap& map, const bf16* k, int CI, int CO, int flip) {
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// A call's launch plan: the body, its grid and its shared memory.
+struct Plan {
+  int tma;        // the shape takes the TMA body
+  int bn;         // Cout tile
+  int cluster;    // blocks a cluster (TMA body; 1 for cp.async)
+  int consumers;  // warpgroups that multiply, a block
+  int units;      // tiles of pixels x Cout tiles
+  int grid;       // blocks
+  int ring;       // halo stages in shared memory
+  int smem;
+  int tn;          // TMA body: positions a tile (wgmma N)
+  int gx, ntiles;  // TMA body: blocks along the tiles, Cout tiles
+  WsParams q;      // TMA body
+  Params p;        // cp.async body
+};
+
+// The TMA body's plan at a tile of TN positions: 128, or 64 with one tile
+// a block and its taps split over the consumers.  A tile is R image rows,
+// as many as TN padded positions hold (R (W + 2) <= TN), spread evenly
+// over the image's rows; the block's shared memory holds as many halo
+// stages as fit, up to kMaxRing.  Blocks along the tiles: as many as the
+// card holds at once for each Cout tile, no more than the tiles, a
+// multiple of the cluster size; a block's tiles are an equal split, so
+// none has more than ceil(tiles / blocks).  Clusters of 4 where that
+// gives no block more tiles than clusters of 2 (the card places fewer
+// blocks in clusters of 4), else of 2.  Returns cudaErrorNotSupported
+// where tiles of 64 would give a block two.
+template <int FLIP, int TN>
+cudaError_t plan_ws(Plan& pl, int B) {
+  WsParams& q = pl.q;
+  const int row = q.W + 2;
+  int R = TN / row;
+  if (R > q.H) R = q.H;
+  q.rblocks = (q.H + R - 1) / R;
+  q.R = (q.H + q.rblocks - 1) / q.rblocks;
+  const long long tiles = (long long)B * q.rblocks;
+  // the positions a tile's products read: up to TN + 2 (W + 2) + 1
+  q.box_bytes = (q.R + 2) * row * kPixelBytes;
+  q.halo_bytes = ((TN + 2 * row + 8) * kPixelBytes + 1023) / 1024 * 1024;
+  // + 1024: the alignment; + 512: the mbarriers and a scratch line
+  const int fixed =
+      1024 + 9 * kTapBytes + kConsumers * TN * kPixelBytes + 512;
+  q.ring = (kSmemLimit - fixed) / q.halo_bytes;
+  if (q.ring > kMaxRing) q.ring = kMaxRing;
+  if (q.ring < 2) return cudaErrorInvalidValue;
+  pl.smem = fixed + q.ring * q.halo_bytes;
+  pl.bn = kCoutTile;
+  pl.tn = TN;
+  pl.consumers = kConsumers;
+  pl.ring = q.ring;
+  pl.ntiles = (pl.p.CO + kCoutTile - 1) / kCoutTile;
+  if (pl.ntiles > 65535 || tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  q.tiles = (int)tiles;
+  long long best = -1;
+  for (int cl = 4; cl >= 2; cl /= 2) {
+    int clusters = 0;
+    const cudaError_t err = sm90::max_clusters(
+        reinterpret_cast<const void*>(conv3x3_wgmma_ws_kernel<FLIP, TN>),
+        kWsThreads, pl.smem, kSmemLimit, cl, clusters);
+    if (err != cudaSuccess) return err;
+    if (clusters < 1) continue;
+    long long per_tile = (long long)clusters / pl.ntiles * cl;
+    if (per_tile < cl) per_tile = cl;
+    long long gx = tiles < per_tile ? tiles : per_tile;
+    gx = (gx + cl - 1) / cl * cl;
+    const long long most = (tiles + gx - 1) / gx;  // tiles a block
+    if (best >= 0 && most >= best) continue;
+    best = most;
+    pl.cluster = cl;
+    pl.gx = (int)gx;
+  }
+  if (best < 0) return cudaErrorInvalidConfiguration;
+  if (TN == 64 && best > 1) return cudaErrorNotSupported;
+  q.rounds = (int)((best + 1) / 2 * q.nslices);
+  const long long units = tiles * pl.ntiles;
+  if (units > 0x7fffffffLL || (long long)pl.gx * pl.ntiles > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  pl.units = (int)units;
+  pl.grid = pl.gx * pl.ntiles;
+  return cudaSuccess;
+}
+
+// The cp.async body's plan (conv3x3_wgmma_kernel): the most warpgroups a
+// block whose tiles still give every SM one; at small batch 32-wide Cout
+// tiles double the blocks; a block an SM walks the tiles.
 template <int BN, int FLIP>
-cudaError_t launch(Params p, int warpgroups, cudaStream_t stream) {
+cudaError_t plan_cp_async_for(Plan& pl, int warpgroups) {
+  Params& p = pl.p;
   p.TM = kTileRows * warpgroups;
   p.S = p.W < p.TM + 2 ? p.W : p.TM + 2;
   p.nslots = 2 * p.S + p.TM + 2;
@@ -769,23 +1252,177 @@ cudaError_t launch(Params p, int warpgroups, cudaStream_t stream) {
   p.halo_bytes = p.nslots * kPixelBytes;
   p.k_bytes = 9 * kSlice * BN * 2;
   p.out_bytes = 4 * warpgroups * 16 * BN * 2;
-  CUtensorMap kmap{};
-  p.ktma = BN == 64 && p.kvec && k_tensor_map(kmap, p.k, p.CI, p.CO, FLIP);
   // + 1024: the kernel aligns K to 1024 bytes
   const int fixed = 1024 + p.k_bytes + 128 + p.out_bytes;
   p.nbuf = fixed + 2 * p.halo_bytes <= kSmemLimit ? 2 : 1;
-  const int smem = fixed + p.nbuf * p.halo_bytes;
-  const int threads = kWarpgroup * warpgroups;
-  const void* fn = reinterpret_cast<const void*>(conv3x3_wgmma_kernel<BN, FLIP>);
+  pl.smem = fixed + p.nbuf * p.halo_bytes;
   int sms = 0, per_sm = 0;
-  cudaError_t err = sm90::occupancy(fn, threads, smem, kSmemLimit, sms,
-                                    per_sm);
+  cudaError_t err = sm90::occupancy(
+      reinterpret_cast<const void*>(conv3x3_wgmma_kernel<BN, FLIP>),
+      kWarpgroup * warpgroups, pl.smem, kSmemLimit, sms, per_sm);
   if (err != cudaSuccess) return err;
   const long long units = (long long)p.mtiles * p.ntiles;
   if (units * p.nslices > 0x7fffffffLL) return cudaErrorInvalidValue;
   const long long most = (long long)sms * per_sm;
-  const int grid = (int)(units < most ? units : most);
-  conv3x3_wgmma_kernel<BN, FLIP><<<grid, threads, smem, stream>>>(p, kmap);
+  pl.tma = 0;
+  pl.bn = BN;
+  pl.cluster = 1;
+  pl.consumers = warpgroups;
+  pl.units = (int)units;
+  pl.grid = (int)(units < most ? units : most);
+  pl.ring = p.nbuf;
+  return cudaSuccess;
+}
+
+cudaError_t plan_cp_async(Plan& pl, int flip, int sms) {
+  const Params& p = pl.p;
+  const int ntiles64 = (p.CO + 63) / 64;
+  int warpgroups = kMaxWarpgroups;
+  while (warpgroups > 1 &&
+         (p.P + kTileRows * warpgroups - 1) / (kTileRows * warpgroups) *
+                 ntiles64 < sms)
+    --warpgroups;
+  const bool narrow = p.CO <= 32 ||
+                      (warpgroups == 1 &&
+                       (p.P + kTileRows - 1) / kTileRows * ntiles64 < sms);
+  if (narrow)
+    return flip ? plan_cp_async_for<32, 1>(pl, warpgroups)
+                : plan_cp_async_for<32, 0>(pl, warpgroups);
+  return flip ? plan_cp_async_for<64, 1>(pl, warpgroups)
+              : plan_cp_async_for<64, 0>(pl, warpgroups);
+}
+
+// The plan at a shape.  The TMA body takes Cin and Cout multiples of 8 (the
+// tensor maps' rows are then 16-byte multiples) and images whose padded
+// row fits a tile (W + 2 <= 128); at the launch, x, K and y must also start
+// 16-byte aligned.  Other shapes and pointers take the cp.async body.
+// Tiles of 128 positions where they give every SM one.  Below that, where
+// tiles of 64 positions give at least half the SMs one and no block two,
+// one tile a block with its taps split over the two consumers (the chain
+// of products a call waits for halved: small batches such as B = 8 at
+// 28x28); else the cp.async body, whose start-up measured shorter on an
+// H100 at such sizes (B = 1, 4 and 16 at 28x28).
+cudaError_t make_plan(Plan& pl, int B, int H, int W, int CI, int CO,
+                      int flip) {
+  if (B <= 0 || H <= 0 || W <= 0 || CI <= 0 || CO <= 0)
+    return cudaErrorInvalidValue;
+  int sms = 0;
+  cudaError_t err = sm90::sm_count(sms);
+  if (err != cudaSuccess) return err;
+  pl = Plan{};
+  Params& p = pl.p;
+  p.P = (long long)B * H * W;
+  p.H = H;
+  p.W = W;
+  p.CI = CI;
+  p.CO = CO;
+  pl.tma = CI % 8 == 0 && CO % 8 == 0 && W + 2 <= 128 &&
+           sm90::encode_tiled() != nullptr;
+  if (!pl.tma) return plan_cp_async(pl, flip, sms);
+  WsParams& q = pl.q;
+  q.H = H;
+  q.W = W;
+  q.nslices = (CI + kSlice - 1) / kSlice;
+  const int ntiles = (CO + kCoutTile - 1) / kCoutTile;
+  auto tiles_at = [&](int tn) {
+    const int R = tn / (W + 2) < H ? tn / (W + 2) : H;
+    return (long long)B * ((H + R - 1) / R) * ntiles;
+  };
+  if (tiles_at(128) >= sms)
+    err = flip ? plan_ws<1, 128>(pl, B) : plan_ws<0, 128>(pl, B);
+  else if (q.nslices == 1 && W + 2 <= 64 && 2 * tiles_at(64) >= sms)
+    err = flip ? plan_ws<1, 64>(pl, B) : plan_ws<0, 64>(pl, B);
+  else
+    err = cudaErrorNotSupported;
+  if (err == cudaErrorNotSupported) {
+    pl.tma = 0;
+    return plan_cp_async(pl, flip, sms);
+  }
+  if (err != cudaSuccess) return err;
+  // the tensor maps at this shape (any 1024-byte aligned address stands
+  // in for the tensors'): where one is refused, cp.async
+  CUtensorMap a, b, c;
+  const bf16* any = reinterpret_cast<const bf16*>(uintptr_t{1} << 20);
+  if (ws_maps(a, b, c, any, any, any, B, H, W, CI, CO, flip, q.R))
+    return cudaSuccess;
+  pl.tma = 0;
+  return plan_cp_async(pl, flip, sms);
+}
+
+bool ws_maps(CUtensorMap& xmap, CUtensorMap& kmap, CUtensorMap& ymap,
+             const bf16* x, const bf16* k, const bf16* y, int B, int H,
+             int W, int CI, int CO, int flip, int R) {
+  // the halo box takes a zero column each side (TMA's fill past the
+  // image); the store's box, the tile's pixels
+  return image_map(xmap, x, B, H, W, CI, W + 2, R + 2,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B) &&
+         k_tensor_map(kmap, k, CI, CO, flip) &&
+         image_map(ymap, y, B, H, W, CO, W, R,
+                   CU_TENSOR_MAP_L2_PROMOTION_NONE);
+}
+
+// make_plan, remembered per device and shape: an eager train step makes
+// 26 calls at one shape, and its host time is the step's (the last 64
+// shapes, replaced in turn)
+cudaError_t cached_plan(Plan& pl, int B, int H, int W, int CI, int CO,
+                        int flip) {
+  struct Entry {
+    int dev, B, H, W, CI, CO, flip;
+    Plan pl;
+  };
+  static std::mutex mutex;
+  static Entry entries[64];
+  static int n = 0, next = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  {
+    std::lock_guard<std::mutex> lock(mutex);
+    for (int i = 0; i < n; ++i) {
+      const Entry& e = entries[i];
+      if (e.dev == dev && e.B == B && e.H == H && e.W == W && e.CI == CI &&
+          e.CO == CO && e.flip == flip) {
+        pl = e.pl;
+        return cudaSuccess;
+      }
+    }
+  }
+  err = make_plan(pl, B, H, W, CI, CO, flip);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mutex);
+  entries[next] = Entry{dev, B, H, W, CI, CO, flip, pl};
+  next = (next + 1) % 64;
+  if (n < 64) ++n;
+  return cudaSuccess;
+}
+
+template <int FLIP, int TN>
+cudaError_t launch_ws(const Plan& pl, const CUtensorMap& xmap,
+                      const CUtensorMap& kmap, const CUtensorMap& ymap,
+                      cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(pl.gx, pl.ntiles, 1);
+  cfg.blockDim = dim3(kWsThreads, 1, 1);
+  cfg.dynamicSmemBytes = pl.smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = pl.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, conv3x3_wgmma_ws_kernel<FLIP, TN>, pl.q,
+                            xmap, kmap, ymap);
+}
+
+template <int BN, int FLIP>
+cudaError_t launch_cp_async(const Plan& pl, cudaStream_t stream) {
+  Params p = pl.p;
+  CUtensorMap kmap{};
+  p.ktma = BN == 64 && p.kvec && k_tensor_map(kmap, p.k, p.CI, p.CO, FLIP);
+  conv3x3_wgmma_kernel<BN, FLIP>
+      <<<pl.grid, kWarpgroup * pl.consumers, pl.smem, stream>>>(p, kmap);
   return cudaGetLastError();
 }
 
@@ -794,40 +1431,53 @@ cudaError_t launch(Params p, int warpgroups, cudaStream_t stream) {
 cudaError_t conv3x3_bf16(const bf16* x, const bf16* k, bf16* y, int B, int H,
                          int W, int CI, int CO, int flip,
                          cudaStream_t stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || CI <= 0 || CO <= 0)
-    return cudaErrorInvalidValue;
-  int sms = 0;
-  const cudaError_t err = sm90::sm_count(sms);
+  Plan pl;
+  cudaError_t err = cached_plan(pl, B, H, W, CI, CO, flip);
   if (err != cudaSuccess) return err;
-  Params p{};
+  Params& p = pl.p;
   p.x = x;
   p.k = k;
   p.y = y;
-  p.P = (long long)B * H * W;
-  p.H = H;
-  p.W = W;
-  p.CI = CI;
-  p.CO = CO;
   p.vec = CI % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   p.kvec = (flip ? CI : CO) % 8 == 0 &&
            reinterpret_cast<uintptr_t>(k) % 16 == 0;
   p.yvec = CO % 8 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0;
-  // the most warpgroups a block whose tiles still give every SM one; at
-  // small batch 32-wide Cout tiles double the blocks
-  const int ntiles64 = (CO + 63) / 64;
-  int warpgroups = kMaxWarpgroups;
-  while (warpgroups > 1 &&
-         (p.P + kTileRows * warpgroups - 1) / (kTileRows * warpgroups) *
-                 ntiles64 < sms)
-    --warpgroups;
-  const bool narrow = CO <= 32 ||
-                      (warpgroups == 1 &&
-                       (p.P + kTileRows - 1) / kTileRows * ntiles64 < sms);
-  if (narrow)
-    return flip ? launch<32, 1>(p, warpgroups, stream)
-                : launch<32, 0>(p, warpgroups, stream);
-  return flip ? launch<64, 1>(p, warpgroups, stream)
-              : launch<64, 0>(p, warpgroups, stream);
+  if (pl.tma && p.vec && p.kvec && p.yvec) {
+    CUtensorMap xmap{}, kmap{}, ymap{};
+    if (ws_maps(xmap, kmap, ymap, x, k, y, B, H, W, CI, CO, flip, pl.q.R))
+    {
+      if (pl.tn == 64)
+        return flip ? launch_ws<1, 64>(pl, xmap, kmap, ymap, stream)
+                    : launch_ws<0, 64>(pl, xmap, kmap, ymap, stream);
+      return flip ? launch_ws<1, 128>(pl, xmap, kmap, ymap, stream)
+                  : launch_ws<0, 128>(pl, xmap, kmap, ymap, stream);
+    }
+  }
+  if (pl.tma) {  // misaligned pointers: the cp.async body at this shape
+    int sms = 0;
+    err = sm90::sm_count(sms);
+    if (err == cudaSuccess) err = plan_cp_async(pl, flip, sms);
+    if (err != cudaSuccess) return err;
+  }
+  if (pl.bn == 32)
+    return flip ? launch_cp_async<32, 1>(pl, stream)
+                : launch_cp_async<32, 0>(pl, stream);
+  return flip ? launch_cp_async<64, 1>(pl, stream)
+              : launch_cp_async<64, 0>(pl, stream);
+}
+
+// the launch plan at a shape, into out[0..6]: 1 where it takes the TMA
+// body, blocks a cluster, consumer warpgroups a block, units (tiles of
+// pixels x Cout tiles), blocks, halo stages, the Cout tile's width
+cudaError_t conv3x3_bf16_plan(int B, int H, int W, int CI, int CO, int flip,
+                              int* out) {
+  Plan pl;
+  const cudaError_t err = cached_plan(pl, B, H, W, CI, CO, flip);
+  if (err != cudaSuccess) return err;
+  const int v[7] = {pl.tma, pl.cluster, pl.consumers, pl.units, pl.grid,
+                    pl.ring, pl.bn};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  return cudaSuccess;
 }
 
 }  // namespace tc
@@ -860,6 +1510,15 @@ int cfgan_conv3x3_bf16(const void* x, const void* k, void* y, int B, int H,
                                static_cast<const __nv_bfloat16*>(k),
                                static_cast<__nv_bfloat16*>(y), B, H, W, Cin,
                                Cout, flip, static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 launch plan at this shape, into out[0..6]: 1 where the shape
+// takes the TMA body (0: cp.async), blocks a cluster, consumer warpgroups a
+// block, units, blocks, halo stages and the Cout tile's width.  Returns a
+// cudaError_t.
+int cfgan_conv3x3_plan(int B, int H, int W, int Cin, int Cout, int flip,
+                       int* out) {
+  return (int)tc::conv3x3_bf16_plan(B, H, W, Cin, Cout, flip, out);
 }
 
 }  // extern "C"

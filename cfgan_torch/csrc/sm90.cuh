@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels, as
-// inline PTX: cp.async with zero fill, ldmatrix, mbarriers, TMA and bulk
-// loads, thread block clusters and their distributed shared memory, and
+// inline PTX: cp.async with zero fill, ldmatrix, mbarriers (also arrivals
+// from another block of the cluster), TMA and bulk loads (multicast over a
+// cluster) and TMA stores, named barriers, setmaxnreg, thread block
+// clusters and their distributed shared memory, and
 // wgmma (bf16, and tf32 for the float32 kernels' 3xTF32 products) with
 // the A operand in registers and B read from shared memory through a
 // matrix descriptor.
@@ -74,6 +76,18 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
       : "r"(addr)
       : "memory");
 }
+// four 8x8 b16 matrices (each thread's fragment the mma layout's: row
+// lane / 4, columns 2 (lane % 4), + 1) stored transposed: lanes 8i ..
+// 8i + 7 give the addresses of matrix i's transposed rows, 16 bytes each
+__device__ __forceinline__ void stmatrix_x4_trans(uint32_t addr, uint32_t r0,
+                                                  uint32_t r1, uint32_t r2,
+                                                  uint32_t r3) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};"
+      "\n" ::"r"(addr),
+      "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+      : "memory");
+}
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
                                                   uint32_t addr) {
   asm volatile(
@@ -95,7 +109,10 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
 // matrix descriptor for a tile whose rows are 128 bytes with the 128-byte
 // swizzle (layout type 1), as TMA writes it: 8-row groups 1024 bytes apart
 // (SBO); a k16 step is +32 bytes of start address in a depth-major tile and
-// +2048 (16 rows) in an N-major one
+// +2048 (16 rows) in an N-major one.  The swizzle follows the address bits,
+// so a tile may start at any 128-byte row of a region aligned to 1024 bytes
+// with the base offset left 0 (setting it to the row's place in the 8-row
+// pattern reads wrong rows: measured on an H100)
 __device__ __forceinline__ uint64_t make_desc_sw128(uint32_t addr) {
   return make_desc(addr, 16, 1024) | (1ull << 62);
 }
@@ -151,6 +168,85 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map,
       "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(z), "r"(bar)
       : "memory");
+}
+// the same box, written at shared address `dst` of every block of the
+// cluster whose bit is set in `mask`, each completing on its own mbarrier
+// at address `bar`: one read of the L2 feeds them all
+__device__ __forceinline__ void tma_load_3d_multicast(uint32_t dst,
+                                                      const void* map, int x,
+                                                      int y, int z,
+                                                      uint32_t bar,
+                                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%2, %3, %4}], [%5], %6;\n" ::"r"(
+          dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(z), "r"(bar),
+      "h"(mask)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
+                                            int x, int y, int z, int w,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(z), "r"(w),
+      "r"(bar)
+      : "memory");
+}
+// a box of shared memory to global memory by TMA (elements outside the
+// tensor are not written), in the thread's current bulk group
+__device__ __forceinline__ void tma_store_4d(const void* map, uint32_t src,
+                                             int x, int y, int z, int w) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(x), "r"(y), "r"(z), "r"(w)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// at most N of this thread's bulk groups still read their shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// at most N of this thread's bulk groups are not complete
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// an arrival on the mbarrier at this block's shared address `bar` in block
+// `rank` of the cluster
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar,
+                                                    uint32_t rank) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(bar),
+      "r"(rank)
+      : "memory");
+}
+
+// named barriers (ids 1-15; 0 is __syncthreads): sync waits until `count`
+// threads have arrived or synced on `id`, arrive does not wait
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// a warpgroup's registers a thread, raised or lowered (all four warps)
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // thread block clusters: this block's rank and the cluster's size, a
@@ -254,6 +350,56 @@ struct Wgmma<32, TransB> {
           "n"(TransB));
   }
 };
+
+// d (64 x 128, f32) (+)= A (64 x 16, bf16) * B (16 x 128, bf16), both read
+// from shared memory through their descriptors; TA / TB: the operand is
+// stored MN-major (transposed); d's old value is dropped where scale_d is 0
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// the same with N = 64
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
 
 // 16 bytes (4 floats) from src to shared memory, those at or past `avail`
 // zero: cp.async where vec (src 16-byte aligned), else element-wise

@@ -4,7 +4,8 @@
 (`cfgan_torch/csrc/conv3x3.cu`) that replace the JAX package's Pallas kernel
 `_pallas_conv3x3_kernel`, both on the tensor cores: bf16, and float32 as
 3xTF32 products (each operand split into two tf32 parts, three products),
-which keep float32's accuracy.  `conv3x3_same_plain` is its plain PyTorch
+which keep float32's accuracy (`conv_plan` reads the bf16 kernel's launch
+plan).  `conv3x3_same_plain` is its plain PyTorch
 version, nine shifted-tap matmuls mirroring `conv3x3_same_matmul`: the CPU
 path, and the yardstick the kernels are held against on the card.
 `conv3x3_same_dkernel` is the wrapper of the weight-gradient kernels
@@ -224,6 +225,31 @@ def dkernel_plan(b: int, h: int, w: int, cin: int, cout: int,
     if err != 0:
         raise RuntimeError(f"conv3x3 dK: no launch plan: cudaError {err}")
     return dict(zip(_PLAN_KEYS, out))
+
+
+_CONV_PLAN_KEYS = ("tma", "cluster", "consumers", "units", "grid", "stages",
+                   "cout_tile")
+
+
+def conv_plan(b: int, h: int, w: int, cin: int, cout: int,
+              transposed: bool = False) -> dict:
+    """The bf16 conv kernel's launch plan at (B, H, W, Cin, Cout) on the
+    current CUDA device (`transposed`: the dx form): `tma` (1 where the
+    shape takes the warp-specialised TMA body, 0 the cp.async one),
+    `cluster` blocks a cluster, `consumers` warpgroups that multiply a
+    block, `units` tiles of pixels x Cout tiles, `grid` blocks, `stages`
+    of halos in shared memory, and `cout_tile` the Cout tile's width.  At
+    the launch, pointers that are not 16-byte aligned take the cp.async
+    body whatever `tma` says.  Builds the kernels where they are not
+    built; raises where the plan fails."""
+    import ctypes
+
+    lib = _build.load_library().lib
+    out = (ctypes.c_int * len(_CONV_PLAN_KEYS))()
+    err = lib.cfgan_conv3x3_plan(b, h, w, cin, cout, int(transposed), out)
+    if err != 0:
+        raise RuntimeError(f"conv3x3: no launch plan: cudaError {err}")
+    return dict(zip(_CONV_PLAN_KEYS, out))
 
 
 class _Conv3x3SamePallas(torch.autograd.Function):

@@ -316,7 +316,8 @@ BF16_CF_ATOL = 2.0 ** -7
 PROBS_ATOL = {"float32": 1e-4, "bfloat16": 1e-2}
 KERNEL_LAYERS_PER_FORWARD = 13  # 12 resblock convs + conv_mid
 RESBLOCK_KERNEL_LAYERS = 12  # what `remat` runs again in the backward
-OUR_KERNELS = ("conv3x3_wgmma_kernel", "conv3x3_tf32_kernel",
+OUR_KERNELS = ("conv3x3_wgmma_ws_kernel", "conv3x3_wgmma_kernel",
+               "conv3x3_tf32_kernel",
                "conv3x3_tf32_split_kernel", "conv3x3_dkernel_wgmma_kernel",
                "conv3x3_dkernel_tf32_kernel", "dkernel_reduce_kernel",
                "epilogue_fwd_kernel", "epilogue_bwd_kernel")
@@ -336,6 +337,19 @@ CONV_SHAPES = (SERVING_SHAPE, (1, 28, 28, 64, 64), (2, 13, 11, 20, 40),
 # blocks, twice the preset's batch
 DK_EDGE_SHAPES = ((5, 28, 28, 64, 64), (1, 5, 5, 64, 64), (1, 3, 5, 64, 64),
                   (256, 28, 28, 64, 64))
+# the bf16 conv's plan at its edges (held against the plain version beside
+# CONV_SHAPES, bf16, forward and dx): the figures' heatmaps (B=8: one tile
+# a block, taps split over the consumers), 2,352 pixels (not a multiple of
+# 64), 126 tiles (a cluster holds a block without a tile), Cin over two
+# TMA slices at a batch too small for the TMA body and at one that takes
+# it (K reloaded through the cluster every round), and TMA bodies whose
+# stored box overhangs y: 13 rows in tiles of 7 and of 4 rows, Cout 72 and
+# 96 (a second, part-filled 64-channel tile)
+CONV_EDGE_SHAPES = ((8, 28, 28, 64, 64), (3, 28, 28, 64, 64),
+                    (9, 28, 28, 64, 64), (2, 28, 28, 128, 64),
+                    (32, 28, 28, 128, 64), (128, 13, 11, 64, 64),
+                    (20, 13, 11, 64, 64), (128, 28, 28, 64, 72),
+                    (128, 28, 28, 64, 96))
 # dK kernel vs plain, both float32 before the cast: each tap's (Cin, Cout)
 # block within DK_RTOL of its 2-norm.  The two sum up to B*H*W = 100,352
 # products per entry in other orders (the kernel per block of pixels, then
@@ -400,12 +414,12 @@ RUNNER_STEPS = 24
 EAGER_PROFILE_STEPS = 6
 # each replayed step's launches of our kernels, by the profiler: the
 # epilogue forward and backward once; with conv_impl="pallas" 13 conv
-# launches forward and 13 for dx, and 13 dK launches (each with its
-# reduction kernel)
+# launches forward and 13 for dx (the bf16 conv's TMA body), and 13 dK
+# launches (each with its reduction kernel)
 REPLAY_LAUNCHES = {
     None: {"epilogue_fwd_kernel": 1, "epilogue_bwd_kernel": 1},
     "pallas": {"epilogue_fwd_kernel": 1, "epilogue_bwd_kernel": 1,
-               "conv3x3_wgmma_kernel": 2 * 13,
+               "conv3x3_wgmma_ws_kernel": 2 * 13,
                "conv3x3_dkernel_wgmma_kernel": 13,
                "dkernel_reduce_kernel": 13}}
 PROFILE_TRIES = 3
@@ -833,14 +847,14 @@ def dkernel_bound(b, h, w, cin, cout, dtype: str):
     return _bound(nbytes, conv_flops(b, (h, w), cin, cout), dtype)
 
 
-def dkernel_ptxas(log: str) -> list[dict]:
-    """The dK kernels' entries of an `nvcc -Xptxas -v` report: each
-    entry's name with its template arguments, its registers and its spill
-    stores and loads in bytes."""
+def kernel_ptxas(log: str, names: str) -> list[dict]:
+    """The entries of an `nvcc -Xptxas -v` report whose kernel name
+    matches the regular expression `names`: each entry's name with its
+    template arguments, its registers and its spill stores and loads in
+    bytes."""
     out, entry = [], None
     for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '[^']*?"
-                      r"(conv3x3_dkernel_[a-z0-9]+_kernel|dkernel_reduce_kernel)"
+        m = re.search(rf"Compiling entry function '[^']*?({names})"
                       r"(?:I(.*?)EE)?", ln)
         if m:  # the name and its template arguments, from the mangling
             args = re.findall(r"L[ib](\d+)", m.group(2) or "")
@@ -1146,12 +1160,17 @@ def _dev_ms(fn, ops: int, dtype: str, timed_by: dict, key: str,
 
 def time_conv(card: str, gen, dev, shape, dtype: str, phase: str) -> dict:
     """Device ms per call of the conv kernel, its plain version and
-    cuDNN's `F.conv2d` at `shape` and `dtype`, with the bound; one line.
-    Returns {ms, plain_ms, library_ms, bound_ms, bound_by}."""
+    cuDNN's `F.conv2d` at `shape` and `dtype`, with the bound and, in
+    bf16, the kernel's launch plan; one line.  Returns {ms, plain_ms,
+    library_ms, bound_ms, bound_by}."""
     import torch
     import torch.nn.functional as F
 
-    from cfgan_torch.ops.conv import conv3x3_same, conv3x3_same_plain
+    from cfgan_torch.ops.conv import (
+        conv3x3_same,
+        conv3x3_same_plain,
+        conv_plan,
+    )
 
     x, k = make_conv_inputs(gen, dev, *shape, getattr(torch, dtype))
     x_nchw = x.permute(0, 3, 1, 2)  # channels-last view, no copy
@@ -1172,7 +1191,9 @@ def time_conv(card: str, gen, dev, shape, dtype: str, phase: str) -> dict:
           "operations": ops, "share_of_bound": bound_ms / ms,
           "tflops": ops / ms / 1e9, "timed_by": timed_by,
           "events_call_ms": cuda_ms(lambda: conv3x3_same(x, k), 50),
-          "graph_call_ms": graph_ms(lambda: conv3x3_same(x, k))})
+          "graph_call_ms": graph_ms(lambda: conv3x3_same(x, k)),
+          "plan": conv_plan(*shape) if dtype == "bfloat16" else None,
+          "faster_than_library": ms < lib_ms})
     return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
 
@@ -5280,7 +5301,12 @@ def main() -> None:
             int(n) for n in re.findall(r"(\d+) bytes spill", ln))]
         emit({"phase": "build", "seconds": round(lib.seconds, 3),
               "library": str(lib.path.relative_to(HERE)), "ptxas": ptxas,
-              "spills": spills, "dkernel": dkernel_ptxas(lib.ptxas_log)})
+              "spills": spills,
+              "conv": kernel_ptxas(lib.ptxas_log,
+                                   r"conv3x3_(?:wgmma_ws|wgmma|tf32)_kernel"),
+              "dkernel": kernel_ptxas(
+                  lib.ptxas_log,
+                  r"conv3x3_dkernel_[a-z0-9]+_kernel|dkernel_reduce_kernel")})
         if spills:
             fail(f"a kernel spills registers: {spills}")
 
@@ -5326,6 +5352,9 @@ def main() -> None:
                 kernel_err[(shape, dtype)] = check_conv(
                     gen, dev, shape, dtype, "kernel conv3x3",
                     tf32_witness=shape == SERVING_SHAPE)
+        for shape in CONV_EDGE_SHAPES:
+            kernel_err[(shape, "bfloat16")] = check_conv(
+                gen, dev, shape, "bfloat16", "kernel conv3x3")
 
     dk_err = {}
     with Phase("kernel conv3x3 dK"):

@@ -190,6 +190,84 @@ def test_dkernel_plan_asks_the_kernel_library(monkeypatch):
         tconv.dkernel_plan(128, 28, 28, 64, 64)
 
 
+def test_build_binds_the_conv_plan_and_its_clusters():
+    """The bf16 conv's plan entry point takes the shape, the dx flag and
+    a pointer to its seven ints.  Its TMA body is launched in clusters
+    (the cluster attribute, the card's cluster occupancy), loads K by a
+    TMA multicast over the cluster and its halos by 4-D TMA boxes,
+    multiplies with both operands in shared memory (m64n128k16), stores
+    its output tiles transposed (stmatrix) and by TMA, moves registers
+    from its producer to its consumers, and has no float atomics: two
+    calls give the same bits."""
+    import ctypes
+
+    p, i = ctypes.c_void_p, ctypes.c_int
+    assert _build.SIGNATURES["cfgan_conv3x3_plan"] == [i] * 6 + [p]
+    src = _build.SOURCES[0].read_text()
+    assert ("int cfgan_conv3x3_plan(int B, int H, int W, int Cin, int Cout, "
+            "int flip,\n                       int* out)") in src
+    assert "cudaLaunchAttributeClusterDimension" in src
+    assert "cudaLaunchKernelEx(" in src and "sm90::max_clusters(" in src
+    for call in ("tma_load_3d_multicast(", "tma_store_4d(", "tma_load_4d(",
+                 "setmaxnreg_dec<", "setmaxnreg_inc<", "named_sync(",
+                 "mbar_arrive_cluster(", "wgmma_ss_n128<", "stmatrix_x4_trans("):
+        assert f"sm90::{call}" in src, call
+    helpers = (_build.SOURCES[0].parent / "sm90.cuh").read_text()
+    assert ".multicast::cluster" in helpers
+    assert "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group" in helpers
+    assert "setmaxnreg.inc.sync.aligned.u32" in helpers
+    for text in (src, helpers):
+        assert "atomicAdd" not in text
+        assert not re.search(r"\b(red|atom)\.", text)
+
+
+@pytest.mark.parametrize("transposed", [False, True], ids=["fwd", "dx"])
+def test_conv_plan_asks_the_kernel_library(monkeypatch, transposed):
+    """The bf16 conv's launch plan comes from the built library's plan
+    entry point, read into its seven named ints; with the loader failing
+    it raises the loader's error."""
+    import ctypes
+
+    class Lib:
+        @staticmethod
+        def cfgan_conv3x3_plan(b, h, w, cin, cout, flip, out):
+            assert (b, h, w, cin, cout, flip) == (128, 28, 28, 64, 64,
+                                                  int(transposed))
+            for k, v in enumerate((1, 2, 2, 896, 132, 4, 64)):
+                ctypes.cast(out, ctypes.POINTER(ctypes.c_int))[k] = v
+            return 0
+
+    monkeypatch.setattr(_build, "load_library",
+                        lambda: type("Built", (), {"lib": Lib})())
+    assert tconv.conv_plan(128, 28, 28, 64, 64, transposed=transposed) == {
+        "tma": 1, "cluster": 2, "consumers": 2, "units": 896, "grid": 132,
+        "stages": 4, "cout_tile": 64}
+
+    class BuildFailed(RuntimeError):
+        pass
+
+    def fail():
+        raise BuildFailed("nvcc failed")
+
+    monkeypatch.setattr(_build, "load_library", fail)
+    with pytest.raises(BuildFailed):
+        tconv.conv_plan(128, 28, 28, 64, 64, transposed=transposed)
+
+
+def test_conv_plan_raises_the_librarys_error(monkeypatch):
+    """A plan the library refuses (a cudaError) raises, naming it."""
+
+    class Lib:
+        @staticmethod
+        def cfgan_conv3x3_plan(b, h, w, cin, cout, flip, out):
+            return 1  # cudaErrorInvalidValue
+
+    monkeypatch.setattr(_build, "load_library",
+                        lambda: type("Built", (), {"lib": Lib})())
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        tconv.conv_plan(0, 28, 28, 64, 64)
+
+
 def test_build_binds_the_f32_entry_points():
     """The float32 conv takes the tap-order flag (dx reads K flipped, no
     copy) and a workspace for K's tf32 parts, sized by its own entry

@@ -34,12 +34,23 @@ pytestmark = pytest.mark.gpu
 # counts that are not multiples of the 28x28 ones); the dK's cluster plan
 # at its edges: a block count that is not a multiple of the cluster size,
 # a grid of one cluster, a cluster with fewer pixel ranges than blocks,
-# and twice the preset's batch
+# and twice the preset's batch; the bf16 conv's plan at its edges: the
+# figures' heatmaps (B=8: one tile a block, taps split), 2,352 pixels (not
+# a multiple of 64), 126 tiles (a cluster holds a block without a tile),
+# Cin over two TMA slices at a batch too small for the TMA body and at
+# one that takes it (K reloaded through the cluster every round); TMA
+# bodies whose stored box overhangs y: 13 rows in tiles of 7 rows (128
+# positions) and of 4 rows (64 positions), Cout 72 and 96 (a second,
+# part-filled 64-channel tile) and 40 (one tile, part-filled)
 SHAPES = [(128, 28, 28, 64, 64), (1, 28, 28, 64, 64), (2, 5, 70, 16, 16),
           (3, 1, 9, 16, 24), (2, 13, 11, 20, 40), (4, 13, 11, 20, 130),
           (9, 7, 5, 32, 64), (2, 6, 6, 130, 70), (128, 20, 20, 64, 64),
           (64, 20, 20, 64, 64), (5, 28, 28, 64, 64), (1, 5, 5, 64, 64),
-          (1, 3, 5, 64, 64), (256, 28, 28, 64, 64)]
+          (1, 3, 5, 64, 64), (256, 28, 28, 64, 64), (8, 28, 28, 64, 64),
+          (3, 28, 28, 64, 64), (9, 28, 28, 64, 64), (2, 28, 28, 128, 64),
+          (32, 28, 28, 128, 64), (128, 13, 11, 64, 64), (20, 13, 11, 64, 64),
+          (128, 28, 28, 64, 72), (128, 28, 28, 64, 96),
+          (128, 28, 28, 64, 40)]
 
 
 def _card():
@@ -81,6 +92,90 @@ def test_kernel_matches_plain(shape, dtype):
         ulp = torch.exp2(torch.floor(torch.log2(
             ref.abs().clamp_min(2.0 ** -126))) - 7)
         assert bool(((got.float() - ref).abs() <= ulp + 1e-4).all())
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+@pytest.mark.parametrize("transposed", [False, True], ids=["fwd", "dx"])
+def test_bf16_kernel_gives_the_same_bits_twice(shape, transposed):
+    """Two calls of the bf16 conv on the same inputs give the same bits:
+    each output is one block's fixed sequence of products, stored once
+    (no float atomics, no split sums)."""
+    dev = _card()
+    b, h, w, cin, cout = shape
+    _, k = _inputs(shape, torch.bfloat16, dev, seed=9)
+    x, _ = _inputs((b, h, w, cout if transposed else cin, 1), torch.bfloat16,
+                   dev, seed=10)
+    got = tconv.conv3x3_same(x, k, transposed=transposed)
+    again = tconv.conv3x3_same(x, k, transposed=transposed)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+
+
+def _kernels_launched(fn):
+    """The names of the conv kernels that one call of `fn` launched, by
+    the profiler (a trace now and then comes back without the card's
+    records: up to three tries)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = {ev.key for ev in prof.key_averages() if "conv3x3" in ev.key}
+        if names:
+            break
+    return names
+
+
+# shape -> the body its plan takes on an H100 (132 SMs): TMA where Cin
+# and Cout are multiples of 8 and the problem is large enough (tiles of
+# 128 positions for every SM, or of 64 for at least half of them, one a
+# block), cp.async otherwise
+PLAN_BODIES = {(128, 28, 28, 64, 64): 1, (8, 28, 28, 64, 64): 1,
+               (32, 28, 28, 128, 64): 1, (1, 28, 28, 64, 64): 0,
+               (2, 13, 11, 20, 40): 0, (3, 1, 9, 16, 24): 0,
+               (4, 13, 11, 20, 130): 0, (128, 13, 11, 64, 64): 1,
+               (20, 13, 11, 64, 64): 1, (128, 28, 28, 64, 72): 1,
+               (128, 28, 28, 64, 40): 1}
+
+
+@pytest.mark.parametrize("shape", list(PLAN_BODIES), ids=str)
+@pytest.mark.parametrize("transposed", [False, True], ids=["fwd", "dx"])
+def test_conv_plan_picks_the_body_the_kernel_launches(shape, transposed):
+    """The plan's body: TMA (the warp-specialised kernel) where Cin and
+    Cout are multiples of 8 and the problem fills the card
+    (PLAN_BODIES), cp.async otherwise; at the launch, an input one
+    element into its storage (not 16-byte aligned) takes the cp.async
+    body at any shape.  Both agree with the plain version."""
+    dev = _card()
+    b, h, w, cin, cout = shape
+    c_in, c_out = (cout, cin) if transposed else (cin, cout)
+    _, k = _inputs(shape, torch.bfloat16, dev, seed=11)
+    x, _ = _inputs((b, h, w, c_in, 1), torch.bfloat16, dev, seed=12)
+    plan = tconv.conv_plan(b, h, w, c_in, c_out, transposed=transposed)
+    assert plan["tma"] == PLAN_BODIES[shape]
+    if c_in % 8 or c_out % 8:
+        assert plan["tma"] == 0
+    assert plan["grid"] >= 1 and plan["units"] >= 1
+    if plan["tma"]:
+        assert plan["consumers"] == 2 and plan["cluster"] >= 2
+        assert plan["grid"] % plan["cluster"] == 0
+    kk = (k.float().flip(0, 1).transpose(2, 3).contiguous() if transposed
+          else k.float())
+    ref = tconv.conv3x3_same_plain(x.float(), kk)
+    shifted = torch.empty(x.numel() + 1, dtype=x.dtype,
+                          device=dev)[1:].view(x.shape).copy_(x)
+    for inp, tma in ((x, plan["tma"]), (shifted, 0)):
+        names = _kernels_launched(
+            lambda: tconv.conv3x3_same(inp, k, transposed=transposed))
+        ws = {n for n in names if "conv3x3_wgmma_ws_kernel" in n}
+        assert (len(ws) == 1) == bool(tma), names
+        assert len(names) == 1, names
+        got = tconv.conv3x3_same(inp, k, transposed=transposed)
+        torch.cuda.synchronize()
+        assert _bf16_close(got, ref)
 
 
 def _bf16_close(got, ref):

@@ -6,11 +6,9 @@ checkouts in turns on one CUDA card.
 
 DIR is another checkout of this repository, for example the parent commit
 unpacked with `git archive` into a directory that `.gitignore` lists.  Each
-tree's `conv3x3_dkernel.cu` (with its `sm90.cuh`) is built alone, one `nvcc`
-each, started together, into `build/dkernel_ab/` of this checkout, and
-loaded with ctypes: the two libraries export the same C entry points, which
-each call with its own launch plan and workspace.  Both take the same
-inputs, made from a seed.
+tree's `conv3x3_dkernel.cu` is built alone into `build/dkernel_ab/` of this
+checkout (`tools/ab_common.py`); each is called with its own launch plan
+and workspace.  Both take the same inputs, made from a seed.
 
 At each shape, bf16 and float32:
 - each kernel against the plain dK (`conv3x3_same_dkernel_plain`): each
@@ -32,9 +30,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import json
 import statistics
-import subprocess
 import sys
 from pathlib import Path
 
@@ -50,35 +46,6 @@ F32_SHAPES = ((128, 28, 28, 64, 64), (1, 28, 28, 64, 64),
               (128, 20, 20, 64, 64), (64, 20, 20, 64, 64))
 ENTRY_POINTS = ("cfgan_conv3x3_dkernel_blocks", "cfgan_conv3x3_dkernel_bf16",
                 "cfgan_conv3x3_dkernel_f32")
-
-
-def build(trees: dict[str, Path], out_dir: Path) -> dict[str, ctypes.CDLL]:
-    """Each tree's dK source into its own shared library, the `nvcc`s
-    started together; the libraries, bound."""
-    from cfgan_torch.ops import _build
-
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, tree in trees.items():
-        src = tree / "cfgan_torch" / "csrc" / "conv3x3_dkernel.cu"
-        lib = out_dir / f"lib{name}.so"
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(lib),
-               str(src)]
-        procs[name] = (lib, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
-    libs = {}
-    for name, (path, proc) in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        lib = ctypes.CDLL(str(path))
-        for entry in ENTRY_POINTS:
-            fn = getattr(lib, entry)
-            fn.argtypes = _build.SIGNATURES[entry]
-            fn.restype = ctypes.c_int
-        libs[name] = lib
-    return libs
 
 
 def caller(lib: ctypes.CDLL, x, g, alloc_per_call: bool = False):
@@ -121,29 +88,20 @@ def main() -> None:
 
     import chip_smoke as cs
     from cfgan_torch.ops.conv import conv3x3_same_dkernel_plain
+    from tools import ab_common as ab
 
     if not torch.cuda.is_available():
         sys.exit("dkernel_ab: needs a CUDA card")
-    sink = open(args.out, "w") if args.out else None
-
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-        check=True).stdout.strip().splitlines()[0]
-
-    def emit(obj):
-        line = json.dumps({"card": card, **obj})
-        print(line, flush=True)
-        if sink:
-            sink.write(line + "\n")
+    emit = ab.Lines(ab.card_name(), args.out)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    libs = build({"parent": args.parent.resolve(), "change": ROOT},
-                 ROOT / "build" / "dkernel_ab")
+    libs = {name: lib for name, (lib, _) in ab.build(
+        {"parent": args.parent.resolve(), "change": ROOT},
+        "conv3x3_dkernel.cu", ROOT / "build" / "dkernel_ab",
+        ENTRY_POINTS).items()}
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(cs.SEED)
-    order = ["parent", "change", "cudnn", "change", "parent"] * args.turns
     for dtype, shapes in (("bfloat16", BF16_SHAPES), ("float32", F32_SHAPES)):
         dt = getattr(torch, dtype)
         for shape in shapes:
@@ -173,15 +131,15 @@ def main() -> None:
                                                    padding=1)
             fns = {"parent": caller(libs["parent"], x, g),
                    "change": caller(libs["change"], x, g), "cudnn": cudnn}
-            times = {name: [] for name in fns}
-            for who in order:
-                ms, how = cs.kernel_ms(fns[who])
-                _, _, parts = cs.device_time(fns[who], 20,
-                                             match=("dkernel_reduce",))
-                times[who].append(ms)
-                emit({"time": who, "shape": shape, "dtype": dtype, "ms": ms,
-                      "timed_by": how,
-                      "reduce_ms": parts.get("dkernel_reduce", (None,))[0]})
+
+            def timer(fn):
+                ms, how = cs.kernel_ms(fn)
+                _, _, parts = cs.device_time(fn, 20,
+                                            match=("dkernel_reduce",))
+                return ms, how, {"reduce_ms": parts.get("dkernel_reduce",
+                                                        (None,))[0]}
+            times = ab.turns(fns, args.turns, timer, emit, shape=shape,
+                             dtype=dtype)
             graphs = {name: {"graph_ms_workspace_each_call": cs.graph_ms(
                                  caller(lib, x, g, alloc_per_call=True)),
                              "graph_ms_workspace_once": cs.graph_ms(
