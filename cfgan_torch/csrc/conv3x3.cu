@@ -116,59 +116,202 @@
 // Both bf16 bodies, dx: the same kernel with a flag that reads K as
 // K[2-dy, 2-dx, o, c], so the backward needs no flipped copy of K.
 //
-// float32: 3xTF32 on the tensor cores (f32::conv3x3_tf32_kernel).  One
-// tf32 product keeps about 3 decimal digits, which the port's float32 bars
-// (1e-4 against the plain version, 3e-5 single-step parity) do not allow.
-// So each operand is split as a = big + small, big = tf32(a) rounded to
-// nearest (cvt.rna: the tensor cores would truncate) and small = a - big
-// (sm90::tf32_split), and each product is big*big + big*small +
-// small*big (small*small is below float32's rounding), accumulated in f32
-// registers.
-// The structure is the bf16 kernel's: a persistent implicit GEMM over
-// pixels in (n, h, w) order, the halo staged once per tile (16-byte chunks
-// XOR-swizzled by pixel), a tap a shift of ldmatrix's row addresses, which
-// deliver tf32 A fragments as they are (each 32-bit word one element).  A
-// is split in registers one k8 step at a time, double-buffered, so that
-// the next step loads while the last one's products run.
-//   - B must be K-major: wgmma has no transpose for 32-bit types, and K
-//     (HWIO) has Cout contiguous.  So a small kernel per call
-//     (conv3x3_tf32_split_kernel) writes K's big and small parts, already
-//     flipped for dx, in wgmma's K-major layout, each (Cin slice, tap, 8
-//     output channels) a contiguous 2 KB image of shared memory, into a
-//     workspace the caller allocates; the main kernel loads it with the
-//     bulk copy engine, a row of taps on each of three mbarriers.  It is
-//     one extra launch (K read once, 147 KB at 64->64, and 295 KB
-//     written), and it takes B's split out of the main loop.
-//   - Shared memory: both parts of K for a 64-wide Cout tile would be
-//     9 x 64 x 64 x 4 B x 2 = 295 KB, more than a block's 227 KB.  So Cout
-//     comes in 32-wide tiles (147 KB, loaded once for the block's life),
-//     one block an SM.  Beside K there is room for one float32 halo of
-//     three warpgroups' 192 pixels ((192 + 2W + 2) x 256 B, 64 KB at
-//     W = 28), or two of one warpgroup's 64: three warpgroups take turns
-//     on the tensor cores while the others load and split their A, which
-//     beat hiding the halo's load behind one warpgroup's products.  Fewer
-//     warpgroups where three would leave SMs without a tile, or where
-//     their halo does not fit (W over 68 for three, 100 for two).
-//     Streaming K by rows of taps through a ring would let 64-wide tiles
-//     in, but every tile would then read all of K from the L2 again.
-//   - B = 1 at 28x28, 64->64: 13 tiles of 64 pixels x 2 Cout tiles = 26
-//     blocks of one warpgroup.
-//   - The tensor cores add each product into the accumulator with
-//     truncation; the 216 products of a tile would take the error past
-//     the float32 bar, so each k8 step's three products sum into fresh
-//     registers that the CUDA cores add into the tile's sum
-//     (sm90::wgmma_3xtf32_n32).
-//   - Epilogue: float32 straight from the accumulators, two values a
-//     thread; a pixel's 8 columns of one group are one 32-byte sector.
+// float32: 3xTF32 on the tensor cores.  One tf32 product keeps about 3
+// decimal digits, which the port's float32 bars (1e-4 against the plain
+// version, each output pixel's row within 1e-5) do not allow.  So each
+// operand is split as a = big + small and each product is big*big +
+// big*small + small*big (small*small is below float32's rounding), three
+// tf32 products summed in float32.  Two bodies.
+//
+// float32, the TMA body (f32::conv3x3_tf32_ws_kernel; Cin and Cout
+// multiples of 4, W <= 126, x and y 16-byte aligned, problems that fill the
+// card): warp-specialised and turned around as the bf16 TMA body is, the
+// design chosen by probes on an H100 (tools/conv_f32_probe.py, which builds
+// its chain, rounding, halo-stage, cluster and threshold variants, laps
+// and ablations from edited copies of this file):
+//   - The product.  A = K's tap (64 output channels x k8, tf32, K-major),
+//     B = 128 padded pixel positions x k8, both 128-byte-swizzled rows in
+//     shared memory: m64n128k8.  A tight loop of it ran at 64.0 cycles a
+//     product, the tensor cores' rate, from one, two or three warpgroups
+//     (rate probe); m64n32k8 with A in registers, the cp.async body's,
+//     took 19.2 cycles a product from one warpgroup against 16.
+//   - K.  A small kernel a call (conv3x3_tf32_ksplit_kernel) writes K's
+//     big (rounded to nearest) and small parts, flipped for dx, as blocks
+//     of 64 output channels x 32 input channels, K-major: a tap-slice's
+//     two parts are one 16 KB TMA box.  Both parts of K at 64 -> 64 are
+//     295 KB, more than a block holds, so the nine taps of each 32-channel
+//     slice stream through a ring of K stages (4-6), each asked for by
+//     one block of a cluster (2 or 4) and multicast into all; a slot is
+//     loaded again once every consumer warp of the cluster has arrived on
+//     its empty mbarrier (each lane arrives on block lane % cluster: no
+//     branch while products are in flight, which made ptxas serialize
+//     them).  Clusters of 1, 2 and 4 timed alike (within the 1-3% by
+//     which two builds of one plan differ).
+//   - Halos.  A tile is R image rows (R (W + 2) <= 128) with a zero column
+//     each side; its halo at one 32-channel slice is one TMA box of a 4-D
+//     view of x (TMA fills the padding and past Cin), and a tap is a shift
+//     of B's start.  A producer thread of its own keeps three halo stages
+//     in flight (two where they leave fewer than three K stages), apart
+//     from the thread that issues K, so that a halo slot's wait never
+//     holds K back.  Three halo stages leave room for six K stages at
+//     28x28 (four with four halo stages), which timed 2-4% faster than
+//     four halo stages and 10% faster than two at B = 128.
+//   - Each halo element split once.  The big part is the float32 word as
+//     TMA landed it (the tensor cores read its top 19 bits); before a
+//     stage's products its consumer writes small = a - trunc(a), exact,
+//     into a buffer of its own.  Rounding big to nearest instead (cvt.rna
+//     in place) was 3% slower for errors 10-30% smaller, both well inside
+//     the bars.
+//   - Chains.  The tensor cores truncate as they add, so a chain of
+//     products into one accumulator loses accuracy with its length.  A
+//     tap's twelve products (four k8 steps) go into a fresh accumulator,
+//     two in turn, each tap a commit group: the tap before is waited for
+//     while this one runs, and the CUDA cores add it into the tile's sum.
+//     At the step's shape the worst row error against the plain version
+//     is 5.9e-7 (3 products a chain: 4.8e-7; 36: 1.1e-6; 108: 3.2e-6; one
+//     accumulator a tile: 5.8e-6); on sums that nearly cancel
+//     (tests/test_torch_gpu.py::test_f32_kernel_holds_cancelling_sums) a
+//     tap keeps the error within 1.5x of the cp.async body's, where 24 or
+//     36 products a chain passed twice it.
+//   - Work.  Two consumer warpgroups, a tile each a round, and a producer
+//     warpgroup (56 registers a thread by setmaxnreg, consumers 224); a
+//     block owns an equal, contiguous share of the tiles, blockIdx.y the
+//     Cout tile, and every block of a cluster walks the same rounds (a
+//     consumer without a tile still releases K).
+//   - The epilogue stores the sums straight from the accumulators, a
+//     pixel's 8 channels of one row group a 32-byte sector, each
+//     position's pixel carried from the last without a branch.  Timed
+//     against it (B = 128): the same walk with a divergent loop and 64-bit
+//     addresses, 11% slower; a TMA store from a swizzled shared tile, as
+//     slow as that; lanes trading values by shuffles for 16-byte stores,
+//     15% slower; the stores put off until the next tile's first tap is
+//     issued, 13% slower (its products wait for them).
+//   - Where the time goes (B = 128, 77-78 us; tools/conv_f32_probe.py's
+//     laps and ablations): the products alone would take ~55 us (1,512
+//     products a block at 64 cycles, 1.76 GHz).  A consumer spends the
+//     rest waiting for K (~8 us), in epilogues, adding its accumulators,
+//     splitting (~7 us), in a round without a tile (~6 us: seven tiles a
+//     block, four rounds) and waiting for halos (~4 us); the two
+//     consumers, tied by the K ring, mostly wait at the same time.
+//   - No atomics; each output is one block's fixed sequence of products
+//     and sums: two calls give the same bits.
+//
+// float32, the cp.async body (f32::conv3x3_tf32_kernel; the other shapes
+// and pointers, and problems the card does not fill where it takes one
+// round: B = 1 at 28x28): the bf16 cp.async body's structure, a persistent
+// implicit GEMM over pixels with the halo staged once per tile and a tap a
+// shift of ldmatrix's row addresses; A (the pixels) split in registers one
+// k8 step at a time, each step's three products into fresh registers that
+// the CUDA cores add into the tile's sum; B = K's parts from a split
+// kernel (conv3x3_tf32_split_kernel) in 32-wide Cout tiles (147 KB, loaded
+// once a block), one to three warpgroups a block.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
+#include <array>
 #include <cstdint>
 #include <mutex>
+#include <utility>
 
 #include "sm90.cuh"
+
+// ------------------------------------------ host code of both element types
+namespace {
+
+// make(pl), remembered per device and key (the shape, and the flip where
+// it changes the plan): an eager train step makes 26 calls at one shape,
+// and its host time is the step's (the last 64 keys, replaced in turn).
+// One cache a Plan and Make type, so a type's plans are made in one place.
+template <typename Plan, typename Make>
+cudaError_t remembered_plan(Plan& pl, const std::array<int, 6>& key,
+                            Make make) {
+  struct Entry {
+    int dev;
+    std::array<int, 6> key;
+    Plan pl;
+  };
+  static std::mutex mutex;
+  static Entry entries[64];
+  static int n = 0, next = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  {
+    std::lock_guard<std::mutex> lock(mutex);
+    for (int i = 0; i < n; ++i) {
+      const Entry& e = entries[i];
+      if (e.dev == dev && e.key == key) {
+        pl = e.pl;
+        return cudaSuccess;
+      }
+    }
+  }
+  err = make(pl);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mutex);
+  entries[next] = Entry{dev, key, pl};
+  next = (next + 1) % 64;
+  if (n < 64) ++n;
+  return cudaSuccess;
+}
+
+// a (B, H, W, C), NHWC, of `bytes`-byte elements as a 4-D tensor for TMA,
+// boxes of `channels` (128 bytes) x `cols` pixels x `rows` rows of one
+// image, 128-byte swizzle; zeros outside (loads), nothing written outside
+// (stores)
+bool image_map(CUtensorMap& map, CUtensorMapDataType type, int bytes,
+               const void* a, int B, int H, int W, int C, int channels,
+               int cols, int rows, CUtensorMapL2promotion promotion) {
+  const sm90::EncodeTiled encode = sm90::encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)C * bytes,
+                                 (cuuint64_t)W * C * bytes,
+                                 (cuuint64_t)H * W * C * bytes};
+  const cuuint32_t box[4] = {(cuuint32_t)channels, (cuuint32_t)cols,
+                             (cuuint32_t)rows, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return encode(&map, type, 4, const_cast<void*>(a), dims, strides, box,
+                step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, promotion,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A TMA body's cluster and blocks along its `tiles`: as many blocks as the
+// card holds at once for each of the `ntiles` Cout tiles, no more than the
+// tiles, a multiple of the cluster size; a block's tiles are an equal
+// split, so none has more than `most` = ceil(tiles / blocks).  Clusters
+// from `largest` down to `smallest` by halves, a smaller one only where it
+// gives a block fewer tiles (the card places fewer blocks in larger
+// clusters).  cudaErrorInvalidConfiguration where none fits.
+cudaError_t choose_cluster(const void* kernel, int threads, int smem,
+                           int smem_cap, int largest, int smallest,
+                           int ntiles, long long tiles, int& cluster,
+                           int& gx, long long& most) {
+  most = -1;
+  for (int cl = largest; cl >= smallest; cl /= 2) {
+    int clusters = 0;
+    const cudaError_t err = sm90::max_clusters(kernel, threads, smem,
+                                               smem_cap, cl, clusters);
+    if (err != cudaSuccess) return err;
+    if (clusters < 1) continue;
+    long long per_tile = (long long)clusters / ntiles * cl;
+    if (per_tile < cl) per_tile = cl;
+    long long g = tiles < per_tile ? tiles : per_tile;
+    g = (g + cl - 1) / cl * cl;
+    const long long m = (tiles + g - 1) / g;  // tiles a block
+    if (most >= 0 && m >= most) continue;
+    most = m;
+    cluster = cl;
+    gx = (int)g;
+  }
+  return most < 0 ? cudaErrorInvalidConfiguration : cudaSuccess;
+}
+
+}  // namespace
 
 // ---------------------------------------------- float32 on the tensor cores
 namespace f32 {
@@ -421,41 +564,415 @@ conv3x3_tf32_kernel(const Params p) {
   sm90::cp_async_wait<0>();
 }
 
-}  // namespace
 
-// floats of the workspace (both parts), or 0 where it would not fit an int
-int workspace_floats(int CI, int CO) {
-  if (CI <= 0 || CO <= 0) return 0;
-  const long long n = 2 * split_floats(CI, CO);
-  return n > 0x7fffffffLL ? 0 : (int)n;
+// ------------------------------------ the TMA body: warp-specialised
+constexpr int kWsSlice = 32;          // input channels a halo stage (128 B)
+constexpr int kWsPositions = 128;     // wgmma N: padded positions a tile
+constexpr int kWsCout = 64;           // wgmma M: output channels a tile
+constexpr int kWsConsumers = 2;       // consumer warpgroups, a tile each
+constexpr int kWsThreads = kWarpgroup * (kWsConsumers + 1);
+constexpr int kKPart = kWsCout * kWsSlice * 4;  // one part of a tap-slice
+constexpr int kKStage = 2 * kKPart;             // its big and small parts
+constexpr int kMaxHaloRing = 4;       // the most halo stages
+constexpr int kMaxKRing = 8;          // the most K stages
+constexpr int kProducerRegs = 56, kConsumerRegs = 224;
+
+constexpr int kHaloRing = 3;         // halo stages (2 where three leave
+                                     // fewer than three K stages)
+constexpr int kMaxCluster = 4;       // the largest cluster
+
+struct WsParams {
+  float* y;
+  int H, W, CO;
+  int R;           // image rows a tile: R (W + 2) <= 128
+  int rblocks;     // tiles an image: ceil(H / R)
+  int tiles;       // B * rblocks
+  int nslices;     // 32-channel slices of Cin
+  int halo_bytes;  // a halo stage's buffer, a multiple of 1024
+  int box_bytes;   // what its TMA box brings
+  int hring, kring;
+  int rounds;      // rounds every block of a cluster walks
+};
+
+// the nine taps of a stage, each tap's index a compile-time constant
+template <typename F, int... T>
+__device__ __forceinline__ void each_tap(F& f, int st, uint32_t hb,
+                                         std::integer_sequence<int, T...>) {
+  (f(std::integral_constant<int, T>{}, st, hb), ...);
 }
 
-cudaError_t conv3x3_f32(const float* x, const float* k, float* ws, float* y,
-                        int B, int H, int W, int CI, int CO, int flip,
-                        int ws_floats, cudaStream_t stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || CI <= 0 || CO <= 0 ||
-      ws_floats <= 0 || ws_floats != workspace_floats(CI, CO))
-    return cudaErrorInvalidValue;
-  Params p{};
-  p.x = x;
-  p.ws = ws;
-  p.y = y;
-  p.P = (long long)B * H * W;
-  p.H = H;
-  p.W = W;
-  p.CI = CI;
-  p.CO = CO;
-  p.vec = CI % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  p.yvec = CO % 2 == 0 && reinterpret_cast<uintptr_t>(y) % 8 == 0;
-  p.ntiles = (CO + kBN - 1) / kBN;
-  p.nslices = (CI + kSlice - 1) / kSlice;
+// a consumer's split of a halo stage: small = a - trunc(a) beside the
+// landed word, which is the big part as it is
+__device__ __forceinline__ void split_halo(const unsigned char* raw,
+                                           unsigned char* small, int bytes,
+                                           int ctid) {
+  const float4* src = reinterpret_cast<const float4*>(raw);
+  float4* dst = reinterpret_cast<float4*>(small);
+  for (int i = ctid; i < bytes / 16; i += kWarpgroup) {
+    const float4 v = src[i];
+    dst[i] = make_float4(sm90::tf32_rest(v.x), sm90::tf32_rest(v.y),
+                         sm90::tf32_rest(v.z), sm90::tf32_rest(v.w));
+  }
+}
+
+// K (3, 3, CI, CO), or flipped K[8 - t][o][c] from (3, 3, CO, CI), as the
+// TMA body's 3xTF32 parts: for each 64-wide Cout tile, 32-channel slice
+// of CI and tap, a block of two parts (big = rna(k), small = k - big) of
+// 64 rows (output channels) x 32 floats (input channels), K-major, which
+// one TMA box brings, 128-byte swizzled; zeros past CI and CO
+__global__ void conv3x3_tf32_ksplit_kernel(const float* __restrict__ k,
+                                           float* __restrict__ ws, int CI,
+                                           int CO, int nslices, int flip,
+                                           long long n) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < n; i += (long long)gridDim.x * blockDim.x) {
+    const int e = (int)(i % kWsSlice), r = (int)(i / kWsSlice % kWsCout);
+    const long long blk = i / (kWsSlice * kWsCout);
+    const int t = (int)(blk % 9), s = (int)(blk / 9 % nslices);
+    const int o = (int)(blk / 9 / nslices) * kWsCout + r;
+    const int c = s * kWsSlice + e;
+    float v = 0.f;
+    if (c < CI && o < CO)
+      v = flip ? k[((long long)(8 - t) * CO + o) * CI + c]
+               : k[((long long)t * CI + c) * CO + o];
+    uint32_t big, small;
+    sm90::tf32_split(__float_as_uint(v), big, small);
+    float* dst = ws + blk * 2 * kWsCout * kWsSlice + r * kWsSlice + e;
+    dst[0] = __uint_as_float(big);
+    dst[kWsCout * kWsSlice] = __uint_as_float(small);
+  }
+}
+
+// floats of the TMA body's split K
+long long ws_split_floats(int CI, int CO) {
+  return (long long)((CO + kWsCout - 1) / kWsCout) *
+         ((CI + kWsSlice - 1) / kWsSlice) * 9 * 2 * kWsCout * kWsSlice;
+}
+
+// The TMA body.  The product is turned around: A = K's tap (64 output
+// channels x 8 input channels, tf32) and B = 128 padded pixel positions x
+// 8 input channels, both K-major in shared memory (m64n128k8).  A tile is
+// R image rows of one image, W + 2 positions a row (a zero column each
+// side); its halo at one 32-channel slice, rows h0 - 1 ... h0 + R with
+// their zero columns, is one TMA box of a 4-D view of x (zeros outside
+// the image and past Cin), 128 bytes a position, 128-byte swizzled.  Tap
+// (dy, dx) of output position q reads halo position q + dy (W + 2) + dx
+// - 1: a shift of B's start, no mask.  The zero columns and positions
+// past R (W + 2) are computed and dropped by the epilogue.
+//
+// Blocks of two consumer warpgroups and a producer warpgroup, launched in
+// clusters along the tiles; blockIdx.y is the Cout tile.  A block owns a
+// contiguous range of tiles (an equal split over gridDim.x) and walks it
+// in rounds of two tiles, one a consumer; a round walks Cin's slices, and
+// each slice K's nine taps, which stream through a ring of K stages (a
+// tap-slice's two parts, 16 KB), each asked for by one block of the
+// cluster and multicast into all of them.  Every block of a cluster walks
+// the same p.rounds rounds, so that each K stage is released by every
+// consumer of the cluster before it is loaded again.
+//
+// Shared memory: the K ring, the halo ring (two stages a round's slice),
+// a buffer a consumer (its halo's small part, then its output tile), the
+// mbarriers.
+__global__ void __launch_bounds__(kWsThreads, 1)
+conv3x3_tf32_ws_kernel(const WsParams p,
+                       const __grid_constant__ CUtensorMap xmap,
+                       const __grid_constant__ CUtensorMap kmap) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // TMA's swizzled tiles want 1024-byte alignment
+  unsigned char* smem =
+      smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* kring = smem;
+  unsigned char* halo = kring + p.kring * kKStage;
+  unsigned char* side = halo + p.hring * p.halo_bytes;
+  unsigned char* misc = side + kWsConsumers * p.halo_bytes;
+  const uint32_t kfull = sm90::smem_u32(misc);   // a K stage each
+  const uint32_t kempty = kfull + 8 * kMaxKRing;  // every consumer warp of
+                                                  // the cluster has read it
+  const uint32_t hfull = kempty + 8 * kMaxKRing;  // a halo stage each
+  const uint32_t hempty = hfull + 8 * kMaxHaloRing;
+  const int tid = threadIdx.x, wg = tid / kWarpgroup;
+  const uint32_t csize = sm90::cluster_size();
+  if (tid == 0) {
+    for (int i = 0; i < p.kring; ++i) {
+      sm90::mbar_init(kfull + 8 * i, 1);
+      sm90::mbar_init(kempty + 8 * i, kWsConsumers * kWarpgroup);
+    }
+    for (int i = 0; i < p.hring; ++i) {
+      sm90::mbar_init(hfull + 8 * i, 1);
+      sm90::mbar_init(hempty + 8 * i, 4);
+    }
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();
+  // the peers' mbarriers are ready before a multicast or an arrival
+  sm90::cluster_sync();
+
+  const int nt = blockIdx.y, n0 = nt * kWsCout;
+  const int lo = (int)((long long)p.tiles * blockIdx.x / gridDim.x);
+  const int hi = (int)((long long)p.tiles * (blockIdx.x + 1) / gridDim.x);
+  // a step: one slice of one round, for both consumers
+  const int steps = p.rounds * p.nslices;
+
+  if (wg == kWsConsumers) {
+    // ------------------------------------------------------- producer
+    sm90::setmaxnreg_dec<kProducerRegs>();
+    if (tid == kWsConsumers * kWarpgroup) {
+      sm90::prefetch_tensormap(&xmap);
+      sm90::prefetch_tensormap(&kmap);
+      // K's stages in the consumers' order: stage ks, tap ks % 9 of slice
+      // ks / 9 % nslices, once every consumer of the cluster has released
+      // its slot; block ks % cluster asks for it, multicast into all
+      const uint32_t rank = sm90::cluster_rank();
+      const uint16_t mask = (uint16_t)((1u << csize) - 1);
+      const uint32_t kbase = sm90::smem_u32(kring);
+      for (int st = 0; st < steps; ++st) {
+        const int s = st % p.nslices;
+        for (int t = 0; t < 9; ++t) {
+          const int ks = st * 9 + t, slot = ks % p.kring;
+          sm90::mbar_wait(kempty + 8 * slot, ((ks / p.kring) & 1) ^ 1);
+          sm90::mbar_expect_tx(kfull + 8 * slot, kKStage);
+          if (ks % (int)csize == (int)rank)
+            sm90::tma_load_2d_multicast(
+                kbase + slot * kKStage, &kmap, 0,
+                ((nt * p.nslices + s) * 9 + t) * 2 * kWsCout,
+                kfull + 8 * slot, mask);
+        }
+      }
+    } else if (tid == kWsConsumers * kWarpgroup + 32) {
+      // the halos, in the consumers' order: stage 2 st + c, consumer c's
+      // tile of round st / nslices at slice st % nslices (past the block's
+      // tiles, an arrival alone), once its slot is free.  A thread of its
+      // own, so that a halo slot's wait never holds K back: with three
+      // stages, consumer 1's next halo waits for consumer 0's last one,
+      // and consumer 1 runs a little behind consumer 0.
+      const uint32_t hbase = sm90::smem_u32(halo);
+      for (int st = 0; st < steps; ++st) {
+        const int k = st / p.nslices, s = st % p.nslices;
+        for (int c = 0; c < kWsConsumers; ++c) {
+          const int hs = 2 * st + c, slot = hs % p.hring;
+          const int tile = lo + 2 * k + c;
+          sm90::mbar_wait(hempty + 8 * slot, ((hs / p.hring) & 1) ^ 1);
+          const uint32_t bar = hfull + 8 * slot;
+          if (tile < hi) {
+            sm90::fence_proxy_async();  // the slot's last reads came first
+            sm90::mbar_expect_tx(bar, p.box_bytes);
+            sm90::tma_load_4d(hbase + slot * p.halo_bytes, &xmap,
+                              s * kWsSlice, -1, (tile % p.rblocks) * p.R - 1,
+                              tile / p.rblocks, bar);
+          } else {
+            sm90::mbar_arrive(bar);
+          }
+        }
+      }
+    }
+    __syncwarp();
+    sm90::cluster_arrive();
+    sm90::cluster_wait();
+  } else {
+    // ------------------------------------------------------- consumers
+    sm90::setmaxnreg_inc<kConsumerRegs>();
+    const int c = wg, ctid = tid % kWarpgroup;
+    const int warp = ctid / 32, lane = tid % 32;
+    unsigned char* mine = side + c * p.halo_bytes;
+    const uint32_t kbase = sm90::smem_u32(kring), hbase0 = sm90::smem_u32(halo);
+    const uint32_t sbase = sm90::smem_u32(mine);
+    const int row = p.W + 2;  // positions a padded row
+
+    // K stage ks read: each lane arrives on its empty mbarrier in block
+    // lane % cluster, so that every block of the cluster counts 32 arrivals
+    // a consumer warp (no branch while products are in flight, which
+    // would make ptxas serialize them)
+    auto release_k = [&](int ks) {
+      sm90::mbar_arrive_cluster(kempty + 8 * (ks % p.kring), lane % csize);
+    };
+    // the tile's sums straight from the accumulators: a pixel's 8
+    // channels of one row group are one 32-byte sector.  This thread's
+    // positions are 8 j + 2 tq + i; each one's padded row and column are
+    // carried from the last without a branch (a position wraps into the
+    // next row at most once in 8 where W + 2 > 8, else it is divided)
+    auto epilogue = [&](const float(&acc)[64], int tile) {
+      const int g = lane / 4, tq = lane % 4;
+      const int h0 = (tile % p.rblocks) * p.R, img = tile / p.rblocks;
+      const int o = n0 + 16 * warp + g;  // this thread's channels o, o + 8
+      const bool lo_ok = o < p.CO, hi_ok = o + 8 < p.CO;
+      float* base = p.y + ((long long)img * p.H + h0) * p.W * p.CO + o;
+      const int rows = p.H - h0 < p.R ? p.H - h0 : p.R;  // rows inside y
+      const bool wide = row > 8;
+      int r = 2 * tq / row, col = 2 * tq - r * row;
+#pragma unroll
+      for (int j = 0; j < kWsPositions / 8; ++j) {
+        if (j > 0) {
+          if (wide) {
+            col += 8;
+            const bool wrap = col >= row;
+            col -= wrap ? row : 0;
+            r += wrap ? 1 : 0;
+          } else {
+            r = (8 * j + 2 * tq) / row;
+            col = 8 * j + 2 * tq - r * row;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const bool wrap = col + i == row;
+          const int ri = r + (wrap ? 1 : 0), ci = wrap ? 0 : col + i;
+          // a real pixel of the tile inside y: its offset in floats
+          const bool real = ri < rows && (unsigned)(ci - 1) < (unsigned)p.W;
+          const int at = (ri * p.W + ci - 1) * p.CO;
+          if (real && lo_ok) base[at] = acc[4 * j + i];
+          if (real && hi_ok) base[at + 8] = acc[4 * j + 2 + i];
+        }
+      }
+    };
+
+    float acc[64], tmp0[64], tmp1[64];
+    // a k8 step's three products into d, K's parts at a, the halo's at
+    // offset off of hb (big) and sbase (small); d's old value dropped
+    // where keep is 0
+    auto k8 = [&](float(&d)[64], uint32_t a, uint32_t hb, uint32_t off,
+                  int keep) {
+      sm90::wgmma_tf32_ss_n128(d, sm90::make_desc_sw128(a + kKPart),
+                               sm90::make_desc_sw128(hb + off), keep);
+      sm90::wgmma_tf32_ss_n128(d, sm90::make_desc_sw128(a),
+                               sm90::make_desc_sw128(sbase + off), 1);
+      sm90::wgmma_tf32_ss_n128(d, sm90::make_desc_sw128(a),
+                               sm90::make_desc_sw128(hb + off), 1);
+    };
+    // the products of tap T of step st on halo stage hb, four k8 steps
+    // (twelve products), into a fresh accumulator (tmp0 and tmp1 in turn)
+    // that the CUDA cores add into acc once the tap is done: each tap is a
+    // commit group, the tap before waited for while this one runs, and
+    // each K stage released once read
+    auto tap = [&](auto tap_index, int st, uint32_t hb) {
+      constexpr int t = decltype(tap_index)::value;
+      const int ks = st * 9 + t, kslot = ks % p.kring;
+      sm90::mbar_wait(kfull + 8 * kslot, (ks / p.kring) & 1);
+      // B: the tile's positions shifted by the tap (may start one
+      // position before the buffer: only dropped columns read it)
+      const uint32_t shift =
+          (uint32_t)(((t / 3) * row + t % 3 - 1) * kWsSlice * 4);
+      const uint32_t ka = kbase + kslot * kKStage;
+      float(&d)[64] = t % 2 ? tmp1 : tmp0;
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        k8(d, ka + kk * 32, hb, shift + kk * 32, kk > 0);
+      sm90::wgmma_commit();
+      if constexpr (t > 0) {
+        sm90::wgmma_wait<1>();  // tap t - 1 is done
+        float(&e)[64] = t % 2 ? tmp0 : tmp1;
+#pragma unroll
+        for (int r = 0; r < 64; ++r) acc[r] += e[r];
+        release_k(ks - 1);
+      }
+      if constexpr (t == 8) {
+        sm90::wgmma_wait<0>();
+#pragma unroll
+        for (int r = 0; r < 64; ++r) acc[r] += d[r];
+        release_k(ks);
+      }
+    };
+
+    for (int k = 0; k < p.rounds; ++k) {
+      const int tile = lo + 2 * k + c;
+      if (tile >= hi) {
+        // a round without a tile: its stages' phases are waited for all
+        // the same, so that this consumer's arrivals count
+        for (int s = 0; s < p.nslices; ++s) {
+          const int st = k * p.nslices + s, hs = 2 * st + c;
+          sm90::mbar_wait(hfull + 8 * (hs % p.hring), (hs / p.hring) & 1);
+          for (int t = 0; t < 9; ++t) {
+            const int ks = st * 9 + t;
+            sm90::mbar_wait(kfull + 8 * (ks % p.kring), (ks / p.kring) & 1);
+            release_k(ks);
+          }
+          __syncwarp();
+          if (lane == 0) sm90::mbar_arrive(hempty + 8 * (hs % p.hring));
+        }
+        continue;
+      }
+      for (int s = 0; s < p.nslices; ++s) {
+        const int st = k * p.nslices + s, hs = 2 * st + c;
+        const int hslot = hs % p.hring;
+        // every warp's products of the last stage, which read `mine`, are
+        // done
+        sm90::named_sync(1 + c, kWarpgroup);
+        sm90::mbar_wait(hfull + 8 * hslot, (hs / p.hring) & 1);
+        // each halo element split once, before the stage's products
+        split_halo(halo + hslot * p.halo_bytes, mine, p.box_bytes, ctid);
+        sm90::fence_proxy_async();  // read by wgmma
+        sm90::named_sync(1 + c, kWarpgroup);
+        if (s == 0) {
+#pragma unroll
+          for (int r = 0; r < 64; ++r) acc[r] = 0.f;
+        }
+        const uint32_t hb = hbase0 + hslot * p.halo_bytes;
+        each_tap(tap, st, hb, std::make_integer_sequence<int, 9>{});
+        // the stage's halo (every warp's products on it are done)
+        __syncwarp();
+        if (lane == 0) sm90::mbar_arrive(hempty + 8 * hslot);
+      }
+      epilogue(acc, tile);
+    }
+    __syncwarp();
+    sm90::cluster_arrive();  // no block leaves while a peer may arrive on
+    sm90::cluster_wait();    // its mbarriers
+  }
+}
+
+// the split K as rows of 32 floats, a K stage one box of 128 rows (its
+// two parts)
+bool ksplit_map(CUtensorMap& map, const float* ws, int CI, int CO) {
+  const sm90::EncodeTiled encode = sm90::encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {kWsSlice,
+                              (cuuint64_t)(ws_split_floats(CI, CO) / kWsSlice)};
+  const cuuint64_t strides[1] = {kWsSlice * 4};
+  const cuuint32_t box[2] = {kWsSlice, 2 * kWsCout}, step[2] = {1, 1};
+  return encode(&map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+                const_cast<float*>(ws), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// x's halo boxes (32 channels x W + 2 pixels x R + 2 rows: a zero column
+// each side, TMA's fill past the image and past Cin) and the split K's
+bool ws_maps(CUtensorMap& xmap, CUtensorMap& kmap, const float* x,
+             const float* ws, int B, int H, int W, int CI, int CO, int R) {
+  return image_map(xmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, x, B, H, W, CI,
+                   kWsSlice, W + 2, R + 2,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B) &&
+         ksplit_map(kmap, ws, CI, CO);
+}
+
+// A call's launch plan: the body, its grid and its shared memory.
+struct Plan {
+  int tma;        // the shape takes the TMA body
+  int cluster;    // blocks a cluster (1 for the cp.async body)
+  int consumers;  // warpgroups that multiply, a block
+  int units;      // tiles of pixels x Cout tiles
+  int grid;       // blocks
+  int ring;       // halo stages in shared memory
+  int bn;         // Cout tile
+  int chain;      // tf32 products summed into one fresh accumulator
+  int smem;
+  int gx, ntiles;  // TMA body: blocks along the tiles, Cout tiles
+  WsParams q;      // TMA body
+  Params p;        // cp.async body
+};
+
+// The cp.async body's plan (conv3x3_tf32_kernel): the most warpgroups a
+// block (up to three, with one buffer of halo beside K) whose tiles still
+// give every SM one and whose halo fits; one warpgroup has two buffers
+cudaError_t plan_cp_async(Plan& pl) {
+  Params& p = pl.p;
+  p.ntiles = (p.CO + kBN - 1) / kBN;
+  p.nslices = (p.CI + kSlice - 1) / kSlice;
   p.ngroups = p.ntiles * (kBN / 8);
   int sms = 0;
   cudaError_t err = sm90::sm_count(sms);
   if (err != cudaSuccess) return err;
-  // the most warpgroups a block (up to three, with one buffer of halo
-  // beside K) whose tiles still give every SM one and whose halo fits;
-  // one warpgroup has two buffers
   const int fixed = kKBytes + 128;
   int warpgroups = kMaxWarpgroups;
   for (;; --warpgroups) {
@@ -470,25 +987,239 @@ cudaError_t conv3x3_f32(const float* x, const float* k, float* ws, float* y,
       break;
   }
   p.nbuf = fixed + 2 * p.halo_bytes <= kSmemLimit ? 2 : 1;
-  const int smem = fixed + p.nbuf * p.halo_bytes;
-  const void* fn = reinterpret_cast<const void*>(conv3x3_tf32_kernel);
+  pl.smem = fixed + p.nbuf * p.halo_bytes;
   int per_sm = 0;
-  err = sm90::occupancy(fn, kWarpgroup * warpgroups, smem, kSmemLimit, sms,
+  err = sm90::occupancy(reinterpret_cast<const void*>(conv3x3_tf32_kernel),
+                        kWarpgroup * warpgroups, pl.smem, kSmemLimit, sms,
                         per_sm);
   if (err != cudaSuccess) return err;
   const long long units = (long long)p.mtiles * p.ntiles;
   if (units * p.nslices > 0x7fffffffLL) return cudaErrorInvalidValue;
-  p.part = split_floats(CI, CO);
+  p.part = split_floats(p.CI, p.CO);
+  const long long most = (long long)sms * per_sm;
+  pl.tma = 0;
+  pl.cluster = 1;
+  pl.consumers = warpgroups;
+  pl.units = (int)units;
+  pl.grid = (int)(units < most ? units : most);
+  pl.ring = p.nbuf;
+  pl.bn = kBN;
+  pl.chain = 3;
+  return cudaSuccess;
+}
+
+// The TMA body's plan.  A tile is R image rows, as many as 128 padded
+// positions hold (R (W + 2) <= 128), spread evenly over the image's rows.
+// Shared memory holds a consumer's buffer each, three halo stages (two
+// where three leave no room for three K stages) and as many K stages as
+// fit, up to kMaxKRing.  Clusters of up to 4 blocks (choose_cluster).
+// cudaErrorNotSupported where the buffers do not fit.
+cudaError_t plan_ws(Plan& pl, int B) {
+  WsParams& q = pl.q;
+  const int row = q.W + 2;
+  int R = kWsPositions / row;
+  if (R > q.H) R = q.H;
+  q.rblocks = (q.H + R - 1) / R;
+  q.R = (q.H + q.rblocks - 1) / q.rblocks;
+  const long long tiles = (long long)B * q.rblocks;
+  q.box_bytes = (q.R + 2) * row * kWsSlice * 4;
+  // the positions a tile's products read: up to 128 + 2 (W + 2)
+  q.halo_bytes =
+      ((kWsPositions + 2 * row + 8) * kWsSlice * 4 + 1023) / 1024 * 1024;
+  // + 1024: the alignment; + 512: the mbarriers
+  const int fixed = 1024 + kWsConsumers * q.halo_bytes + 512;
+  q.hring = kHaloRing;
+  q.kring = (kSmemLimit - fixed - q.hring * q.halo_bytes) / kKStage;
+  if (q.kring < 3) {
+    q.hring = 2;
+    q.kring = (kSmemLimit - fixed - q.hring * q.halo_bytes) / kKStage;
+  }
+  if (q.kring < 2) return cudaErrorNotSupported;
+  if (q.kring > kMaxKRing) q.kring = kMaxKRing;
+  pl.smem = fixed + q.hring * q.halo_bytes + q.kring * kKStage;
+  pl.ntiles = (q.CO + kWsCout - 1) / kWsCout;
+  if (pl.ntiles > 65535 || tiles > 0x7fffffffLL ||
+      (long long)pl.ntiles * q.nslices * 9 * 2 * kWsCout > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  q.tiles = (int)tiles;
+  long long best = -1;
+  const cudaError_t err = choose_cluster(
+      reinterpret_cast<const void*>(conv3x3_tf32_ws_kernel), kWsThreads,
+      pl.smem, kSmemLimit, kMaxCluster, 1, pl.ntiles, tiles, pl.cluster,
+      pl.gx, best);
+  if (err != cudaSuccess) return err;
+  q.rounds = (int)((best + 1) / 2);
+  const long long units = tiles * pl.ntiles;
+  if (units > 0x7fffffffLL || (long long)pl.gx * pl.ntiles > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  pl.tma = 1;
+  pl.consumers = kWsConsumers;
+  pl.units = (int)units;
+  pl.grid = pl.gx * pl.ntiles;
+  pl.ring = q.hring;
+  pl.bn = kWsCout;
+  pl.chain = 12;  // a tap's four k8 steps of three products
+  return cudaSuccess;
+}
+
+// The plan at a shape.  The TMA body takes Cin and Cout multiples of 4
+// (the tensor maps' rows are then 16-byte multiples), images whose padded
+// row fits a tile (W + 2 <= 128) and whose buffers fit, and problems whose
+// tiles of 128 positions give every SM one or on which the cp.async body
+// would take more than one round of its units; at the launch, x and y must also start
+// 16-byte aligned.  Other shapes and pointers take the cp.async body.  On
+// an H100 at 28x28, 64 -> 64: B = 1 takes the cp.async body (13.5 us
+// against the TMA body's 16.9: one tile of 128 positions a block is a
+// chain of 216 products on one consumer), B = 8 the TMA body (17.2 us
+// against 23.0, where the cp.async body takes two rounds).
+cudaError_t make_plan(Plan& pl, int B, int H, int W, int CI, int CO) {
+  if (B <= 0 || H <= 0 || W <= 0 || CI <= 0 || CO <= 0)
+    return cudaErrorInvalidValue;
+  int sms = 0;
+  cudaError_t err = sm90::sm_count(sms);
+  if (err != cudaSuccess) return err;
+  pl = Plan{};
+  Params& p = pl.p;
+  p.P = (long long)B * H * W;
+  p.H = H;
+  p.W = W;
+  p.CI = CI;
+  p.CO = CO;
+  WsParams& q = pl.q;
+  q.H = H;
+  q.W = W;
+  q.CO = CO;
+  q.nslices = (CI + kWsSlice - 1) / kWsSlice;
+  const int ntiles = (CO + kWsCout - 1) / kWsCout;
+  const int R = kWsPositions / (W + 2) < H ? kWsPositions / (W + 2) : H;
+  const long long tiles = R < 1 ? 0 : (long long)B * ((H + R - 1) / R) * ntiles;
+  if (CI % 4 != 0 || CO % 4 != 0 || W + 2 > kWsPositions ||
+      sm90::encode_tiled() == nullptr)
+    return plan_cp_async(pl);
+  if (tiles < sms) {  // the cp.async body where it takes one round
+    err = plan_cp_async(pl);
+    if (err != cudaSuccess || pl.units <= pl.grid) return err;
+  }
+  err = plan_ws(pl, B);
+  if (err == cudaErrorNotSupported) return plan_cp_async(pl);
+  if (err != cudaSuccess) return err;
+  // the tensor maps at this shape (any 1024-byte aligned address stands
+  // in for the tensors'): where one is refused, cp.async
+  CUtensorMap a, b;
+  const float* any = reinterpret_cast<const float*>(uintptr_t{1} << 20);
+  if (ws_maps(a, b, any, any, B, H, W, CI, CO, q.R))
+    return cudaSuccess;
+  return plan_cp_async(pl);
+}
+
+// make_plan, remembered per device and shape
+cudaError_t cached_plan(Plan& pl, int B, int H, int W, int CI, int CO) {
+  return remembered_plan(pl, {B, H, W, CI, CO, 0}, [&](Plan& made) {
+    return make_plan(made, B, H, W, CI, CO);
+  });
+}
+
+// K's split (a small kernel a call), then the body
+cudaError_t launch_ws(const Plan& pl, const float* x, const float* k,
+                      float* ws, float* y, int B, int flip,
+                      cudaStream_t stream) {
+  WsParams q = pl.q;
+  q.y = y;
+  int sms = 0;
+  cudaError_t err = sm90::sm_count(sms);
+  if (err != cudaSuccess) return err;
+  CUtensorMap xmap{}, kmap{};
+  if (!ws_maps(xmap, kmap, x, ws, B, q.H, q.W, pl.p.CI, q.CO, q.R))
+    return cudaErrorInvalidValue;
+  const long long n = ws_split_floats(pl.p.CI, q.CO) / 2;
+  long long sblocks = (n + 255) / 256;
+  if (sblocks > 4LL * sms) sblocks = 4LL * sms;
+  conv3x3_tf32_ksplit_kernel<<<(unsigned)sblocks, 256, 0, stream>>>(
+      k, ws, pl.p.CI, q.CO, q.nslices, flip, n);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(pl.gx, pl.ntiles, 1);
+  cfg.blockDim = dim3(kWsThreads, 1, 1);
+  cfg.dynamicSmemBytes = pl.smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = pl.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, conv3x3_tf32_ws_kernel, q, xmap, kmap);
+}
+
+// K's split into the cp.async body's layout, then the body
+cudaError_t launch_cp_async(const Plan& pl, const float* k, int flip,
+                            cudaStream_t stream) {
+  const Params& p = pl.p;
+  int sms = 0;
+  cudaError_t err = sm90::sm_count(sms);
+  if (err != cudaSuccess) return err;
   long long sblocks = (p.part + 255) / 256;
   if (sblocks > 4LL * sms) sblocks = 4LL * sms;
   conv3x3_tf32_split_kernel<<<(unsigned)sblocks, 256, 0, stream>>>(
-      k, ws, CI, CO, p.ngroups, flip, p.part);
+      k, const_cast<float*>(p.ws), p.CI, p.CO, p.ngroups, flip, p.part);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const long long most = (long long)sms * per_sm;
-  const int grid = (int)(units < most ? units : most);
-  conv3x3_tf32_kernel<<<grid, kWarpgroup * warpgroups, smem, stream>>>(p);
+  conv3x3_tf32_kernel<<<pl.grid, kWarpgroup * pl.consumers, pl.smem,
+                        stream>>>(p);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+// floats of the workspace, the larger of the two bodies' split K, or 0
+// where it would not fit an int
+int workspace_floats(int CI, int CO) {
+  if (CI <= 0 || CO <= 0) return 0;
+  const long long a = 2 * split_floats(CI, CO), b = ws_split_floats(CI, CO);
+  const long long n = a > b ? a : b;
+  return n > 0x7fffffffLL ? 0 : (int)n;
+}
+
+cudaError_t conv3x3_f32(const float* x, const float* k, float* ws, float* y,
+                        int B, int H, int W, int CI, int CO, int flip,
+                        int ws_floats, cudaStream_t stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || CI <= 0 || CO <= 0 ||
+      ws_floats <= 0 || ws_floats != workspace_floats(CI, CO))
+    return cudaErrorInvalidValue;
+  Plan pl;
+  cudaError_t err = cached_plan(pl, B, H, W, CI, CO);
+  if (err != cudaSuccess) return err;
+  if (pl.tma && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(y) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(ws) % 16 == 0)
+    return launch_ws(pl, x, k, ws, y, B, flip, stream);
+  if (pl.tma) {  // misaligned pointers: the cp.async body at this shape
+    err = plan_cp_async(pl);
+    if (err != cudaSuccess) return err;
+  }
+  Params& p = pl.p;
+  p.x = x;
+  p.ws = ws;
+  p.y = y;
+  p.vec = CI % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  p.yvec = CO % 2 == 0 && reinterpret_cast<uintptr_t>(y) % 8 == 0;
+  return launch_cp_async(pl, k, flip, stream);
+}
+
+// the launch plan at a shape, into out[0..7]: 1 where it takes the TMA
+// body, blocks a cluster, consumer warpgroups a block, units (tiles of
+// pixels x Cout tiles), blocks, halo stages, the Cout tile's width, tf32
+// products a chain
+cudaError_t conv3x3_f32_plan(int B, int H, int W, int CI, int CO, int* out) {
+  Plan pl;
+  const cudaError_t err = cached_plan(pl, B, H, W, CI, CO);
+  if (err != cudaSuccess) return err;
+  const int v[8] = {pl.tma, pl.cluster, pl.consumers, pl.units, pl.grid,
+                    pl.ring, pl.bn, pl.chain};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
+  return cudaSuccess;
 }
 
 }  // namespace f32
@@ -1120,25 +1851,6 @@ bool ws_maps(CUtensorMap& xmap, CUtensorMap& kmap, CUtensorMap& ymap,
              const bf16* x, const bf16* k, const bf16* y, int B, int H,
              int W, int CI, int CO, int flip, int R);
 
-// x (B, H, W, C) or y as a 4-D tensor for TMA, boxes of 64 channels x
-// `cols` pixels x `rows` rows of one image, 128-byte swizzle; zeros outside
-// (loads), nothing written outside (stores)
-bool image_map(CUtensorMap& map, const bf16* a, int B, int H, int W, int C,
-               int cols, int rows, CUtensorMapL2promotion promotion) {
-  const sm90::EncodeTiled encode = sm90::encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2,
-                                 (cuuint64_t)H * W * C * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)cols, (cuuint32_t)rows, 1};
-  const cuuint32_t step[4] = {1, 1, 1, 1};
-  return encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<bf16*>(a), dims, strides, box, step,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                promotion, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // K as a 3-D tensor for TMA, 64 x 64 boxes of one tap, 128-byte swizzle:
 // (Cout, Cin, 9), or flipped (Cin, Cout, 9) with the layout (3, 3, Cout, Cin)
 bool k_tensor_map(CUtensorMap& map, const bf16* k, int CI, int CO, int flip) {
@@ -1175,13 +1887,9 @@ struct Plan {
 // a block and its taps split over the consumers.  A tile is R image rows,
 // as many as TN padded positions hold (R (W + 2) <= TN), spread evenly
 // over the image's rows; the block's shared memory holds as many halo
-// stages as fit, up to kMaxRing.  Blocks along the tiles: as many as the
-// card holds at once for each Cout tile, no more than the tiles, a
-// multiple of the cluster size; a block's tiles are an equal split, so
-// none has more than ceil(tiles / blocks).  Clusters of 4 where that
-// gives no block more tiles than clusters of 2 (the card places fewer
-// blocks in clusters of 4), else of 2.  Returns cudaErrorNotSupported
-// where tiles of 64 would give a block two.
+// stages as fit, up to kMaxRing.  Clusters of 4 or 2 blocks
+// (choose_cluster).  Returns cudaErrorNotSupported where tiles of 64
+// would give a block two.
 template <int FLIP, int TN>
 cudaError_t plan_ws(Plan& pl, int B) {
   WsParams& q = pl.q;
@@ -1209,24 +1917,11 @@ cudaError_t plan_ws(Plan& pl, int B) {
   if (pl.ntiles > 65535 || tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
   q.tiles = (int)tiles;
   long long best = -1;
-  for (int cl = 4; cl >= 2; cl /= 2) {
-    int clusters = 0;
-    const cudaError_t err = sm90::max_clusters(
-        reinterpret_cast<const void*>(conv3x3_wgmma_ws_kernel<FLIP, TN>),
-        kWsThreads, pl.smem, kSmemLimit, cl, clusters);
-    if (err != cudaSuccess) return err;
-    if (clusters < 1) continue;
-    long long per_tile = (long long)clusters / pl.ntiles * cl;
-    if (per_tile < cl) per_tile = cl;
-    long long gx = tiles < per_tile ? tiles : per_tile;
-    gx = (gx + cl - 1) / cl * cl;
-    const long long most = (tiles + gx - 1) / gx;  // tiles a block
-    if (best >= 0 && most >= best) continue;
-    best = most;
-    pl.cluster = cl;
-    pl.gx = (int)gx;
-  }
-  if (best < 0) return cudaErrorInvalidConfiguration;
+  const cudaError_t err = choose_cluster(
+      reinterpret_cast<const void*>(conv3x3_wgmma_ws_kernel<FLIP, TN>),
+      kWsThreads, pl.smem, kSmemLimit, 4, 2, pl.ntiles, tiles, pl.cluster,
+      pl.gx, best);
+  if (err != cudaSuccess) return err;
   if (TN == 64 && best > 1) return cudaErrorNotSupported;
   q.rounds = (int)((best + 1) / 2 * q.nslices);
   const long long units = tiles * pl.ntiles;
@@ -1354,46 +2049,19 @@ bool ws_maps(CUtensorMap& xmap, CUtensorMap& kmap, CUtensorMap& ymap,
              int W, int CI, int CO, int flip, int R) {
   // the halo box takes a zero column each side (TMA's fill past the
   // image); the store's box, the tile's pixels
-  return image_map(xmap, x, B, H, W, CI, W + 2, R + 2,
-                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B) &&
+  return image_map(xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, B, H, W, CI,
+                   64, W + 2, R + 2, CU_TENSOR_MAP_L2_PROMOTION_L2_256B) &&
          k_tensor_map(kmap, k, CI, CO, flip) &&
-         image_map(ymap, y, B, H, W, CO, W, R,
-                   CU_TENSOR_MAP_L2_PROMOTION_NONE);
+         image_map(ymap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, y, B, H, W, CO,
+                   64, W, R, CU_TENSOR_MAP_L2_PROMOTION_NONE);
 }
 
-// make_plan, remembered per device and shape: an eager train step makes
-// 26 calls at one shape, and its host time is the step's (the last 64
-// shapes, replaced in turn)
+// make_plan, remembered per device, shape and flip
 cudaError_t cached_plan(Plan& pl, int B, int H, int W, int CI, int CO,
                         int flip) {
-  struct Entry {
-    int dev, B, H, W, CI, CO, flip;
-    Plan pl;
-  };
-  static std::mutex mutex;
-  static Entry entries[64];
-  static int n = 0, next = 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  {
-    std::lock_guard<std::mutex> lock(mutex);
-    for (int i = 0; i < n; ++i) {
-      const Entry& e = entries[i];
-      if (e.dev == dev && e.B == B && e.H == H && e.W == W && e.CI == CI &&
-          e.CO == CO && e.flip == flip) {
-        pl = e.pl;
-        return cudaSuccess;
-      }
-    }
-  }
-  err = make_plan(pl, B, H, W, CI, CO, flip);
-  if (err != cudaSuccess) return err;
-  std::lock_guard<std::mutex> lock(mutex);
-  entries[next] = Entry{dev, B, H, W, CI, CO, flip, pl};
-  next = (next + 1) % 64;
-  if (n < 64) ++n;
-  return cudaSuccess;
+  return remembered_plan(pl, {B, H, W, CI, CO, flip}, [&](Plan& made) {
+    return make_plan(made, B, H, W, CI, CO, flip);
+  });
 }
 
 template <int FLIP, int TN>
@@ -1502,6 +2170,14 @@ int cfgan_conv3x3_f32(const void* x, const void* k, void* y, void* ws,
                                static_cast<float*>(ws), static_cast<float*>(y),
                                B, H, W, Cin, Cout, flip, ws_floats,
                                static_cast<cudaStream_t>(stream));
+}
+
+// The float32 launch plan at this shape, into out[0..7]: 1 where the shape
+// takes the TMA body (0: cp.async), blocks a cluster, consumer warpgroups a
+// block, units, blocks, halo stages, the Cout tile's width and the tf32
+// products summed into one fresh accumulator.  Returns a cudaError_t.
+int cfgan_conv3x3_f32_plan(int B, int H, int W, int Cin, int Cout, int* out) {
+  return (int)f32::conv3x3_f32_plan(B, H, W, Cin, Cout, out);
 }
 
 int cfgan_conv3x3_bf16(const void* x, const void* k, void* y, int B, int H,

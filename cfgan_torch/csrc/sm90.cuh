@@ -4,8 +4,8 @@
 // cluster) and TMA stores, named barriers, setmaxnreg, thread block
 // clusters and their distributed shared memory, and
 // wgmma (bf16, and tf32 for the float32 kernels' 3xTF32 products) with
-// the A operand in registers and B read from shared memory through a
-// matrix descriptor.
+// the A operand in registers or in shared memory and B read from shared
+// memory through a matrix descriptor.
 //
 // B's shared-memory layout is either the canonical one without swizzle:
 // "core matrices" of 8 rows x 16 bytes, each 128 contiguous bytes, where the
@@ -183,6 +183,18 @@ __device__ __forceinline__ void tma_load_3d_multicast(uint32_t dst,
           dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(z), "r"(bar),
       "h"(mask)
+      : "memory");
+}
+// the 2-D box at (x, y), multicast as tma_load_3d_multicast
+__device__ __forceinline__ void tma_load_2d_multicast(uint32_t dst,
+                                                      const void* map, int x,
+                                                      int y, uint32_t bar,
+                                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(
+          dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(bar), "h"(mask)
       : "memory");
 }
 __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
@@ -437,6 +449,13 @@ __device__ __forceinline__ void tf32_split(uint32_t a, uint32_t& big,
   small = __float_as_uint(__uint_as_float(a) - __uint_as_float(big));
 }
 
+// a - trunc(a): what the tensor cores drop when they read the float32 word
+// a as tf32 (its low 13 mantissa bits), exactly; with a itself as the big
+// part, big*big + big*small + small*big is a 3xTF32 product
+__device__ __forceinline__ float tf32_rest(float a) {
+  return a - __uint_as_float(__float_as_uint(a) & 0xffffe000u);
+}
+
 // `bytes` (a multiple of 16) from global to shared memory by the bulk copy
 // engine, completing on the mbarrier's transaction count
 __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
@@ -483,6 +502,36 @@ __device__ __forceinline__ void wgmma_3xtf32_n32(float (&d)[16],
   wgmma_tf32_n32(d, small, bbig, scale_d);
   wgmma_tf32_n32(d, big, bsmall, 1);
   wgmma_tf32_n32(d, big, bbig, 1);
+}
+
+// d (64 x 128, f32) (+)= A (64 x 8, tf32) * B (8 x 128, tf32), both read
+// from shared memory through their descriptors, both K-major (tf32 has no
+// transpose); d's old value is dropped where scale_d is 0
+__device__ __forceinline__ void wgmma_tf32_ss_n128(float (&d)[64],
+                                                   uint64_t da, uint64_t db,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 // ---------------------------------------------------------------- host

@@ -39,6 +39,8 @@ SIGNATURES = {
     "cfgan_conv3x3_bf16": [_P] * 3 + [_I] * 6 + [_P],
     # (B, H, W, Cin, Cout, flip, int[7] out): the bf16 conv's launch plan
     "cfgan_conv3x3_plan": [_I] * 6 + [_P],
+    # (B, H, W, Cin, Cout, int[8] out): the float32 conv's launch plan
+    "cfgan_conv3x3_f32_plan": [_I] * 5 + [_P],
     # (B, H, W, Cin, Cout, f32) -> partial dKs (bf16: one a cluster of
     # blocks; float32: one a block), or -cudaError_t
     "cfgan_conv3x3_dkernel_blocks": [_I] * 6,

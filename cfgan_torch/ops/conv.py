@@ -229,27 +229,39 @@ def dkernel_plan(b: int, h: int, w: int, cin: int, cout: int,
 
 _CONV_PLAN_KEYS = ("tma", "cluster", "consumers", "units", "grid", "stages",
                    "cout_tile")
+_CONV_F32_PLAN_KEYS = _CONV_PLAN_KEYS + ("chain",)
 
 
 def conv_plan(b: int, h: int, w: int, cin: int, cout: int,
-              transposed: bool = False) -> dict:
-    """The bf16 conv kernel's launch plan at (B, H, W, Cin, Cout) on the
-    current CUDA device (`transposed`: the dx form): `tma` (1 where the
-    shape takes the warp-specialised TMA body, 0 the cp.async one),
-    `cluster` blocks a cluster, `consumers` warpgroups that multiply a
-    block, `units` tiles of pixels x Cout tiles, `grid` blocks, `stages`
-    of halos in shared memory, and `cout_tile` the Cout tile's width.  At
-    the launch, pointers that are not 16-byte aligned take the cp.async
-    body whatever `tma` says.  Builds the kernels where they are not
-    built; raises where the plan fails."""
+              transposed: bool = False,
+              dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The conv kernel's launch plan at (B, H, W, Cin, Cout) and `dtype`
+    (bfloat16 or float32) on the current CUDA device (`transposed`: the
+    dx form): `tma` (1 where the shape takes the warp-specialised TMA
+    body, 0 the cp.async one), `cluster` blocks a cluster, `consumers`
+    warpgroups that multiply a block, `units` tiles of pixels x Cout
+    tiles, `grid` blocks, `stages` of halos in shared memory, and
+    `cout_tile` the Cout tile's width; in float32 also `chain`, the tf32
+    products the tensor cores sum into one fresh accumulator before the
+    CUDA cores add it into the tile's sum.  At the launch, pointers that
+    are not 16-byte aligned take the cp.async body whatever `tma` says.
+    Builds the kernels where they are not built; raises where the plan
+    fails."""
     import ctypes
 
     lib = _build.load_library().lib
-    out = (ctypes.c_int * len(_CONV_PLAN_KEYS))()
-    err = lib.cfgan_conv3x3_plan(b, h, w, cin, cout, int(transposed), out)
+    if dtype == torch.float32:  # the float32 body reads K flipped or not
+        keys = _CONV_F32_PLAN_KEYS
+        out = (ctypes.c_int * len(keys))()
+        err = lib.cfgan_conv3x3_f32_plan(b, h, w, cin, cout, out)
+    else:
+        keys = _CONV_PLAN_KEYS
+        out = (ctypes.c_int * len(keys))()
+        err = lib.cfgan_conv3x3_plan(b, h, w, cin, cout, int(transposed),
+                                     out)
     if err != 0:
         raise RuntimeError(f"conv3x3: no launch plan: cudaError {err}")
-    return dict(zip(_CONV_PLAN_KEYS, out))
+    return dict(zip(keys, out))
 
 
 class _Conv3x3SamePallas(torch.autograd.Function):

@@ -317,6 +317,7 @@ PROBS_ATOL = {"float32": 1e-4, "bfloat16": 1e-2}
 KERNEL_LAYERS_PER_FORWARD = 13  # 12 resblock convs + conv_mid
 RESBLOCK_KERNEL_LAYERS = 12  # what `remat` runs again in the backward
 OUR_KERNELS = ("conv3x3_wgmma_ws_kernel", "conv3x3_wgmma_kernel",
+               "conv3x3_tf32_ws_kernel", "conv3x3_tf32_ksplit_kernel",
                "conv3x3_tf32_kernel",
                "conv3x3_tf32_split_kernel", "conv3x3_dkernel_wgmma_kernel",
                "conv3x3_dkernel_tf32_kernel", "dkernel_reduce_kernel",
@@ -350,6 +351,15 @@ CONV_EDGE_SHAPES = ((8, 28, 28, 64, 64), (3, 28, 28, 64, 64),
                     (32, 28, 28, 128, 64), (128, 13, 11, 64, 64),
                     (20, 13, 11, 64, 64), (128, 28, 28, 64, 72),
                     (128, 28, 28, 64, 96))
+# the float32 conv's plan at its edges (held against the plain version
+# beside CONV_SHAPES, float32, forward and dx): Cin 96 (the TMA body's
+# third 32-channel slice), 259 tiles (not a multiple of any cluster
+# size), Cout 36 (the second 32-channel half of a Cout tile part-filled),
+# Cin 20 / Cout 44 (multiples of 4, not of 8), 13 rows in tiles of 7 rows
+# (the last tile's rows overhang y), the 20x20 preset's layer
+F32_EDGE_SHAPES = ((64, 28, 28, 96, 64), (37, 28, 28, 64, 64),
+                   (128, 28, 28, 64, 36), (40, 28, 28, 20, 44),
+                   (128, 13, 11, 64, 64), (128, 20, 20, 64, 64))
 # dK kernel vs plain, both float32 before the cast: each tap's (Cin, Cout)
 # block within DK_RTOL of its 2-norm.  The two sum up to B*H*W = 100,352
 # products per entry in other orders (the kernel per block of pixels, then
@@ -606,8 +616,9 @@ API_PATCHES = [0, 5, 10, 15]
 API_FEATURES = ["grade", "sqft_living", "lat"]
 API_SEEDS = (0, 42)
 API_JSON_BULK = 1000  # MNIST rows of the JSON bulk request
-API_TIMED = 200  # b=1 requests timed per wire format, in API_TURNS turns
+API_TIMED = 100  # b=1 requests timed per wire format, in API_TURNS turns
 API_TURNS = 4
+API_BULK_TURNS = 1  # timed bulk calls per wire format (a JSON one ~5 s)
 API_THREADS, API_PER_THREAD = 8, 25
 # the conv kernel's server against the float32 result: within this
 # factor of the bf16 cuDNN route's own error (trained weights: residuals
@@ -1160,9 +1171,9 @@ def _dev_ms(fn, ops: int, dtype: str, timed_by: dict, key: str,
 
 def time_conv(card: str, gen, dev, shape, dtype: str, phase: str) -> dict:
     """Device ms per call of the conv kernel, its plain version and
-    cuDNN's `F.conv2d` at `shape` and `dtype`, with the bound and, in
-    bf16, the kernel's launch plan; one line.  Returns {ms, plain_ms,
-    library_ms, bound_ms, bound_by}."""
+    cuDNN's `F.conv2d` at `shape` and `dtype`, with the bound and the
+    kernel's launch plan; one line.  Returns {ms, plain_ms, library_ms,
+    bound_ms, bound_by}."""
     import torch
     import torch.nn.functional as F
 
@@ -1192,7 +1203,7 @@ def time_conv(card: str, gen, dev, shape, dtype: str, phase: str) -> dict:
           "tflops": ops / ms / 1e9, "timed_by": timed_by,
           "events_call_ms": cuda_ms(lambda: conv3x3_same(x, k), 50),
           "graph_call_ms": graph_ms(lambda: conv3x3_same(x, k)),
-          "plan": conv_plan(*shape) if dtype == "bfloat16" else None,
+          "plan": conv_plan(*shape, dtype=getattr(torch, dtype)),
           "faster_than_library": ms < lib_ms})
     return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
@@ -1987,7 +1998,7 @@ def memory_phase(card: str, dev, x, y, clf_sd: dict, counts, zero_counts,
             torch.cuda.reset_peak_memory_stats()
             step()
             peak = torch.cuda.max_memory_allocated()
-            lat = host_ms(step, 5, warmup=1)
+            lat = host_ms(step, 3, warmup=1)
             median = statistics.median(lat)
             emit({"phase": "memory options", "card": card,
                   "conv_impl": None, "remat": remat, "g_microbatch": k,
@@ -4219,14 +4230,14 @@ def api_phase(card: str, dev) -> None:
                                      per_turn, warmup=2)
         t_all = (yte + 1) % 10
         bulk_ms = {"wire_npz": [], "engine": []}
-        for _ in range(2):
+        for _ in range(API_BULK_TURNS):
             bulk_ms["wire_npz"] += host_ms(lambda: npz.counterfactual_bulk(
                 xte, t_all, chunk=128), 1, warmup=0)
             bulk_ms["engine"] += host_ms(lambda: mnist_e.generate_bulk(
                 xte, t_all, chunk=128), 1, warmup=0)
         json_bulk_ms = {"wire_json": [], "engine": []}
         jx, jt = xte[:API_JSON_BULK], t_all[:API_JSON_BULK]
-        for _ in range(2):
+        for _ in range(API_BULK_TURNS):
             json_bulk_ms["wire_json"] += host_ms(
                 lambda: js.counterfactual_bulk(jx, jt, chunk=128), 1,
                 warmup=0)
@@ -5302,8 +5313,10 @@ def main() -> None:
         emit({"phase": "build", "seconds": round(lib.seconds, 3),
               "library": str(lib.path.relative_to(HERE)), "ptxas": ptxas,
               "spills": spills,
-              "conv": kernel_ptxas(lib.ptxas_log,
-                                   r"conv3x3_(?:wgmma_ws|wgmma|tf32)_kernel"),
+              "conv": kernel_ptxas(
+                  lib.ptxas_log,
+                  r"conv3x3_(?:wgmma_ws|wgmma|tf32_ws|tf32_ksplit|tf32)"
+                  r"_kernel"),
               "dkernel": kernel_ptxas(
                   lib.ptxas_log,
                   r"conv3x3_dkernel_[a-z0-9]+_kernel|dkernel_reduce_kernel")})
@@ -5347,14 +5360,23 @@ def main() -> None:
     # ----------------------------------------------- kernel vs plain
     kernel_err = {}
     with Phase("kernel conv3x3"):
+        laps = Laps()
         for shape in CONV_SHAPES:
             for dtype in ("float32", "bfloat16"):
                 kernel_err[(shape, dtype)] = check_conv(
                     gen, dev, shape, dtype, "kernel conv3x3",
                     tf32_witness=shape == SERVING_SHAPE)
+        laps("shapes")
         for shape in CONV_EDGE_SHAPES:
             kernel_err[(shape, "bfloat16")] = check_conv(
                 gen, dev, shape, "bfloat16", "kernel conv3x3")
+        laps("bf16 edge shapes")
+        for shape in F32_EDGE_SHAPES:
+            kernel_err[(shape, "float32")] = check_conv(
+                gen, dev, shape, "float32", "kernel conv3x3")
+        laps("f32 edge shapes")
+        emit({"phase": "kernel conv3x3", "card": card,
+              "part_seconds": laps.s})
 
     dk_err = {}
     with Phase("kernel conv3x3 dK"):

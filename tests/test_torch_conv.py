@@ -268,6 +268,122 @@ def test_conv_plan_raises_the_librarys_error(monkeypatch):
         tconv.conv_plan(0, 28, 28, 64, 64)
 
 
+def test_build_binds_the_f32_conv_plan():
+    """The float32 conv's plan entry point takes the shape (its body reads
+    K flipped or not alike) and a pointer to its eight ints."""
+    import ctypes
+
+    p, i = ctypes.c_void_p, ctypes.c_int
+    assert _build.SIGNATURES["cfgan_conv3x3_f32_plan"] == [i] * 5 + [p]
+    src = _build.SOURCES[0].read_text()
+    assert ("int cfgan_conv3x3_f32_plan(int B, int H, int W, int Cin, "
+            "int Cout, int* out)") in src
+
+
+@pytest.mark.parametrize("transposed", [False, True], ids=["fwd", "dx"])
+def test_f32_conv_plan_asks_the_kernel_library(monkeypatch, transposed):
+    """In float32, `conv_plan` reads the float32 plan entry point's eight
+    named ints (the bf16 entry point is not asked); with the loader
+    failing it raises the loader's error."""
+    import ctypes
+
+    class Lib:
+        @staticmethod
+        def cfgan_conv3x3_f32_plan(b, h, w, cin, cout, out):
+            assert (b, h, w, cin, cout) == (128, 28, 28, 64, 96)
+            for k, v in enumerate((1, 2, 2, 1792, 132, 3, 64, 12)):
+                ctypes.cast(out, ctypes.POINTER(ctypes.c_int))[k] = v
+            return 0
+
+        @staticmethod
+        def cfgan_conv3x3_plan(*args):
+            raise AssertionError("the bf16 plan was asked for float32")
+
+    monkeypatch.setattr(_build, "load_library",
+                        lambda: type("Built", (), {"lib": Lib})())
+    assert tconv.conv_plan(128, 28, 28, 64, 96, transposed=transposed,
+                           dtype=torch.float32) == {
+        "tma": 1, "cluster": 2, "consumers": 2, "units": 1792, "grid": 132,
+        "stages": 3, "cout_tile": 64, "chain": 12}
+
+    class BuildFailed(RuntimeError):
+        pass
+
+    def fail():
+        raise BuildFailed("nvcc failed")
+
+    monkeypatch.setattr(_build, "load_library", fail)
+    with pytest.raises(BuildFailed):
+        tconv.conv_plan(128, 28, 28, 64, 96, transposed=transposed,
+                        dtype=torch.float32)
+
+
+def test_f32_conv_plan_raises_the_librarys_error(monkeypatch):
+    """A float32 plan the library refuses (a cudaError) raises, naming
+    it."""
+
+    class Lib:
+        @staticmethod
+        def cfgan_conv3x3_f32_plan(b, h, w, cin, cout, out):
+            return 1  # cudaErrorInvalidValue
+
+    monkeypatch.setattr(_build, "load_library",
+                        lambda: type("Built", (), {"lib": Lib})())
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        tconv.conv_plan(0, 28, 28, 64, 64, dtype=torch.float32)
+
+
+def test_f32_body_streams_halos_and_k_by_tma_without_float_atomics():
+    """The float32 conv's TMA body: its halos come by 4-D TMA boxes and K's
+    taps by a TMA multicast over the cluster, on mbarriers (empty slots
+    released across the cluster), from producer threads whose registers
+    go to the consumers; each halo element is split once (a - trunc(a)
+    beside the landed word) and the products are m64n128k8 tf32 with both
+    operands in shared memory; it is launched in clusters and has no
+    float atomics: two calls give the same bits."""
+    src = _build.SOURCES[0].read_text()
+    body = src[src.index("namespace f32 {"):src.index("}  // namespace f32")]
+    for call in ("tma_load_4d(", "tma_load_2d_multicast(", "mbar_wait(",
+                 "mbar_expect_tx(", "mbar_arrive_cluster(", "setmaxnreg_dec<",
+                 "setmaxnreg_inc<", "wgmma_tf32_ss_n128(", "tf32_rest("):
+        assert f"sm90::{call}" in body, call
+    # the cluster is chosen by the file's helper, which both TMA bodies share
+    assert "cudaLaunchKernelEx(" in body and "choose_cluster(" in body
+    assert "sm90::max_clusters(" in src[:src.index("namespace f32 {")]
+    assert "conv3x3_tf32_ws_kernel" in body
+    helpers = (_build.SOURCES[0].parent / "sm90.cuh").read_text()
+    assert "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32" in helpers
+    assert "cp.async.bulk.tensor.2d.shared::cluster" in helpers
+    for text in (body, helpers):
+        assert "atomicAdd" not in text
+        assert not re.search(r"\b(red|atom)\.", text)
+
+
+def test_f32_probe_variants_are_edits_of_one_design(tmp_path):
+    """The float32 conv's source holds one design and no build switches;
+    the probe's variants (chain lengths, rounding, halo stages, clusters,
+    the forced TMA body), its laps and its ablations are edited copies of
+    it (tools/conv_f32_probe.py), and each edit still finds its text
+    exactly once and changes it."""
+    from tools import conv_f32_probe as probe
+
+    src = _build.SOURCES[0].read_text()
+    assert not re.search(r"#\s*if(?:n?def)?\s+CFGAN_", src)
+    sets = {f"chain{n}": probe.chain_edits(n) for n in probe.CHAINS}
+    sets["rna"] = probe.RNA_EDITS
+    sets["forced"] = probe.FORCED_EDITS
+    for name, edits in probe.VARIANTS.items():
+        sets[name] = edits
+        sets[f"{name}_laps"] = edits + probe.LAPS_EDITS
+    sets.update(probe.ABLATIONS)
+    for name, edits in sets.items():
+        tree = probe.edited_tree(tmp_path, name, edits)
+        text = (tree / "cfgan_torch" / "csrc" / "conv3x3.cu").read_text()
+        assert (text == src) == (not edits), name
+    # the kernel's own chain (a tap, 4 k8 steps) is what the plan reports
+    assert "pl.chain = 12;" in src
+
+
 def test_build_binds_the_f32_entry_points():
     """The float32 conv takes the tap-order flag (dx reads K flipped, no
     copy) and a workspace for K's tf32 parts, sized by its own entry

@@ -41,7 +41,11 @@ pytestmark = pytest.mark.gpu
 # one that takes it (K reloaded through the cluster every round); TMA
 # bodies whose stored box overhangs y: 13 rows in tiles of 7 rows (128
 # positions) and of 4 rows (64 positions), Cout 72 and 96 (a second,
-# part-filled 64-channel tile) and 40 (one tile, part-filled)
+# part-filled 64-channel tile) and 40 (one tile, part-filled); the
+# float32 TMA body's edges: Cin 96 (its third 32-channel slice), 259 tiles
+# (not a multiple of any cluster size), Cout 36 (a store box overhanging
+# Cout in its second 32-channel half) and Cin 20 / Cout 44 (multiples of 4,
+# not of 8)
 SHAPES = [(128, 28, 28, 64, 64), (1, 28, 28, 64, 64), (2, 5, 70, 16, 16),
           (3, 1, 9, 16, 24), (2, 13, 11, 20, 40), (4, 13, 11, 20, 130),
           (9, 7, 5, 32, 64), (2, 6, 6, 130, 70), (128, 20, 20, 64, 64),
@@ -50,7 +54,8 @@ SHAPES = [(128, 28, 28, 64, 64), (1, 28, 28, 64, 64), (2, 5, 70, 16, 16),
           (3, 28, 28, 64, 64), (9, 28, 28, 64, 64), (2, 28, 28, 128, 64),
           (32, 28, 28, 128, 64), (128, 13, 11, 64, 64), (20, 13, 11, 64, 64),
           (128, 28, 28, 64, 72), (128, 28, 28, 64, 96),
-          (128, 28, 28, 64, 40)]
+          (128, 28, 28, 64, 40), (64, 28, 28, 96, 64), (37, 28, 28, 64, 64),
+          (128, 28, 28, 64, 36), (40, 28, 28, 20, 44)]
 
 
 def _card():
@@ -111,20 +116,39 @@ def test_bf16_kernel_gives_the_same_bits_twice(shape, transposed):
     assert torch.equal(got, again)
 
 
-def _kernels_launched(fn):
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+@pytest.mark.parametrize("transposed", [False, True], ids=["fwd", "dx"])
+def test_f32_kernel_gives_the_same_bits_twice(shape, transposed):
+    """Two calls of the float32 conv on the same inputs give the same
+    bits: each output is one block's fixed sequence of products and sums,
+    stored once (no float atomics, no split sums)."""
+    dev = _card()
+    b, h, w, cin, cout = shape
+    _, k = _inputs(shape, torch.float32, dev, seed=9)
+    x, _ = _inputs((b, h, w, cout if transposed else cin, 1), torch.float32,
+                   dev, seed=10)
+    got = tconv.conv3x3_same(x, k, transposed=transposed)
+    again = tconv.conv3x3_same(x, k, transposed=transposed)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+
+
+def _kernels_launched(fn, count=1):
     """The names of the conv kernels that one call of `fn` launched, by
-    the profiler (a trace now and then comes back without the card's
-    records: up to three tries)."""
+    the profiler, gathered over up to three traces until `count` kernels
+    are seen (a trace now and then comes back without some of the card's
+    records)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    names = set()
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        names = {ev.key for ev in prof.key_averages() if "conv3x3" in ev.key}
-        if names:
+        names |= {ev.key for ev in prof.key_averages() if "conv3x3" in ev.key}
+        if len(names) >= count:
             break
     return names
 
@@ -176,6 +200,61 @@ def test_conv_plan_picks_the_body_the_kernel_launches(shape, transposed):
         got = tconv.conv3x3_same(inp, k, transposed=transposed)
         torch.cuda.synchronize()
         assert _bf16_close(got, ref)
+
+
+# shape -> the body the float32 plan takes on an H100 (132 SMs): TMA where
+# Cin and Cout are multiples of 4, W + 2 <= 128 and the problem's tiles of
+# 128 positions give every SM one, or where the cp.async body would take
+# more than one round of its units (B = 8: 196 units); cp.async otherwise
+# (B = 4: 98 units, one round)
+F32_PLAN_BODIES = {(128, 28, 28, 64, 64): 1, (64, 28, 28, 64, 64): 1,
+                   (32, 28, 28, 64, 64): 1, (8, 28, 28, 64, 64): 1,
+                   (4, 28, 28, 64, 64): 0,
+                   (1, 28, 28, 64, 64): 0, (2, 13, 11, 20, 40): 0,
+                   (4, 13, 11, 20, 130): 0, (2, 5, 70, 16, 16): 0,
+                   (64, 28, 28, 96, 64): 1, (37, 28, 28, 64, 64): 1,
+                   (128, 28, 28, 64, 36): 1, (40, 28, 28, 20, 44): 1,
+                   (128, 13, 11, 64, 64): 1, (128, 20, 20, 64, 64): 1}
+
+
+@pytest.mark.parametrize("shape", list(F32_PLAN_BODIES), ids=str)
+@pytest.mark.parametrize("transposed", [False, True], ids=["fwd", "dx"])
+def test_f32_conv_plan_picks_the_body_the_kernel_launches(shape, transposed):
+    """The float32 plan's body: TMA (the warp-specialised kernel, after
+    its K split) where F32_PLAN_BODIES says, the cp.async body (after its
+    own K split) otherwise; at the launch, an input one element into its
+    storage (not 16-byte aligned) takes the cp.async body at any shape.
+    Both hold the float32 bars against the plain version."""
+    dev = _card()
+    b, h, w, cin, cout = shape
+    c_in, c_out = (cout, cin) if transposed else (cin, cout)
+    _, k = _inputs(shape, torch.float32, dev, seed=11)
+    x, _ = _inputs((b, h, w, c_in, 1), torch.float32, dev, seed=12)
+    plan = tconv.conv_plan(b, h, w, c_in, c_out, transposed=transposed,
+                           dtype=torch.float32)
+    assert plan["tma"] == F32_PLAN_BODIES[shape]
+    assert plan["grid"] >= 1 and plan["units"] >= 1 and plan["chain"] >= 3
+    if plan["tma"]:
+        assert plan["consumers"] == 2 and plan["cout_tile"] == 64
+        assert plan["grid"] % plan["cluster"] == 0
+    else:
+        assert plan["cluster"] == 1 and plan["chain"] == 3
+    kk = k.flip(0, 1).transpose(2, 3).contiguous() if transposed else k
+    ref = tconv.conv3x3_same_plain(x, kk)
+    shifted = torch.empty(x.numel() + 1, dtype=x.dtype,
+                          device=dev)[1:].view(x.shape).copy_(x)
+    for inp, tma in ((x, plan["tma"]), (shifted, 0)):
+        names = _kernels_launched(
+            lambda: tconv.conv3x3_same(inp, k, transposed=transposed), 2)
+        want = ({"conv3x3_tf32_ws_kernel", "conv3x3_tf32_ksplit_kernel"}
+                if tma else {"conv3x3_tf32_kernel",
+                             "conv3x3_tf32_split_kernel"})
+        assert {n for n in want if any(n in m for m in names)} == want, names
+        assert len(names) == 2, names
+        got = tconv.conv3x3_same(inp, k, transposed=transposed)
+        torch.cuda.synchronize()
+        assert (got - ref).abs().max().item() <= 1e-4
+        assert _row_rel_err(got, ref) <= 1e-5
 
 
 def _bf16_close(got, ref):
@@ -284,6 +363,64 @@ def test_f32_kernel_keeps_float32_accuracy(shape, transposed):
     torch.cuda.synchronize()
     assert (got - ref).abs().max().item() <= 1e-4
     assert _row_rel_err(got, ref) <= 1e-5
+
+
+def _cancelling_inputs(shape, transposed, dev):
+    """x with a constant offset of 8 and a kernel whose nine taps nearly
+    cancel (a zero-sum pattern over the taps times one (Cin, Cout)
+    matrix, plus 1e-3 of noise): inside the image each output is a sum of
+    partial sums several times larger than itself, where an accumulator
+    that truncates loses the most."""
+    b, h, w, cin, cout = shape
+    g = torch.Generator().manual_seed(21)
+    x = torch.randn((b, h, w, cout if transposed else cin), generator=g)
+    pattern = torch.tensor([1.0, 1, 1, 1, -8, 1, 1, 1, 1]).reshape(3, 3, 1, 1)
+    base = torch.randn((cin, cout), generator=g) / (9 * cin) ** 0.5
+    noise = torch.randn((3, 3, cin, cout), generator=g) / (9 * cin) ** 0.5
+    k = pattern / 8 * base + 1e-3 * noise
+    return (x + 8.0).to(dev), k.to(dev)
+
+
+def _conv_f64(x, k, transposed):
+    """The SAME 3x3 conv in float64 on the card (dx form: K flipped and
+    transposed), NHWC."""
+    import torch.nn.functional as F
+
+    kk = k.flip(0, 1).transpose(2, 3) if transposed else k
+    y = F.conv2d(x.double().permute(0, 3, 1, 2),
+                 kk.double().permute(3, 2, 0, 1), padding=1)
+    return y.permute(0, 2, 3, 1)
+
+
+# the design before the TMA body (the cp.async body, which sums each k8
+# step's three products into a fresh accumulator) on _cancelling_inputs
+# at the step's shape, against the float64 conv: (max abs, max row rel),
+# measured on an NVIDIA H100 80GB HBM3 at 700 W by
+# `tools/conv_f32_probe.py --parts chain` (its "parent" lines)
+PARENT_CANCELLING_ERR = {"fwd": (3.370e-06, 2.174e-06),
+                         "dx": (2.944e-06, 1.984e-06)}
+
+
+@pytest.mark.parametrize("transposed", [False, True], ids=["fwd", "dx"])
+def test_f32_kernel_holds_cancelling_sums(transposed):
+    """Long accumulation chains lose the most where the partial sums are
+    large against the result (the tensor cores truncate as they add):
+    with x offset by 8 and taps that nearly cancel, at the step's shape
+    (128, 28, 28, 64 -> 64), the kernel's error against the float64 conv
+    is at most twice the parent design's on the same inputs
+    (PARENT_CANCELLING_ERR, measured on the card with the parent's
+    kernel: max abs 3.370e-6 forward, 2.944e-6 dx; max row rel 2.174e-6,
+    1.984e-6)."""
+    dev = _card()
+    shape = (128, 28, 28, 64, 64)
+    x, k = _cancelling_inputs(shape, transposed, dev)
+    got = tconv.conv3x3_same(x, k, transposed=transposed)
+    ref = _conv_f64(x, k, transposed)
+    torch.cuda.synchronize()
+    err = (got.double() - ref).abs().max().item()
+    row = _row_rel_err(got.double(), ref)
+    abs_bar, row_bar = PARENT_CANCELLING_ERR["dx" if transposed else "fwd"]
+    assert err <= 2 * abs_bar and row <= 2 * row_bar, (err, row)
 
 
 def test_tf32_matmul_misses_the_f32_relative_bar():

@@ -1,6 +1,7 @@
-"""What the kernel A/B harnesses (`tools/conv_ab.py`, `tools/dkernel_ab.py`)
-share: the card's name, the JSON lines they print, the build of one CUDA
-source from two checkouts, and the timed turns.
+"""What the kernel A/B harnesses (`tools/conv_ab.py`, `tools/dkernel_ab.py`,
+`tools/conv_f32_probe.py`) share: the card's name, the JSON lines they
+print, the build of one CUDA source from two checkouts (or from edited
+copies of one), a build's SASS, and the timed turns.
 
 Each checkout's source (with its `sm90.cuh`) is built alone, one `nvcc`
 each, started together; the libraries export the same C entry points, so
@@ -11,6 +12,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import re
 import subprocess
 from pathlib import Path
 from typing import Callable
@@ -71,6 +73,36 @@ def build(trees: dict[str, Path], source: str, out_dir: Path,
                 fn.restype = ctypes.c_int
         libs[name] = (lib, log)
     return libs
+
+
+def sass(library: Path, names: str) -> dict[str, list[str]]:
+    """The SASS (`cuobjdump -sass`) of each kernel of `library` whose name
+    matches the regular expression `names`, keyed by its name with the
+    anonymous namespace's per-file tag taken out, as lines without
+    addresses and encodings, branch labels renumbered in order: two builds
+    of the same code compare equal."""
+    from cfgan_torch.ops import _build
+
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(library)],
+                          capture_output=True, text=True, check=True).stdout
+    out, lines = {}, None
+    for ln in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", ln)
+        if m:
+            name = re.sub(r"\d+_GLOBAL__N__[0-9a-f]{8}_\d+_\w+?_cu_[0-9a-f]{8}",
+                          "", m.group(1))
+            lines = (out.setdefault(name, [])
+                     if re.search(names, m.group(1)) else None)
+            continue
+        code = re.sub(r"/\*[^*]*\*/", "", ln).strip()
+        if lines is not None and code:
+            lines.append(code)
+    for name, lines in out.items():
+        labels = {}
+        out[name] = [re.sub(r"\.L_x_\d+", lambda m: labels.setdefault(
+            m.group(0), f".L{len(labels)}"), ln) for ln in lines]
+    return out
 
 
 def turns(fns: dict[str, Callable], rounds: int,
