@@ -257,29 +257,6 @@ cudaError_t remembered_plan(Plan& pl, const std::array<int, 6>& key,
   return cudaSuccess;
 }
 
-// a (B, H, W, C), NHWC, of `bytes`-byte elements as a 4-D tensor for TMA,
-// boxes of `channels` (128 bytes) x `cols` pixels x `rows` rows of one
-// image, 128-byte swizzle; zeros outside (loads), nothing written outside
-// (stores)
-bool image_map(CUtensorMap& map, CUtensorMapDataType type, int bytes,
-               const void* a, int B, int H, int W, int C, int channels,
-               int cols, int rows, CUtensorMapL2promotion promotion) {
-  const sm90::EncodeTiled encode = sm90::encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)C * bytes,
-                                 (cuuint64_t)W * C * bytes,
-                                 (cuuint64_t)H * W * C * bytes};
-  const cuuint32_t box[4] = {(cuuint32_t)channels, (cuuint32_t)cols,
-                             (cuuint32_t)rows, 1};
-  const cuuint32_t step[4] = {1, 1, 1, 1};
-  return encode(&map, type, 4, const_cast<void*>(a), dims, strides, box,
-                step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, promotion,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // A TMA body's cluster and blocks along its `tiles`: as many blocks as the
 // card holds at once for each of the `ntiles` Cout tiles, no more than the
 // tiles, a multiple of the cluster size; a block's tiles are an equal
@@ -940,9 +917,9 @@ bool ksplit_map(CUtensorMap& map, const float* ws, int CI, int CO) {
 // each side, TMA's fill past the image and past Cin) and the split K's
 bool ws_maps(CUtensorMap& xmap, CUtensorMap& kmap, const float* x,
              const float* ws, int B, int H, int W, int CI, int CO, int R) {
-  return image_map(xmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, x, B, H, W, CI,
-                   kWsSlice, W + 2, R + 2,
-                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B) &&
+  return sm90::image_map(xmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, x, B, H, W,
+                         CI, kWsSlice, W + 2, R + 2,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B) &&
          ksplit_map(kmap, ws, CI, CO);
 }
 
@@ -2049,11 +2026,12 @@ bool ws_maps(CUtensorMap& xmap, CUtensorMap& kmap, CUtensorMap& ymap,
              int W, int CI, int CO, int flip, int R) {
   // the halo box takes a zero column each side (TMA's fill past the
   // image); the store's box, the tile's pixels
-  return image_map(xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, B, H, W, CI,
-                   64, W + 2, R + 2, CU_TENSOR_MAP_L2_PROMOTION_L2_256B) &&
+  return sm90::image_map(xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, B, H, W,
+                         CI, 64, W + 2, R + 2,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B) &&
          k_tensor_map(kmap, k, CI, CO, flip) &&
-         image_map(ymap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, y, B, H, W, CO,
-                   64, W, R, CU_TENSOR_MAP_L2_PROMOTION_NONE);
+         sm90::image_map(ymap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, y, B, H, W,
+                         CO, 64, W, R, CU_TENSOR_MAP_L2_PROMOTION_NONE);
 }
 
 // make_plan, remembered per device, shape and flip

@@ -16,7 +16,7 @@
 //
 // Bound on an H100 SXM at B=128, 28x28, 64->64: bf16, 12.8 MB of x + 12.8 MB
 // of g + 0.15 MB of dK -> 0.0077 ms at 3.35 TB/s; 7.40 GFLOP -> 0.0075 ms at
-// 989 TFLOP/s.  float32 (3xTF32, f32::conv3x3_dkernel_tf32_kernel): 51.5 MB
+// 989 TFLOP/s.  float32 (3xTF32): 51.5 MB
 // -> 0.0154 ms; three tf32 products, 3 x 7.40 GFLOP at 494.7 TFLOP/s ->
 // 0.0449 ms (operations).
 //
@@ -75,12 +75,24 @@
 // memory, at ~17 bytes a cycle whatever the cluster size (~4.9 us of the
 // ~23 us kernel).
 //
-// float32 (f32::conv3x3_dkernel_tf32_kernel): three warpgroups, one per
-// dy; a pixel range of whole stages per block, double-buffered by
-// cp.async; each block writes its own partial, which the same reduction
-// kernel sums in a fixed order, so two calls give the same bits; 3xTF32
-// products, as the conv's float32 kernel (conv3x3.cu) makes them, and
-// 32-wide Cout tiles; how its operands reach wgmma is told at the kernel.
+// float32, 3xTF32 products as the conv's float32 kernels (conv3x3.cu) make
+// them.  Two bodies, chosen by the plan from the shape (dkernel_plan's
+// `tma`), never on a failure:
+// - the TMA body (f32::conv3x3_dkernel_tf32_ws_kernel; Cin and Cout
+//   multiples of 4, W + 2 <= 128, x and g 16-byte aligned at the launch):
+//   warp-specialised, x's halo and g's tile by TMA, g split once a stage,
+//   partials summed within clusters; its design is told at the kernel.
+//   Measured on an NVIDIA H100 80GB HBM3 at 700.00 W (tools/dkernel_ab.py):
+//   at B=128, 28x28, 64->64 the kernel and its reduction take ~0.090 ms
+//   against the bound's 0.0449 (~50%), the cp.async body's 0.179 and
+//   cuDNN's wgrad (TF32 off) 0.338; B=1 0.0094 against cuDNN's 0.0157.
+// - the cp.async body (f32::conv3x3_dkernel_tf32_kernel; the other shapes,
+//   and a misaligned x or g on the TMA plan's workspace): three
+//   warpgroups, one per dy; a pixel range of whole stages per block,
+//   double-buffered by cp.async; each block writes its own partial, which
+//   the same reduction kernel sums in a fixed order, so two calls give the
+//   same bits; 32-wide Cout tiles; how its operands reach wgmma is told at
+//   the kernel.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -255,14 +267,16 @@ constexpr int kTileRow = BN + 8;
 // tile from there on) and stores its sums while the others finish; it
 // waits on the barrier last, so that no block leaves while another still
 // reads its tile.
-template <int BN, int C>
-__device__ __forceinline__ void reduce_share(const Params& p,
+// Threads: the block's threads that take part (threadIdx.x below it); the
+// float32 kernel's producer warpgroup only arrives and waits.
+template <int BN, int C, int Threads = kThreads, typename P = Params>
+__device__ __forceinline__ void reduce_share(const P& p,
                                              const float* tile, int c0,
                                              int n0) {
   constexpr int kShare = 9 * 64 * (BN / 4) / C;
   constexpr int kAtOnce = 16 / C;
-  constexpr int kRounds = (kShare + kThreads * kAtOnce - 1) /
-                          (kThreads * kAtOnce);
+  constexpr int kRounds = (kShare + Threads * kAtOnce - 1) /
+                          (Threads * kAtOnce);
   const uint32_t rank = sm90::cluster_rank();
   const int lo = (int)rank * kShare;
   const uint32_t tbase = sm90::smem_u32(tile);
@@ -277,14 +291,14 @@ __device__ __forceinline__ void reduce_share(const Params& p,
   };
 #pragma unroll 1
   for (int round = 0; round < kRounds; ++round) {
-    const int first = round * kThreads * kAtOnce + (int)threadIdx.x;
+    const int first = round * Threads * kAtOnce + (int)threadIdx.x;
     float4 v[kAtOnce][C];
     uint32_t live = 0;  // bit e: entry e lies in the share, Cin and Cout
 #pragma unroll
     for (int e = 0; e < kAtOnce; ++e) {
       int t9, r, o4;
-      where(first + e * kThreads, t9, r, o4);
-      if (first + e * kThreads >= kShare || c0 + r >= p.CI ||
+      where(first + e * Threads, t9, r, o4);
+      if (first + e * Threads >= kShare || c0 + r >= p.CI ||
           n0 + o4 >= p.CO)
         continue;
       live |= 1u << e;
@@ -310,7 +324,7 @@ __device__ __forceinline__ void reduce_share(const Params& p,
         sum.w += v[e][q].w;
       }
       int t9, r, o4;
-      where(first + e * kThreads, t9, r, o4);
+      where(first + e * Threads, t9, r, o4);
       const int o = n0 + o4;
       float* dst = out + t9 * plane + (size_t)(c0 + r) * p.CO + o;
       if (vec) {
@@ -717,6 +731,382 @@ conv3x3_dkernel_tf32_kernel(const Params p) {
   }
 }
 
+
+// ------------------------------------------- float32, the TMA body
+constexpr int kWsN = 32;              // wgmma N: output channels a tile
+constexpr int kWsBox = 32;            // channels a halo box (128 bytes)
+constexpr int kWsMaxDepth = 128;      // padded positions a stage
+constexpr int kWsThreads = 512;       // three consumers, one producer
+constexpr int kWsConsumers = 3 * 128;
+constexpr int kWsTransformers = 96;   // the producer's warps 1-3
+constexpr int kWsGRing = 3;           // g slots (x's ring has two)
+constexpr int kWsProducerRegs = 56, kWsConsumerRegs = 152;
+constexpr int kWsChain = 6;           // tf32 products a fresh accumulator takes
+constexpr int kWsTileBytes = 9 * 64 * kTileRow<kWsN> * 4;  // the partial
+
+struct WsParams {
+  const float* g;
+  float* part;        // (partials, 9, Cin, Cout): one a cluster
+  int H, W, CI, CO;
+  int R;              // image rows a stage
+  int D;              // padded positions a stage: R (W + 2) rounded to 8
+  int hrows;          // 128-byte rows of a halo box's region
+  int rblocks;        // stages an image: ceil(H / R)
+  int stages;         // B * rblocks
+  int spb;            // stages a block
+  int xslot, rslot, gslot;  // bytes of a halo slot (two boxes), a slot
+                            // of g's tile as it lands, a split g slot
+};
+
+__device__ __forceinline__ void lds_f2(uint32_t addr, uint32_t& a,
+                                       uint32_t& b) {
+  asm volatile("ld.shared.v2.b32 {%0, %1}, [%2];\n"
+               : "=r"(a), "=r"(b)
+               : "r"(addr));
+}
+__device__ __forceinline__ float lds_f1(uint32_t addr) {
+  float a;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(a) : "r"(addr));
+  return a;
+}
+__device__ __forceinline__ void sts_u4(uint32_t addr, uint32_t a, uint32_t b,
+                                       uint32_t c, uint32_t d) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(a), "r"(b), "r"(c), "r"(d)
+               : "memory");
+}
+
+// The float32 TMA body.  M = 64 input channels (a slice, blockIdx.y), N =
+// 32 output channels (a tile, blockIdx.z), the depth a stage's padded
+// positions: R image rows of one image, W + 2 positions a row, of which
+// the last two are zeros of g's tile (2/30 more products at 28x28, 2/22 at
+// 20x20; the other choice, mapping pixel k to k + 2 floor(k / W) with a
+// table, was not built: the padded frame lets g come by TMA as x does).
+// Tap (dy, dx) of position q reads halo position q + dy (W + 2) + dx, a
+// fixed shift, no mask.  Designed by probes on an H100
+// (tools/dkernel_f32_probe.py builds its chain variants and ablations
+// from edited copies of this file; PERF.md).
+//
+// - Loads.  One thread of the producer warpgroup asks TMA, once a slot is
+//   free, for a stage's halo (rows h0 - 1 ... h0 + R, columns -1 ... W,
+//   one 4-D box a 32 input channels, 128 bytes a position, 128-byte
+//   swizzled, zeros outside the image and past Cin) and g's tile (rows h0
+//   ... h0 + R - 1, columns 0 ... W + 1: zeros on the padding and past H
+//   and Cout), both into a ring of two slots on one full mbarrier.  No
+//   __syncthreads in the loop.
+// - g split once a stage.  The producer's warps 1-3 read g's landed tile
+//   and write it split (rna big, exact small) and transposed into K-major
+//   tiles for wgmma's B (core matrices of 8 channels x 4 positions, LBO
+//   128, SBO 256, a k8 step 1 KB), into a ring of three slots.  Read from
+//   device memory instead, the transform's latency set the pace.
+// - A from registers.  A tap is a shift of one position, and a K-major
+//   operand can start only every 4 tf32 positions, so A = x_tap^T is
+//   loaded from the halo: the thread of row g holds channels 2g and 2g + 1
+//   (rows g and g + 8 of its warp's 16), and depth t of a k8 step holds
+//   position perm(t) = {0, 1, 4, 5, 2, 3, 6, 7}[t] (g's tiles in the same
+//   order), so that a fragment is two 8-byte loads a tap and the four
+//   positions of one load fall two on each half of the banks.  Its big
+//   part is the word as TMA landed it (the tensor cores read its top 19
+//   bits), its small part a - trunc(a), made in registers.
+// - Chains.  The tensor cores truncate as they add: a fresh accumulator a
+//   stage read 10x the cp.async body's error on cancelling sums, twelve
+//   products 1.6-2.4x, six 1.5x.  Each tap's k8 step is a commit group of
+//   three m64n32k8 products; two steps of a tap (six products) go into a
+//   fresh accumulator, which the CUDA cores add into the tap's sum.
+// - Registers.  Three consumer warpgroups, one per dy, at 152 registers
+//   (setmaxnreg; the producer 56): the three taps' sums, a fresh
+//   accumulator each and their A fragments, so that a warpgroup keeps
+//   three groups in flight.  At N = 64 the sums alone take 96 registers
+//   and one fresh accumulator leaves one group in flight: 0.10-0.115 ms at
+//   B=128 against ~0.090 here.  A turn of four k8 steps drains its groups
+//   at its end: ptxas serializes the products where an accumulator of a
+//   group in flight is read across a loop turn, and spills where a
+//   branch guards a group, so an odd last step or two take turns of their
+//   own.  Every lane arrives on the empty barriers; no branch on the lane
+//   while products are in flight.
+// - Fill and partials.  A block takes a contiguous range of stages; the
+//   plan (plan_f32_tma) picks the rows a stage and the cluster by a cost
+//   model, so that B=1 at 28x28 spreads over 28 blocks of one row.  Blocks
+//   come in clusters of 2-8 along x; after its stages a block stages its
+//   9 x 64 x 32 partial in its shared memory and the cluster sums them
+//   through distributed shared memory (reduce_share), one partial a
+//   cluster, which dkernel_reduce_kernel sums in a fixed order: no
+//   atomics, two calls give the same bits.
+__global__ void __launch_bounds__(kWsThreads, 1)
+conv3x3_dkernel_tf32_ws_kernel(const WsParams p,
+                               const __grid_constant__ CUtensorMap xmap,
+                               const __grid_constant__ CUtensorMap gmap) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  // two halo slots, two slots of g's tile as TMA lands it, then the g
+  // slots split and transposed
+  unsigned char* ring = smem + 1024;
+  const uint32_t bars = sm90::smem_u32(smem);
+  const uint32_t xfull = bars, xempty = bars + 16, gfull = bars + 32,
+                 gempty = bars + 32 + 8 * kWsGRing;
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int c0 = blockIdx.y * 64, n0 = blockIdx.z * kWsN;
+  const int nbox = p.CI - c0 > kWsBox ? 2 : 1;
+  const int row = p.W + 2;
+  const int boxrows = (p.R + 2) * row;
+  const int first = blockIdx.x * p.spb;
+  // this block's stages, worked out after each role's setmaxnreg (a value
+  // live across it is spilled)
+  auto stages = [&]() {
+    const int n = p.stages - first;
+    return n < 0 ? 0 : (n > p.spb ? p.spb : n);
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < 2; ++i) {
+      sm90::mbar_init(xfull + 8 * i, 1);
+      sm90::mbar_init(xempty + 8 * i, kWsConsumers);
+    }
+    for (int i = 0; i < kWsGRing; ++i) {
+      sm90::mbar_init(gfull + 8 * i, kWsTransformers);
+      sm90::mbar_init(gempty + 8 * i, kWsConsumers);
+    }
+    sm90::fence_mbar_init();
+  }
+  // zeros where no box lands: the halo regions' rows past the box, a
+  // second box's region where the slice has one
+  for (int slot = 0; slot < 2; ++slot)
+    for (int b = 0; b < 2; ++b) {
+      const int from = b < nbox ? boxrows : 0;
+      float4* reg = reinterpret_cast<float4*>(
+          ring + slot * p.xslot + b * p.hrows * 128);
+      for (int i = from * 8 + tid; i < p.hrows * 8; i += kWsThreads)
+        reg[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  __syncthreads();
+
+  const uint32_t xbase = sm90::smem_u32(ring);
+  const uint32_t rbase = xbase + 2 * p.xslot;  // g as it lands
+  const uint32_t gbase = rbase + 2 * p.rslot;
+  const int gbox = p.R * row;  // positions g's box brings
+  const int small_off = p.D * 128;  // the small tile after the big one
+
+  if (wg == 3) {
+    // ------------------------------------------------------- producer
+    sm90::setmaxnreg_dec<kWsProducerRegs>();
+    const int ptid = tid - kWsConsumers, nst = stages();
+    if (ptid == 0) {
+      sm90::prefetch_tensormap(&xmap);
+      sm90::prefetch_tensormap(&gmap);
+      // stage j's halo and g's tile (rows h0 ... h0 + R - 1, columns 0 ...
+      // W + 1: zeros on the two padding columns and past H) into slot
+      // j % 2, once the consumers are done with its last stage (the
+      // transformers are done with g's tile by then)
+      for (int j = 0; j < nst; ++j) {
+        const int slot = j & 1, st = first + j;
+        const int n = st / p.rblocks, h0 = (st - n * p.rblocks) * p.R;
+        sm90::mbar_wait(xempty + 8 * slot, ((j >> 1) & 1) ^ 1);
+        sm90::fence_proxy_async();  // the slot's last reads came first
+        sm90::mbar_expect_tx(xfull + 8 * slot, (nbox * boxrows + gbox) * 128);
+        for (int b = 0; b < nbox; ++b)
+          sm90::tma_load_4d(xbase + slot * p.xslot + b * p.hrows * 128,
+                            &xmap, c0 + kWsBox * b, -1, h0 - 1, n,
+                            xfull + 8 * slot);
+        sm90::tma_load_4d(rbase + slot * p.rslot, &gmap, n0, 0, h0, n,
+                          xfull + 8 * slot);
+      }
+    } else if (ptid >= 32) {
+      // g's tile a stage, split and transposed: item it is output channel
+      // it % 32 at the four positions of depth 4 kg ... 4 kg + 3 of k8
+      // step s (pq = 2 s + kg), read from the landed tile (position q's
+      // 16-byte chunk c at c ^ (q % 8))
+      const int t = ptid - 32;
+      const int items = 8 * p.D;
+      for (int j = 0; j < nst; ++j) {
+        const int slot = j % kWsGRing;
+        const uint32_t gs = gbase + slot * p.gslot;
+        const uint32_t raw = rbase + (j & 1) * p.rslot;
+        sm90::mbar_wait(xfull + 8 * (j & 1), (j >> 1) & 1);
+        sm90::mbar_wait(gempty + 8 * slot, ((j / kWsGRing) & 1) ^ 1);
+        for (int i = t; i < items; i += kWsTransformers) {
+          const int o = i & 31, pq = i >> 5;
+          const int q0 = 8 * (pq >> 1) + 2 * (pq & 1);
+          uint32_t big[4], small[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int q = q0 + (e & 1) + 4 * (e >> 1);
+            const float v =
+                q < gbox ? lds_f1(raw + q * 128 + (((o >> 2) ^ (q & 7)) << 4) +
+                                  (o & 3) * 4)
+                         : 0.f;
+            sm90::tf32_split(__float_as_uint(v), big[e], small[e]);
+          }
+          const uint32_t at = gs + (pq >> 1) * 1024 + (pq & 1) * 128 +
+                              (o >> 3) * 256 + (o & 7) * 16;
+          sts_u4(at, big[0], big[1], big[2], big[3]);
+          sts_u4(at + small_off, small[0], small[1], small[2], small[3]);
+        }
+        sm90::fence_proxy_async();  // read by wgmma
+        sm90::mbar_arrive(gfull + 8 * slot);
+      }
+    }
+    __syncthreads();  // the consumers are done with the ring
+    sm90::cluster_sync();  // every block has staged its partial
+    sm90::cluster_arrive();  // reduce_share's two halves
+    sm90::cluster_wait();
+    return;
+  }
+
+  // --------------------------------------------------------- consumers
+  sm90::setmaxnreg_inc<kWsConsumerRegs>();
+  const int nst = stages();
+  const int dy = wg, warp = (tid / 32) % 4, lane = tid % 32;
+  const int gq = lane / 4, tq = lane % 4;
+  // this thread's A: channels 16 warp + 2 gq, + 1 of the slice, in box
+  // warp / 2 at 16-byte chunk ch of a position, bytes lo of it
+  const uint32_t boff = (uint32_t)((warp >> 1) * p.hrows * 128 +
+                                   (gq & 1) * 8);
+  const int ch = 4 * (warp & 1) + (gq >> 1);
+  const int perm0 = (tq & 1) + 4 * (tq >> 1);
+  const int nsteps = p.D / 8;
+
+  // acc: the taps' sums; tmp: each tap's fresh accumulator; a, small: the
+  // A fragment of each tap's k8 step in flight (big, as landed, and its
+  // rest)
+  float acc[3][kWsN / 2], tmp[3][kWsN / 2];
+  uint32_t a[3][4], small[3][4];
+#pragma unroll
+  for (int d = 0; d < 3; ++d)
+#pragma unroll
+    for (int r = 0; r < kWsN / 2; ++r) acc[d][r] = 0.f;
+
+  // tap dx's three products of k8 step s into tmp[dx] (a fresh sum where
+  // keep is 0), one commit group; its A loaded and split first
+  auto group = [&](auto tap, uint32_t xs, uint32_t gs, int s, int keep) {
+    constexpr int dx = decltype(tap)::value;
+    // positions q0 (depth t) and q0 + 2 (depth t + 4) of step s; the
+    // swizzle of a position (its row % 8) is the same every step
+    const int q0 = perm0 + dy * row + dx + 8 * s, q1 = q0 + 2;
+    lds_f2(xs + q0 * 128 + ((ch ^ (q0 & 7)) << 4), a[dx][0], a[dx][1]);
+    lds_f2(xs + q1 * 128 + ((ch ^ (q1 & 7)) << 4), a[dx][2], a[dx][3]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      small[dx][e] =
+          __float_as_uint(sm90::tf32_rest(__uint_as_float(a[dx][e])));
+    sm90::wgmma_fence();
+    const uint32_t b = gs + s * (8 * kWsN * 4);
+    sm90::wgmma_3xtf32_n32(tmp[dx], a[dx], small[dx],
+                           sm90::make_desc(b, 128, 256),
+                           sm90::make_desc(b + small_off, 128, 256), keep);
+    sm90::wgmma_commit();
+  };
+  auto add_tap = [&](auto tap) {  // tap dx's chain is done: into its sum
+    constexpr int dx = decltype(tap)::value;
+#pragma unroll
+    for (int r = 0; r < kWsN / 2; ++r) acc[dx][r] += tmp[dx][r];
+  };
+  using T0 = std::integral_constant<int, 0>;
+  using T1 = std::integral_constant<int, 1>;
+  using T2 = std::integral_constant<int, 2>;
+  auto add = [&]() {  // every group is done: the chains into the sums
+    add_tap(T0{});
+    add_tap(T1{});
+    add_tap(T2{});
+  };
+
+#pragma unroll 1
+  for (int j = 0; j < nst; ++j) {
+    const int slot = j & 1, gslot = j % kWsGRing;
+    sm90::mbar_wait(xfull + 8 * slot, (j >> 1) & 1);
+    sm90::mbar_wait(gfull + 8 * gslot, (j / kWsGRing) & 1);
+    const uint32_t xs = xbase + slot * p.xslot + boff;
+    const uint32_t gs = gbase + gslot * p.gslot;
+    // a turn: four k8 steps, each tap's two chains of six products (two
+    // commit groups each) in a fresh accumulator, at most three groups in
+    // flight; a chain goes into the tap's sum once its groups are done,
+    // and the turn drains at its end, so that no group is in flight across
+    // the loop, and no branch guards a group (ptxas serializes or spills
+    // otherwise).  Two steps left take a turn of two, one a chain of three
+    // products.
+    int s = 0;
+#pragma unroll 1
+    for (; s + 4 <= nsteps; s += 4) {
+      group(T0{}, xs, gs, s, 0);
+      group(T1{}, xs, gs, s, 0);
+      group(T2{}, xs, gs, s, 0);
+      sm90::wgmma_wait<2>();  // the step before's group of this tap is done
+      group(T0{}, xs, gs, s + 1, 1);
+      sm90::wgmma_wait<2>();
+      group(T1{}, xs, gs, s + 1, 1);
+      sm90::wgmma_wait<2>();
+      group(T2{}, xs, gs, s + 1, 1);
+      sm90::wgmma_wait<2>();  // tap 0's chain is done
+      add_tap(T0{});
+      group(T0{}, xs, gs, s + 2, 0);
+      sm90::wgmma_wait<2>();
+      add_tap(T1{});
+      group(T1{}, xs, gs, s + 2, 0);
+      sm90::wgmma_wait<2>();
+      add_tap(T2{});
+      group(T2{}, xs, gs, s + 2, 0);
+      sm90::wgmma_wait<2>();
+      group(T0{}, xs, gs, s + 3, 1);
+      sm90::wgmma_wait<2>();
+      group(T1{}, xs, gs, s + 3, 1);
+      sm90::wgmma_wait<2>();
+      group(T2{}, xs, gs, s + 3, 1);
+      sm90::wgmma_wait<0>();
+      add();
+    }
+    if (s + 2 <= nsteps) {
+      group(T0{}, xs, gs, s, 0);
+      group(T1{}, xs, gs, s, 0);
+      group(T2{}, xs, gs, s, 0);
+      sm90::wgmma_wait<2>();
+      group(T0{}, xs, gs, s + 1, 1);
+      sm90::wgmma_wait<2>();
+      group(T1{}, xs, gs, s + 1, 1);
+      sm90::wgmma_wait<2>();
+      group(T2{}, xs, gs, s + 1, 1);
+      sm90::wgmma_wait<0>();
+      add();
+    }
+    if (nsteps & 1) {  // an odd last step: a chain of three products a tap
+      group(T0{}, xs, gs, nsteps - 1, 0);
+      group(T1{}, xs, gs, nsteps - 1, 0);
+      group(T2{}, xs, gs, nsteps - 1, 0);
+      sm90::wgmma_wait<0>();
+      add();
+    }
+    // the stage's slots are read (every lane arrives)
+    sm90::mbar_arrive(xempty + 8 * slot);
+    sm90::mbar_arrive(gempty + 8 * gslot);
+  }
+  __syncthreads();  // every warpgroup is done with the ring
+
+  // this block's 9 taps x 64 x 64 partial, a channel a row
+  float* tile = reinterpret_cast<float*>(ring);
+#pragma unroll
+  for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = (dy * 3 + dx) * 64 + warp * 16 + 2 * gq + half;
+#pragma unroll
+      for (int jn = 0; jn < kWsN / 8; ++jn)
+        *reinterpret_cast<float2*>(tile + r * kTileRow<kWsN> + 8 * jn +
+                                   2 * tq) =
+            make_float2(acc[dx][4 * jn + 2 * half],
+                        acc[dx][4 * jn + 2 * half + 1]);
+    }
+  sm90::cluster_sync();  // every block of the cluster has staged its tile
+  switch (sm90::cluster_size()) {
+    case 8:
+      reduce_share<kWsN, 8, kWsConsumers>(p, tile, c0, n0);
+      break;
+    case 4:
+      reduce_share<kWsN, 4, kWsConsumers>(p, tile, c0, n0);
+      break;
+    default:
+      reduce_share<kWsN, 2, kWsConsumers>(p, tile, c0, n0);
+  }
+}
+
 }  // namespace f32
 
 // dK = the sum of the partials (one a cluster in bf16, one a block in
@@ -755,19 +1145,22 @@ dkernel_reduce_kernel(const float* __restrict__ part, float* __restrict__ dk,
 }
 
 struct Plan {
-  Params p;       // bf16
-  f32::Params q;  // float32
+  Params p;         // bf16
+  f32::Params q;    // float32, the cp.async body
+  f32::WsParams w;  // float32, the TMA body
   int f32, bn, smem, slices, tiles;
   int blocks;     // along the pixels (the grid's x)
-  int cluster;    // blocks a cluster (bf16; 1 in float32)
-  int partials;   // partial dKs: clusters along x (bf16), blocks (float32)
-  int tma;        // bf16: the shape takes the TMA ring (aligned pointers)
+  int cluster;    // blocks a cluster (1 in the float32 cp.async body)
+  int partials;   // partial dKs: one a cluster (one a block in the
+                  // float32 cp.async body)
+  int tma;        // the shape takes the TMA body (bf16: the TMA ring)
 };
 
-// float32: one wave; the pixel ranges of every (slice, tile) pair fill
-// the SMs, in whole stages
+// float32, the cp.async body: one wave; the pixel ranges of every (slice,
+// tile) pair fill the SMs, in whole stages, in at most `most` blocks along
+// the pixels (0: no cap)
 cudaError_t fill(Plan& pl, const void* fn, int threads, long long P,
-                 int& stages) {
+                 int& stages, long long most) {
   int sms = 0, per_sm = 0;
   cudaError_t err = sm90::occupancy(fn, threads, pl.smem, kSmemLimit, sms,
                                     per_sm);
@@ -776,6 +1169,7 @@ cudaError_t fill(Plan& pl, const void* fn, int threads, long long P,
   long long want =
       (long long)sms * per_sm / ((long long)pl.slices * pl.tiles);
   if (want < 1) want = 1;
+  if (most > 0 && want > most) want = most;
   stages = (int)((total + want - 1) / want);
   pl.blocks = (int)((total + stages - 1) / stages);
   pl.cluster = 1;
@@ -877,7 +1271,9 @@ cudaError_t plan_for(Plan& pl) {
                                  : bf16_kernel<BN, false>());
 }
 
-cudaError_t plan_f32(Plan& pl) {
+// the float32 cp.async body's plan (the shapes the TMA body does not
+// take; a misaligned x at the launch, in at most `most` blocks)
+cudaError_t plan_f32_cp_async(Plan& pl, long long most) {
   f32::Params& q = pl.q;
   q.S = q.W < kTP + 2 ? q.W : kTP + 2;
   q.nslots = 2 * q.S + kTP + 2;
@@ -891,9 +1287,92 @@ cudaError_t plan_f32(Plan& pl) {
   pl.slices = (q.CI + kSlice - 1) / kSlice;
   pl.tiles = (q.CO + f32::kBN - 1) / f32::kBN;
   if (pl.slices > 65535 || pl.tiles > 65535) return cudaErrorInvalidValue;
+  pl.tma = 0;
   return fill(pl,
               reinterpret_cast<const void*>(f32::conv3x3_dkernel_tf32_kernel),
-              kThreads, q.P, q.stages);
+              kThreads, q.P, q.stages, most);
+}
+
+// The float32 TMA body's plan, where the shape takes it (Cin a multiple of
+// 4, so that x's rows suit TMA; a stage of one row within 128 padded
+// positions and the ring within shared memory): the rows a stage, the
+// cluster and the blocks that cost least.  For each stage height R and
+// cluster size (8, 4, 2), the clusters the card holds at once bound the
+// blocks of one wave; the cost, in tenths of a k8 step of a stage (27
+// products of 64 x 32), is
+//
+//   10 * stages_a_block * (D / 8 + 1) + partials + 3 * (cluster - 1)
+//
+// a stage's products and its turn-around, the reduction's read of a
+// partial (147 KB), and each further block's share of the cluster's sums.
+// Returns cudaSuccess with pl.tma 0 where the shape does not take it.
+cudaError_t plan_f32_tma(Plan& pl, int B) {
+  f32::WsParams& w = pl.w;
+  pl.tma = 0;
+  const int row = w.W + 2;
+  if (w.CI % 4 != 0 || w.CO % 4 != 0 || row > f32::kWsMaxDepth)
+    return cudaSuccess;
+  const long long pairs = (long long)pl.slices * pl.tiles;
+  const void* fn =
+      reinterpret_cast<const void*>(f32::conv3x3_dkernel_tf32_ws_kernel);
+  long long best = -1;
+  for (int R = f32::kWsMaxDepth / row < w.H ? f32::kWsMaxDepth / row : w.H;
+       R >= 1; --R) {
+    const int D = (R * row + 7) / 8 * 8;
+    const int hrows = (D + 2 * row + 2 + 7) / 8 * 8;
+    const int xslot = 2 * hrows * 128, gslot = 2 * D * f32::kWsN * 4;
+    const int rslot = (R * row * 128 + 1023) / 1024 * 1024;
+    const int ring = 2 * xslot + 2 * rslot + f32::kWsGRing * gslot;
+    const int smem = 2048 + (ring > f32::kWsTileBytes ? ring : f32::kWsTileBytes);
+    if (D > f32::kWsMaxDepth || smem > kSmemLimit) continue;
+    const long long rblocks = (w.H + R - 1) / R;
+    const long long stages = (long long)B * rblocks;
+    if (stages > 0x7fffffffLL) return cudaSuccess;
+    for (int c = kMaxCluster; c >= 2; c /= 2) {
+      // a block of 512 threads takes every register of its SM, so one
+      // query a cluster size serves every stage height
+      int clusters = 0;
+      cudaError_t err = sm90::max_clusters(fn, f32::kWsThreads, kSmemLimit,
+                                           kSmemLimit, c, clusters);
+      if (err != cudaSuccess) return err;
+      if (clusters < 1) continue;
+      long long per_pair = clusters / pairs;
+      if (per_pair < 1) per_pair = 1;
+      const long long spb = (stages + per_pair * c - 1) / (per_pair * c);
+      const long long used = (stages + spb - 1) / spb;
+      const long long blocks = (used + c - 1) / c * c;
+      const long long cost =
+          10 * spb * (D / 8 + 1) + blocks / c + 3 * (c - 1);
+      if (best >= 0 && cost >= best) continue;
+      if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+      best = cost;
+      pl.tma = 1;
+      pl.smem = smem;
+      pl.blocks = (int)blocks;
+      pl.cluster = c;
+      pl.partials = (int)(blocks / c);
+      w.R = R;
+      w.D = D;
+      w.hrows = hrows;
+      w.xslot = xslot;
+      w.rslot = rslot;
+      w.gslot = gslot;
+      w.rblocks = (int)rblocks;
+      w.stages = (int)stages;
+      w.spb = (int)spb;
+    }
+  }
+  return cudaSuccess;
+}
+
+cudaError_t plan_f32(Plan& pl, int B) {
+  pl.bn = f32::kWsN;
+  pl.slices = (pl.w.CI + kSlice - 1) / kSlice;
+  pl.tiles = (pl.w.CO + f32::kWsN - 1) / f32::kWsN;
+  if (pl.slices > 65535 || pl.tiles > 65535) return cudaErrorInvalidValue;
+  cudaError_t err = plan_f32_tma(pl, B);
+  if (err != cudaSuccess || pl.tma) return err;
+  return plan_f32_cp_async(pl, 0);
 }
 
 cudaError_t make_plan(Plan& pl, int B, int H, int W, int CI, int CO,
@@ -904,11 +1383,11 @@ cudaError_t make_plan(Plan& pl, int B, int H, int W, int CI, int CO,
   pl.f32 = f32;
   if (f32) {
     pl.q.P = (long long)B * H * W;
-    pl.q.H = H;
-    pl.q.W = W;
-    pl.q.CI = CI;
-    pl.q.CO = CO;
-    return plan_f32(pl);
+    pl.q.H = pl.w.H = H;
+    pl.q.W = pl.w.W = W;
+    pl.q.CI = pl.w.CI = CI;
+    pl.q.CO = pl.w.CO = CO;
+    return plan_f32(pl, B);
   }
   pl.p.P = (long long)B * H * W;
   pl.p.H = H;
@@ -973,9 +1452,10 @@ cudaError_t launch_bf16(const Plan& pl, cudaStream_t st,
 
 extern "C" {
 
-// The number of partial dKs a call at this shape sums (f32 = 1: the
-// float32 kernel, one a block; 0: bf16, one a cluster of blocks): the
-// caller allocates partials * 9 * Cin * Cout floats of workspace.
+// The number of partial dKs a call at this shape sums (f32 = 1: float32,
+// 0: bf16; one a cluster of blocks, one a block in the float32 cp.async
+// body): the caller allocates partials * 9 * Cin * Cout floats of
+// workspace.
 // Negative: a cudaError_t.
 int cfgan_conv3x3_dkernel_blocks(int B, int H, int W, int Cin, int Cout,
                                  int f32) {
@@ -985,8 +1465,11 @@ int cfgan_conv3x3_dkernel_blocks(int B, int H, int W, int Cin, int Cout,
 }
 
 // The launch plan at this shape, into out[0..5]: blocks along the pixels,
-// blocks a cluster, partial dKs, pixels a block (float32: whole stages),
-// stages in the ring, and 1 where the bf16 shape takes the TMA ring.
+// blocks a cluster, partial dKs, pixels a block, stages in the ring, and 1
+// where the shape takes the TMA body (bf16: the TMA ring); float32 also
+// out[6..8]: image rows a stage of the TMA body (0: the cp.async body),
+// the positions a stage multiplies (padded rows; 128 pixels in the
+// cp.async body) and the tf32 products a fresh accumulator takes.
 // Returns a cudaError_t.
 int cfgan_conv3x3_dkernel_plan(int B, int H, int W, int Cin, int Cout,
                                int f32, int* out) {
@@ -996,9 +1479,23 @@ int cfgan_conv3x3_dkernel_plan(int B, int H, int W, int Cin, int Cout,
   out[0] = pl.blocks;
   out[1] = pl.cluster;
   out[2] = pl.partials;
-  out[3] = f32 ? pl.q.stages * kTP : (int)pl.p.span;
-  out[4] = f32 ? pl.q.nbuf : pl.p.nbuf;
-  out[5] = f32 ? 0 : pl.tma;
+  out[5] = pl.tma;
+  if (!f32) {
+    out[3] = (int)pl.p.span;
+    out[4] = pl.p.nbuf;
+  } else if (pl.tma) {
+    out[3] = pl.w.spb * pl.w.R * W;
+    out[4] = 2;
+    out[6] = pl.w.R;
+    out[7] = pl.w.D;
+    out[8] = f32::kWsChain;
+  } else {
+    out[3] = pl.q.stages * kTP;
+    out[4] = pl.q.nbuf;
+    out[6] = 0;
+    out[7] = kTP;
+    out[8] = 3;
+  }
   return 0;
 }
 
@@ -1049,13 +1546,54 @@ int cfgan_conv3x3_dkernel_f32(const void* x, const void* g, void* part,
   cudaError_t err = make_plan(pl, B, H, W, Cin, Cout, 1);
   if (err != cudaSuccess) return (int)err;
   if (blocks != pl.partials) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(g) % 16 == 0;
+  if (pl.tma && aligned) {
+    f32::WsParams& w = pl.w;
+    w.g = static_cast<const float*>(g);
+    w.part = static_cast<float*>(part);
+    CUtensorMap xmap{}, gmap{};
+    // x's halo boxes (R + 2 rows from h0 - 1, columns -1 ... W) and g's
+    // (R rows, columns 0 ... W + 1), 32 channels each
+    if (!sm90::image_map(xmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, x, B, H,
+                         W, Cin, f32::kWsBox, W + 2, w.R + 2,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B) ||
+        !sm90::image_map(gmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, w.g, B, H,
+                         W, Cout, f32::kWsBox, W + 2, w.R,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B))
+      return (int)cudaErrorInvalidValue;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(pl.blocks, pl.slices, pl.tiles);
+    cfg.blockDim = dim3(f32::kWsThreads, 1, 1);
+    cfg.dynamicSmemBytes = pl.smem;
+    cfg.stream = st;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = pl.cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, f32::conv3x3_dkernel_tf32_ws_kernel, w,
+                             xmap, gmap);
+    if (err != cudaSuccess) return (int)err;
+    return (int)reduce(w.part, static_cast<float*>(dk), pl.partials, Cin,
+                       Cout, st);
+  }
+  // the cp.async body: the shapes the TMA body does not take, and a
+  // misaligned x or g on the TMA plan's workspace (no more blocks than its
+  // partials)
+  if (pl.tma) {
+    err = plan_f32_cp_async(pl, pl.partials);
+    if (err != cudaSuccess) return (int)err;
+  }
   f32::Params& q = pl.q;
   q.x = static_cast<const float*>(x);
   q.g = static_cast<const float*>(g);
   q.part = static_cast<float*>(part);
   q.vec_x = Cin % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   q.vec_g = Cout % 4 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(pl.blocks, pl.slices, pl.tiles);
   f32::conv3x3_dkernel_tf32_kernel<<<grid, kThreads, pl.smem, st>>>(q);
   err = cudaGetLastError();

@@ -556,6 +556,28 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
+// a (B, H, W, C), NHWC, of `bytes`-byte elements as a 4-D tensor for TMA,
+// boxes of `channels` (128 bytes) x `cols` pixels x `rows` rows of one
+// image, 128-byte swizzle; zeros outside (loads), nothing written outside
+// (stores)
+inline bool image_map(CUtensorMap& map, CUtensorMapDataType type, int bytes,
+                      const void* a, int B, int H, int W, int C, int channels,
+                      int cols, int rows, CUtensorMapL2promotion promotion) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)C * bytes,
+                                 (cuuint64_t)W * C * bytes,
+                                 (cuuint64_t)H * W * C * bytes};
+  const cuuint32_t box[4] = {(cuuint32_t)channels, (cuuint32_t)cols,
+                             (cuuint32_t)rows, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return encode(&map, type, 4, const_cast<void*>(a), dims, strides, box,
+                step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, promotion,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
 
 // the current device's SM count, queried once a device
 inline cudaError_t sm_count(int& sms) {

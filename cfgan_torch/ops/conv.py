@@ -10,8 +10,8 @@ version, nine shifted-tap matmuls mirroring `conv3x3_same_matmul`: the CPU
 path, and the yardstick the kernels are held against on the card.
 `conv3x3_same_dkernel` is the wrapper of the weight-gradient kernels
 (`cfgan_torch/csrc/conv3x3_dkernel.cu`, bf16 and 3xTF32 float32 on the
-tensor cores, reading the taps in place; the bf16 one sums its split-K
-partials within thread block clusters first, `dkernel_plan`);
+tensor cores, reading the taps in place; both sum their split-K partials
+within thread block clusters first, `dkernel_plan`);
 `conv3x3_same_dkernel_plain` is its plain version, one product over the
 nine stacked taps.
 `conv3x3_same_pallas` is the differentiable conv, an `autograd.Function`
@@ -156,11 +156,12 @@ def conv3x3_same_dkernel(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     A CPU tensor takes the plain version.  A CUDA bfloat16 or float32 pair
     launches the hand-written kernel (tensor cores, float32 as 3xTF32; f32
     accumulation, the taps read in place) and its reduction, or raises:
-    there is no fallback.  The kernel splits the pixels over blocks; in
-    bf16 the blocks of a cluster (2, 4 or 8) sum their partials through
-    distributed shared memory, one partial a cluster, in float32 each
-    block writes its own; the reduction sums those in a fixed order, so
-    two calls give the same bits.  The workspace holds the partials,
+    there is no fallback.  The kernel splits the pixels over blocks, and
+    the blocks of a cluster (2, 4 or 8) sum their partials through
+    distributed shared memory, one partial a cluster (the float32
+    kernel's cp.async body, kept for the shapes its TMA body does not
+    take, writes one a block); the reduction sums those in a fixed order,
+    so two calls give the same bits.  The workspace holds the partials,
     `dkernel_plan(...)["partials"] * 9 * Cin * Cout` floats: at the
     preset's B=128, 28x28, 64 -> 64 in bf16 on an H100, 66 clusters of 2
     (9.7 MB), where one partial a block took 131 (19.3 MB);
@@ -205,26 +206,36 @@ conv3x3_same_dkernel.last_workspace_floats = 0
 
 _PLAN_KEYS = ("blocks", "cluster", "partials", "pixels_per_block", "ring",
               "tma")
+_F32_PLAN_KEYS = _PLAN_KEYS + ("rows", "depth", "chain")
 
 
 def dkernel_plan(b: int, h: int, w: int, cin: int, cout: int,
                  dtype: torch.dtype = torch.bfloat16) -> dict:
-    """The dK kernel's launch plan at (B, H, W, Cin, Cout) on the current
-    CUDA device: `blocks` along the pixels (the grid's x), `cluster`
-    blocks a cluster (1 in float32), `partials` partial dKs the
-    reduction sums (`blocks / cluster`), `pixels_per_block`, `ring`
-    stages of loads in shared memory, and `tma` (1 where the bf16 shape
-    takes the TMA ring).  Builds the kernels where they are not built;
-    raises where the plan fails."""
+    """The dK kernel's launch plan at (B, H, W, Cin, Cout) and `dtype`
+    (bfloat16 or float32) on the current CUDA device: `blocks` along the
+    pixels (the grid's x), `cluster` blocks a cluster, `partials` partial
+    dKs the reduction sums (`blocks / cluster`), `pixels_per_block`,
+    `ring` stages of loads in shared memory, and `tma` (1 where the shape
+    takes the TMA body: in bf16 the TMA ring, in float32 the
+    warp-specialised body; its cp.async body has clusters of 1).  In
+    float32 also `rows`, the image rows a stage of the TMA body (0 for
+    the cp.async body), `depth`, the positions a stage multiplies (its
+    rows padded by two zero columns each, rounded up to 8), and `chain`,
+    the tf32 products the tensor cores sum into one fresh accumulator
+    before the CUDA cores add it into the tap's sum.  At the launch, an x
+    that is not 16-byte aligned takes the cp.async body whatever `tma`
+    says.  Builds the kernels where they are not built; raises where the
+    plan fails."""
     import ctypes
 
     lib = _build.load_library().lib
-    out = (ctypes.c_int * len(_PLAN_KEYS))()
+    keys = _F32_PLAN_KEYS if dtype == torch.float32 else _PLAN_KEYS
+    out = (ctypes.c_int * len(keys))()
     err = lib.cfgan_conv3x3_dkernel_plan(b, h, w, cin, cout,
                                          int(dtype == torch.float32), out)
     if err != 0:
         raise RuntimeError(f"conv3x3 dK: no launch plan: cudaError {err}")
-    return dict(zip(_PLAN_KEYS, out))
+    return dict(zip(keys, out))
 
 
 _CONV_PLAN_KEYS = ("tma", "cluster", "consumers", "units", "grid", "stages",

@@ -320,6 +320,7 @@ OUR_KERNELS = ("conv3x3_wgmma_ws_kernel", "conv3x3_wgmma_kernel",
                "conv3x3_tf32_ws_kernel", "conv3x3_tf32_ksplit_kernel",
                "conv3x3_tf32_kernel",
                "conv3x3_tf32_split_kernel", "conv3x3_dkernel_wgmma_kernel",
+               "conv3x3_dkernel_tf32_ws_kernel",
                "conv3x3_dkernel_tf32_kernel", "dkernel_reduce_kernel",
                "epilogue_fwd_kernel", "epilogue_bwd_kernel")
 # (B, H, W, Cin, Cout) the conv kernels are held at: the serving layer at
@@ -338,6 +339,17 @@ CONV_SHAPES = (SERVING_SHAPE, (1, 28, 28, 64, 64), (2, 13, 11, 20, 40),
 # blocks, twice the preset's batch
 DK_EDGE_SHAPES = ((5, 28, 28, 64, 64), (1, 5, 5, 64, 64), (1, 3, 5, 64, 64),
                   (256, 28, 28, 64, 64))
+# the float32 dK's plan at its edges (held against its plain version beside
+# CONV_SHAPES and DK_EDGE_SHAPES, float32): the 20x20 preset's layer at
+# B=64, 13 rows in stages of several rows, Cin 132 (a third slice of one
+# 32-channel box), Cout 132 (a fifth 32-wide tile of 4 channels), Cin 20 /
+# Cout 44 (multiples of 4, not of 8), and the cp.async body's shapes: Cin
+# 130, Cout 130 (not multiples of 4) and W 130 (a padded row wider than a
+# stage)
+DK_F32_EDGE_SHAPES = ((64, 20, 20, 64, 64), (128, 13, 11, 64, 64),
+                      (8, 28, 28, 132, 64), (8, 28, 28, 64, 132),
+                      (40, 28, 28, 20, 44), (2, 6, 6, 130, 70),
+                      (4, 13, 11, 20, 130), (2, 4, 130, 64, 64))
 # the bf16 conv's plan at its edges (held against the plain version beside
 # CONV_SHAPES, bf16, forward and dx): the figures' heatmaps (B=8: one tile
 # a block, taps split over the consumers), 2,352 pixels (not a multiple of
@@ -1066,6 +1078,7 @@ def check_dkernel(gen, dev, shape, dtype: str, phase: str) -> float:
     from cfgan_torch.ops.conv import (
         conv3x3_same_dkernel,
         conv3x3_same_dkernel_plain,
+        dkernel_plan,
     )
 
     x, _ = make_conv_inputs(gen, dev, *shape, getattr(torch, dtype))
@@ -1083,6 +1096,7 @@ def check_dkernel(gen, dev, shape, dtype: str, phase: str) -> float:
           and bool(torch.isfinite(got).all()))
     err = (got - ref).abs().max().item()
     emit({"phase": phase, "shape": shape, "dtype": dtype,
+          "plan": dkernel_plan(*shape, getattr(torch, dtype)),
           "max_abs_err": err, "max_tap_rel_err": rel.max().item(),
           "two_calls_equal_bits": same_bits,
           "tolerance": f"per tap: 2-norm of the error <= {DK_RTOL} of the "
@@ -5319,7 +5333,8 @@ def main() -> None:
                   r"_kernel"),
               "dkernel": kernel_ptxas(
                   lib.ptxas_log,
-                  r"conv3x3_dkernel_[a-z0-9]+_kernel|dkernel_reduce_kernel")})
+                  r"conv3x3_dkernel_(?:wgmma|tf32_ws|tf32)_kernel"
+                  r"|dkernel_reduce_kernel")})
         if spills:
             fail(f"a kernel spills registers: {spills}")
 
@@ -5384,6 +5399,10 @@ def main() -> None:
                              for d_ in ("float32", "bfloat16")):
             dk_err[shape, dtype] = check_dkernel(gen, dev, shape, dtype,
                                                  "kernel conv3x3 dK")
+        for shape in DK_F32_EDGE_SHAPES:
+            dk_err[shape, "float32"] = check_dkernel(gen, dev, shape,
+                                                     "float32",
+                                                     "kernel conv3x3 dK")
 
     # ------------------------------------------------------------ serve
     preset = replace(MNIST_COUNTERGAN, conv_impl="pallas")

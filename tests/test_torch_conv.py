@@ -333,6 +333,74 @@ def test_f32_conv_plan_raises_the_librarys_error(monkeypatch):
         tconv.conv_plan(0, 28, 28, 64, 64, dtype=torch.float32)
 
 
+def test_f32_dkernel_plan_asks_the_kernel_library(monkeypatch):
+    """The float32 plan comes from the same entry point with the dtype flag
+    set, read into its nine named ints (the bf16 plan's six, then the TMA
+    body's rows a stage, positions a stage and products a fresh
+    accumulator takes)."""
+    import ctypes
+
+    class Lib:
+        @staticmethod
+        def cfgan_conv3x3_dkernel_plan(b, h, w, cin, cout, f32, out):
+            assert (b, h, w, cin, cout, f32) == (128, 28, 28, 64, 64, 1)
+            for k, v in enumerate((64, 2, 32, 1568, 2, 1, 4, 120, 6)):
+                ctypes.cast(out, ctypes.POINTER(ctypes.c_int))[k] = v
+            return 0
+
+    monkeypatch.setattr(_build, "load_library",
+                        lambda: type("Built", (), {"lib": Lib})())
+    assert tconv.dkernel_plan(128, 28, 28, 64, 64, torch.float32) == {
+        "blocks": 64, "cluster": 2, "partials": 32,
+        "pixels_per_block": 1568, "ring": 2, "tma": 1, "rows": 4,
+        "depth": 120, "chain": 6}
+
+
+def test_f32_dkernel_body_streams_by_tma_in_clusters_without_atomics():
+    """The float32 dK's TMA body: x's halo and g's tile by 4-D TMA boxes on
+    mbarriers, a producer warpgroup whose registers go to the consumers,
+    g split once a stage (rna big, exact small) and x's small part made
+    beside the landed word, m64n32k8 tf32 products with A in registers,
+    clusters whose partials are summed through distributed shared memory;
+    no float atomics, no build switch; the cp.async body kept for the
+    shapes the plan gives it."""
+    src = _build.SOURCES[2].read_text()
+    body = src[src.index("// ------------------------------------------- "
+                         "float32, the TMA body"):
+               src.index("}  // namespace f32")]
+    for call in ("tma_load_4d(", "mbar_wait(", "mbar_expect_tx(",
+                 "mbar_arrive(", "setmaxnreg_dec<", "setmaxnreg_inc<",
+                 "wgmma_3xtf32_n32(", "tf32_rest(", "tf32_split(",
+                 "cluster_sync("):
+        assert f"sm90::{call}" in body, call
+    assert "reduce_share<kWsN" in body
+    assert "conv3x3_dkernel_tf32_ws_kernel" in body
+    assert "conv3x3_dkernel_tf32_kernel" in src  # the cp.async body
+    assert "plan_f32_cp_async(" in src and "plan_f32_tma(" in src
+    assert not re.search(r"#\s*if(?:n?def)?\s+CFGAN_", src)
+    for text in (body, src):
+        assert "atomicAdd" not in text
+        assert not re.search(r"\b(red|atom)\.", text)
+
+
+def test_f32_dkernel_probe_variants_are_edits_of_one_design(tmp_path):
+    """The float32 dK's probe builds its chain variants and ablations from
+    edited copies of the one source (tools/dkernel_f32_probe.py): the
+    kernel's own turns are what its generator writes for six products a
+    fresh accumulator, and every other edit finds its text exactly once
+    and changes it."""
+    from tools import dkernel_f32_probe as probe
+
+    src = _build.SOURCES[2].read_text()
+    assert probe.chain_edits("chain", src) == []
+    assert "out[8] = f32::kWsChain;" in src
+    assert "constexpr int kWsChain = 6;" in src
+    for name, edits in probe.variants({"chain", "ablate"}).items():
+        tree = probe.edited_tree(tmp_path, name, edits)
+        text = (tree / "cfgan_torch" / "csrc" / probe.SOURCE).read_text()
+        assert (text == src) == (not edits), name
+
+
 def test_f32_body_streams_halos_and_k_by_tma_without_float_atomics():
     """The float32 conv's TMA body: its halos come by 4-D TMA boxes and K's
     taps by a TMA multicast over the cluster, on mbarriers (empty slots

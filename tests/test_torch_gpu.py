@@ -331,9 +331,9 @@ def test_dkernel_workspace_is_the_plans_partials(shape, dtype):
     assert plan["partials"] == plan["blocks"] // plan["cluster"]
     assert tconv.conv3x3_same_dkernel.last_workspace_floats == (
         plan["partials"] * 9 * cin * cout)
-    if dt == torch.float32:
-        assert plan["cluster"] == 1
-    elif shape == (128, 28, 28, 64, 64):  # the preset's layer: clusters
+    if dt == torch.float32:  # clusters in the TMA body, one a block else
+        assert (plan["cluster"] > 1) == (plan["tma"] == 1)
+    if shape == (128, 28, 28, 64, 64):  # the preset's layer: clusters
         assert plan["cluster"] > 1 and plan["tma"] == 1
 
 
@@ -441,12 +441,22 @@ def test_tf32_matmul_misses_the_f32_relative_bar():
     assert _row_rel_err(got, ref) <= 1e-5
 
 
-@pytest.mark.parametrize("shape", SHAPES, ids=str)
+# the float32 dK's plan at its edges beyond SHAPES (which hold B=1 at
+# 28x28 over clusters, 20x20 B=64, 13x11 rows in stages of several rows, a
+# cluster with fewer stage ranges than blocks, Cin 96 and 130, Cout 36, 44
+# and 130, and shapes that take the cp.async body): Cin 132 (a third slice
+# of one 32-channel box), Cout 132 (a fifth 32-wide tile of 4 channels),
+# and W 130 (a row wider than a stage: the cp.async body)
+F32_DK_EDGES = [(8, 28, 28, 132, 64), (8, 28, 28, 64, 132),
+                (2, 4, 130, 64, 64)]
+
+
+@pytest.mark.parametrize("shape", SHAPES + F32_DK_EDGES, ids=str)
 def test_f32_dkernel_matches_plain_with_equal_bits(shape):
     """float32 x and cotangent (3xTF32): each tap's (Cin, Cout) block within
     1e-5 of its 2-norm of the plain version in full float32 (sums of up to
-    B*H*W = 100,352 products in another order, each stage's products summed
-    apart on the tensor cores); two calls give the same bits."""
+    B*H*W = 100,352 products in another order, every six products of a tap
+    summed apart on the tensor cores); two calls give the same bits."""
     dev = _card()
     b, h, w, cin, cout = shape
     x, _ = _inputs(shape, torch.float32, dev, seed=3)
@@ -461,6 +471,119 @@ def test_f32_dkernel_matches_plain_with_equal_bits(shape):
     ref = tconv.conv3x3_same_dkernel_plain(x, g)
     err = (got - ref).reshape(9, -1).norm(dim=1)
     assert bool((err <= 1e-5 * ref.reshape(9, -1).norm(dim=1) + 1e-6).all())
+
+
+@pytest.mark.parametrize("shape,tma", [
+    ((128, 28, 28, 64, 64), 1), ((1, 28, 28, 64, 64), 1),
+    ((64, 20, 20, 64, 64), 1), ((128, 13, 11, 64, 64), 1),
+    ((2, 6, 6, 130, 70), 0), ((4, 13, 11, 20, 130), 0),
+    ((2, 4, 130, 64, 64), 0)], ids=str)
+def test_f32_dkernel_plan_picks_its_body_by_shape(shape, tma):
+    """The float32 plan takes the TMA body where Cin and Cout are multiples
+    of 4 and a padded row fits a stage (W + 2 <= 128), else the cp.async
+    body: by shape, before any launch.  The TMA body's stages are whole
+    padded rows (depth R (W + 2) rounded up to 8, at most 128), its
+    clusters hold 2-8 blocks, and B=1 at 28x28 spreads over at least 28
+    blocks."""
+    _card()
+    plan = tconv.dkernel_plan(*shape, torch.float32)
+    assert plan["tma"] == tma
+    if tma:
+        b, h, w = shape[:3]
+        assert 1 <= plan["rows"] <= h
+        assert plan["depth"] == -(-plan["rows"] * (w + 2) // 8) * 8 <= 128
+        assert plan["cluster"] in (2, 4, 8) and plan["chain"] == 6
+        assert plan["partials"] * plan["cluster"] == plan["blocks"]
+        if b == 1:
+            assert plan["blocks"] >= 28
+    else:
+        assert plan["cluster"] == 1 and plan["rows"] == 0
+
+
+def test_f32_dkernel_misaligned_inputs_take_the_cp_async_body():
+    """An x or g that is not 16-byte aligned cannot be read by TMA: the
+    launch takes the cp.async body on the TMA plan's workspace (no more
+    blocks than its partials) and gives the plain version's dK."""
+    dev = _card()
+    shape = (8, 28, 28, 64, 64)
+    assert tconv.dkernel_plan(*shape, torch.float32)["tma"] == 1
+    b, h, w, cin, cout = shape
+    n = b * h * w * cin
+    gen = torch.Generator().manual_seed(5)
+    buf = torch.randn(n + 1, generator=gen).to(dev)
+    x = buf[1:].view(b, h, w, cin)  # 4 bytes past an aligned start
+    g = torch.randn((b, h, w, cout), generator=gen).to(dev)
+    for xx, gg in ((x, g), (x.clone(), buf[1:].view(b, h, w, cout))):
+        got = tconv.conv3x3_same_dkernel(xx, gg)
+        again = tconv.conv3x3_same_dkernel(xx, gg)
+        ref = tconv.conv3x3_same_dkernel_plain(xx, gg)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        err = (got - ref).reshape(9, -1).norm(dim=1)
+        assert bool((err <= 1e-5 * ref.reshape(9, -1).norm(dim=1)
+                     + 1e-6).all())
+
+
+def _cancelling_dk_inputs(shape, dev):
+    """x with a constant offset of 8 and a cotangent whose pixels nearly
+    cancel (one (Cout,) pattern, + in the image's top half of rows and -
+    in its bottom half, plus 1e-3 of noise): each dK entry is a sum of
+    partial sums (a stage's, a block's, a cluster's) much larger than
+    itself, where an accumulator that truncates loses the most."""
+    b, h, w, cin, cout = shape
+    g = torch.Generator().manual_seed(21)
+    x = torch.randn((b, h, w, cin), generator=g) + 8.0
+    base = torch.randn((cout,), generator=g)
+    sign = torch.where(torch.arange(h) < h // 2, 1.0, -1.0).reshape(1, h, 1, 1)
+    cot = sign * base + 1e-3 * torch.randn((b, h, w, cout), generator=g)
+    return x.to(dev), cot.to(dev)
+
+
+def _dkernel_f64(x, g):
+    """dK[dy, dx] = tap(x, dy, dx)^T @ g in float64 on the card."""
+    import torch.nn.functional as F
+
+    b, h, w, cin = x.shape
+    xp = F.pad(x.double(), (0, 0, 1, 1, 1, 1))
+    gm = g.double().reshape(-1, g.shape[-1])
+    return torch.stack([xp[:, dy:dy + h, dx:dx + w, :].reshape(-1, cin).T @ gm
+                        for dy in range(3) for dx in range(3)]
+                       ).reshape(3, 3, cin, g.shape[-1])
+
+
+def _dk_errors(got, ref):
+    """(max abs error, the largest tap's 2-norm error over its 2-norm)."""
+    d = got.double() - ref
+    return (d.abs().max().item(),
+            (d.reshape(9, -1).norm(dim=1) / ref.reshape(9, -1).norm(dim=1)
+             ).max().item())
+
+
+# the float32 dK's parent design (the cp.async body: each k8 step's three
+# products of a tap into a fresh accumulator) on _cancelling_dk_inputs
+# against the float64 dK, (max abs, max tap rel), at the step's shape and
+# the 20x20 preset's: measured on an NVIDIA H100 80GB HBM3 at 700 W by
+# `tools/dkernel_f32_probe.py --parts chain` (its "parent" lines)
+PARENT_DK_CANCELLING_ERR = {(128, 28, 28, 64, 64): (0.03966, 1.270e-05),
+                            (128, 20, 20, 64, 64): (0.01326, 6.10e-06)}
+
+
+@pytest.mark.parametrize("shape", sorted(PARENT_DK_CANCELLING_ERR), ids=str)
+def test_f32_dkernel_holds_cancelling_sums(shape):
+    """The tensor cores truncate as they add, so the float32 dK sums a
+    tap's products into a fresh accumulator every few products: on
+    cotangents whose pixels nearly cancel, its error against the float64
+    dK is at most twice the parent design's on the same inputs
+    (PARENT_DK_CANCELLING_ERR, measured on the card with the parent's
+    kernel)."""
+    dev = _card()
+    x, g = _cancelling_dk_inputs(shape, dev)
+    got = tconv.conv3x3_same_dkernel(x, g)
+    ref = _dkernel_f64(x, g)
+    torch.cuda.synchronize()
+    err, tap = _dk_errors(got, ref)
+    abs_bar, tap_bar = PARENT_DK_CANCELLING_ERR[shape]
+    assert err <= 2 * abs_bar and tap <= 2 * tap_bar, (err, tap)
 
 
 def test_dkernel_wrapper_rejects_what_the_kernel_does_not_take():

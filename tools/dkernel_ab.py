@@ -8,7 +8,10 @@ DIR is another checkout of this repository, for example the parent commit
 unpacked with `git archive` into a directory that `.gitignore` lists.  Each
 tree's `conv3x3_dkernel.cu` is built alone into `build/dkernel_ab/` of this
 checkout (`tools/ab_common.py`); each is called with its own launch plan
-and workspace.  Both take the same inputs, made from a seed.
+and workspace.  Both take the same inputs, made from a seed.  A first line
+compares the two builds' bf16 kernels and the reduction's SASS
+(`cuobjdump -sass`, normalised: `ab_common.sass`) and gives each float32
+kernel's ptxas registers and spills.
 
 At each shape, bf16 and float32:
 - each kernel against the plain dK (`conv3x3_same_dkernel_plain`): each
@@ -42,8 +45,11 @@ sys.path.insert(0, str(ROOT))
 BF16_SHAPES = ((128, 28, 28, 64, 64), (64, 28, 28, 64, 64),
                (32, 28, 28, 64, 64), (1, 28, 28, 64, 64),
                (128, 20, 20, 64, 64), (64, 20, 20, 64, 64))
-F32_SHAPES = ((128, 28, 28, 64, 64), (1, 28, 28, 64, 64),
+F32_SHAPES = ((128, 28, 28, 64, 64), (64, 28, 28, 64, 64),
+              (32, 28, 28, 64, 64), (1, 28, 28, 64, 64),
               (128, 20, 20, 64, 64), (64, 20, 20, 64, 64))
+# the kernels whose SASS the float32 redesign leaves as it was
+BF16_KERNELS = r"conv3x3_dkernel_wgmma_kernel|dkernel_reduce_kernel"
 ENTRY_POINTS = ("cfgan_conv3x3_dkernel_blocks", "cfgan_conv3x3_dkernel_bf16",
                 "cfgan_conv3x3_dkernel_f32")
 
@@ -96,10 +102,19 @@ def main() -> None:
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    libs = {name: lib for name, (lib, _) in ab.build(
-        {"parent": args.parent.resolve(), "change": ROOT},
-        "conv3x3_dkernel.cu", ROOT / "build" / "dkernel_ab",
-        ENTRY_POINTS).items()}
+    out_dir = ROOT / "build" / "dkernel_ab"
+    built = ab.build({"parent": args.parent.resolve(), "change": ROOT},
+                     "conv3x3_dkernel.cu", out_dir, ENTRY_POINTS)
+    libs = {name: lib for name, (lib, _) in built.items()}
+    sass = {name: ab.sass(out_dir / f"lib{name}.so", BF16_KERNELS)
+            for name in built}
+    emit({"build": {name: cs.kernel_ptxas(
+                        log, r"conv3x3_dkernel_tf32(?:_ws)?_kernel")
+                    for name, (_, log) in built.items()},
+          "bf16_sass_equal": {
+              name: code == sass["parent"].get(name)
+              for name, code in sass["change"].items()},
+          "bf16_sass_kernels": {name: len(k) for name, k in sass.items()}})
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(cs.SEED)
     for dtype, shapes in (("bfloat16", BF16_SHAPES), ("float32", F32_SHAPES)):
