@@ -7,14 +7,13 @@ from cfgan_torch.core.config import (
     ExperimentConfig,
     GANConfig,
 )
+from cfgan_torch.core.rng import RngStream
 
-# `cfgan.core.RngStream` derives JAX keys and has no counterpart here:
-# `cfgan_torch.data.pipeline.stream_seed` plays its part, seeding a
-# `torch.Generator` per stream (ROADMAP A17).
 __all__ = [
     "ClassifierConfig",
     "CounterGANConfig",
     "DataConfig",
     "ExperimentConfig",
     "GANConfig",
+    "RngStream",
 ]

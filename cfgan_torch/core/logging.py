@@ -1,14 +1,19 @@
-"""Training metrics fanned out to a history, a JSONL file and stdout
-(mirrors `cfgan/core/logging.py::MetricLogger`).
+"""Training metrics fanned out to a history, a JSONL file and stdout, and
+the directory the port's compiled libraries live in (mirrors
+`cfgan/core/logging.py`).
 
-The JAX package's `setup_compile_cache` sets JAX's compile cache and has
-no counterpart here.
+`setup_compile_cache` is the counterpart of the JAX package's persistent
+XLA cache: the directory where `cfgan_torch/ops/_build.py` builds and
+loads the CUDA kernel library and `cfgan_torch/native` the C++ data
+library.  A process loads each library once, from one directory.
 """
 from __future__ import annotations
 
 import json
 import os
+import threading
 import time
+from pathlib import Path
 from typing import Any, Mapping
 
 import numpy as np
@@ -58,3 +63,59 @@ class MetricLogger:
         if self._fh is not None:
             self._fh.close()
             self._fh = None
+
+
+#: where the libraries are built without an argument or CFGAN_TORCH_CACHE:
+#: `build/cfgan_torch/` at the root of the checkout (listed in .gitignore)
+DEFAULT_CACHE_DIR = Path(__file__).resolve().parents[2] / "build" / "cfgan_torch"
+CACHE_ENV = "CFGAN_TORCH_CACHE"
+
+_cache_lock = threading.Lock()
+_cache_dir: Path | None = None  # chosen by setup_compile_cache
+_pinned: Path | None = None  # a library was loaded from it
+
+
+def _resolve(cache_dir: str | os.PathLike | None) -> Path:
+    return Path(cache_dir or os.environ.get(CACHE_ENV)
+                or DEFAULT_CACHE_DIR).expanduser().absolute()
+
+
+def setup_compile_cache(cache_dir: str | os.PathLike | None = None) -> str:
+    """Choose the directory the port's libraries are built into and
+    loaded from: `cache_dir`, else `$CFGAN_TORCH_CACHE`, else
+    `DEFAULT_CACHE_DIR`.  Creates it and returns it.  Raises RuntimeError
+    where a library of this process was already loaded from another
+    directory: a process never loads a second copy.  Called by the
+    experiment mains."""
+    global _cache_dir
+    path = _resolve(cache_dir)
+    with _cache_lock:
+        if _pinned is not None and path != _pinned:
+            raise RuntimeError(
+                f"the port's libraries were loaded from {_pinned}; this "
+                f"process cannot switch its compile cache to {path}")
+        path.mkdir(parents=True, exist_ok=True)
+        _cache_dir = path
+    return str(path)
+
+
+def compile_cache_dir() -> Path:
+    """The directory a library is built into: the one a library was loaded
+    from, else the one `setup_compile_cache` chose, else where it would
+    resolve without an argument."""
+    with _cache_lock:
+        return _pinned or _cache_dir or _resolve(None)
+
+
+def pin_compile_cache(path: Path) -> None:
+    """Record that a library was loaded from `path`; later calls of
+    `setup_compile_cache` must name it.  Raises RuntimeError where a
+    library was loaded from another directory."""
+    global _pinned
+    path = Path(path).absolute()
+    with _cache_lock:
+        if _pinned is not None and path != _pinned:
+            raise RuntimeError(
+                f"a library was loaded from {_pinned}; another from {path} "
+                "would be a second compile cache in one process")
+        _pinned = path

@@ -13,6 +13,11 @@ the JAX package's corpus bit for bit.  A generated corpus is cached as
 `.npz` under `cache_dir` (default: `build/cfgan_torch/data/` at the root
 of the checkout).
 
+IDX files are decoded and uint8 images normalised by the port's C++ data
+library (`cfgan_torch.native`, built with g++ at first use), as the JAX
+package does through `cfgan/native`; `_read_idx_plain` and
+`normalize_plain` are the numpy versions.
+
 Splits mirror `mnist/data_utils.py:6-32`: a stratified train/valid split
 of the train set (scikit-learn's `StratifiedShuffleSplit`, redone in
 numpy: same indices from the same seed), and the test set; images NHWC
@@ -28,6 +33,8 @@ from pathlib import Path
 
 import numpy as np
 
+from cfgan_torch import native
+
 TRAIN_N = 60000
 TEST_N = 10000
 GLYPHS = Path(__file__).resolve().parent / "glyphs.npz"
@@ -36,6 +43,14 @@ CACHE_DIR = Path(__file__).resolve().parents[2] / "build" / "cfgan_torch" / "dat
 
 # ---------------------------------------------------------------- real MNIST
 def _read_idx(path: str) -> np.ndarray:
+    """An IDX file's uint8 array: the native decoder, or the Python one
+    for what it declines (a `.gz` file)."""
+    fast = native.read_idx(path)
+    return fast if fast is not None else _read_idx_plain(path)
+
+
+def _read_idx_plain(path: str) -> np.ndarray:
+    """The Python IDX decoder (plain or gzipped)."""
     opener = gzip.open if path.endswith(".gz") else open
     with opener(path, "rb") as f:
         magic = struct.unpack(">I", f.read(4))[0]
@@ -283,7 +298,12 @@ _LUT = ((np.arange(256, dtype=np.float32) / 255.0) - 0.5) / 0.5
 
 def normalize(x: np.ndarray) -> np.ndarray:
     """uint8 (n, 28, 28) -> float32 (n, 28, 28, 1) in [-1, 1], rounded as
-    ((x / 255) - 0.5) / 0.5 in float32."""
+    ((x / 255) - 0.5) / 0.5 in float32, by the native normaliser."""
+    return native.normalize_u8(x, 0.5, 0.5).reshape(x.shape[0], 28, 28, 1)
+
+
+def normalize_plain(x: np.ndarray) -> np.ndarray:
+    """`normalize` through a numpy table of the 256 values."""
     return _LUT[x].reshape(x.shape[0], 28, 28, 1)
 
 

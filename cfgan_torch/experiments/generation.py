@@ -31,6 +31,7 @@ from cfgan_torch.convert import flax_from_state_dict, state_dict_from_flax
 from cfgan_torch.core import checkpoint as ckpt
 from cfgan_torch.core.config import ExperimentConfig
 from cfgan_torch.core.device import resolve_device
+from cfgan_torch.core.logging import setup_compile_cache
 from cfgan_torch.data.pipeline import epoch_perm
 from cfgan_torch.data.registry import load_dataset
 from cfgan_torch.eval.samples import (
@@ -173,6 +174,7 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
+    setup_compile_cache()  # where the kernel and data libraries build
     run(args.preset, epochs=args.epochs, limit=args.limit,
         out_dir=args.out_dir, seed=args.seed, device=args.device)
 

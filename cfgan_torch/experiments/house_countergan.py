@@ -40,6 +40,7 @@ import torch
 from cfgan_torch.convert import flax_from_state_dict, state_dict_from_flax
 from cfgan_torch.core import checkpoint as ckpt
 from cfgan_torch.core.device import resolve_device
+from cfgan_torch.core.logging import setup_compile_cache
 from cfgan_torch.core.provenance import (
     clear_stale,
     serving_candidate_of,
@@ -301,6 +302,7 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
+    setup_compile_cache()  # where the kernel and data libraries build
     cfg = PRESETS[args.preset]
     if args.seed is not None:
         cfg = cfg.replace(seed=args.seed)

@@ -47,6 +47,7 @@ import torch
 from cfgan_torch.convert import flax_from_state_dict, state_dict_from_flax
 from cfgan_torch.core import checkpoint as ckpt
 from cfgan_torch.core.device import resolve_device
+from cfgan_torch.core.logging import setup_compile_cache
 from cfgan_torch.core.provenance import clear_stale, write_run_provenance
 from cfgan_torch.data.mnist import load_mnist
 from cfgan_torch.data.pipeline import stream_seed
@@ -305,6 +306,7 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
+    setup_compile_cache()  # where the kernel and data libraries build
     cfg = MNIST_COUNTERGAN_LEGACY if args.legacy else MNIST_COUNTERGAN
     if args.epochs is not None:
         cfg = cfg.replace(countergan=replace(cfg.countergan,

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from cfgan_torch.core.device import resolve_device
+from cfgan_torch.core.logging import setup_compile_cache
 from cfgan_torch.data.mnist import load_mnist
 from cfgan_torch.eval.samples import save_image_grid
 from cfgan_torch.experiments.mnist_countergan import run
@@ -51,6 +52,7 @@ def main(argv=None, log=print) -> dict:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
+    setup_compile_cache()  # where the kernel and data libraries build
     if not 0 <= args.target <= 9:
         ap.error("--target must be in 0..9")
     dev = resolve_device(args.device)

@@ -1,9 +1,11 @@
 """Build the port's CUDA sources with plain `nvcc` and load them with ctypes.
 
 At first use in a process, one `nvcc -c` for each source in `SOURCES`, all
-started together, compiles it to an object file under `build/cfgan_torch/`
-at the root of the checkout; one more `nvcc` links them into one shared
-library with a plain C interface, and `ctypes` loads it.  No PyTorch header
+started together, compiles it to an object file in the compile cache
+(`cfgan_torch.core.logging.setup_compile_cache`; by default
+`build/cfgan_torch/` at the root of the checkout); one more `nvcc` links
+them into one shared library with a plain C interface, and `ctypes` loads
+it.  No PyTorch header
 is included, so the build takes seconds.  The `-Xptxas -v` report
 (registers, shared memory and spills of each kernel) is kept on the
 returned object.
@@ -19,10 +21,11 @@ import time
 from dataclasses import dataclass
 from pathlib import Path
 
+from cfgan_torch.core.logging import compile_cache_dir, pin_compile_cache
+
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = (_PKG / "csrc" / "conv3x3.cu", _PKG / "csrc" / "epilogue.cu",
            _PKG / "csrc" / "conv3x3_dkernel.cu")
-BUILD_DIR = _PKG.parent / "build" / "cfgan_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
@@ -81,6 +84,7 @@ def _nvcc() -> str:
 
 
 def _load(path: Path, seconds: float, log: str) -> KernelLibrary:
+    pin_compile_cache(path.parent)
     lib = ctypes.CDLL(str(path))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
@@ -90,11 +94,12 @@ def _load(path: Path, seconds: float, log: str) -> KernelLibrary:
 
 
 def _build() -> KernelLibrary:
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = BUILD_DIR / "libcfgan_kernels.so"
+    build_dir = compile_cache_dir()
+    build_dir.mkdir(parents=True, exist_ok=True)
+    out = build_dir / "libcfgan_kernels.so"
     tag = os.getpid()
-    tmp = BUILD_DIR / f".libcfgan_kernels.{tag}.so"
-    objs = [BUILD_DIR / f".{src.stem}.{tag}.o" for src in SOURCES]
+    tmp = build_dir / f".libcfgan_kernels.{tag}.so"
+    objs = [build_dir / f".{src.stem}.{tag}.o" for src in SOURCES]
     nvcc = _nvcc()
     t0 = time.perf_counter()
     compiles = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,

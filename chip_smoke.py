@@ -46,7 +46,20 @@ Then it trains end to end:
   forward and one backward; with the conv kernel 26 conv and 13 dK
   launches); the replays run with `torch.cuda.set_sync_debug_mode
   ("error")`; replayed and eager steps are timed in turns, the eager
-  step's device time read from a trace of 6;
+  step's device time read from a trace of 3;
+- `pipeline`: the same preset with `conv_impl="pallas"` at batch 128, 24
+  eager steps fed by `DevicePrefetcher` (two copies in flight, pinned
+  host buffers, a copy stream of its own) from a shuffled `HostIterator`
+  over the train split, equal bit for bit (batches, metrics, parameters,
+  statistics, Adam) to the same steps on the split held on the card
+  (`device_put_dataset`) and gathered by index; the wrappers' launches
+  (26 conv, 13 dK, 1 + 1 epilogue a step) and a profiler trace's (13 dK
+  reductions too); the trace's batch copies all pinned, on one stream no
+  kernel runs on; at most buffer_size + 1 pinned buffers an array, none
+  a batch; both feeds' steps timed in turns with their device idle
+  share; the native normaliser on
+  the 60,000 train images and the native IDX reader on
+  `tests/fixtures/mnist_idx` against their plain versions, host ms;
 - `experiment`: `cfgan_torch.experiments.mnist_countergan.run` at full
   width (12,800 images, 2 classifier epochs, 4 GAN epochs, snapshot
   selection every 2) into a scratch directory under `build/`, then again
@@ -191,7 +204,8 @@ at 64x64 with 64 hidden, WGAN-GP at size 1024, 23.6M + 14.3M):
 - `gan epoch runner`: DCGAN and WGAN-GP at batch 128, an epoch of 10
   replayed steps against eager steps in turns, device busy ms and idle
   share, the longest device entries and the device records a replayed
-  step in three profiler traces (the largest count); WGAN-GP's
+  step in up to three profiler traces (the largest count; the tracing
+  stops once two agree); WGAN-GP's
   critic-only step, its critic + G step and its five-step cycle timed
   apart, and the gradient penalty's share of the critic-only step;
 - `generation`: `cfgan_torch.experiments.generation.run` of each preset
@@ -259,11 +273,12 @@ cuDNN's convs and with the kernels, f32 with the kernels), and the
 epilogue kernels at the house step's (128, 17) rows, the moons step's
 (64, 2) rows and the micro-batched step's (64, 784) and (32, 784).
 
-    python3 chip_smoke.py --phases "custom shapes,examples,figures,apps,sharded"
+    python3 chip_smoke.py --phases "pipeline,custom shapes,examples,figures,apps,sharded"
 
 builds the kernels and runs only the named phases (those that need
-nothing of the others'), for iterating by hand; its last line says which
-ran.
+nothing of the others'; `pipeline` alone loads the corpus and makes a
+random classifier itself), for iterating by hand; its last line says
+which ran.
 
     python3 chip_smoke.py --train-timing-only
 
@@ -433,7 +448,9 @@ RUNNER_STEPS = 24
 # the eager steps a profiler trace reads the eager step's device time
 # from: each holds ~1,000 kernels and their host ops, and a trace is read
 # back slowly
-EAGER_PROFILE_STEPS = 6
+EAGER_PROFILE_STEPS = 3
+# the eager steps a profiler trace of `timing train` holds
+TIMING_PROFILE_STEPS = 3
 # each replayed step's launches of our kernels, by the profiler: the
 # epilogue forward and backward once; with conv_impl="pallas" 13 conv
 # launches forward and 13 for dx (the bf16 conv's TMA body), and 13 dK
@@ -445,6 +462,19 @@ REPLAY_LAUNCHES = {
                "conv3x3_dkernel_wgmma_kernel": 13,
                "dkernel_reduce_kernel": 13}}
 PROFILE_TRIES = 3
+# the `pipeline` phase: PIPELINE_STEPS eager steps of the preset with the
+# conv kernel at batch 128 fed by `DevicePrefetcher` (buffer 2) from a
+# `HostIterator` over the train split (shuffled from PIPELINE_SEED,
+# drop_last), bit for bit the same steps on the device-resident split
+# gathered by index; PIPELINE_TIMED steps of each feed a turn, in
+# PIPELINE_TURNS turns; a profiler trace of PIPELINE_TRACED steps of each
+PIPELINE_STEPS = 24
+PIPELINE_TIMED = 8
+PIPELINE_TURNS = 3
+PIPELINE_TRACED = 3
+PIPELINE_SEED = 1
+PIPELINE_BUFFER = 2
+IDX_FIXTURE = HERE / "tests" / "fixtures" / "mnist_idx"
 # the experiment phase: the shipped preset at full width on the first
 # EXPERIMENT_LIMIT synthetic images (11,520 train, 90 steps an epoch)
 EXPERIMENT_LIMIT = 12800
@@ -796,6 +826,23 @@ def host_ms(fn, iters: int, warmup: int = 3) -> list[float]:
     return times
 
 
+def _dev_us(ev) -> float:
+    return getattr(ev, "self_device_time_total",
+                   getattr(ev, "self_cuda_time_total", 0.0))
+
+
+def device_events(prof) -> list:
+    """A profiler's averaged device-side events: a CPU op's entry repeats
+    its kernels' time, and so does a user annotation's range on the
+    device (the optimizer's, a scheduled trace's step)."""
+    from torch.autograd import DeviceType
+
+    return [ev for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA and _dev_us(ev) > 0
+            and not getattr(ev, "is_user_annotation", False)
+            and not ev.key.startswith("ProfilerStep")]
+
+
 def device_time(fn, iters: int, top: int = 5, match: tuple = ()):
     """(device ms per call, [(kernel, ms per call, launches per call)] of
     the `top` longest kernels, {name: (ms per call, launches per call)} of
@@ -803,12 +850,7 @@ def device_time(fn, iters: int, top: int = 5, match: tuple = ()):
     trace of `iters` calls of `fn`, counting device-side kernel events
     only; (None, [], {}) where the trace holds no device time."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    def dev_us(ev):
-        return getattr(ev, "self_device_time_total",
-                       getattr(ev, "self_cuda_time_total", 0.0))
 
     fn()
     torch.cuda.synchronize()
@@ -818,24 +860,19 @@ def device_time(fn, iters: int, top: int = 5, match: tuple = ()):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        # device-side events only: a CPU op's entry repeats its kernels'
-        # time, and so does a user annotation's range on the device (the
-        # optimizer's)
-        events = [ev for ev in prof.key_averages()
-                  if ev.device_type == DeviceType.CUDA and dev_us(ev) > 0
-                  and not getattr(ev, "is_user_annotation", False)]
+        events = device_events(prof)
         if events:
             break
     if not events:
         return None, [], {}
-    events.sort(key=dev_us, reverse=True)
-    longest = [(ev.key[:80], dev_us(ev) / 1e3 / iters, ev.count / iters)
+    events.sort(key=_dev_us, reverse=True)
+    longest = [(ev.key[:80], _dev_us(ev) / 1e3 / iters, ev.count / iters)
                for ev in events[:top]]
-    matched = {m: (sum(dev_us(ev) for ev in events if m in ev.key)
+    matched = {m: (sum(_dev_us(ev) for ev in events if m in ev.key)
                    / 1e3 / iters,
                    sum(ev.count for ev in events if m in ev.key) / iters)
                for m in match}
-    return sum(dev_us(ev) for ev in events) / 1e3 / iters, longest, matched
+    return sum(_dev_us(ev) for ev in events) / 1e3 / iters, longest, matched
 
 
 def conv_bound(b, h, w, cin, cout, dtype: str):
@@ -1293,7 +1330,8 @@ TIMED_STEPS = (("bfloat16", None), ("bfloat16", "pallas"),
 
 def time_train_steps(card: str, dev, clf_sd: dict, train_x, train_y) -> None:
     """Wall time (20 steps after 3 of warm-up, each ending in a
-    synchronize) and profiler device time (5 steps) of the preset's train
+    synchronize) and profiler device time (TIMING_PROFILE_STEPS steps) of
+    the preset's train
     step at each of TIMED_STEPS, on the batches train_x[j], train_y[j]:
     one line each, with our kernels' device ms and launches per step."""
     import torch
@@ -1314,7 +1352,8 @@ def time_train_steps(card: str, dev, clf_sd: dict, train_x, train_y) -> None:
 
         lat = host_ms(step, 20)
         median = statistics.median(lat)
-        busy_ms, top, ours = device_time(step, 5, top=8, match=OUR_KERNELS)
+        busy_ms, top, ours = device_time(step, TIMING_PROFILE_STEPS, top=8,
+                                         match=OUR_KERNELS)
         emit({"phase": "timing", "what": "train step", "card": card,
               "conv_impl": impl, "dtype": dtype,
               "batch": TRAIN_BATCH, "median_ms": median,
@@ -1515,6 +1554,265 @@ def runner_phase(card: str, dev, clf_sd: dict, x, y, counts,
             "device_time_by_kernel_ms_per_epoch": top, "ok": True})
         emit(report)
     torch.backends.cudnn.deterministic = False
+
+
+def _trace_copies(prof, sizes: set) -> dict:
+    """From a profiler's chrome trace: the host-to-device copies of
+    `sizes` bytes (their names and CUDA streams), the streams the kernels
+    ran on, and the runtime's cudaHostAlloc calls."""
+    import os
+    import tempfile
+
+    (HERE / "build").mkdir(exist_ok=True)
+    fd, path = tempfile.mkstemp(suffix=".json", dir=HERE / "build")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.unlink(path)
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"
+              and e.get("args", {}).get("bytes") in sizes]
+    return {"copies": len(copies),
+            "copy_names": sorted({e["name"] for e in copies}),
+            "copy_streams": sorted({e["args"]["stream"] for e in copies}),
+            "kernel_streams": sorted({e["args"]["stream"] for e in events
+                                      if e.get("cat") == "kernel"}),
+            "cudaHostAlloc_calls": sum(e.get("name", "").startswith(
+                "cudaHostAlloc") for e in events)}
+
+
+def pipeline_phase(card: str, dev, counts, zero_counts, clf_sd=None,
+                   data=None) -> None:
+    """The MNIST preset's pallas step (bf16, batch 128, 64 channels) fed by
+    `DevicePrefetcher` from a `HostIterator` over the train split, against
+    the same steps on the split held on the card (`device_put_dataset`,
+    batches by `index_select` as the epoch runner gathers them): metrics,
+    parameters, statistics and Adam bit for bit; the wrappers' launches;
+    a profiler trace's launches a step, its batch copies (pinned, on the
+    prefetcher's stream, no kernel's) and busy time; both feeds' steps
+    timed in turns; and the native normaliser and IDX reader against
+    their plain versions on the host.  `clf_sd` and `data` (the train
+    split) default to a random classifier and `load_mnist`'s corpus, so
+    that `--phases pipeline` stands alone."""
+    import gc
+    import os
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from cfgan_torch import native
+    from cfgan_torch.core.config import MNIST_COUNTERGAN
+    from cfgan_torch.data import mnist
+    from cfgan_torch.data.pipeline import (
+        DevicePrefetcher,
+        HostIterator,
+        device_put_dataset,
+    )
+    from cfgan_torch.parallel import create_mesh
+    from cfgan_torch.train.builders import build_mnist_countergan, mnist_models
+
+    laps = Laps()
+    if clf_sd is None:
+        clf_sd = mnist_models(MNIST_COUNTERGAN, generator=torch.Generator(
+        ).manual_seed(SEED))[1].state_dict()
+    if data is None:
+        data = mnist.load_mnist(valid_fraction=0.1)[0]
+    xtr, ytr = data[0], np.asarray(data[1], np.int64)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    cfg = replace(MNIST_COUNTERGAN, conv_impl="pallas")
+    fed, resident = (build_mnist_countergan(cfg, clf_sd, seed=SEED,
+                                            device=dev) for _ in range(2))
+    x_dev, y_dev = device_put_dataset(create_mesh(devices=[dev]), xtr, ytr)
+    host = HostIterator((xtr, ytr), TRAIN_BATCH, shuffle=True,
+                        seed=PIPELINE_SEED, drop_last=True)
+    feed = DevicePrefetcher(host, buffer_size=PIPELINE_BUFFER, device=dev)
+    # the host iterator's first epoch is RandomState(seed)'s permutation
+    order = np.random.RandomState(PIPELINE_SEED).permutation(len(ytr))
+    steps = PIPELINE_STEPS
+    perm = torch.as_tensor(order[:steps * TRAIN_BATCH].reshape(
+        steps, TRAIN_BATCH)).to(dev)
+    draws = fed.draw_fn(torch.Generator(device=dev).manual_seed(SEED),
+                        tuple(perm.shape))
+
+    def draw(i):
+        return {k: v[i % steps] for k, v in draws.items()}
+
+    def gathered(i):
+        return (x_dev.index_select(0, perm[i % steps]),
+                y_dev.index_select(0, perm[i % steps]))
+
+    laps("setup")
+    zero_counts()
+    fed_metrics, batches_equal = [], 0
+    for i, (x, y) in zip(range(steps), feed):
+        gx, gy = gathered(i)
+        batches_equal += bool(torch.equal(x, gx) and torch.equal(y, gy))
+        fed_metrics.append(fed.step_from_draws(fed.state, x, y, draw(i)))
+    torch.cuda.synchronize()
+    launched = counts()
+    want = (steps, steps, 2 * KERNEL_LAYERS_PER_FORWARD * steps,
+            KERNEL_LAYERS_PER_FORWARD * steps)
+    res_metrics = [resident.step_from_draws(resident.state, *gathered(i),
+                                            draw(i)) for i in range(steps)]
+    torch.cuda.synchronize()
+    metrics_equal = all(
+        a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+        for a, b in zip(fed_metrics, res_metrics))
+    same_state = _states_equal(fed.state, resident.state)
+    laps("compare")
+
+    next_ms = []  # the host's wait for each prefetched batch
+
+    def fed_steps(n):
+        times = []
+        it = iter(feed)
+        for i in range(n):
+            t0 = time.perf_counter()
+            x, y = next(it)
+            next_ms.append((time.perf_counter() - t0) * 1e3)
+            fed.step_from_draws(fed.state, x, y, draw(i))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        it.close()
+        return times
+
+    def resident_steps(n):
+        times = []
+        for i in range(n):
+            t0 = time.perf_counter()
+            resident.step_from_draws(resident.state, *gathered(i), draw(i))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return times
+
+    turns = {"prefetched": [], "resident": []}
+    for _ in range(PIPELINE_TURNS):
+        for name, fn in (("prefetched", fed_steps),
+                         ("resident", resident_steps)):
+            turns[name].append(statistics.median(fn(PIPELINE_TIMED)))
+    med = {k: statistics.median(v) for k, v in turns.items()}
+    turn_next_ms = statistics.median(next_ms)
+    laps("turns")
+
+    # a trace of the prefetched steps: launches a step, busy time and the
+    # batches' copies, every batch read ahead of the traced steps among
+    # them (the first `next` issues PIPELINE_BUFFER copies before its own
+    # step's).  A trace's first records may be lost (a whole smoke's trace
+    # once held 7 of the 10 copies), so one resident step warms the
+    # profiler up first, and a trace may drop records at any time, so up
+    # to PROFILE_TRIES
+    sizes = {x_dev[:TRAIN_BATCH].nbytes, y_dev[:TRAIN_BATCH].nbytes}
+    want_copies = 2 * (PIPELINE_TRACED + PIPELINE_BUFFER)
+    attempts = []
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            resident_steps(1)
+            prof.step()
+            fed_steps(PIPELINE_TRACED)
+            prof.step()
+        events = device_events(prof)
+        per_step = {k: sum(ev.count for ev in events if k in ev.key)
+                    / PIPELINE_TRACED for k in REPLAY_LAUNCHES["pallas"]}
+        copies = _trace_copies(prof, sizes)
+        attempts.append({**per_step, "copies": copies["copies"]})
+        exact = (per_step == REPLAY_LAUNCHES["pallas"]
+                 and copies["copies"] == want_copies)
+        if exact:
+            break
+    fed_busy = sum(_dev_us(ev) for ev in events) / 1e3 / PIPELINE_TRACED
+    resident_busy = device_time(lambda: resident_steps(PIPELINE_TRACED),
+                                1)[0]
+    if resident_busy is not None:
+        resident_busy /= PIPELINE_TRACED
+    laps("traces")
+    copies_ok = (exact and len(copies["copy_streams"]) == 1
+                 and not set(copies["copy_streams"])
+                 & set(copies["kernel_streams"])
+                 and all("HtoD" in n and "Pinned" in n
+                         for n in copies["copy_names"]))
+    batches_fed = steps + PIPELINE_TURNS * PIPELINE_TIMED + PIPELINE_TRACED
+    # a buffer is allocated only while the ring's others are in flight,
+    # and a ring holds at most buffer_size + 1: none a batch
+    pinned_ok = 2 <= feed.pinned_buffers <= 2 * (PIPELINE_BUFFER + 1)
+
+    # the host paths: the native normaliser on the full train set and the
+    # native IDX reader on the fixture, against their plain versions
+    raw = mnist._load_synthetic(0)[0][0]
+    native.lib()
+    host_times = {
+        "normalize_native_ms": host_ms(lambda: mnist.normalize(raw), 3,
+                                       warmup=1),
+        "normalize_lut_ms": host_ms(lambda: mnist.normalize_plain(raw), 3,
+                                    warmup=1)}
+    normalize_equal = np.array_equal(mnist.normalize(raw).view(np.uint32),
+                                     mnist.normalize_plain(raw).view(
+                                         np.uint32))
+    idx = {}
+    for path in sorted(IDX_FIXTURE.iterdir()):
+        fast, plain = native.read_idx(path), mnist._read_idx_plain(str(path))
+        idx[path.name] = {
+            "shape": list(plain.shape),
+            "equal": fast is not None and np.array_equal(fast, plain),
+            "native_ms": statistics.median(host_ms(
+                lambda: native.read_idx(path), 20)),
+            "python_ms": statistics.median(host_ms(
+                lambda: mnist._read_idx_plain(str(path)), 20))}
+    laps("host paths")
+    # the traces leave ~350,000 objects in reference cycles: collected
+    # here, inside this phase's time, since later host-bound phases ran
+    # ~7% slower while they lived (`custom shapes` alone and after this
+    # phase, in turns)
+    del prof, events
+    gc.collect()
+    laps("collect")
+    ok = (launched == want and batches_equal == steps and metrics_equal
+          and same_state and copies_ok and pinned_ok and normalize_equal
+          and all(v["equal"] for v in idx.values())
+          and all(math.isfinite(m["d_loss"].item()) for m in fed_metrics))
+    emit({"phase": "pipeline", "card": card, "dtype": cfg.compute_dtype,
+          "conv_impl": "pallas", "batch": TRAIN_BATCH, "steps": steps,
+          "buffer_size": PIPELINE_BUFFER, "train_rows": len(ytr),
+          "batches_equal_to_gathered": batches_equal,
+          "metrics_equal": metrics_equal, "state_equal": same_state,
+          "tolerance": "bit for bit: batches, metrics and state",
+          "wrapper_counts_fwd_bwd_conv_dk": launched,
+          "wrapper_counts_want": want,
+          "profiler_launches_per_step_and_copies_per_trace": attempts,
+          "trace": {**copies, "copies_want": want_copies,
+                    "copy_bytes": sorted(sizes)},
+          "pinned_buffers_allocated": feed.pinned_buffers,
+          "batches_fed": batches_fed,
+          "prefetched_ms_per_step_in_turns": turns["prefetched"],
+          "resident_ms_per_step_in_turns": turns["resident"],
+          "prefetched_median_ms": med["prefetched"],
+          "prefetched_next_median_ms": turn_next_ms,
+          "resident_median_ms": med["resident"],
+          "prefetched_device_busy_ms": fed_busy,
+          "resident_device_busy_ms": resident_busy,
+          "prefetched_device_idle_share": 1 - fed_busy / med["prefetched"],
+          "resident_device_idle_share": (
+              None if resident_busy is None
+              else 1 - resident_busy / med["resident"]),
+          "host": {**{k: statistics.median(v)
+                      for k, v in host_times.items()},
+                   "normalize_rows": list(raw.shape),
+                   "normalize_equal": normalize_equal, "read_idx": idx,
+                   "cpu_count": os.cpu_count(),
+                   "cpus_usable": len(os.sched_getaffinity(0))},
+          "part_seconds": laps.s, "ok": ok})
+    torch.backends.cudnn.deterministic = False
+    if not ok:
+        fail("pipeline: the prefetched steps differ from the resident "
+             "ones, launched other kernels, copied off the prefetcher's "
+             "stream or from pageable memory, or a native host path "
+             "differs from its plain version")
 
 
 def experiment_phase(card: str, dev) -> None:
@@ -3647,18 +3945,21 @@ def gan_train_phase(card: str, dev, mnist, counts, zero_counts) -> None:
 
 
 def _trace_launches(fn, steps: int):
-    """PROFILE_TRIES profiler traces of `fn` (`steps` replayed steps):
-    each trace's (busy ms, top entries, device records a step), for the
-    traces that hold device time.  The records count every kernel, copy
-    and fill, the epoch's few copies into the runner's buffers included.
-    A trace drops records now and then (one of a 10-step DCGAN epoch read
-    10,624 against 10,745; of a 50-step WGAN-GP epoch 45,043 against
-    45,102), so the count is the largest of the traces'."""
+    """Up to PROFILE_TRIES profiler traces of `fn` (`steps` replayed
+    steps): each trace's (busy ms, top entries, device records a step),
+    for the traces that hold device time.  The records count every
+    kernel, copy and fill, the epoch's few copies into the runner's
+    buffers included.  A trace drops records now and then (one of a
+    10-step DCGAN epoch read 10,624 against 10,745; of a 50-step WGAN-GP
+    epoch 45,043 against 45,102), so the count is the largest of the
+    traces', and the tracing stops once two traces agree on it."""
     traces = []
     for _ in range(PROFILE_TRIES):
         busy, top, every = device_time(fn, 1, top=8, match=("",))
         if busy is not None:
             traces.append((busy / steps, top, every[""][1] / steps))
+        if len({t[2] for t in traces}) < len(traces):
+            break
     return traces
 
 
@@ -5251,7 +5552,8 @@ def sharded_phase(card: str, dev, counts, zero_counts,
 
 
 # the phases `--phases` may name: each needs only the built kernels
-STANDALONE_PHASES = {"custom shapes": custom_shapes_phase,
+STANDALONE_PHASES = {"pipeline": pipeline_phase,
+                     "custom shapes": custom_shapes_phase,
                      "examples": examples_phase,
                      "figures": figures_phase,
                      "apps": apps_phase,
@@ -5630,6 +5932,9 @@ def main() -> None:
         y_dev = torch.as_tensor(ytr).to(dev, torch.long)
         runner_phase(card, dev, clf_sd, x_dev, y_dev, counts, zero_counts)
         del x_dev, y_dev
+
+    with Phase("pipeline"):
+        pipeline_phase(card, dev, counts, zero_counts, clf_sd, (xtr, ytr))
 
     with Phase("experiment"):
         experiment_phase(card, dev)

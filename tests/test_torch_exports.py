@@ -34,9 +34,8 @@ from cfgan_torch.train.state import g_eval_variables
 ROOT = Path(__file__).resolve().parent.parent
 SUBPACKAGES = ("core", "data", "eval", "experiments", "losses", "masks",
                "models", "nn", "ops", "parallel", "serve", "train")
-# what the port leaves out on purpose: `RngStream` derives JAX keys, and
-# `cfgan_torch.data.pipeline.stream_seed` plays its part
-LEFT_OUT = {"core": {"RngStream"}}
+# what the port leaves out on purpose: nothing
+LEFT_OUT: dict[str, set[str]] = {}
 TOL = 3e-5
 
 

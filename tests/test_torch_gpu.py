@@ -1765,3 +1765,142 @@ def test_runner_refuses_a_gloo_group_on_the_card():
         assert a.state.step == 0
     finally:
         dist.destroy_process_group()
+
+
+# ------------------------------------------------- the host pipeline
+def _host_batches(n=40, batch=8, seed=0):
+    from cfgan_torch.data.pipeline import HostIterator
+
+    rng = np.random.RandomState(seed)
+    x = rng.standard_normal((n, 28, 28, 1)).astype(np.float32)
+    y = rng.randint(0, 10, n).astype(np.int64)
+    return HostIterator((x, y), batch), list(HostIterator((x, y), batch))
+
+
+def _chrome_events(prof, tmp_path) -> list:
+    import json
+
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    return json.loads(path.read_text())["traceEvents"]
+
+
+def test_prefetcher_copies_on_its_stream_from_pinned_buffers(tmp_path):
+    """Every host-to-device copy of a batch is a pinned copy on one stream
+    that no kernel of the consumer runs on; the pinned buffers, at most a
+    ring of 3 per array at buffer_size 2, are reused before another is
+    allocated: the short last batch's own ring holds one buffer an array
+    in every epoch, and no ring outgrows its 3."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from cfgan_torch.data.pipeline import DevicePrefetcher
+
+    dev = _card()
+    host, want = _host_batches(n=44)  # 5 batches of 8 and one of 4
+    feed = DevicePrefetcher(host, buffer_size=2)
+    assert feed.device.type == "cuda"
+    sizes = {b.nbytes for batch in want for b in batch}
+    allocated = None
+    for _ in range(3):  # a trace drops records now and then
+        # a warm-up step first: a trace's first records may be lost
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            torch.ones(8, device=dev).sum().item()
+            prof.step()
+            for x, y in feed:
+                (x.sum() + y.sum()).item()
+            torch.cuda.synchronize()
+            prof.step()
+        if allocated is None:
+            allocated = feed.pinned_buffers
+        events = _chrome_events(prof, tmp_path)
+        copies = [e for e in events if e.get("cat") == "gpu_memcpy"
+                  and e.get("args", {}).get("bytes") in sizes]
+        if len(copies) == 2 * len(want):
+            break
+    assert all(b.is_pinned() for r in feed._rings.values()
+               for b in r.buffers)
+    kernels = {e["args"]["stream"] for e in events
+               if e.get("cat") == "kernel"}
+    assert len(copies) == 2 * len(want)
+    streams = {e["args"]["stream"] for e in copies}
+    assert len(streams) == 1 and not streams & kernels
+    assert all("Pinned" in e["name"] and "HtoD" in e["name"]
+               for e in copies)
+    assert feed.stream != torch.cuda.current_stream(dev)
+    allocated = [allocated]
+    short = [r for r in feed._rings.values() if r.shape[0] == 4]
+    for _ in range(4):
+        got = [tuple(t.cpu().numpy() for t in b) for b in feed]
+        allocated.append(feed.pinned_buffers)
+        assert len(short) == 2 and all(len(r.buffers) == 1 for r in short)
+        for g, w in zip(got, want):
+            assert all(np.array_equal(a, b) for a, b in zip(g, w))
+    # two arrays: full-batch rings of 1-3 buffers, short rings of 1
+    assert len(feed._rings) == 4
+    assert all(len(r.buffers) <= 3 for r in feed._rings.values())
+    assert 4 <= allocated[0] and max(allocated) <= 8
+    assert allocated == sorted(allocated)
+
+
+@pytest.mark.parametrize("keep", [True, False], ids=["kept", "dropped"])
+def test_a_slow_consumer_reads_each_batch_bits(keep):
+    """The consumer's stream sleeps before reading each batch, so the
+    copies run far ahead: every batch still holds its own bits.  With
+    `dropped` each batch is released right after its read is queued, so
+    a tensor whose memory the allocator handed back to the copy stream
+    before the read ran would show the next batch's bits."""
+    from cfgan_torch.data.pipeline import DevicePrefetcher
+
+    _card()
+    host, want = _host_batches(n=96, batch=8, seed=1)
+    kept, reads = [], []
+    for x, y in DevicePrefetcher(host, buffer_size=2):
+        torch.cuda._sleep(20_000_000)  # ~10 ms of the consumer stream
+        reads.append((x * 1.0, y + 0))
+        if keep:
+            kept.append((x, y))
+        del x, y
+    torch.cuda.synchronize()
+    assert len(reads) == len(want)
+    for (gx, gy), (wx, wy) in zip(reads, want):
+        assert np.array_equal(gx.cpu().numpy(), wx)
+        assert np.array_equal(gy.cpu().numpy(), wy)
+
+
+def test_prefetcher_memory_is_not_reused_under_the_consumer():
+    """A yielded tensor's block goes back to the allocator only after the
+    consumer stream's work on it: while the consumer sleeps on batch k,
+    no later batch lands in batch k's memory."""
+    from cfgan_torch.data.pipeline import DevicePrefetcher
+
+    dev = _card()
+    host, want = _host_batches(n=64, batch=8, seed=2)
+    consumer = torch.cuda.current_stream(dev)
+    seen = []
+    it = iter(DevicePrefetcher(host, buffer_size=2))
+    x, _ = next(it)
+    ptr = x.data_ptr()
+    torch.cuda._sleep(50_000_000)  # the consumer is busy for ~25 ms
+    snapshot = x * 1.0
+    del x
+    for x, _ in it:  # copies of the rest queue up meanwhile
+        seen.append(x.data_ptr())
+        del x
+    assert not consumer.query()  # still sleeping when the copies were issued
+    torch.cuda.synchronize()
+    assert seen and ptr not in seen
+    assert np.array_equal(snapshot.cpu().numpy(), want[0][0])
+
+
+def test_device_put_dataset_on_the_card():
+    from cfgan_torch.data.pipeline import device_put_dataset
+    from cfgan_torch.parallel import create_mesh
+
+    dev = _card()
+    x = np.arange(12, dtype=np.float32).reshape(3, 4)
+    got = device_put_dataset(create_mesh(devices=[dev]), x)
+    assert got[0].device.type == "cuda"
+    assert np.array_equal(got[0].cpu().numpy(), x)

@@ -1,6 +1,7 @@
 """The ranks' side of the port's sharded tests (tests/test_torch_parallel.py,
 test_torch_sharded_train.py, test_torch_sharded_serving.py,
-test_torch_mesh2d.py, test_torch_sharded2d_steps.py).
+test_torch_mesh2d.py, test_torch_sharded2d_steps.py,
+test_torch_pipeline.py).
 
 `cfgan_torch.parallel.spawn_world` runs these functions in fresh processes
 joined by gloo on the loopback, one CPU device a rank.  They import
@@ -81,6 +82,40 @@ def rows_and_replicas(rank: int, x: np.ndarray, bn_cases=()) -> dict:
             "bound": bound, "state_mesh": bundle.state.mesh is mesh,
             "equal": states_equal(mesh, state_tensors(bundle.state)),
             "bn": {name: batch_norm(rank, npz) for name, npz in bn_cases}}
+
+
+def prefetched_rows(rank: int, x: np.ndarray, y: np.ndarray,
+                    batch: int, shape=None) -> dict:
+    """The batches a `DevicePrefetcher` yields on this rank under a batch
+    sharding and a replicated one, and `device_put_dataset`'s copy of the
+    dataset with `states_equal` over the ranks: on a mesh of the world's
+    data axis, or with `shape` on a ("data", "model") mesh of that shape,
+    where the rows are also split over "model" (`rows_model`)."""
+    from cfgan_torch.data.pipeline import (
+        DevicePrefetcher,
+        HostIterator,
+        device_put_dataset,
+    )
+    from cfgan_torch.parallel.sharding import (
+        batch_sharding,
+        replicate_sharding,
+    )
+
+    mesh = cpu_mesh() if shape is None else mesh_of(shape)
+    shardings = {"rows": batch_sharding(mesh),
+                 "whole": replicate_sharding(mesh)}
+    if shape is not None:
+        shardings["rows_model"] = batch_sharding(mesh, "model")
+    out = {"rank": mesh.rank,
+           "coords": tuple(mesh.axis_index(a) for a in mesh.axis_names)}
+    for name, sharding in shardings.items():
+        feed = DevicePrefetcher(HostIterator((x, y), batch), 2, sharding)
+        out[name] = [tuple(t.numpy() for t in b) for b in feed]
+        out[name + "_device"] = str(feed.device)
+    placed = device_put_dataset(mesh, x, y)
+    out["placed"] = [t.numpy() for t in placed]
+    out["placed_equal"] = states_equal(mesh, placed)
+    return out
 
 
 def batch_norm(rank: int, npz: str) -> dict:
